@@ -1,16 +1,27 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Builds the hand-written kernels from randlapack_tpu_torch/csrc/ (nvcc,
-sm_90a, into build/kernels/), holds each against its plain PyTorch
-version at the shapes the main path gives it, then drives the main path
-— bqrrp_factored on an 8192×8192 f32 fast-decay matrix with the headline
-configuration (b 256, 2 pivot candidates per slot, 2 stages, update
-defer 4), then bqrrp_q — and checks launch counts, residual and
-orthogonality against the JAX test gates at f32. Every phase prints one
-line; any failed gate raises, and the script exits non-zero. The last
-two lines are a JSON summary of the kernels and the device line.
+Builds the hand-written kernels from randlapack_tpu_torch/csrc/ (one
+nvcc per source, all at once, sm_90a, into build/kernels/), holds each
+against its plain PyTorch version at the shapes its path gives it, then
+drives the port's two paths on 8192×8192 f32 fast-decay matrices:
+
+- BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
+  candidates per slot, 2 stages, update defer 4), then bqrrp_q;
+- HQRRP: hqrrp_lapack_format with bench.py's config 6 (b 128, update
+  defer 4), then Q from the packed reflectors; hqrrp with its ``fail``
+  flag and a phase breakdown, a CholQR-panel run and a small f64
+  card-vs-CPU parity run.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after, and is checked against the JAX test gates at f32 (residual,
+orthogonality, permutation, launch counts). Every phase prints one line;
+any failed gate raises, and the script exits non-zero. The last two
+lines are a JSON summary of the kernels and the device line.
+``--profile`` adds K5/K6 timings at fewer blocks and barriers and a
+torch.profiler breakdown of one HQRRP factorization by kernel group (the
+full table goes to chiprun_out/).
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -29,15 +40,26 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 RES_GATE = 10 * EPS32 ** 0.75                 # tests/test_bqrrp_factored.py:95
 ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
 EXPECTED_LAUNCHES = {"masked_vt_a": 32, "a_minus_vz_masked": 8,
-                     "getrfnp": 32}
-KERNELS = {   # name -> (source, TPU kernel it replaces)
+                     "getrfnp": 32, "qrcp_select_pivots": 0,
+                     "qrcp_panel": 0}
+# HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
+HQRRP_LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0, "getrfnp": 0,
+                  "qrcp_select_pivots": 64, "qrcp_panel": 64}
+KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "masked_vt_a": ("randlapack_tpu_torch/csrc/wy.cu",
-                    "randlapack_tpu/ops/pallas_wy.py:91"),
+                    "randlapack_tpu/ops/pallas_wy.py:91", "bqrrp"),
     "a_minus_vz_masked": ("randlapack_tpu_torch/csrc/wy.cu",
-                          "randlapack_tpu/ops/pallas_wy.py:134"),
+                          "randlapack_tpu/ops/pallas_wy.py:134", "bqrrp"),
     "getrfnp": ("randlapack_tpu_torch/csrc/getrfnp.cu",
-                "randlapack_tpu/ops/pallas_lu.py:39"),
+                "randlapack_tpu/ops/pallas_lu.py:39", "bqrrp"),
+    "qrcp_select_pivots": ("randlapack_tpu_torch/csrc/qrcp.cu",
+                           "randlapack_tpu/ops/pallas_qrcp.py:50", "hqrrp"),
+    "qrcp_panel": ("randlapack_tpu_torch/csrc/qrcp.cu",
+                   "randlapack_tpu/ops/pallas_qrcp.py:195", "hqrrp"),
 }
+# one H100 SXM, published peaks: fp32 outside the tensor cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def gate(ok: bool, what: str) -> None:
@@ -60,15 +82,47 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def reset_counts():
-    from randlapack_tpu_torch.ops import lu, wy
-    for counts in (wy.LAUNCHES, lu.LAUNCHES):
+    from randlapack_tpu_torch.ops import lu, qrcp, wy
+    for counts in (wy.LAUNCHES, lu.LAUNCHES, qrcp.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from randlapack_tpu_torch.ops import lu, wy
-    return {**wy.LAUNCHES, **lu.LAUNCHES}
+    from randlapack_tpu_torch.ops import lu, qrcp, wy
+    return {**wy.LAUNCHES, **lu.LAUNCHES, **qrcp.LAUNCHES}
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def select_pivots_work(Y, nsteps, live):
+    """Operations and bytes K5 needs on these inputs: the live columns'
+    norms, then per step l the reflector (2(d−l)) and, on each column
+    still available, v·W and the rank-1 update (4(d−l)); the exact
+    trailing norms, taken only where cancellation asks, are not counted."""
+    d, n = Y.shape
+    L = int((live > 0).sum())
+    flops = 2 * d * L + sum(2 * (d - l) + max(L - l - 1, 0) * 4 * (d - l)
+                            for l in range(nsteps))
+    nbytes = (d * n + n) * Y.element_size() + nsteps * 8
+    return flops, nbytes
+
+
+def panel_work(m, b, row0, esize):
+    """Operations and bytes K6 needs: the column norms below row0, then
+    per step l the column norm (2(M−l)) and, on each column right of l,
+    v·W and the rank-1 update (4(M−l)), M = m − row0; the panel is read
+    once and written once (W), with taus and sigma."""
+    M = m - row0
+    flops = 2 * M * b + sum(2 * (M - l) + 4 * (b - l - 1) * (M - l)
+                            for l in range(b))
+    return flops, 2 * m * b * esize + b * (esize + 8)
 
 
 def phase_env() -> str:
@@ -86,20 +140,28 @@ def phase_env() -> str:
 def phase_build() -> None:
     from randlapack_tpu_torch import _build
     t0 = time.perf_counter()
-    path = _build.build()
+    paths = _build.build()
     _build.lib()
-    regs = [ln.strip() for ln in path.with_suffix(".log").read_text()
-            .splitlines() if "registers" in ln]
+    regs = [f"{path.stem.split('_')[0][3:]}: " + ", ".join(
+        ln.split(":", 1)[1].strip() for ln in
+        path.with_suffix(".log").read_text().splitlines()
+        if "registers" in ln) for path in paths]
     nvcc = ("reused" if _build.build_seconds is None
-            else f"nvcc {_build.build_seconds:.2f} s")
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
-          f"({nvcc}); ptxas: {' | '.join(regs)}", flush=True)
+            else f"nvcc {_build.build_seconds:.2f} s, in parallel; each: "
+            + ", ".join(f"{k} {v:.2f} s"
+                        for k, v in _build.source_seconds.items())
+            + f"; one after another would take "
+            f"{sum(_build.source_seconds.values()):.2f} s or less")
+    print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f}"
+          f" s ({nvcc}); ptxas: "
+          f"{' | '.join(regs)}", flush=True)
 
 
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version: main-path shapes (timed)
-    and one ragged case each."""
-    from randlapack_tpu_torch.ops import lu, wy
+    """Each kernel against its plain version: main-path shapes (timed,
+    with the bound and, where one PyTorch call computes the function,
+    that call's time) and one ragged case each."""
+    from randlapack_tpu_torch.ops import lu, qr, qrcp, wy
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     f32 = torch.float32
@@ -109,6 +171,12 @@ def phase_kernels(dev) -> dict:
 
     def mask(w):
         return (torch.rand(w, generator=g, device=dev) < 0.5).to(f32)
+
+    def spread(*shape):
+        """Columns scaled by exp(-3·U): spread-out column norms, so the
+        pivot order is decided above rounding level."""
+        return randn(*shape) * torch.exp(
+            -3 * torch.rand(shape[1], generator=g, device=dev))[None, :]
 
     out = {}
     # K1 masked_vt_a: V (8192, 256), A (8192, 8192)
@@ -124,7 +192,11 @@ def phase_kernels(dev) -> dict:
                 max_abs_err=err,
                 ms=cuda_ms(lambda: wy.masked_vt_a(V, A, mk), 10),
                 plain_ms=cuda_ms(
-                    lambda: wy.masked_vt_a_reference(V, A, mk), 10))
+                    lambda: wy.masked_vt_a_reference(V, A, mk), 10),
+                **bound(2 * m * b * w + m * w,
+                        4 * (m * b + m * w + w + b * w)),
+                library_ms=cuda_ms(lambda: torch.mm(V.T, A), 10),
+                library_call="torch.mm(V.T, A), unmasked")
         print(f"[kernel] masked_vt_a m={m} b={b} w={w}: max|d| {err:.3e} "
               f"(max|plain| {float(Wp.abs().max()):.3e})", flush=True)
     # K2 a_minus_vz_masked: A (8192, 8192), V (8192, 1024), Z (1024, 8192)
@@ -140,7 +212,11 @@ def phase_kernels(dev) -> dict:
                 max_abs_err=err,
                 ms=cuda_ms(lambda: wy.a_minus_vz_masked(Ak, V, Z, mk), 5),
                 plain_ms=cuda_ms(
-                    lambda: wy.a_minus_vz_masked_reference(A, V, Z, mk), 5))
+                    lambda: wy.a_minus_vz_masked_reference(A, V, Z, mk), 5),
+                **bound(2 * m * k * w + 2 * m * w,
+                        4 * (2 * m * w + m * k + k * w + w)),
+                library_ms=cuda_ms(lambda: Ak.addmm_(V, Z, alpha=-1.0), 5),
+                library_call="A.addmm_(V, Z, alpha=-1), unmasked")
         print(f"[kernel] a_minus_vz_masked m={m} k={k} w={w}: max|d| "
               f"{err:.3e} (max|plain| {float(Ap.abs().max()):.3e})",
               flush=True)
@@ -158,12 +234,67 @@ def phase_kernels(dev) -> dict:
             out["getrfnp"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: lu.getrfnp_cuda(M), 20),
-                plain_ms=cuda_ms(lambda: lu.getrfnp(M), 3, warmup=1))
+                plain_ms=cuda_ms(lambda: lu.getrfnp(M), 3, warmup=1),
+                **bound(2 * k ** 3 / 3, 4 * (2 * k * k + k)),
+                library_ms=None)
         print(f"[kernel] getrfnp k={k}: same s, max|dF| {err:.3e}, "
               f"min|u_jj| {umin:.6f}", flush=True)
+    # K5 qrcp_select_pivots: the HQRRP sketch Y (138, 8192), 128 steps,
+    # some columns retired (and a ragged case)
+    for d, n, steps, timed in ((138, N, 128, True), (74, 1000, 64, False)):
+        Y = spread(d, n)
+        live = torch.ones(n, dtype=f32, device=dev)
+        retired = torch.randperm(n, generator=g, device=dev)[:n // 8]
+        live[retired] = 0.0
+        ck = qrcp.qrcp_select_pivots_cuda(Y, steps, live)
+        cp = qr.qrcp_select_pivots(Y, steps, live)
+        gate(torch.equal(ck, cp), f"qrcp_select_pivots {d}x{n}: pivots "
+             "differ from the plain version's")
+        gate(not bool(torch.isin(ck, retired).any()),
+             "qrcp_select_pivots chose a retired column")
+        if timed:
+            out["qrcp_select_pivots"] = dict(
+                max_abs_err=float((ck - cp).abs().max()),
+                ms=cuda_ms(lambda: qrcp.qrcp_select_pivots_cuda(
+                    Y, steps, live), 10),
+                plain_ms=cuda_ms(lambda: qr.qrcp_select_pivots(
+                    Y, steps, live), 2, warmup=1),
+                **bound(*select_pivots_work(Y, steps, live)),
+                library_ms=None)
+        print(f"[kernel] qrcp_select_pivots d={d} n={n} steps={steps} "
+              f"({n // 8} retired): pivots equal", flush=True)
+    # K6 qrcp_panel: the HQRRP panel (8192, 128) at row0 0 and 4096 (and
+    # a ragged case)
+    for m, b, r0, timed in ((N, 128, 0, True), (N, 128, 4096, False),
+                            (1000, 100, 333, False)):
+        P = spread(m, b)
+        W, taus, sigma = qrcp.qrcp_panel_cuda(P, r0)
+        Wp, _, tp, sp = qr.qrcp_panel(P, r0)
+        err = float((W - Wp).abs().max())
+        terr = float((taus - tp).abs().max())
+        gate(torch.equal(sigma, sp), f"qrcp_panel {m}x{b} row0={r0}: "
+             "sigma differs from the plain version's")
+        gate(err <= 1e-4 * float(Wp.abs().max()) and terr <= 1e-4,
+             f"qrcp_panel {m}x{b} row0={r0}: max|dW| {err}, "
+             f"max|dtau| {terr}")
+        if timed:
+            out["qrcp_panel"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: qrcp.qrcp_panel_cuda(P, r0), 10),
+                plain_ms=cuda_ms(lambda: qr.qrcp_panel(P, r0), 2,
+                                 warmup=1),
+                **bound(*panel_work(m, b, r0, 4)),
+                library_ms=None)
+        print(f"[kernel] qrcp_panel m={m} b={b} row0={r0}: sigma equal, "
+              f"max|dW| {err:.3e} (max|plain| {float(Wp.abs().max()):.3e}),"
+              f" max|dtau| {terr:.3e}", flush=True)
     for name, rec in out.items():
-        print(f"[kernel-time] {name}: kernel {rec['ms']:.3f} ms, plain "
-              f"{rec['plain_ms']:.3f} ms", flush=True)
+        lib = ("" if rec["library_ms"] is None else
+               f", library {rec['library_ms']:.3f} ms "
+               f"({rec['library_call']})")
+        print(f"[kernel-time] {name}: kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}){lib}", flush=True)
     return out
 
 
@@ -270,6 +401,220 @@ def phase_small_vs_plain(dev) -> None:
     gate(same_j and dR <= 1e-10 and dQ <= 1e-10, "card path vs plain path")
 
 
+def hqrrp_quality(A, packed, taus, R, J):
+    from randlapack_tpu_torch.ops.householder import apply_reflectors
+    Q = apply_reflectors(packed, taus)
+    K = Q.shape[1]
+    res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+    orth = float(torch.linalg.norm(
+        Q.T @ Q - torch.eye(K, dtype=Q.dtype, device=Q.device)))
+    return Q, res, orth
+
+
+def phase_hqrrp(dev, card: str) -> dict:
+    """HQRRP's main path: bench.py's config 6 through
+    hqrrp_lapack_format, a warm-up and 2 timed runs, then Q from the
+    packed reflectors."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp_lapack_format
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    cfg = HQRRPConfig(block_size=128, update_defer=4)
+    A, st = fast_decay_matrix(N, N, RNGState(7), device=dev)
+    out = hqrrp_lapack_format(A, cfg, st)              # warm-up
+    times, counts = [], None
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        start.record()
+        out = hqrrp_lapack_format(A, cfg, st)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        gate(counts == HQRRP_LAUNCHES,
+             f"launches per factorization {counts} != {HQRRP_LAUNCHES}")
+        times.append(start.elapsed_time(end) / 1e3)
+    packed, taus, R, J, _ = out
+    t0 = time.perf_counter()
+    Q, res, orth = hqrrp_quality(A, packed, taus, R, J)
+    torch.cuda.synchronize()
+    tq = time.perf_counter() - t0
+    t = min(times)
+    print(f"[hqrrp] hqrrp_lapack_format {N}x{N} f32 b128/defer4 on {card}: "
+          f"runs {[round(x, 4) for x in times]} s, best {t:.4f} s = "
+          f"{4.0 / 3.0 * N ** 3 / t / 1e9:.1f} GFLOP/s (4/3 n^3); Q + checks"
+          f" {tq:.3f} s; residual {res:.3e} (gate {RES_GATE:.2e}), orth "
+          f"{orth:.3e} (gate {ORTH_GATE:.2e}), launches/factorization "
+          f"{counts}", flush=True)
+    gate(tuple(Q.shape) == (N, N) and tuple(R.shape) == (N, N),
+         "output shapes")
+    gate(bool(torch.isfinite(Q).all() and torch.isfinite(R).all()),
+         "non-finite output")
+    gate(torch.equal(torch.sort(J).values, torch.arange(N, device=dev)),
+         "J is not a permutation")
+    gate(res <= RES_GATE, f"residual {res}")
+    gate(orth <= ORTH_GATE, f"orthogonality {orth}")
+    return counts
+
+
+def phase_hqrrp_phases(dev) -> None:
+    """hqrrp (which also returns ``fail``) through the kernels, then a
+    timing=True phase breakdown; a CUDA tensor refuses the plain route
+    ("never")."""
+    import warnings
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(N, N, RNGState(7), device=dev)
+    cfg = HQRRPConfig(block_size=128, update_defer=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    Q, R, J, rank, fail, _ = hqrrp(A, cfg, st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+    gate(not bool(fail), "hqrrp: fail flag raised")
+    gate(res <= RES_GATE, f"hqrrp: residual {res}")
+    gate(counts["qrcp_select_pivots"] == counts["qrcp_panel"] == 64,
+         f"hqrrp: launches {counts}")
+    print(f"[hqrrp-q] hqrrp {N}x{N} f32: {secs:.4f} s (host clock, explicit"
+          f" Q included), residual {res:.3e}, fail {bool(fail)}, rank "
+          f"{int(rank)}, K5/K6 launches {counts['qrcp_select_pivots']}/"
+          f"{counts['qrcp_panel']}", flush=True)
+    try:
+        hqrrp(A, HQRRPConfig(block_size=128, pallas_qrcp="never",
+                             pallas_panel="never"), st)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    gate(refused, "a CUDA tensor took the plain route")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # timing=True runs eager blocks
+        *_, phases = hqrrp(A, HQRRPConfig(block_size=128, update_defer=4),
+                           st, timing=True)
+    print("[hqrrp-phases] (eager blocks) " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in phases.items()), flush=True)
+
+
+def phase_hqrrp_cholqr(dev) -> None:
+    """CholQR panels at 3000x2000 on the card: 15 full blocks of 128 and
+    an 80-wide remainder, each panel through orhr_col and so K3."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, PanelQR, hqrrp
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(3000, 2000, RNGState(1), device=dev)
+    reset_counts()
+    Q, R, J, _, fail, _ = hqrrp(
+        A, HQRRPConfig(block_size=128, panel_qr=PanelQR.cholqr), st)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+    orth = float(torch.linalg.norm(
+        Q.T @ Q - torch.eye(2000, dtype=Q.dtype, device=dev)))
+    og = 10 * EPS32 ** 0.75 * math.sqrt(2000)
+    print(f"[hqrrp-cholqr] 3000x2000 f32 cholqr panels: residual {res:.3e}"
+          f" (gate {RES_GATE:.2e}), orth {orth:.3e} (gate {og:.2e}), fail "
+          f"{bool(fail)}, launches {counts}", flush=True)
+    gate(res <= RES_GATE and orth <= og and not bool(fail),
+         "cholqr-panel run quality")
+    gate(counts["getrfnp"] == 16 and counts["qrcp_select_pivots"] == 16
+         and counts["qrcp_panel"] == 0, f"cholqr-panel launches {counts}")
+
+
+def phase_hqrrp_small_vs_plain(dev) -> None:
+    """HQRRP through the kernels on the card against the plain versions on
+    the CPU, f64, same injected sketch operator: same pivots, same
+    factors."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp_lapack_format
+    g = torch.Generator().manual_seed(4)
+    A = torch.randn(640, 512, generator=g, dtype=torch.float64) \
+        * torch.logspace(0, -6, 512, dtype=torch.float64)
+    G = 2 * torch.rand(74, 640, generator=g, dtype=torch.float64) - 1
+    cfg = HQRRPConfig(block_size=64, update_defer=4)
+    reset_counts()
+    pg, tg, Rg, Jg, _ = hqrrp_lapack_format(A.to(dev), cfg, RNGState(0),
+                                            sketch=G.to(dev))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    pc, tc, Rc, Jc, _ = hqrrp_lapack_format(A, cfg, RNGState(0), sketch=G)
+    dR = float((Rg.cpu() - Rc).abs().max() / Rc.abs().max())
+    dP = float((pg.cpu() - pc).abs().max() / pc.abs().max())
+    same_j = torch.equal(Jg.cpu(), Jc)
+    print(f"[hqrrp-small-vs-plain] 640x512 f64 card vs CPU: J equal "
+          f"{same_j}, rel max|dR| {dR:.3e}, rel max|dpacked| {dP:.3e}, "
+          f"card launches K5/K6 {counts['qrcp_select_pivots']}/"
+          f"{counts['qrcp_panel']}", flush=True)
+    gate(same_j and dR <= 1e-10 and dP <= 1e-10,
+         "HQRRP card path vs plain path")
+    gate(counts["qrcp_select_pivots"] == counts["qrcp_panel"] == 8,
+         f"small run launches {counts}")
+
+
+def phase_kernel_anatomy(dev) -> None:
+    """Where K5/K6's time goes: the same per-step work with fewer blocks
+    (a 1-block grid has no cross-block barrier cost) or fewer barriers
+    per step (K6 without pivoting runs 2 instead of 3)."""
+    from randlapack_tpu_torch.ops import qrcp
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    anatomy = []
+    for d, n in ((138, N), (138, 2048), (138, 256)):
+        Y = torch.randn(d, n, generator=g, device=dev)
+        live = torch.ones(n, device=dev)
+        anatomy.append((f"K5 {d}x{n} 128 steps", cuda_ms(
+            lambda: qrcp.qrcp_select_pivots_cuda(Y, 128, live), 10)))
+    for m, r0, pv in ((N, 0, True), (N, 0, False), (N, 4096, True),
+                      (N, N - 256, True), (N, N - 128, True)):
+        P = torch.randn(m, 128, generator=g, device=dev)
+        anatomy.append((f"K6 {m}x128 row0={r0} pivot={pv}", cuda_ms(
+            lambda: qrcp.qrcp_panel_cuda(P, r0, pv), 10)))
+    print("[kernel-anatomy] " + "; ".join(f"{k}: {v:.4f} ms"
+                                          for k, v in anatomy), flush=True)
+
+
+def phase_profile(dev) -> None:
+    """One HQRRP factorization under torch.profiler: device time by
+    kernel name, the kernel count and the device's busy share of the
+    wall time. The full table goes to chiprun_out/hqrrp_profile.txt."""
+    from pathlib import Path
+    from torch.profiler import ProfilerActivity, profile
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp_lapack_format
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    cfg = HQRRPConfig(block_size=128, update_defer=4)
+    A, st = fast_decay_matrix(N, N, RNGState(7), device=dev)
+    hqrrp_lapack_format(A, cfg, st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hqrrp_lapack_format(A, cfg, st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side rows (kernels, memcpy/memset) carry the device time
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    n_kernels = sum(r[2] for r in rows)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "hqrrp_profile.txt").write_text(
+        f"wall {wall:.4f} s, device {dev_ms:.1f} ms, {n_kernels} kernels\n"
+        + "\n".join(f"{ms:10.3f} ms {cnt:7d}  {key}"
+                    for key, ms, cnt in rows))
+    print(f"[profile] hqrrp_lapack_format {N}x{N}: wall {wall:.4f} s, "
+          f"device busy {dev_ms:.1f} ms ({100 * dev_ms / 1e3 / wall:.1f} %)"
+          f" in {n_kernels} kernel launches; top: " + "; ".join(
+              f"{key[:60]} {ms:.1f} ms/{cnt}" for key, ms, cnt in rows[:12]),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -282,12 +627,19 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     timed = phase_kernels(dev)
-    counts = phase_main(dev, f"{smi}")
+    counts = {"bqrrp": phase_main(dev, f"{smi}")}
     phase_remainder(dev)
     phase_small_vs_plain(dev)
+    counts["hqrrp"] = phase_hqrrp(dev, f"{smi}")
+    phase_hqrrp_phases(dev)
+    phase_hqrrp_cholqr(dev)
+    phase_hqrrp_small_vs_plain(dev)
+    if "--profile" in sys.argv[1:]:
+        phase_kernel_anatomy(dev)
+        phase_profile(dev)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[name], **timed[name])
-               for name, (src, rep) in KERNELS.items()]
+                    launches=counts[path][name], **timed[name])
+               for name, (src, rep, path) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -7,7 +7,8 @@ Hopper (``csrc/``), built with ``nvcc`` on first use. A CUDA tensor goes
 through the kernels, a CPU tensor through their plain PyTorch versions.
 
 Ported so far: the factored BQRRP path (``drivers.bqrrp_factored``,
-``bqrrp_q``, ``bqrrp_apply_qt``) and what it runs.
+``bqrrp_q``, ``bqrrp_apply_qt``), HQRRP (``drivers.hqrrp``,
+``hqrrp_lapack_format``) and what they run.
 """
 from .rng import RNGState, as_state
 from . import config, drivers, gen, interop, ops, utils

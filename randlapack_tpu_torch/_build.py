@@ -1,12 +1,13 @@
 """Build and load the hand-written Hopper kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). The library goes into
-``build/kernels/`` beside the package, named by a hash of the sources and
-flags, so an unchanged tree reuses it; ``nvcc``'s report (registers,
-shared memory and spills per kernel, from ``-Xptxas -v``) is written
-beside it as ``<name>.log``.
+Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The ``nvcc``
+processes of all files run at once. A library goes into ``build/kernels/``
+beside the package, named by its source, a hash of that source, the
+shared ``*.cuh`` headers and the flags, so an unchanged file reuses its
+library; ``nvcc``'s report (registers, shared memory and spills per
+kernel, from ``-Xptxas -v``) is written beside it as ``<name>.log``.
 
 Only the CUDA branches of the kernel wrappers import this module: the
 package imports and its CPU tests run where there is no ``nvcc``.
@@ -34,22 +35,28 @@ _SIGNATURES = {
     "rl_a_minus_vz_masked": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (M, F, s, k, stream)
     "rl_getrfnp": [_P, _P, _P, _I, _P],
+    # (Y, live, chosen, work, d, n, nsteps, force_global, stream)
+    "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (P, W, taus, sigma, part, m, b, row0, pivot, force_global, stream)
+    "rl_qrcp_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
-_lib: ctypes.CDLL | None = None
+_fns: dict | None = None
 build_seconds: float | None = None   # wall time of this process's build
+source_seconds: dict = {}            # source name -> its nvcc's wall time
+                                     # (all start together)
 
 
 def _sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+    return sorted(_CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"librl_kernels_{h.hexdigest()[:16]}.so"
+    for f in [src, *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -63,39 +70,65 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+def build() -> list[Path]:
+    """Compile every source whose library does not exist yet, all in
+    parallel. Returns the libraries' paths."""
     global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
+    outs = [library_path(src) for src in _sources()]
+    todo = [(src, out) for src, out in zip(_sources(), outs)
+            if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    pending = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        with open(out.with_suffix(".log"), "w") as log:
+            pending.append((src, out, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    source_seconds.clear()
+    while pending:
+        time.sleep(0.05)
+        for job in [j for j in pending if j[3].poll() is not None]:
+            pending.remove(job)
+            src, out, tmp, proc = job
+            source_seconds[src.name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                log = out.with_suffix(".log").read_text()
+                failed.append(f"{out.name}: nvcc failed ({proc.returncode})"
+                              f":\n{log[-4000:]}")
+            else:
+                os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        so = ctypes.CDLL(str(build()))
+def lib() -> dict:
+    """The kernels' C entry points by name (``rl_…_f32``/``_f64``), the
+    libraries built on first use."""
+    global _fns
+    if _fns is None:
+        libs = [ctypes.CDLL(str(path)) for path in build()]
+        fns = {}
         for name, argtypes in _SIGNATURES.items():
             for suffix in ("_f32", "_f64"):
-                fn = getattr(so, name + suffix)
+                found = [getattr(so, name + suffix) for so in libs
+                         if hasattr(so, name + suffix)]
+                if len(found) != 1:
+                    raise RuntimeError(f"{name + suffix}: found in "
+                                       f"{len(found)} kernel libraries")
+                fn = found[0]
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-        _lib = so
-    return _lib
+                fns[name + suffix] = fn
+        _fns = fns
+    return _fns
 
 
 def call(name: str, out, *args) -> None:
@@ -104,7 +137,7 @@ def call(name: str, out, *args) -> None:
     pointers); raise if the launch was refused."""
     import torch
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}[out.dtype]
-    fn = getattr(lib(), name + suffix)
+    fn = lib()[name + suffix]
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
     with torch.cuda.device(out.device):

@@ -1,0 +1,388 @@
+"""HQRRP — Householder QR with randomized pivoting (counterpart of
+``randlapack_tpu/drivers/hqrrp.py``; reference: RandLAPACK/drivers/
+rl_hqrrp.hh: hqrrp() :812, the Martinsson/Quintana-Ortí/Heavner/van de
+Geijn algorithm).
+
+Per block of ``b`` columns:
+
+  1. QRCP of the downdated sketch Y = G·A on the live columns (K5,
+     ``ops/qrcp.py``): b pivots.
+  2. Panel factorization of A[:, chosen] at row offset c: pivoted
+     Householder QRCP (K6), unpivoted Householder, or CholQR with the
+     ``orhr_col`` Householder reconstruction (K3 inside it).
+  3. Compact-WY trailing update A ← QᵀA on the live columns (two GEMMs).
+  4. Exact sketch downdate: G ← G·Q_blk, then Y ← Y − G[:, c:c+b]·R₁₂.
+
+As in the JAX package, chosen columns stay in place behind a ``retired``
+mask, their packed columns are stacked in selection order, and ONE
+permutation at the end moves them to the front; ``update_defer = g``
+aggregates g blocks' trailing updates into one k = g·b product. The
+JAX ``fori_loop``s become Python loops; every per-block quantity
+(pivots, sigma, the ``fail`` flag) stays on the device, so the blocks run
+without a host round trip. The trailing GEMMs are ``torch.matmul`` /
+``addmm`` (the JAX package computes them outside any Pallas kernel), and
+update the driver's own copy of A in place.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import enum
+import math
+import warnings
+
+import torch
+
+from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..errors import require
+from ..ops import util
+from ..ops.cholqr import cholqr2
+from ..ops.householder import apply_reflectors, orhr_col
+from ..ops.qr import wy_T
+from ..ops.qrcp import qrcp_panel_routed, qrcp_select_pivots_routed
+from ..ops.wy import _require_highest
+from ..rng import RNGState
+from ..utils.timing import PhaseTimer, device_sync
+
+
+class PanelQR(enum.Enum):
+    qrcp = "qrcp"        # pivoted panels (reference panel_pivoting=1)
+    geqrf = "geqrf"      # qr_type 1: unpivoted Householder panels
+    cholqr = "cholqr"    # qr_type 2: CholQR + Householder reconstruction
+
+
+@dataclasses.dataclass(frozen=True)
+class HQRRPConfig:
+    """The JAX package's configuration, field for field (see
+    ``randlapack_tpu/drivers/hqrrp.py`` for each field's story).
+
+    ``pallas_qrcp`` and ``pallas_panel`` default to ``"auto"`` here, where
+    the JAX package defaults them to ``"never"``: that default was a TPU
+    timing verdict (XLA's fused loop beat both Pallas kernels on the TPU)
+    and says nothing about this card. A CUDA tensor always runs K5/K6 and
+    accepts only ``"auto"`` (``"never"`` raises); a CPU tensor takes the
+    plain versions under either value."""
+    block_size: int = 64
+    oversample: int = 10          # sketch rows d = block_size + oversample
+    panel_qr: PanelQR = PanelQR.qrcp
+    pallas_qrcp: str = "auto"     # K5 routing: "auto" | "never" (CPU only)
+    pallas_panel: str = "auto"    # K6 routing: "auto" | "never" (CPU only)
+    shard_axis: str | None = None  # TPU mesh sharding: only None is ported
+    trailing_precision: str = "highest"
+                                  # only "highest" (true fp32/f64) is ported
+    update_defer: int = 1         # blocks per aggregated trailing update
+
+
+def _check_cfg(cfg: HQRRPConfig, precision, device: torch.device) -> None:
+    if device.type == "cuda" and (cfg.pallas_qrcp, cfg.pallas_panel) != (
+            "auto", "auto"):
+        raise NotImplementedError(
+            f"pallas_qrcp={cfg.pallas_qrcp!r}, pallas_panel="
+            f"{cfg.pallas_panel!r} on a CUDA tensor: a CUDA tensor always "
+            "takes the kernels, only 'auto' is accepted there")
+    if cfg.shard_axis is not None:
+        raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
+                                  "ported")
+    _require_highest(cfg.trailing_precision)
+    _require_highest(precision)
+
+
+def _cholqr_panel(panel, row0: int):
+    """CHOLQR_mod_WY (rl_hqrrp.hh:506): CholQR2 of the row-masked panel,
+    then the ``orhr_col`` reconstruction at offset row0 (K3 on the card).
+    τₗ = 2/‖vₗ‖² makes each stored reflector exact. A breakdown substitutes
+    identity columns at the panel offset, so the outputs stay finite with
+    ``fail`` raised. Returns (W, V, taus, sigma, fail) in ``qrcp_panel``'s
+    layout."""
+    m, b = panel.shape
+    dt, dev = panel.dtype, panel.device
+    rows = torch.arange(m, device=dev)[:, None]
+    cols = torch.arange(b, device=dev)[None, :]
+    Pm = torch.where(rows >= row0, panel, 0.0)
+    Qp, R_chol, fail = cholqr2(Pm)
+    nanp = (~torch.isfinite(Qp)).any() | (~torch.isfinite(R_chol)).any()
+    E_pad = (rows == row0 + cols).to(dt)
+    Qp = torch.where(nanp, E_pad, Qp)
+    R_chol = torch.where(nanp, 0.0, R_chol)
+    fail = fail | nanp
+    V, _, s = orhr_col(Qp, row0)
+    taus = 2.0 / (V * V).sum(0)
+    W = torch.where(rows < row0, panel, 0.0)
+    W[row0:row0 + b] += s[:, None] * R_chol
+    W = W + torch.where(rows > row0 + cols, V, 0.0)
+    sigma = torch.arange(b, device=dev)
+    return W, V, taus, sigma, fail
+
+
+def _panel(panel, c: int, cfg: HQRRPConfig):
+    """The configured panel factorization at row offset c →
+    (W, V, taus, sigma, fail)."""
+    if cfg.panel_qr == PanelQR.cholqr:
+        return _cholqr_panel(panel, c)
+    W, V, taus, sigma = qrcp_panel_routed(
+        panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp),
+        use_pallas=cfg.pallas_panel)
+    return W, V, taus, sigma, torch.zeros((), dtype=torch.bool,
+                                          device=panel.device)
+
+
+class _State:
+    """The loop carry: A (updated in place), the sketch Y and its
+    operator G, the packed pivot columns in selection order, the pivot
+    order, taus, the retired mask and the ``fail`` flag."""
+
+    def __init__(self, A, Y, G, K):
+        m, n = A.shape
+        dt, dev = A.dtype, A.device
+        self.A, self.Y, self.G = A, Y, G
+        self.Fstk = torch.zeros((m, K), dtype=dt, device=dev)
+        self.order = torch.zeros(K, dtype=torch.int64, device=dev)
+        self.taus = torch.zeros(K, dtype=dt, device=dev)
+        self.retired = torch.zeros(n, dtype=dt, device=dev)
+        self.fail = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def commit(self, c, chosen, taus, fail):
+        b = chosen.shape[0]
+        self.order[c:c + b] = chosen
+        self.taus[c:c + b] = taus
+        self.retired[chosen] = 1.0
+        self.fail = self.fail | fail
+
+
+def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
+                timer: PhaseTimer | None = None):
+    """One HQRRP block with its trailing update applied at once (the
+    ``update_defer = 1`` path and the timed path); ``timer`` accumulates
+    the reference's nested per-phase slots (rl_hqrrp.hh:1150-1160)."""
+    def _phase(name):
+        return timer.phase(name) if timer is not None else (
+            contextlib.nullcontext())
+
+    def _sync(t):
+        if timer is not None:
+            device_sync(t)
+
+    live = 1.0 - st.retired
+    with _phase("qrcp"):
+        chosen = qrcp_select_pivots_routed(st.Y, bsz, live,
+                                           use_pallas=cfg.pallas_qrcp)
+        _sync(chosen)
+    with _phase("qr"):
+        panel = st.A.index_select(1, chosen)
+        W, V, taus, sigma, failp = _panel(panel, c, cfg)
+        chosen = chosen.index_select(0, sigma)
+        st.Fstk[:, c:c + bsz] = W
+        _sync(W)
+    with _phase("wy_t"):
+        T, Vz = wy_T(V, taus)
+        _sync(T)
+    with _phase("updating_A"):
+        live2 = live.clone()
+        live2[chosen] = 0.0
+        Wk = Vz.T @ (st.A * live2[None, :])
+        Upd = Vz @ (T.T @ Wk)
+        st.A.addcmul_(Upd, live2[None, :], value=-1.0)
+        _sync(st.A)
+    with _phase("updating_sketch_g"):
+        st.G = st.G - ((st.G @ Vz) @ T) @ Vz.T
+        _sync(st.G)
+    with _phase("updating_sketch_y"):
+        B = st.G[:, c:c + bsz]
+        R12 = st.A[c:c + bsz, :] * live2[None, :]
+        st.Y = st.Y - (B @ R12) * live2[None, :]
+        _sync(st.Y)
+    with _phase("downdating"):
+        st.commit(c, chosen, taus, failp)
+
+
+def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
+                       cfg: HQRRPConfig):
+    """One block inside an update-deferred group (slot ``j``): pivots and
+    the exact sketch downdate run per block on lazily corrected operands,
+    while the trailing update of A and the update of G are appended to the
+    group aggregates ``agg = (Vg, Ug, Hg)`` (the JAX package's
+    telescoping identities: A_j = A − Σ V_i U_i, G_j = G − Σ H_i V_iᵀ).
+    Returns the new aggregates."""
+    Vg, Ug, Hg = agg
+    A, G = st.A, st.G
+    live = 1.0 - st.retired
+
+    chosen = qrcp_select_pivots_routed(st.Y, bsz, live,
+                                       use_pallas=cfg.pallas_qrcp)
+    panel = A.index_select(1, chosen)
+    if j > 0:
+        panel = panel - Vg @ Ug.index_select(1, chosen)
+    W, V, taus, sigma, failp = _panel(panel, c, cfg)
+    chosen = chosen.index_select(0, sigma)
+    st.Fstk[:, c:c + bsz] = W
+
+    T, Vz = wy_T(V, taus)
+    live2 = live.clone()
+    live2[chosen] = 0.0
+    Wk = Vz.T @ (A * live2[None, :])
+    if j > 0:
+        Wk = Wk - (Vz.T @ Vg) @ (Ug * live2[None, :])
+    U = T.T @ Wk
+
+    GV = G @ Vz
+    if j > 0:
+        GV = GV - Hg @ (Vg.T @ Vz)
+    H = GV @ T
+    B = G[:, c:c + bsz]
+    Vz_rows = Vz[c:c + bsz]
+    R12 = A[c:c + bsz, :]
+    if j > 0:
+        Vg_rows = Vg[c:c + bsz]
+        B = B - Hg @ Vg_rows.T
+        R12 = R12 - Vg_rows @ Ug
+    B = B - H @ Vz_rows.T
+    R12 = (R12 - Vz_rows @ U) * live2[None, :]
+    st.Y = st.Y - (B @ R12) * live2[None, :]
+
+    st.commit(c, chosen, taus, failp)
+    if j == 0:
+        return Vz, U, H
+    return (torch.cat([Vg, Vz], 1), torch.cat([Ug, U], 0),
+            torch.cat([Hg, H], 1))
+
+
+def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
+            cfg: HQRRPConfig) -> None:
+    """``nblocks`` blocks of ``bsz`` columns from rank position ``c0``, in
+    groups of ``update_defer`` blocks with ONE k = g·b trailing update
+    each."""
+    g = max(1, min(int(cfg.update_defer), nblocks))
+    if g == 1:
+        for ib in range(nblocks):
+            _block_step(st, c0 + ib * bsz, bsz, cfg)
+        return
+    for i0 in range(0, nblocks, g):
+        agg = (None, None, None)
+        for j in range(min(g, nblocks - i0)):
+            agg = _subblock_deferred(st, c0 + (i0 + j) * bsz, bsz, j, agg,
+                                     cfg)
+        Vg, Ug, Hg = agg
+        # retired columns hold stale values every read masks out; their
+        # final packed values live in Fstk
+        st.A.addmm_(Vg, Ug * (1.0 - st.retired)[None, :], alpha=-1.0)
+        st.G = st.G - Hg @ Vg.T
+
+
+def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
+                precision=STABLE_PRECISION, timing: bool = False,
+                sketch: torch.Tensor | None = None):
+    """Shared core: returns ``(A_packed, taus, J, rank, fail, state[,
+    phases])`` with ``A_packed`` the pivoted matrix in LAPACK GEQP3 layout
+    (R in the upper triangle, reflector tails below)."""
+    require_fp32_matmul()
+    _check_cfg(cfg, precision, A.device)
+    require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
+    timer = PhaseTimer() if timing else None
+
+    def _phase(name):
+        return timer.phase(name) if timing else contextlib.nullcontext()
+
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    K = min(m, n)
+    b = min(cfg.block_size, K)
+    d = b + cfg.oversample
+    nb_full, r = divmod(K, b)
+
+    with _phase("sketch"):
+        # uniform sketch on [-1, 1), as the reference (ScalarDist::Uniform)
+        gen, state = state.spawn(dev)
+        if sketch is None:
+            G = torch.rand((d, m), generator=gen, dtype=dt, device=dev)
+            G = 2.0 * G - 1.0
+        else:
+            require(tuple(sketch.shape) == (d, m),
+                    f"sketch must be {(d, m)}, got {tuple(sketch.shape)}")
+            G = sketch.to(device=dev, dtype=dt)
+        Y = G @ A
+        if timing:
+            device_sync(Y)
+
+    # the driver's own copy of A, updated in place
+    st = _State(A.clone(memory_format=torch.contiguous_format), Y, G, K)
+    with _phase("blocks"):
+        if timing:
+            if cfg.update_defer > 1:
+                warnings.warn(
+                    "hqrrp(timing=True) forces eager trailing updates; "
+                    f"cfg.update_defer={cfg.update_defer} is ignored in "
+                    "the phase breakdown (time deferred configs with "
+                    "timing=False whole-run aggregates instead)",
+                    stacklevel=3)
+            for ib in range(nb_full):
+                _block_step(st, ib * b, b, cfg, timer)
+            if r:
+                _block_step(st, nb_full * b, r, cfg, timer)
+            device_sync(st.A)
+        else:
+            if nb_full:
+                _blocks(st, 0, nb_full, b, cfg)
+            if r:
+                _blocks(st, nb_full * b, 1, r, cfg)
+
+    with _phase("epilogue"):
+        # pivots to the front in selection order; the rest keep their
+        # relative order (only reachable when n > K)
+        cols = torch.arange(n, device=dev)
+        pos = torch.zeros(n, dtype=torch.int64, device=dev)
+        pos[st.order] = torch.arange(K, device=dev)
+        perm = torch.argsort(torch.where(st.retired > 0, pos, K + cols))
+        A_perm = st.A.index_select(1, perm)
+        A_perm[:, :K] = st.Fstk
+        if timing:
+            device_sync(A_perm)
+
+    diag = torch.diagonal(A_perm[:K, :K])
+    tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
+    rank = util.naive_rank_est(diag, tol)
+    out = (A_perm, st.taus, perm, rank, st.fail, state)
+    return (*out, timer.report()) if timing else out
+
+
+def hqrrp(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
+          precision=STABLE_PRECISION, timing: bool = False,
+          sketch: torch.Tensor | None = None):
+    """Randomized-pivoting Householder QR of A (any aspect ratio):
+    A[:, J] ≈ Q·R.
+
+    Returns ``(Q, R, J, rank, fail, next_state)``: Q (m, K) orthonormal
+    (K = min(m, n)), a product of exact Householder reflectors; R (K, n)
+    upper-trapezoidal; J (n,) int64 pivots; ``rank`` an int32 estimate
+    from diag(R); ``fail`` the CholQR-panel breakdown flag (always False
+    for Householder panels). ``sketch`` injects the (d, m) uniform
+    operator G (d = block + oversample); when None, G is drawn from
+    ``state`` on A's device. ``A`` is not modified. ``timing=True``
+    appends a phase dict (sketch / blocks / epilogue and the seven
+    per-block slots)."""
+    out = _hqrrp_core(A, cfg, state, precision, timing, sketch)
+    A_perm, taus, J, rank, fail, state = out[:6]
+    m, n = A_perm.shape
+    K = min(m, n)
+    R = torch.triu(A_perm[:K, :])
+    Q = apply_reflectors(torch.tril(A_perm[:, :K], -1), taus)
+    if timing:
+        return Q, R, J, rank, fail, state, out[6]
+    return Q, R, J, rank, fail, state
+
+
+def hqrrp_lapack_format(A: torch.Tensor, cfg: HQRRPConfig,
+                        state: RNGState, precision=STABLE_PRECISION,
+                        sketch: torch.Tensor | None = None):
+    """GEQP3-compatible output ``(packed, taus, R, J, next_state)``:
+    ``packed`` (m, K) holds the reflector tails strictly below the
+    diagonal (unit heads implicit) — HQRRP's native form (rl_hqrrp.hh:
+    778-779). Form Q with :func:`randlapack_tpu_torch.ops.householder.
+    apply_reflectors`."""
+    A_perm, taus, J, rank, fail, state = _hqrrp_core(A, cfg, state,
+                                                     precision,
+                                                     sketch=sketch)
+    m, n = A_perm.shape
+    K = min(m, n)
+    R = torch.triu(A_perm[:K, :])
+    packed = torch.tril(A_perm[:, :K], -1)
+    return packed, taus, R, J, state

@@ -13,7 +13,7 @@ from .rng import RNGState
 
 def fast_decay_matrix(m: int, n: int, state: RNGState,
                       dtype=torch.float32, decay: float = 6.0,
-                      device="cpu"):
+                      device="cuda"):
     """Benchmark matrix with an approximately exponential spectrum:
     A = (G₁·diag(e^{-decay·i/k}))·G₂ᵀ/√(mk) with iid Gaussian factors
     drawn on ``device`` (one GEMM, no orthogonal factors)."""

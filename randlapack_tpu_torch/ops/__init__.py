@@ -1,9 +1,12 @@
-"""Dense kernel toolbox: CholQR family, QR and LU pivots, Householder
-reconstruction, the masked WY update and matrix utilities."""
+"""Dense kernel toolbox: CholQR family, QR, QRCP and LU pivots,
+Householder reconstruction and application, the masked WY update and
+matrix utilities."""
 from .cholqr import cholqr, cholqr2, preconditioned_cholqr, shifted_cholqr3
-from .householder import getrfnp, orhr_col
+from .householder import apply_reflectors, getrfnp, orhr_col
 from .lu import getrfnp_routed
-from .qr import lu_pivot_columns, qr_econ
+from .qr import (geqp3, lu_pivot_columns, qr_econ, qrcp_panel,
+                 qrcp_select_pivots, wy_T)
+from .qrcp import qrcp_panel_routed, qrcp_select_pivots_routed
 from .wy import (a_minus_vz_masked_mixed, a_minus_vz_masked_reference,
                  a_minus_vz_masked_routed, masked_vt_a_mixed,
                  masked_vt_a_reference, masked_vt_a_routed)
@@ -11,8 +14,10 @@ from . import util
 
 __all__ = [
     "cholqr", "cholqr2", "preconditioned_cholqr", "shifted_cholqr3",
-    "getrfnp", "getrfnp_routed", "orhr_col",
-    "lu_pivot_columns", "qr_econ",
+    "apply_reflectors", "getrfnp", "getrfnp_routed", "orhr_col",
+    "geqp3", "lu_pivot_columns", "qr_econ", "qrcp_panel",
+    "qrcp_select_pivots", "wy_T",
+    "qrcp_panel_routed", "qrcp_select_pivots_routed",
     "a_minus_vz_masked_mixed", "a_minus_vz_masked_reference",
     "a_minus_vz_masked_routed", "masked_vt_a_mixed",
     "masked_vt_a_reference", "masked_vt_a_routed", "util",

@@ -1,14 +1,15 @@
 """Householder-format reconstruction (counterpart of
 ``randlapack_tpu/ops/householder.py``; reference: lapack::orhr_col used in
-rl_bqrrp.hh:453-510). ``getrfnp``, the adaptive-sign LU it is built on,
-lives beside its kernel in ``ops/lu.py`` and is re-exported here."""
+rl_bqrrp.hh:453-510) and Q from packed reflectors. ``getrfnp``, the
+adaptive-sign LU ``orhr_col`` is built on, lives beside its kernel in
+``ops/lu.py`` and is re-exported here."""
 from __future__ import annotations
 
 import torch
 
 from .lu import getrfnp, getrfnp_routed
 
-__all__ = ["getrfnp", "orhr_col"]
+__all__ = ["apply_reflectors", "getrfnp", "orhr_col"]
 
 
 def orhr_col(Q_panel: torch.Tensor, row0: int):
@@ -35,3 +36,16 @@ def orhr_col(Q_panel: torch.Tensor, row0: int):
     T = -torch.linalg.solve_triangular(F, U1s.T, upper=False, left=True,
                                        unitriangular=True).T
     return V, T, s
+
+
+def apply_reflectors(packed: torch.Tensor, taus: torch.Tensor,
+                     X: torch.Tensor | None = None):
+    """Form Q (or Q·X) from the packed implicit representation (reflector
+    tails strictly below the diagonal, unit heads implicit) — the
+    gemqrt/ormqr capability, through ``torch.linalg.householder_product``
+    (LAPACK orgqr / cuSOLVER, as the JAX package leaves it to XLA)."""
+    m, k = packed.shape
+    Q = torch.linalg.householder_product(
+        packed + torch.eye(m, k, dtype=packed.dtype, device=packed.device),
+        taus)
+    return Q if X is None else Q @ X

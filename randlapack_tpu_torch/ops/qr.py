@@ -1,7 +1,16 @@
 """QR kernels (counterpart of ``randlapack_tpu/ops/qr.py``): Householder
-QR and LU-based pivot selection (the reference BQRRP's ``luqr``
-qrcp_wide, rl_bqrrp.hh:339-356)."""
+QR, column-pivoted Householder QR (``geqp3``), HQRRP's sketch pivot pass
+and panel QR(CP) with Drmač norm downdating, the compact-WY T factor,
+and LU-based pivot selection (the reference BQRRP's ``luqr`` qrcp_wide,
+rl_bqrrp.hh:339-356).
+
+``qrcp_select_pivots`` and ``qrcp_panel`` are the plain versions of the
+kernels K5 and K6 (``ops/qrcp.py``, ``csrc/qrcp.cu``): Python loops of
+small tensor ops, one reflector step per iteration, with the JAX
+package's masking, penalties and tie rules kept as they are."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,3 +51,192 @@ def lu_pivot_columns(A_panel_t: torch.Tensor) -> torch.Tensor:
     # holds P's one in column i
     P, _, _ = torch.lu_unpack(LU, piv, unpack_data=False)
     return P.argmax(0)
+
+
+def _larfg(x: torch.Tensor, i: int):
+    """Householder reflector annihilating x[i+1:] with rows < i masked out
+    (LAPACK larfg semantics). Returns ``(v, tau, alpha)``: v with v[i] = 1
+    and zeros in rows < i, H = I − tau·v·vᵀ, H·x = alpha·e_i on the
+    masked part. A zero column gives tau = 0 and alpha = x[i]."""
+    m = x.shape[0]
+    rows = torch.arange(m, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    xm = torch.where(rows >= i, x, zero)
+    xi = x[i]
+    normx = torch.linalg.vector_norm(xm)
+    sign = torch.where(xi >= 0, one, -one)
+    alpha = -sign * normx
+    denom = xi - alpha
+    safe = denom.abs() > 0
+    denom_s = torch.where(safe, denom, one)
+    v = torch.where(rows > i, xm / denom_s, zero)
+    v[i] = 1.0
+    tau = torch.where(safe, (alpha - xi) / torch.where(alpha != 0, alpha,
+                                                       one), zero)
+    tau = torch.where(normx > 0, tau, zero)
+    alpha = torch.where(normx > 0, alpha, xi)
+    return v, tau, alpha
+
+
+def _swap_perm(cols, l: int, p):
+    """The permutation that swaps positions ``l`` and ``p`` (a 0-d
+    tensor), as a gather index."""
+    return torch.where(cols == l, p, torch.where(cols == p, l, cols))
+
+
+def geqp3(A: torch.Tensor, k: int | None = None, want_q: bool = True,
+          pivot: bool = True):
+    """Column-pivoted Householder QR (GEQP3 capability): greedy max-norm
+    pivoting with squared-norm downdating over (at most) k columns.
+    Returns ``(Q, R, J)``: Q (m×k) explicit (None if ``want_q=False``), R
+    (k×n) upper-trapezoidal of the pivoted matrix, J (n,) int64 with
+    A[:, J] ≈ Q·R. O(m·n·k) work in k steps: for small matrices."""
+    m, n = A.shape
+    k = min(min(m, n) if k is None else k, m, n)
+    dev = A.device
+    cols = torch.arange(n, device=dev)
+    rows = torch.arange(m, device=dev)
+    W = A.clone()
+    V = torch.zeros((m, k), dtype=A.dtype, device=dev)
+    taus = torch.zeros(k, dtype=A.dtype, device=dev)
+    J = torch.arange(n, device=dev)
+    cn2 = (A * A).sum(0)
+    for i in range(k):
+        if pivot:
+            # finite penalty on the columns already factored (cn2 >= 0)
+            p = torch.argmax(torch.where(cols >= i, cn2, -1.0))
+            perm = _swap_perm(cols, i, p)
+            W = W.index_select(1, perm)
+            J = J.index_select(0, perm)
+            cn2 = cn2.index_select(0, perm)
+        v, tau, alpha = _larfg(W[:, i], i)
+        w = torch.where(cols >= i, tau * (v @ W), 0.0)
+        W = W - torch.outer(v, w)
+        coli = torch.where(rows < i, W[:, i], 0.0)
+        coli[i] = alpha
+        W[:, i] = coli
+        V[:, i] = v
+        taus[i] = tau
+        cn2 = torch.where(cols > i, torch.clamp(cn2 - W[i, :] ** 2, min=0.0),
+                          cn2)
+    R = torch.triu(W[:k, :])
+    Q = None
+    if want_q:
+        packed = torch.tril(V, -1) + torch.eye(m, k, dtype=A.dtype,
+                                                device=dev)
+        Q = torch.linalg.householder_product(packed, taus)
+    return Q, R, J
+
+
+def _drmac_downdate(W, i: int, r_row, dN, eN, update_mask):
+    """Drmač partial-norm downdating with cancellation-triggered exact
+    recompute (rl_hqrrp.hh::NoFLA_QRP_downdate_partial_norms :360-411,
+    LAPACK dlaqp2's rule). ``W`` is the working matrix after step ``i``'s
+    reflector, ``r_row`` = W[i, :], ``update_mask`` (bool) the columns to
+    downdate. Returns ``(dN, eN)``."""
+    tol3z = math.sqrt(torch.finfo(W.dtype).eps)
+    trail = torch.sqrt((W[i + 1:] ** 2).sum(0))
+    one = torch.ones((), dtype=W.dtype, device=W.device)
+    dsafe = torch.where(dN > 0, dN, one)
+    esafe = torch.where(eN > 0, eN, one)
+    temp = r_row.abs() / dsafe
+    temp = torch.clamp((1.0 + temp) * (1.0 - temp), min=0.0)
+    temp5 = dN / esafe
+    temp2 = temp * temp5 * temp5
+    recompute = temp2 <= tol3z
+    d_new = torch.where(recompute, trail, dN * torch.sqrt(temp))
+    e_new = torch.where(recompute, trail, eN)
+    keep = ~update_mask | (dN == 0)
+    return torch.where(keep, dN, d_new), torch.where(keep, eN, e_new)
+
+
+def qrcp_select_pivots(Y: torch.Tensor, nsteps: int, live: torch.Tensor):
+    """Plain version of K5: greedy Householder-QRCP pivot selection on a
+    (d × n) sketch restricted to ``live`` columns — the reference HQRRP's
+    per-block QRCP of the downdated sketch (rl_hqrrp.hh::
+    NoFLA_QRPmod_WY_unb_var4 :557, pivoting=1) with Drmač downdating.
+    Columns are never swapped: step l's reflector is built from pivot
+    column p_l on rows ≥ l and applied to the remaining available
+    columns. The pivot is the FIRST index of the masked maximum;
+    unavailable columns score −1. Returns (nsteps,) int64 indices in
+    pivot order."""
+    d, n = Y.shape
+    dev = Y.device
+    cols = torch.arange(n, device=dev)
+    avail = live > 0
+    W = torch.where(avail[None, :], Y, 0.0)
+    dN = torch.linalg.vector_norm(W, dim=0)
+    eN = dN
+    chosen = torch.zeros(nsteps, dtype=torch.int64, device=dev)
+    for i in range(nsteps):
+        p = torch.argmax(torch.where(avail, dN, -1.0))
+        chosen[i] = p
+        avail = avail & (cols != p)
+        v, tau, _ = _larfg(W.index_select(1, p.view(1))[:, 0], i)
+        w = torch.where(avail, tau * (v @ W), 0.0)
+        W = W - torch.outer(v, w)
+        dN, eN = _drmac_downdate(W, i, W[i, :], dN, eN, avail)
+    return chosen
+
+
+def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True):
+    """Plain version of K6: unblocked Householder QR(CP) of a full-height
+    panel whose factorization starts at row ``row0`` (rl_hqrrp.hh:1088,
+    NoFLA_QRPmod_WY_unb_var4 on A[j:, j:j+b]). Reflector l has its head at
+    row row0 + l; rows < row0 hold earlier R12 values, are never
+    transformed and move only with the column swaps.
+
+    Returns ``(W, V, taus, sigma)``: W (m, b) in LAPACK packed layout at
+    offset row0 (R above, alpha on the diagonal, reflector tails below),
+    V (m, b) the explicit reflectors (unit head, zeros above), taus (b,),
+    sigma (b,) int64 the in-panel pivot order (identity when
+    ``pivot=False``)."""
+    m, b = panel.shape
+    dev = panel.device
+    rows = torch.arange(m, device=dev)
+    cols = torch.arange(b, device=dev)
+    W = panel.clone()
+    V = torch.zeros_like(panel)
+    taus = torch.zeros(b, dtype=panel.dtype, device=dev)
+    sigma = torch.arange(b, device=dev)
+    dN = torch.linalg.vector_norm(panel[row0:], dim=0)
+    eN = dN
+    for l in range(b):
+        i = row0 + l
+        if pivot:
+            p = torch.argmax(torch.where(cols >= l, dN, -1.0))
+            perm = _swap_perm(cols, l, p)
+            W = W.index_select(1, perm)
+            sigma = sigma.index_select(0, perm)
+            dN = dN.index_select(0, perm)
+            eN = eN.index_select(0, perm)
+        v, tau, alpha = _larfg(W[:, l], i)
+        w = torch.where(cols >= l, tau * (v @ W), 0.0)
+        W = W - torch.outer(v, w)
+        # column l packed: R above, alpha at row i, the tail of v below
+        W[:, l] = torch.where(rows < i, W[:, l],
+                              torch.where(rows == i, alpha, v))
+        V[:, l] = v
+        taus[l] = tau
+        if pivot:
+            dN, eN = _drmac_downdate(W, i, W[i, :], dN, eN, cols > l)
+    return W, V, taus, sigma
+
+
+def wy_T(V: torch.Tensor, taus: torch.Tensor):
+    """Compact-WY triangular factor: T (b×b upper) with
+    H₁·…·H_b = I − V·T·Vᵀ (LAPACK larft, forward/columnwise), built from
+    T⁻¹ = diag(1/τ) + strict_upper(VᵀV) by one triangular solve.
+    τ = 0 (identity reflector) columns are zeroed in V and get a unit
+    diagonal. Returns ``(T, Vz)`` with Vz the zeroed V."""
+    b = taus.shape[0]
+    active = taus != 0
+    Vz = torch.where(active[None, :], V, 0.0)
+    S = Vz.T @ Vz
+    one = torch.ones((), dtype=V.dtype, device=V.device)
+    tinv = torch.where(active, 1.0 / torch.where(active, taus, one), one)
+    Tinv = torch.triu(S, 1) + torch.diag(tinv)
+    T = torch.linalg.solve_triangular(
+        Tinv, torch.eye(b, dtype=V.dtype, device=V.device), upper=True)
+    return T, Vz

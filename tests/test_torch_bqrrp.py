@@ -137,7 +137,7 @@ def test_interop_factors_round_trip():
     kw = dict(block_size=60, update_defer=2)
     fj, ft = _both(A, kw, 4)
     arrays = {f: np.asarray(getattr(fj, f)) for f in JFactors._fields}
-    fac = factors_from_numpy(arrays)
+    fac = factors_from_numpy(arrays, device="cpu")
     assert fac.J.dtype == torch.int64 and fac.fail.dtype == torch.bool
     Qj = np.asarray(j_q(fj))
     assert _abs(bqrrp_q(fac).numpy(), Qj) <= 1e-12
@@ -179,7 +179,8 @@ def test_drawn_sketch_quality_and_state():
 def test_float32_headline_config_gates():
     """The headline configuration scaled to b = 64, in f32 on the CPU,
     against the f32 gates chip_smoke.py applies at 8192²."""
-    A, _ = rt.gen.fast_decay_matrix(512, 512, rt.RNGState(0))
+    A, _ = rt.gen.fast_decay_matrix(512, 512, rt.RNGState(0),
+                                     device="cpu")
     cfg = BQRRPConfig(block_size=64, pivot_candidates=2, stages=2,
                       update_defer=4)
     fac, _ = bqrrp_factored(A, cfg, rt.RNGState(1))

@@ -8,14 +8,21 @@ card has no JAX), so it runs there without the repo's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: fp32 sums of up to 8192 terms in another order than cuBLAS's
-stay within 1e-4 of the largest entry; f64 within 1e-12."""
+stay within 1e-4 of the largest entry; f64 within 1e-12. The QRCP
+kernels (K5, K6) must give exactly the plain version's pivots on inputs
+whose column norms are spread out (exp(-3·U) column scaling, as the JAX
+kernel test uses); their factors agree within 1e-4 (f32) / 1e-10 (f64)
+of the largest entry."""
 import numpy as np
 import pytest
 import torch
 
 import randlapack_tpu_torch as rt
-from randlapack_tpu_torch.drivers import BQRRPConfig, bqrrp_factored, bqrrp_q
+from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig, PanelQR,
+                                          bqrrp_factored, bqrrp_q, hqrrp)
 from randlapack_tpu_torch.ops import lu as tlu
+from randlapack_tpu_torch.ops import qr as tqr
+from randlapack_tpu_torch.ops import qrcp as tqrcp
 from randlapack_tpu_torch.ops import wy as twy
 
 
@@ -114,3 +121,115 @@ def test_cuda_path_goes_through_the_kernels(cuda):
     assert float((fg.R.cpu() - fc.R).abs().max()) \
         <= 1e-10 * float(fc.R.abs().max())
     assert float((bqrrp_q(fg).cpu() - bqrrp_q(fc)).abs().max()) <= 1e-10
+
+
+def _spread(shape, seed):
+    """Gaussian columns scaled by exp(-3·U): spread-out column norms."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape)
+            * np.exp(-3 * rng.random(shape[1]))[None, :])
+
+
+def _reset_all():
+    for counts in (twy.LAUNCHES, tlu.LAUNCHES, tqrcp.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_global", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,n,b", [(74, 512, 64), (26, 256, 16),
+                                   (138, 8192, 128), (138, 1000, 128),
+                                   (12, 37, 12)])
+def test_select_pivots_kernel_matches_plain(cuda, dtype, d, n, b,
+                                            force_global):
+    Y = torch.tensor(_spread((d, n), d + n), dtype=dtype, device=cuda)
+    live = torch.ones(n, dtype=dtype, device=cuda)
+    live[torch.tensor([0, 3, 5, 8, 9, 20, n - 1])] = 0.0
+    n0 = tqrcp.LAUNCHES["qrcp_select_pivots"]
+    out = tqrcp.qrcp_select_pivots_cuda(Y, b, live, force_global)
+    ref = tqr.qrcp_select_pivots(Y, b, live)
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES["qrcp_select_pivots"] == n0 + 1
+    assert torch.equal(out, ref)
+    assert not set(out.tolist()) & {0, 3, 5, 8, 9, 20, n - 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_global", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,b,r0,pivot", [(512, 64, 0, True),
+                                          (512, 64, 128, True),
+                                          (512, 64, 128, False),
+                                          (8192, 128, 0, True),
+                                          (8192, 128, 4096, True),
+                                          (1000, 100, 333, True),
+                                          (64, 64, 0, True)])
+def test_panel_kernel_matches_plain(cuda, dtype, m, b, r0, pivot,
+                                    force_global):
+    P = torch.tensor(_spread((m, b), m + b + r0), dtype=dtype, device=cuda)
+    n0 = tqrcp.LAUNCHES["qrcp_panel"]
+    if force_global:
+        W, taus, sigma = tqrcp.qrcp_panel_cuda(P, r0, pivot,
+                                               force_global=True)
+        V = None
+    else:
+        W, V, taus, sigma = tqrcp.qrcp_panel_routed(P, r0, pivot)
+    Wp, Vp, tp, sp = tqr.qrcp_panel(P, r0, pivot)
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES["qrcp_panel"] == n0 + 1
+    assert torch.equal(sigma, sp)
+    assert torch.equal(W[:r0], P[:r0, sigma])
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((W - Wp).abs().max()) <= tol * float(Wp.abs().max())
+    assert float((taus - tp).abs().max()) <= tol
+    if V is not None:
+        assert float((V - Vp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(384, 320), (256, 400)])
+def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
+    """On the card, f64, tall and wide: K5 and K6 launch once per block,
+    and the result agrees with the CPU plain path on the same injected
+    sketch; ``"never"`` raises on a CUDA tensor and launches neither."""
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((m, n)) * np.logspace(0, -6, n)
+    G = torch.tensor(rng.uniform(-1, 1, (74, m)))
+    nblocks = -(-min(m, n) // 64)
+    cfg = HQRRPConfig(block_size=64, update_defer=2)
+    _reset_all()
+    Qg, Rg, Jg, _, fg, _ = hqrrp(torch.tensor(A, device=cuda), cfg,
+                                 rt.RNGState(2), sketch=G.to(cuda))
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
+                              "qrcp_panel": nblocks}
+    assert twy.LAUNCHES == {"masked_vt_a": 0, "a_minus_vz_masked": 0}
+    assert tlu.LAUNCHES == {"getrfnp": 0}
+    Qc, Rc, Jc, _, fc, _ = hqrrp(torch.tensor(A), cfg, rt.RNGState(2),
+                                 sketch=G)
+    assert torch.equal(Jg.cpu(), Jc) and not bool(fg)
+    assert float((Rg.cpu() - Rc).abs().max()) \
+        <= 1e-10 * float(Rc.abs().max())
+    assert float((Qg.cpu() - Qc).abs().max()) <= 1e-10
+    _reset_all()
+    Ag = torch.tensor(A, device=cuda)
+    for kw in ({"pallas_qrcp": "never"}, {"pallas_panel": "never"}):
+        with pytest.raises(NotImplementedError, match="only 'auto'"):
+            hqrrp(Ag, HQRRPConfig(block_size=64, **kw), rt.RNGState(2))
+    live = torch.ones(n, dtype=Ag.dtype, device=cuda)
+    with pytest.raises(NotImplementedError, match="only 'auto'"):
+        tqrcp.qrcp_select_pivots_routed(Ag, 8, live, use_pallas="never")
+    with pytest.raises(NotImplementedError, match="only 'auto'"):
+        tqrcp.qrcp_panel_routed(Ag[:, :64].contiguous(), 0,
+                                use_pallas="never")
+    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": 0, "qrcp_panel": 0}
+    # CholQR panels go through K3 instead of K6
+    _reset_all()
+    chol = HQRRPConfig(block_size=64, panel_qr=PanelQR.cholqr)
+    hqrrp(torch.tensor(A, device=cuda), chol, rt.RNGState(2))
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
+                              "qrcp_panel": 0}
+    assert tlu.LAUNCHES == {"getrfnp": nblocks}

@@ -108,9 +108,9 @@ def test_rng_state_spawn_and_branch():
 
 def test_fast_decay_matrix():
     A, st = rt.gen.fast_decay_matrix(96, 64, rt.RNGState(0),
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
     A2, _ = rt.gen.fast_decay_matrix(96, 64, rt.RNGState(0),
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
     assert A.shape == (96, 64) and st.counter == 2
     assert torch.equal(A, A2) and torch.isfinite(A).all()
     s = torch.linalg.svdvals(A)
