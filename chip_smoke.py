@@ -5,14 +5,26 @@
 Builds the hand-written kernels from randlapack_tpu_torch/csrc/ (one
 nvcc per source, all at once, sm_90a, into build/kernels/), holds each
 against its plain PyTorch version at the shapes its path gives it, then
-drives the port's two paths on 8192×8192 f32 fast-decay matrices:
+drives the port's paths — two factorizations of 8192×8192 f32 fast-decay
+matrices, KRILL and the fused Gaussian sketch:
 
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
   candidates per slot, 2 stages, update defer 4), then bqrrp_q;
 - HQRRP: hqrrp_lapack_format with bench.py's config 6 (b 128, update
   defer 4), then Q from the packed reflectors; hqrrp with its ``fail``
   flag and a phase breakdown, a CholQR-panel run and a small f64
-  card-vs-CPU parity run.
+  card-vs-CPU parity run;
+- KRILL: krill_full_rpchol on a squared-exponential kernel operator over
+  n points in 8 dimensions (bench.py's recipe: standardized Gaussian
+  data, median-heuristic bandwidth, μ 1e-2, PCG tol 1e-5) at n 65536 with
+  a rank-1024 RPCholesky preconditioner (a 17 GB kernel matrix, never
+  stored), at bench.py's own n 8192 / k 256, and with four right-hand
+  sides under per-column μ, each in f32 (gated on the backward error)
+  and in f64 (gated on the true residual); a phase breakdown, the share
+  of PCG's wall time the card is busy, both SVD routes timed on the
+  factor and a small f64 card-vs-CPU parity run;
+- the Gaussian sketch: ops.gaussian_sketch of a 131072×2048 matrix to
+  2560 rows (CQRRPT's sketch size d = 1.25·n).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and is checked against the JAX test gates at f32 (residual,
@@ -39,12 +51,17 @@ N = 8192
 EPS32 = float(torch.finfo(torch.float32).eps)
 RES_GATE = 10 * EPS32 ** 0.75                 # tests/test_bqrrp_factored.py:95
 ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
-EXPECTED_LAUNCHES = {"masked_vt_a": 32, "a_minus_vz_masked": 8,
-                     "getrfnp": 32, "qrcp_select_pivots": 0,
-                     "qrcp_panel": 0}
+NO_LAUNCHES = dict.fromkeys(
+    ("masked_vt_a", "a_minus_vz_masked", "getrfnp", "qrcp_select_pivots",
+     "qrcp_panel", "kernel_matmat", "gaussian_sketch"), 0)
+EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
+                     "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
-HQRRP_LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0, "getrfnp": 0,
-                  "qrcp_select_pivots": 64, "qrcp_panel": 64}
+HQRRP_LAUNCHES = {**NO_LAUNCHES, "qrcp_select_pivots": 64, "qrcp_panel": 64}
+# KRILL, bench.py's recipe; the full-size run has 8× its n and 4× its k
+KRILL_N, KRILL_K = 65536, 1024
+# the sketch of CQRRPT at a 131072×2048 matrix: d = 1.25·n rows
+SKETCH_M, SKETCH_N, SKETCH_D = 131072, 2048, 2560
 KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "masked_vt_a": ("randlapack_tpu_torch/csrc/wy.cu",
                     "randlapack_tpu/ops/pallas_wy.py:91", "bqrrp"),
@@ -56,10 +73,15 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
                            "randlapack_tpu/ops/pallas_qrcp.py:50", "hqrrp"),
     "qrcp_panel": ("randlapack_tpu_torch/csrc/qrcp.cu",
                    "randlapack_tpu/ops/pallas_qrcp.py:195", "hqrrp"),
+    "kernel_matmat": ("randlapack_tpu_torch/csrc/kernel_matmat.cu",
+                      "randlapack_tpu/ops/pallas_kernels.py:48", "krill"),
+    "gaussian_sketch": ("randlapack_tpu_torch/csrc/gaussian_sketch.cu",
+                        "randlapack_tpu/ops/pallas_kernels.py:125", "op"),
 }
 # one H100 SXM, published peaks: fp32 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SFU_PER_SM_CLOCK = 16      # special-function results per SM and clock (9.0)
 
 
 def gate(ok: bool, what: str) -> None:
@@ -82,23 +104,47 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def reset_counts():
-    from randlapack_tpu_torch.ops import lu, qrcp, wy
-    for counts in (wy.LAUNCHES, lu.LAUNCHES, qrcp.LAUNCHES):
+    from randlapack_tpu_torch.ops import kernels, lu, qrcp, wy
+    for counts in (wy.LAUNCHES, lu.LAUNCHES, qrcp.LAUNCHES,
+                   kernels.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from randlapack_tpu_torch.ops import lu, qrcp, wy
-    return {**wy.LAUNCHES, **lu.LAUNCHES, **qrcp.LAUNCHES}
+    from randlapack_tpu_torch.ops import kernels, lu, qrcp, wy
+    return {**wy.LAUNCHES, **lu.LAUNCHES, **qrcp.LAUNCHES,
+            **kernels.LAUNCHES}
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def sfu_rate() -> float:
+    """Special-function results per second of this card: 16 per SM and
+    clock (compute capability 9.0) at the SM count PyTorch reports and
+    the maximum SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_SM_CLOCK * sms * mhz * 1e6
+
+
+def bound(flops: float, nbytes: float, special: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the operations
+    over the fp32 peak, the special-function operations (exp) over the
+    card's rate for them, and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_FP32, special / sfu_rate() if special else 0.0)
+    t_bytes = nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_matmat_work(d, n, s, esize):
+    """K4's operations and bytes: per kernel entry 2d for the cross term,
+    6 for norms, clamp, scale and sign, 2s for the product with V, and
+    one exponential; X, V and out cross the memory interface once."""
+    return dict(flops=n * n * (2 * d + 2 * s + 6), special=n * n,
+                nbytes=(d * n + 2 * n * s) * esize)
 
 
 def select_pivots_work(Y, nsteps, live):
@@ -132,7 +178,8 @@ def phase_env() -> str:
         check=True).stdout.strip().splitlines()[0]
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, device "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}, special-function rate "
+          f"{sfu_rate():.3e}/s", flush=True)
     print(smi, flush=True)
     return smi
 
@@ -161,7 +208,7 @@ def phase_kernels(dev) -> dict:
     """Each kernel against its plain version: main-path shapes (timed,
     with the bound and, where one PyTorch call computes the function,
     that call's time) and one ragged case each."""
-    from randlapack_tpu_torch.ops import lu, qr, qrcp, wy
+    from randlapack_tpu_torch.ops import kernels, lu, qr, qrcp, wy
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     f32 = torch.float32
@@ -288,6 +335,75 @@ def phase_kernels(dev) -> dict:
         print(f"[kernel] qrcp_panel m={m} b={b} row0={r0}: sigma equal, "
               f"max|dW| {err:.3e} (max|plain| {float(Wp.abs().max()):.3e}),"
               f" max|dtau| {terr:.3e}", flush=True)
+    # K4 kernel_matmat: KRILL's operator product at its three shapes and a
+    # ragged case with d > 16 (two chunks of d), against the plain blocked
+    # version; the n 65536, s 1 case is the full-size run's and is timed
+    bw = 3.8                     # about the median-heuristic value at d 8
+    for d, n, s_, timed in ((8, KRILL_N, 1, True), (8, 8192, 4, False),
+                            (8, 8192, 1, False), (70, 1000, 5, False)):
+        X, V = randn(d, n), randn(n, s_)
+        bw_ = bw * math.sqrt(d / 8)
+        Ko = kernels.kernel_matmat(X, V, bw_)
+        Kp = kernels.kernel_matmat_reference(X, V, bw_, block=2048)
+        err = float((Ko - Kp).abs().max())
+        gate(err <= 1e-4 * float(Kp.abs().max()),
+             f"kernel_matmat d={d} n={n} s={s_}: max|d| {err}")
+        gate(torch.equal(Ko, kernels.kernel_matmat(X, V, bw_)),
+             f"kernel_matmat d={d} n={n} s={s_}: two launches differ")
+        ms = cuda_ms(lambda: kernels.kernel_matmat(X, V, bw_), 10)
+        bnd = bound(**kernel_matmat_work(d, n, s_, 4))
+        if timed:
+            out["kernel_matmat"] = dict(
+                max_abs_err=err, ms=ms,
+                plain_ms=cuda_ms(lambda: kernels.kernel_matmat_reference(
+                    X, V, bw_, block=2048), 2, warmup=1),
+                **bnd, library_ms=None)
+        print(f"[kernel] kernel_matmat d={d} n={n} s={s_} ("
+              f"{kernels.kernel_matmat_splits(n, s_)} splits of j): max|d| "
+              f"{err:.3e} (max|plain| {float(Kp.abs().max()):.3e}), "
+              f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms", flush=True)
+    # K7 gaussian_sketch: CQRRPT's sketch (d = 1.25 n) of a 131072x2048
+    # matrix (timed) and BQRRP's of an 8192x8192 one, against the plain
+    # version (the same S, stored); the library pair is randn/sqrt(d) and
+    # mm: two calls and a stored S of d*m*4 bytes
+    for m, n, d, timed in ((SKETCH_M, SKETCH_N, SKETCH_D, True),
+                           (N, N, 320, False), (1000, 300, 13, False)):
+        A = randn(m, n)
+        So = kernels.gaussian_sketch_cuda(A, d, 11)
+        Sp = kernels.gaussian_sketch_reference(A, d, 11)
+        err = float((So - Sp).abs().max())
+        gate(err <= 1e-4 * float(Sp.abs().max()),
+             f"gaussian_sketch {m}x{n} d={d}: max|d| {err}")
+        gate(torch.equal(So, kernels.gaussian_sketch_cuda(A, d, 11)),
+             f"gaussian_sketch {m}x{n} d={d}: two launches differ")
+        del So, Sp
+        ms = cuda_ms(lambda: kernels.gaussian_sketch_cuda(A, d, 11), 3,
+                     warmup=1)
+        bnd = bound(2 * d * m * n, 4 * (m * n + d * n))
+
+        def library():
+            return torch.mm(torch.randn((d, m), generator=g, device=dev)
+                            / math.sqrt(d), A)
+        lib_ms = cuda_ms(library, 3, warmup=1)
+        if timed:
+            out["gaussian_sketch"] = dict(
+                max_abs_err=err, ms=ms,
+                plain_ms=cuda_ms(lambda: kernels.gaussian_sketch_reference(
+                    A, d, 11), 1, warmup=0),
+                **bnd, library_ms=lib_ms,
+                library_call="torch.randn((d, m))/sqrt(d) then torch.mm: "
+                "two calls and S stored, another stream")
+        print(f"[kernel] gaussian_sketch m={m} n={n} d={d}: max|d| {err:.3e}"
+              f", {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms, randn+mm "
+              f"{lib_ms:.4f} ms", flush=True)
+        del A
+    # K7 on the identity: out is S itself
+    Si = kernels.gaussian_sketch_cuda(torch.eye(512, device=dev), 512, 5)
+    err = float((Si - kernels.gaussian_sketch_matrix(512, 512, 5, f32, dev)
+                 ).abs().max())
+    gate(err <= 1e-6, f"gaussian_sketch of I: max|dS| {err}")
+    print(f"[kernel] gaussian_sketch of I (512): max|dS| {err:.3e} against "
+          f"the plain S", flush=True)
     for name, rec in out.items():
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.3f} ms "
@@ -554,6 +670,248 @@ def phase_hqrrp_small_vs_plain(dev) -> None:
          f"small run launches {counts}")
 
 
+def krill_problem(n, s, mus, dev, dtype=torch.float32, seed=11):
+    """bench.py's KRILL recipe: n standardized Gaussian points in 8
+    dimensions, the bandwidth by the median heuristic on the first 256,
+    Gaussian right-hand sides."""
+    from randlapack_tpu_torch.pdkernels import (SquaredExpKernelLinOp,
+                                                standardize_dataset)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    # drawn in f32 and then cast, so an f64 run solves the f32 run's system
+    X = standardize_dataset(torch.randn((8, n), generator=g,
+                                        device=dev).to(dtype))
+    sub = X[:, :256]
+    d2 = ((sub[:, :, None] - sub[:, None, :]) ** 2).sum(0)
+    bw = float(torch.sqrt(torch.median(d2[d2 > 0])))
+    H = torch.randn((n, s), generator=g, device=dev).to(dtype)
+    return SquaredExpKernelLinOp(X, bw, mus, block=2048), H
+
+
+def krill_run(tag, G, H, mus, k, max_iters, true_gate=None):
+    """One krill_full_rpchol solve with the launch counts set to 0 before
+    and read after; gates on convergence (PCG's own recursive residual),
+    the launch counts and the true residual r = (K + μI)x − h, from one
+    more kernel product made after the counts are read. In f32 the true
+    residual is held to what f32 arithmetic can give — the normwise
+    backward error |r| / (|K + μI|·|x|) at most one unit roundoff, with
+    |K|₂ bounded below by |K·e|/|e| — because cond(K + μI)·eps32 is
+    0.03–0.3 at these sizes; ``true_gate`` (the f64 run) holds |r|/|h|
+    itself. Returns (counts, iters, seconds)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import PCGConfig
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    cfg = KrillConfig(k=k, rpchol_block=64,
+                      pcg=PCGConfig(tol=1e-5, max_iters=max_iters))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    Xs, hist, iters, _ = krill_full_rpchol(G, H, mus, cfg, RNGState(6))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    hist = hist.cpu()
+    if iters >= max_iters:
+        print(f"[{tag}] residual history: "
+              f"{[f'{v:.2e}' for v in hist[:, 0].tolist()]}", flush=True)
+    gate(iters < max_iters, f"{tag}: PCG did not converge in {max_iters}")
+    gate(counts == {**NO_LAUNCHES, "kernel_matmat": iters + 1},
+         f"{tag}: launches {counts} for {iters} iterations")
+    final = (hist[iters] / hist[0]).tolist()
+    gate(max(final) <= 1e-5, f"{tag}: recursive residual {final}")
+    gate(bool(torch.isfinite(Xs).all()) and Xs.shape == H.shape,
+         f"{tag}: solution shape or values")
+    res = torch.linalg.norm(G.matmat(Xs) - H, dim=0)
+    true = (res / torch.linalg.norm(H, dim=0)).tolist()
+    ones = torch.ones((G.dim, 1), dtype=H.dtype, device=H.device)
+    nrm_K = float(torch.linalg.norm(G.with_reg(False).matmat(ones))
+                  / math.sqrt(G.dim))
+    eps = float(torch.finfo(H.dtype).eps)
+    backward = (res / ((nrm_K + G.mus.expand(H.shape[1]))
+                       * torch.linalg.norm(Xs, dim=0)) / eps).tolist()
+    if true_gate is None:
+        gate(max(backward) <= 1.0, f"{tag}: backward error {backward} eps")
+    else:
+        gate(max(true) <= true_gate, f"{tag}: true residual {true}")
+    print(f"[{tag}] krill_full_rpchol n={G.dim} d=8 s={H.shape[1]} "
+          f"{str(H.dtype)[6:]} k={k} bandwidth {G.bandwidth:.3f}: {secs:.4f}"
+          f" s, {iters} iterations, recursive residual "
+          f"{[f'{v:.2e}' for v in final]}, true residual "
+          f"{[f'{v:.2e}' for v in true]} = backward error "
+          f"{[f'{v:.3f}' for v in backward]} eps (|K|_2 >= {nrm_K:.1f}), K4 "
+          f"launches {counts['kernel_matmat']}", flush=True)
+    return counts, iters, secs
+
+
+def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
+    """Where a KRILL solve's time goes: the RPCholesky factor, its SVD by
+    both routes (time and the orthogonality of U, which the spectral
+    preconditioner rests on), then PCG on the host clock and under
+    torch.profiler (the card's busy share of PCG's wall time, and K4's
+    share of that). Last, what the two alternatives to the configuration
+    give: PCG with the Gram/eigh route's preconditioner, and the residual
+    trace of an RPCholesky factor of twice the rank."""
+    from torch.profiler import ProfilerActivity, profile
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import (PCGConfig, RPCholConfig, pcg,
+                                            rp_cholesky)
+    from randlapack_tpu_torch.linops import SpectralPrecond
+    from randlapack_tpu_torch.ops.svd import svd_econ
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def orth(U):
+        return float(torch.linalg.norm(U.T @ U - torch.eye(
+            U.shape[1], dtype=U.dtype, device=U.device)))
+
+    (F, _, _), t_chol = timed(lambda: rp_cholesky(
+        G.with_reg(False), k, RPCholConfig(block_size=64), RNGState(6)))
+    svd_econ(F[:4096], "gram_eigh"), svd_econ(F[:4096], "xla")   # warm up
+    (Ug, sig_g, _), t_gram = timed(lambda: svd_econ(F, "gram_eigh"))
+    (V, sig, _), t_xla = timed(lambda: svd_econ(F, "xla"))
+    P = SpectralPrecond.prep(V, sig * sig, mus)
+    cfg = PCGConfig(tol=1e-5, max_iters=max_iters)
+    X0 = torch.zeros_like(H)
+    (_, _, iters), t_pcg = timed(lambda: pcg(G, H, P, X0, cfg))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t_prof = timed(lambda: pcg(G, H, P, X0, cfg))
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in
+            prof.key_averages() if e.device_type.name == "CUDA"
+            and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    k4 = sum(ms for key, ms, _ in rows if "kernel_matmat" in key)
+    gate(busy > 0, f"{tag}: the profiler saw no device time")
+    print(f"[{tag}] rp_cholesky {t_chol:.4f} s; svd_econ of F "
+          f"{tuple(F.shape)}: torch.linalg.svd {t_xla:.4f} s (|UtU-I|_F "
+          f"{orth(V):.2e}, sigma {float(sig[0]):.3e}..{float(sig[-1]):.3e}),"
+          f" gram_eigh {t_gram:.4f} s (|UtU-I|_F {orth(Ug):.2e}); pcg "
+          f"{t_pcg:.4f} s for {iters} iterations = "
+          f"{1e3 * t_pcg / max(iters, 1):.3f} ms each (host clock); under "
+          f"the profiler {t_prof:.4f} s, {sum(c for *_, c in rows)} device "
+          f"launches, the card busy {busy:.2f} ms "
+          f"({100 * busy / 1e3 / t_prof:.1f} %, idle "
+          f"{100 - 100 * busy / 1e3 / t_prof:.1f} %), K4 {k4:.2f} ms "
+          f"({100 * k4 / busy:.1f} % of busy)", flush=True)
+    _, hist_g, it_g = pcg(G, H, SpectralPrecond.prep(Ug, sig_g * sig_g, mus),
+                          X0, cfg)
+    F2, _, _ = rp_cholesky(G.with_reg(False), 2 * k,
+                           RPCholConfig(block_size=64), RNGState(6))
+    print(f"[{tag}] alternatives: with gram_eigh's preconditioner pcg ran "
+          f"{it_g} iterations to a recursive residual "
+          f"{float(hist_g[it_g, 0] / hist_g[0, 0]):.2e}; trace of K - F F^T "
+          f"at rank {k}: {float((1 - (F * F).sum(1)).sum()):.3e}, at rank "
+          f"{2 * k}: {float((1 - (F2 * F2).sum(1)).sum()):.3e}", flush=True)
+
+
+def phase_krill(dev) -> dict:
+    """KRILL's runs — full size, bench.py's own size and per-column μ,
+    each in f32 and in f64 — then the card against the CPU."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    mu = 1e-2
+    for dtype in (torch.float32, torch.float64):           # warm-up
+        Gw, Hw = krill_problem(2048, 1, mu, dev, dtype)
+        krill_full_rpchol(Gw, Hw, mu, KrillConfig(k=128), RNGState(0))
+    G, H = krill_problem(KRILL_N, 1, mu, dev)
+    counts, _, _ = krill_run("krill", G, H, mu, KRILL_K, 200)
+    pcg_anatomy("krill-phases", G, H, mu, KRILL_K, 200)
+    # the same solve in f64, where the true residual can follow PCG's
+    krill_run("krill-f64", *krill_problem(KRILL_N, 1, mu, dev, torch.float64),
+              mu, KRILL_K, 200, true_gate=1e-4)
+    G, H = krill_problem(8192, 1, mu, dev)
+    krill_run("krill-8192", G, H, mu, 256, 100)
+    pcg_anatomy("krill-8192-phases", G, H, mu, 256, 100)
+    mus = [1e-1, 1e-2, 1e-2, 1e-3]
+    krill_run("krill-4mu", *krill_problem(8192, 4, mus, dev), mus, 512, 200)
+    f64 = torch.float64
+    krill_run("krill-8192-f64", *krill_problem(8192, 1, mu, dev, f64), mu,
+              256, 100, true_gate=1e-4)
+    krill_run("krill-4mu-f64", *krill_problem(8192, 4, mus, dev, f64), mus,
+              512, 200, true_gate=1e-4)
+    phase_krill_small_vs_plain(dev)
+    return counts
+
+
+def phase_krill_small_vs_plain(dev) -> None:
+    """KRILL through K4 on the card against the plain versions on the CPU,
+    f64, one injected noise tensor: same pivots, same solution."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import PCGConfig, RPCholConfig, rp_cholesky
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    from randlapack_tpu_torch.pdkernels import SquaredExpKernelLinOp
+    n, k, b = 1024, 128, 32
+    Gc, Hc = krill_problem(n, 2, 1e-2, "cpu", torch.float64)
+    Gg = SquaredExpKernelLinOp(Gc.X.to(dev), Gc.bandwidth, 1e-2)
+    g = torch.Generator().manual_seed(8)
+    noise = -torch.log(torch.empty((k // b, n), dtype=torch.float64)
+                       .exponential_(generator=g))
+    cfg = KrillConfig(k=k, rpchol_block=b,
+                      pcg=PCGConfig(tol=1e-10, max_iters=300))
+    _, pc, _ = rp_cholesky(Gc.with_reg(False), k, RPCholConfig(b),
+                           RNGState(0), noise=noise)
+    _, pg, _ = rp_cholesky(Gg.with_reg(False), k, RPCholConfig(b),
+                           RNGState(0), noise=noise)
+    reset_counts()
+    Xg, _, ig, _ = krill_full_rpchol(Gg, Hc.to(dev), 1e-2, cfg, RNGState(0),
+                                     noise=noise)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    Xc, _, ic, _ = krill_full_rpchol(Gc, Hc, 1e-2, cfg, RNGState(0),
+                                     noise=noise)
+    dX = float((Xg.cpu() - Xc).abs().max() / Xc.abs().max())
+    same = torch.equal(pg.cpu(), pc)
+    print(f"[krill-small-vs-plain] n={n} f64 card vs CPU: pivots equal "
+          f"{same}, iterations {ig}/{ic}, rel max|dX| {dX:.3e}, card K4 "
+          f"launches {counts['kernel_matmat']}", flush=True)
+    gate(same and dX <= 1e-8, "KRILL card path vs plain path")
+    gate(counts == {**NO_LAUNCHES, "kernel_matmat": ig + 1},
+         f"small KRILL run launches {counts}")
+
+
+def phase_sketch(dev) -> dict:
+    """The fused Gaussian sketch through its entry point, at CQRRPT's
+    sketch size on a 131072x2048 f32 matrix."""
+    from randlapack_tpu_torch import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    A = torch.randn((SKETCH_M, SKETCH_N), generator=g, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ops.gaussian_sketch(A, SKETCH_D, 11)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    ratio = float(torch.linalg.norm(out) / torch.linalg.norm(A))
+    again = torch.equal(out, ops.gaussian_sketch(A, SKETCH_D, 11))
+    other = torch.allclose(out, ops.gaussian_sketch(A, SKETCH_D, 12))
+    # S·Q for an orthonormal basis Q of 256 columns of A, A = QR: a
+    # sketch of d rows distorts a 256-dimensional space by ~ sqrt(256/d)
+    R = torch.linalg.qr(A[:, :256], mode="r")[1]
+    sv = torch.linalg.svdvals(torch.linalg.solve_triangular(
+        R, out[:, :256], upper=True, left=False))
+    print(f"[sketch] gaussian_sketch {SKETCH_M}x{SKETCH_N} f32 to d="
+          f"{SKETCH_D}: {secs:.4f} s, |SA|_F/|A|_F {ratio:.4f}, two runs "
+          f"bit-equal {again}, another seed equal {other}, singular values "
+          f"of S·Q (256 columns) in [{float(sv.min()):.3f}, "
+          f"{float(sv.max()):.3f}], launches {counts}", flush=True)
+    gate(tuple(out.shape) == (SKETCH_D, SKETCH_N)
+         and bool(torch.isfinite(out).all()), "sketch shape or values")
+    gate(abs(ratio - 1.0) < 0.1, f"sketch norm ratio {ratio}")
+    gate(again and not other, "sketch determinism")
+    gate(0.5 < float(sv.min()) and float(sv.max()) < 1.5,
+         "sketch is not a subspace embedding")
+    gate(counts == {**NO_LAUNCHES, "gaussian_sketch": 1},
+         f"sketch launches {counts}")
+    return counts
+
+
 def phase_kernel_anatomy(dev) -> None:
     """Where K5/K6's time goes: the same per-step work with fewer blocks
     (a 1-block grid has no cross-block barrier cost) or fewer barriers
@@ -634,6 +992,8 @@ def main() -> int:
     phase_hqrrp_phases(dev)
     phase_hqrrp_cholqr(dev)
     phase_hqrrp_small_vs_plain(dev)
+    counts["krill"] = phase_krill(dev)
+    counts["op"] = phase_sketch(dev)
     if "--profile" in sys.argv[1:]:
         phase_kernel_anatomy(dev)
         phase_profile(dev)

@@ -8,11 +8,15 @@ through the kernels, a CPU tensor through their plain PyTorch versions.
 
 Ported so far: the factored BQRRP path (``drivers.bqrrp_factored``,
 ``bqrrp_q``, ``bqrrp_apply_qt``), HQRRP (``drivers.hqrrp``,
-``hqrrp_lapack_format``) and what they run.
+``hqrrp_lapack_format``), KRILL (``drivers.krill_full_rpchol``,
+``krill_restricted_rpchol`` over ``pdkernels``, ``linops`` and ``comps``),
+the fused Gaussian sketch (``ops.gaussian_sketch``) and what they run.
 """
 from .rng import RNGState, as_state
-from . import config, drivers, gen, interop, ops, utils
+from . import (comps, config, drivers, gen, interop, linops, ops, pdkernels,
+               sketching, utils)
 
 __version__ = "0.1.0"
-__all__ = ["RNGState", "as_state", "config", "drivers", "gen", "interop",
-           "ops", "utils", "__version__"]
+__all__ = ["RNGState", "as_state", "comps", "config", "drivers", "gen",
+           "interop", "linops", "ops", "pdkernels", "sketching", "utils",
+           "__version__"]

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_D, _U = ctypes.c_double, ctypes.c_uint
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
     # (V, A, mask, W, m, b, w, stream)
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (P, W, taus, sigma, part, m, b, row0, pivot, force_global, stream)
     "rl_qrcp_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (X, V, norms, part, out, d, n, s, 1/(2 sigma^2), splits, stream)
+    "rl_kernel_matmat": [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
+    # (A, out, d, m, n, key0, key1, scale, stream)
+    "rl_gaussian_sketch": [_P, _P, _I, _I, _I, _U, _U, _D, _P],
 }
 
 _fns: dict | None = None

@@ -2,13 +2,21 @@
 ``BQRRPFactors`` (one array per field) become the port's and back, so
 either package's ``bqrrp_q``/``bqrrp_apply_qt`` can consume factors the
 other made; HQRRP's GEQP3-format ``(packed, taus, R, J)`` crosses the same
-way."""
+way, and so does KRILL's state: the kernel operator, the spectral
+preconditioner (one package's drives the other's ``pcg``) and the
+RPCholesky factor with its pivots."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .drivers.bqrrp import BQRRPFactors
+from .linops.symmetric import SpectralPrecond
+from .pdkernels import SquaredExpKernelLinOp
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def factors_from_numpy(arrays: dict, device="cuda") -> BQRRPFactors:
@@ -24,7 +32,7 @@ def factors_from_numpy(arrays: dict, device="cuda") -> BQRRPFactors:
 
 def factors_to_numpy(fac: BQRRPFactors) -> dict:
     """Factors → a dict of numpy arrays, one per field."""
-    return {name: getattr(fac, name).detach().cpu().numpy()
+    return {name: _to_numpy(getattr(fac, name))
             for name in BQRRPFactors._fields}
 
 
@@ -43,5 +51,49 @@ def lapack_format_from_numpy(arrays: dict, device="cuda"):
 
 def lapack_format_to_numpy(packed, taus, R, J) -> dict:
     """HQRRP's GEQP3-format output → a dict of numpy arrays."""
-    return {name: t.detach().cpu().numpy()
+    return {name: _to_numpy(t)
             for name, t in zip(LAPACK_FORMAT_FIELDS, (packed, taus, R, J))}
+
+
+def kernel_linop_from_numpy(arrays: dict, evals_include_reg: bool = True,
+                            block: int = 2048,
+                            device="cuda") -> SquaredExpKernelLinOp:
+    """``{"X", "bandwidth", "mus"}`` (the JAX operator's leaves as numpy
+    arrays) → the kernel operator on ``device``."""
+    X = torch.tensor(np.asarray(arrays["X"]), device=device)
+    return SquaredExpKernelLinOp(
+        X, float(np.asarray(arrays["bandwidth"])),
+        np.array(arrays["mus"], ndmin=1), evals_include_reg, block)
+
+
+def kernel_linop_to_numpy(G: SquaredExpKernelLinOp) -> dict:
+    """The kernel operator's leaves → a dict of numpy arrays."""
+    return {"X": _to_numpy(G.X), "bandwidth": np.float64(G.bandwidth),
+            "mus": _to_numpy(G.mus)}
+
+
+def spectral_precond_from_numpy(arrays: dict,
+                                device="cuda") -> SpectralPrecond:
+    """``{"V", "D"}`` numpy arrays → the spectral preconditioner on
+    ``device`` (D (k,) for one μ, (k, s) for per-column μ)."""
+    return SpectralPrecond(*(torch.tensor(np.asarray(arrays[name]),
+                                          device=device)
+                             for name in ("V", "D")))
+
+
+def spectral_precond_to_numpy(P: SpectralPrecond) -> dict:
+    """The spectral preconditioner → a dict of numpy arrays."""
+    return {"V": _to_numpy(P.V), "D": _to_numpy(P.D)}
+
+
+def rpchol_from_numpy(arrays: dict, device="cuda"):
+    """``{"F", "pivots"}`` numpy arrays (as ``rp_cholesky`` returns them)
+    → the tuple ``(F, pivots)`` on ``device`` (pivots as int64)."""
+    return (torch.tensor(np.asarray(arrays["F"]), device=device),
+            torch.tensor(np.asarray(arrays["pivots"]), dtype=torch.int64,
+                         device=device))
+
+
+def rpchol_to_numpy(F, pivots) -> dict:
+    """RPCholesky's factor and pivots → a dict of numpy arrays."""
+    return {"F": _to_numpy(F), "pivots": _to_numpy(pivots)}

@@ -1,12 +1,17 @@
 """Dense kernel toolbox: CholQR family, QR, QRCP and LU pivots,
-Householder reconstruction and application, the masked WY update and
-matrix utilities."""
+Householder reconstruction and application, the masked WY update, the
+fused kernel product and Gaussian sketch, the economy SVD and matrix
+utilities."""
 from .cholqr import cholqr, cholqr2, preconditioned_cholqr, shifted_cholqr3
 from .householder import apply_reflectors, getrfnp, orhr_col
+from .kernels import (gaussian_sketch, gaussian_sketch_reference,
+                      kernel_matmat_auto, kernel_matmat_reference,
+                      kernel_matmat_routed)
 from .lu import getrfnp_routed
 from .qr import (geqp3, lu_pivot_columns, qr_econ, qrcp_panel,
                  qrcp_select_pivots, wy_T)
 from .qrcp import qrcp_panel_routed, qrcp_select_pivots_routed
+from .svd import resolve_svd_method, svd_econ
 from .wy import (a_minus_vz_masked_mixed, a_minus_vz_masked_reference,
                  a_minus_vz_masked_routed, masked_vt_a_mixed,
                  masked_vt_a_reference, masked_vt_a_routed)
@@ -20,5 +25,8 @@ __all__ = [
     "qrcp_panel_routed", "qrcp_select_pivots_routed",
     "a_minus_vz_masked_mixed", "a_minus_vz_masked_reference",
     "a_minus_vz_masked_routed", "masked_vt_a_mixed",
-    "masked_vt_a_reference", "masked_vt_a_routed", "util",
+    "masked_vt_a_reference", "masked_vt_a_routed",
+    "gaussian_sketch", "gaussian_sketch_reference", "kernel_matmat_auto",
+    "kernel_matmat_reference", "kernel_matmat_routed",
+    "resolve_svd_method", "svd_econ", "util",
 ]

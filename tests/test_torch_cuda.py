@@ -12,7 +12,12 @@ stay within 1e-4 of the largest entry; f64 within 1e-12. The QRCP
 kernels (K5, K6) must give exactly the plain version's pivots on inputs
 whose column norms are spread out (exp(-3·U) column scaling, as the JAX
 kernel test uses); their factors agree within 1e-4 (f32) / 1e-10 (f64)
-of the largest entry."""
+of the largest entry. The kernel product (K4) sums n terms of one sign
+pattern in its own order: 1e-4 (f32) / 1e-11 (f64) of the largest entry.
+The Gaussian sketch (K7) generates S from the same Philox words as its
+plain version, but ``logf``/``cosf`` on the card differ from PyTorch's
+by an ulp or two: S within 1e-6 absolute (f32) / 1e-14 (f64), S·A within
+1e-4 / 1e-11 of the largest entry."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +25,7 @@ import torch
 import randlapack_tpu_torch as rt
 from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig, PanelQR,
                                           bqrrp_factored, bqrrp_q, hqrrp)
+from randlapack_tpu_torch.ops import kernels as tk
 from randlapack_tpu_torch.ops import lu as tlu
 from randlapack_tpu_torch.ops import qr as tqr
 from randlapack_tpu_torch.ops import qrcp as tqrcp
@@ -233,3 +239,75 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
     assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
                               "qrcp_panel": 0}
     assert tlu.LAUNCHES == {"getrfnp": nblocks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,n,s", [(8, 8192, 1), (8, 4096, 4), (3, 1000, 1),
+                                   (70, 1000, 5), (8, 1000, 130),
+                                   (17, 257, 16), (1, 1, 1)])
+def test_kernel_matmat_matches_plain(cuda, dtype, d, n, s):
+    rng = np.random.default_rng(d + n + s)
+    X = torch.tensor(rng.standard_normal((d, n)), dtype=dtype, device=cuda)
+    V = torch.tensor(rng.standard_normal((n, s)), dtype=dtype, device=cuda)
+    bw = 0.9 * np.sqrt(d)
+    n0 = tk.LAUNCHES["kernel_matmat"]
+    out = tk.kernel_matmat_routed(X, V, bw)
+    again = tk.kernel_matmat(X, V, bw)
+    ref = tk.kernel_matmat_reference(X, V, bw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kernel_matmat"] == n0 + 2
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out, again)          # no race decides a bit
+
+
+@pytest.mark.cuda
+def test_kernel_linop_matmat_takes_the_kernel(cuda):
+    from randlapack_tpu_torch.pdkernels import (SquaredExpKernelLinOp,
+                                                standardize_dataset)
+    rng = np.random.default_rng(0)
+    X = standardize_dataset(torch.tensor(rng.standard_normal((5, 700)),
+                                         device=cuda))
+    V = torch.tensor(rng.standard_normal((700, 3)), device=cuda)
+    mus = [1e-1, 1e-2, 1e-3]
+    n0 = tk.LAUNCHES["kernel_matmat"]
+    out = SquaredExpKernelLinOp(X, 1.7, mus).matmat(V)
+    assert tk.LAUNCHES["kernel_matmat"] == n0 + 1
+    ref = SquaredExpKernelLinOp(X.cpu(), 1.7, mus).matmat(
+        V.cpu())
+    assert float((out.cpu() - ref).abs().max()) <= 1e-11 * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,d", [(2048, 256, 64), (1000, 300, 13),
+                                   (512, 512, 320), (37, 5, 3),
+                                   (4096, 130, 200)])
+def test_gaussian_sketch_matches_plain(cuda, dtype, m, n, d):
+    rng = np.random.default_rng(m + n + d)
+    A = torch.tensor(rng.standard_normal((m, n)), dtype=dtype, device=cuda)
+    n0 = tk.LAUNCHES["gaussian_sketch"]
+    out = tk.gaussian_sketch(A, d, 11)
+    again = tk.gaussian_sketch(A, d, 11)
+    other = tk.gaussian_sketch(A, d, 12)
+    ref = tk.gaussian_sketch_reference(A, d, 11)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["gaussian_sketch"] == n0 + 3
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out, again)
+    assert not torch.allclose(out, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gaussian_sketch_of_identity_is_the_plain_S(cuda, dtype):
+    m, d = 515, 70
+    S = tk.gaussian_sketch(torch.eye(m, dtype=dtype, device=cuda), d, 2**40 + 5)
+    Sp = tk.gaussian_sketch_matrix(d, m, 2**40 + 5, dtype, cuda)
+    Sc = tk.gaussian_sketch_matrix(d, m, 2**40 + 5, dtype, "cpu")
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    assert float((S - Sp).abs().max()) <= tol
+    assert float((S.cpu() - Sc).abs().max()) <= tol
