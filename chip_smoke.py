@@ -9,7 +9,9 @@ drives the port's paths — two factorizations of 8192×8192 f32 fast-decay
 matrices, KRILL and the fused Gaussian sketch:
 
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
-  candidates per slot, 2 stages, update defer 4), then bqrrp_q;
+  candidates per slot, 2 stages, update defer 4), then bqrrp_q; the same
+  factorization with K1/K2 pointed at their earlier SIMT kernels and at
+  the tensor-core ones, in turns and under torch.profiler;
 - HQRRP: hqrrp_lapack_format with bench.py's config 6 (b 128, update
   defer 4), then Q from the packed reflectors; hqrrp with its ``fail``
   flag and a phase breakdown, a CholQR-panel run and a small f64
@@ -52,7 +54,8 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 RES_GATE = 10 * EPS32 ** 0.75                 # tests/test_bqrrp_factored.py:95
 ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
 NO_LAUNCHES = dict.fromkeys(
-    ("masked_vt_a", "a_minus_vz_masked", "getrfnp", "qrcp_select_pivots",
+    ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
+     "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
@@ -78,9 +81,14 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "gaussian_sketch": ("randlapack_tpu_torch/csrc/gaussian_sketch.cu",
                         "randlapack_tpu/ops/pallas_kernels.py:125", "op"),
 }
-# one H100 SXM, published peaks: fp32 outside the tensor cores, and HBM3
+# one H100 SXM, published peaks: fp32 outside the tensor cores, dense TF32
+# on them, and HBM3
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# an f32 K1/K2 result may be this many times further from the f64 product
+# (relative Frobenius error) than the library's fp32 product is
+F64_ERR_FACTOR = 4.0
 SFU_PER_SM_CLOCK = 16      # special-function results per SM and clock (9.0)
 
 
@@ -101,6 +109,38 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def relf(x, ref) -> float:
+    """Relative Frobenius distance of ``x`` from the f64 tensor ``ref``."""
+    return float(torch.linalg.norm(x.double() - ref)
+                 / torch.linalg.norm(ref))
+
+
+def in_turns(old, new, reps: int) -> tuple:
+    """Device milliseconds of ``old()`` and ``new()``, timed old, new,
+    new, old within this one call; the mean of each pair."""
+    t = [cuda_ms(fn, reps) for fn in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def device_profile(fn):
+    """``fn()`` under torch.profiler: its result, the wall seconds around
+    a synchronize, and the device-side rows (kernels, memcpy, memset) as
+    (name, ms, count), longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return out, wall, rows
 
 
 def reset_counts():
@@ -129,11 +169,19 @@ def sfu_rate() -> float:
     return SFU_PER_SM_CLOCK * sms * mhz * 1e6
 
 
-def bound(flops: float, nbytes: float, special: float = 0.0) -> dict:
+def bound(flops: float, nbytes: float, special: float = 0.0,
+          tensor: bool = False) -> dict:
     """The least time the card could take: the largest of the operations
     over the fp32 peak, the special-function operations (exp) over the
-    card's rate for them, and the bytes over the memory rate."""
-    t_ops = max(flops / PEAK_FP32, special / sfu_rate() if special else 0.0)
+    card's rate for them, and the bytes over the memory rate. With
+    ``tensor`` (a plain matrix product, which three TF32 products on the
+    tensor cores compute to fp32 accuracy) the operations take the lesser
+    of flops over the fp32 peak and 3·flops over the TF32 peak: the least
+    time of any route that keeps fp32 accuracy."""
+    t_flops = flops / PEAK_FP32
+    if tensor:
+        t_flops = min(t_flops, 3 * flops / PEAK_TF32)
+    t_ops = max(t_flops, special / sfu_rate() if special else 0.0)
     t_bytes = nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -212,6 +260,7 @@ def phase_kernels(dev) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     f32 = torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev, dtype=f32)
@@ -226,47 +275,114 @@ def phase_kernels(dev) -> dict:
             -3 * torch.rand(shape[1], generator=g, device=dev))[None, :]
 
     out = {}
-    # K1 masked_vt_a: V (8192, 256), A (8192, 8192)
-    for m, b, w, timed in ((N, 256, N, True), (3000, 200, 1900, False)):
+    chunks = (1, 2, 4, 16, 64, 0)
+    # K1 masked_vt_a: V (8192, 256), A (8192, 8192) and stage 2's half
+    # window, a ragged case and one long reduction. Beside the plain
+    # version: the f64 product on the card, against which the kernel may
+    # err at most F64_ERR_FACTOR times as much as torch.mm in fp32
+    for m, b, w, timed in ((N, 256, N, True), (N, 256, N // 2, False),
+                           (3000, 200, 1900, False),
+                           (65536, 256, 2048, False)):
         V, A, mk = randn(m, b), randn(m, w), mask(w)
+        gate(wy.takes_tensor_cores(V, A), "K1 operands off the tensor cores")
         W = wy.masked_vt_a(V, A, mk)
         Wp = wy.masked_vt_a_reference(V, A, mk)
         err = float((W - Wp).abs().max())
         gate(err <= 1e-4 * float(Wp.abs().max()),
              f"masked_vt_a {m}x{b}x{w}: max|d| {err}")
+        gate(torch.equal(W, wy.masked_vt_a(V, A, mk)),
+             f"masked_vt_a {m}x{b}x{w}: two launches differ")
+        ref = V.double().T @ (A.double() * mk.double())
+        e_new, e_lib = relf(W, ref), relf(torch.mm(V.T, A * mk), ref)
+        e_simt = relf(wy.masked_vt_a_simt(V, A, mk), ref)
+        e_emul = relf(W, wy.masked_vt_a_split_reference(V, A, mk).double())
+        gate(e_new <= F64_ERR_FACTOR * e_lib,
+             f"masked_vt_a {m}x{b}x{w}: error against f64 {e_new}, "
+             f"torch.mm's {e_lib}")
+        ms_simt, ms_new = in_turns(lambda: wy.masked_vt_a_simt(V, A, mk),
+                                   lambda: wy.masked_vt_a(V, A, mk), 10)
+        lib_ms = cuda_ms(lambda: torch.mm(V.T, A), 10)
         if timed:
             out["masked_vt_a"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: wy.masked_vt_a(V, A, mk), 10),
+                max_abs_err=err, ms=ms_new,
                 plain_ms=cuda_ms(
                     lambda: wy.masked_vt_a_reference(V, A, mk), 10),
                 **bound(2 * m * b * w + m * w,
-                        4 * (m * b + m * w + w + b * w)),
-                library_ms=cuda_ms(lambda: torch.mm(V.T, A), 10),
-                library_call="torch.mm(V.T, A), unmasked")
-        print(f"[kernel] masked_vt_a m={m} b={b} w={w}: max|d| {err:.3e} "
-              f"(max|plain| {float(Wp.abs().max()):.3e})", flush=True)
+                        4 * (m * b + m * w + w + b * w), tensor=True),
+                library_ms=lib_ms,
+                library_call="torch.mm(V.T, A), unmasked",
+                simt_ms=ms_simt, err_vs_f64=e_new, simt_err_vs_f64=e_simt,
+                library_err_vs_f64=e_lib)
+        print(f"[kernel] masked_vt_a m={m} b={b} w={w} ("
+              f"{wy.masked_vt_a_splits(m, b, w, sms)} parts of m): max|d| "
+              f"{err:.3e} (max|plain| {float(Wp.abs().max()):.3e}); relative "
+              f"error against f64: kernel {e_new:.3e}, SIMT {e_simt:.3e}, "
+              f"torch.mm fp32 {e_lib:.3e}; kernel against the three-product "
+              f"emulation {e_emul:.3e}; two launches bit-equal; kernel "
+              f"{ms_new:.4f} ms, SIMT {ms_simt:.4f} ms, torch.mm unmasked "
+              f"{lib_ms:.4f} ms", flush=True)
+        if m >= N and w != N // 2:
+            sweep = [(c, relf(wy.masked_vt_a(V, A, mk, chunk=c), ref),
+                      cuda_ms(lambda: wy.masked_vt_a(V, A, mk, chunk=c), 10))
+                     for c in chunks]
+            print(f"[kernel-chunk] masked_vt_a m={m} b={b} w={w}, stages of"
+                  f" 32 per chunk (0: one chunk): error against f64, ms: "
+                  + "; ".join(f"{c}: {e:.3e}, {t:.4f}" for c, e, t in sweep)
+                  + f" (default {wy.CHUNK})", flush=True)
+        del V, A, W, Wp, ref
     # K2 a_minus_vz_masked: A (8192, 8192), V (8192, 1024), Z (1024, 8192)
-    for m, k, w, timed in ((N, 1024, N, True), (3000, 200, 1900, False)):
+    # and stage 2's half window, and a ragged case
+    for m, k, w, timed in ((N, 1024, N, True), (N, 1024, N // 2, False),
+                           (3000, 200, 1900, False)):
         A, V, Z, mk = randn(m, w), randn(m, k), randn(k, w), mask(w)
+        gate(wy.takes_tensor_cores(A, V, Z, mk),
+             "K2 operands off the tensor cores")
         Ap = wy.a_minus_vz_masked_reference(A, V, Z, mk)
         Ak = wy.a_minus_vz_masked(A.clone(), V, Z, mk)
         err = float((Ak - Ap).abs().max())
         gate(err <= 1e-4 * float(Ap.abs().max()),
              f"a_minus_vz_masked {m}x{k}x{w}: max|d| {err}")
+        gate(torch.equal(Ak, wy.a_minus_vz_masked(A.clone(), V, Z, mk)),
+             f"a_minus_vz_masked {m}x{k}x{w}: two launches differ")
+        ref = A.double() - (V.double() @ Z.double()) * mk.double()
+        e_new = relf(Ak, ref)
+        e_lib = relf(torch.addmm(A, V, Z * mk, alpha=-1.0), ref)
+        e_simt = relf(wy.a_minus_vz_masked_simt(A.clone(), V, Z, mk), ref)
+        e_emul = relf(Ak, wy.a_minus_vz_masked_split_reference(
+            A, V, Z, mk).double())
+        gate(e_new <= F64_ERR_FACTOR * e_lib,
+             f"a_minus_vz_masked {m}x{k}x{w}: error against f64 {e_new}, "
+             f"torch.addmm's {e_lib}")
+        ms_simt, ms_new = in_turns(
+            lambda: wy.a_minus_vz_masked_simt(Ak, V, Z, mk),
+            lambda: wy.a_minus_vz_masked(Ak, V, Z, mk), 5)
+        lib_ms = cuda_ms(lambda: Ak.addmm_(V, Z, alpha=-1.0), 5)
         if timed:
             out["a_minus_vz_masked"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: wy.a_minus_vz_masked(Ak, V, Z, mk), 5),
+                max_abs_err=err, ms=ms_new,
                 plain_ms=cuda_ms(
                     lambda: wy.a_minus_vz_masked_reference(A, V, Z, mk), 5),
                 **bound(2 * m * k * w + 2 * m * w,
-                        4 * (2 * m * w + m * k + k * w + w)),
-                library_ms=cuda_ms(lambda: Ak.addmm_(V, Z, alpha=-1.0), 5),
-                library_call="A.addmm_(V, Z, alpha=-1), unmasked")
+                        4 * (2 * m * w + m * k + k * w + w), tensor=True),
+                library_ms=lib_ms,
+                library_call="A.addmm_(V, Z, alpha=-1), unmasked",
+                simt_ms=ms_simt, err_vs_f64=e_new, simt_err_vs_f64=e_simt,
+                library_err_vs_f64=e_lib)
+            sweep = [(c, relf(wy.a_minus_vz_masked(A.clone(), V, Z, mk,
+                                                   chunk=c), ref))
+                     for c in chunks]
+            print(f"[kernel-chunk] a_minus_vz_masked m={m} k={k} w={w}, "
+                  f"stages of 32 per chunk (0: one chunk): error against "
+                  f"f64: " + "; ".join(f"{c}: {e:.3e}" for c, e in sweep)
+                  + f" (default {wy.CHUNK})", flush=True)
         print(f"[kernel] a_minus_vz_masked m={m} k={k} w={w}: max|d| "
-              f"{err:.3e} (max|plain| {float(Ap.abs().max()):.3e})",
-              flush=True)
+              f"{err:.3e} (max|plain| {float(Ap.abs().max()):.3e}); relative "
+              f"error against f64: kernel {e_new:.3e}, SIMT {e_simt:.3e}, "
+              f"torch.addmm fp32 {e_lib:.3e}; kernel against the "
+              f"three-product emulation {e_emul:.3e}; two launches "
+              f"bit-equal; kernel {ms_new:.4f} ms, SIMT {ms_simt:.4f} ms, "
+              f"addmm_ unmasked {lib_ms:.4f} ms", flush=True)
+        del A, V, Z, Ap, Ak, ref
     # K3 getrfnp: a 256x256 orthonormal block (and a ragged 200)
     for k, timed in ((256, True), (200, False)):
         M = torch.linalg.qr(randn(k, k))[0].contiguous()
@@ -408,7 +524,9 @@ def phase_kernels(dev) -> dict:
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.3f} ms "
                f"({rec['library_call']})")
-        print(f"[kernel-time] {name}: kernel {rec['ms']:.4f} ms, plain "
+        old = (f", earlier SIMT kernel {rec['simt_ms']:.4f} ms"
+               if "simt_ms" in rec else "")
+        print(f"[kernel-time] {name}: kernel {rec['ms']:.4f} ms{old}, plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}){lib}", flush=True)
     return out
@@ -475,6 +593,103 @@ def phase_main(dev, card: str) -> dict:
                                        for k, v in phases.items()),
           flush=True)
     return counts
+
+
+def phase_old_vs_new(dev) -> None:
+    """The 8192x8192 factorization with K1/K2 pointed at their earlier
+    SIMT kernels and at the tensor-core ones: best-of-2 times in turns
+    (old, new, new, old), then each under torch.profiler (wall time, the
+    card's busy time, K1's and K2's share), with residual, orthogonality
+    and whether both give the same J."""
+    from pathlib import Path
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import BQRRPConfig, bqrrp_factored
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops import wy
+    cfg = BQRRPConfig(block_size=256, pivot_candidates=2, stages=2,
+                      update_defer=4)
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    bodies = {"new": (wy.masked_vt_a, wy.a_minus_vz_masked),
+              "simt": (wy.masked_vt_a_simt, wy.a_minus_vz_masked_simt)}
+    expected = {
+        "new": EXPECTED_LAUNCHES,
+        "simt": {**EXPECTED_LAUNCHES, "masked_vt_a": 0,
+                 "a_minus_vz_masked": 0, "masked_vt_a_simt": 32,
+                 "a_minus_vz_masked_simt": 8}}
+
+    def with_bodies(which, fn):
+        try:
+            wy.masked_vt_a, wy.a_minus_vz_masked = bodies[which]
+            return fn()
+        finally:
+            wy.masked_vt_a, wy.a_minus_vz_masked = bodies["new"]
+
+    def best_of_2(which):
+        def run():
+            bqrrp_factored(A, cfg, st)
+            times = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                reset_counts()
+                start.record()
+                bqrrp_factored(A, cfg, st)
+                end.record()
+                torch.cuda.synchronize()
+                gate(read_counts() == expected[which],
+                     f"launches with the {which} kernels {read_counts()}")
+                times.append(start.elapsed_time(end) / 1e3)
+            return min(times)
+        return with_bodies(which, run)
+
+    turns = [(which, best_of_2(which))
+             for which in ("simt", "new", "new", "simt")]
+    print("[old-vs-new] bqrrp_factored 8192x8192 f32, best of 2, in turns: "
+          + ", ".join(f"{which} {t:.4f} s" for which, t in turns),
+          flush=True)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    facs = {}
+    # under the profiler, in turns again: a later profile in one process
+    # can run slower, so each version keeps its run with the shorter wall
+    for which in ("simt", "new", "new", "simt"):
+        (fac, _), wall, rows = with_bodies(which, lambda: device_profile(
+            lambda: bqrrp_factored(A, cfg, st)))
+        if which not in facs or wall < facs[which][1]:
+            facs[which] = (fac, wall, rows)
+    for which, (fac, wall, rows) in facs.items():
+        busy = sum(ms for _, ms, _ in rows)
+        gate(busy > 0, "the profiler saw no device time")
+        k1 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<true>" in key
+                 or "wy_tc_kernel<(bool)1>" in key or "add_parts" in key
+                 or "masked_vt_a_kernel" in key)
+        k2 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<false>" in key
+                 or "wy_tc_kernel<(bool)0>" in key
+                 or "a_minus_vz_masked_kernel" in key)
+        gate(k1 > 0 and k2 > 0, f"K1/K2 not found in the profile: "
+             f"{[key for key, _, _ in rows[:12]]}")
+        (out / f"bqrrp_profile_{which}.txt").write_text(
+            f"wall {wall:.4f} s, device {busy:.1f} ms, "
+            f"{sum(c for *_, c in rows)} launches\n" + "\n".join(
+                f"{ms:10.3f} ms {cnt:7d}  {key}" for key, ms, cnt in rows))
+        _, res, orth = quality(A, fac)
+        print(f"[old-vs-new] {which} under the profiler (the shorter of 2): "
+              f"wall {wall:.4f} s, card busy {busy:.1f} ms "
+              f"({100 * busy / 1e3 / wall:.1f} %, idle "
+              f"{100 - 100 * busy / 1e3 / wall:.1f} %) in "
+              f"{sum(c for *_, c in rows)} launches, K1 {k1:.1f} ms, K2 "
+              f"{k2:.1f} ms; residual {res:.3e}, orth {orth:.3e}, fail "
+              f"{bool(fac.fail)}; top: " + "; ".join(
+                  f"{key[:48]} {ms:.1f} ms/{cnt}"
+                  for key, ms, cnt in rows[:10]), flush=True)
+        gate(res <= RES_GATE and orth <= ORTH_GATE and not bool(fac.fail),
+             f"quality with the {which} kernels")
+    fs, fn = facs["simt"][0], facs["new"][0]
+    same = torch.equal(fs.J, fn.J)
+    dR = float((fs.R - fn.R).abs().max() / fn.R.abs().max())
+    print(f"[old-vs-new] J equal between the two: {same}; rel max|dR| "
+          f"{dR:.3e}", flush=True)
 
 
 def phase_remainder(dev) -> None:
@@ -751,7 +966,6 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
     share of that). Last, what the two alternatives to the configuration
     give: PCG with the Gram/eigh route's preconditioner, and the residual
     trace of an RPCholesky factor of twice the rank."""
-    from torch.profiler import ProfilerActivity, profile
     from randlapack_tpu_torch import RNGState
     from randlapack_tpu_torch.comps import (PCGConfig, RPCholConfig, pcg,
                                             rp_cholesky)
@@ -778,12 +992,7 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
     cfg = PCGConfig(tol=1e-5, max_iters=max_iters)
     X0 = torch.zeros_like(H)
     (_, _, iters), t_pcg = timed(lambda: pcg(G, H, P, X0, cfg))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, t_prof = timed(lambda: pcg(G, H, P, X0, cfg))
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in
-            prof.key_averages() if e.device_type.name == "CUDA"
-            and e.self_device_time_total > 0]
+    _, t_prof, rows = device_profile(lambda: pcg(G, H, P, X0, cfg))
     busy = sum(ms for _, ms, _ in rows)
     k4 = sum(ms for key, ms, _ in rows if "kernel_matmat" in key)
     gate(busy > 0, f"{tag}: the profiler saw no device time")
@@ -939,25 +1148,13 @@ def phase_profile(dev) -> None:
     kernel name, the kernel count and the device's busy share of the
     wall time. The full table goes to chiprun_out/hqrrp_profile.txt."""
     from pathlib import Path
-    from torch.profiler import ProfilerActivity, profile
     from randlapack_tpu_torch import RNGState
     from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp_lapack_format
     from randlapack_tpu_torch.gen import fast_decay_matrix
     cfg = HQRRPConfig(block_size=128, update_defer=4)
     A, st = fast_decay_matrix(N, N, RNGState(7), device=dev)
     hqrrp_lapack_format(A, cfg, st)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        hqrrp_lapack_format(A, cfg, st)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side rows (kernels, memcpy/memset) carry the device time
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type.name == "CUDA"
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    _, wall, rows = device_profile(lambda: hqrrp_lapack_format(A, cfg, st))
     dev_ms = sum(r[1] for r in rows)
     n_kernels = sum(r[2] for r in rows)
     out = Path("chiprun_out")
@@ -986,6 +1183,7 @@ def main() -> int:
     phase_build()
     timed = phase_kernels(dev)
     counts = {"bqrrp": phase_main(dev, f"{smi}")}
+    phase_old_vs_new(dev)
     phase_remainder(dev)
     phase_small_vs_plain(dev)
     counts["hqrrp"] = phase_hqrrp(dev, f"{smi}")

@@ -28,12 +28,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _D, _U = ctypes.c_double, ctypes.c_uint
+_WY_SIMT = [_P, _P, _P, _P, _I, _I, _I, _P]
 # C entry points: name -> argtypes (every pointer and the stream as void*)
+# of its _f32 and _f64 forms, or a dict suffix -> argtypes where the two
+# differ or one is missing
 _SIGNATURES = {
-    # (V, A, mask, W, m, b, w, stream)
-    "rl_masked_vt_a": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # (A, V, Z, mask, m, k, w, stream)
-    "rl_a_minus_vz_masked": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # f32, tensor cores: (V, A, mask, W, part, m, b, w, splits, chunk, stream)
+    # f64, SIMT: (V, A, mask, W, m, b, w, stream)
+    "rl_masked_vt_a": {"_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                       "_f64": _WY_SIMT},
+    # f32, tensor cores: (A, V, Z, mask, m, k, w, chunk, stream)
+    # f64, SIMT: (A, V, Z, mask, m, k, w, stream)
+    "rl_a_minus_vz_masked": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                             "_f64": _WY_SIMT},
+    # the f32 SIMT kernels, with the f64 forms' arguments
+    "rl_masked_vt_a_simt": {"_f32": _WY_SIMT},
+    "rl_a_minus_vz_masked_simt": {"_f32": _WY_SIMT},
     # (M, F, s, k, stream)
     "rl_getrfnp": [_P, _P, _P, _I, _P],
     # (Y, live, chosen, work, d, n, nsteps, force_global, stream)
@@ -121,8 +131,10 @@ def lib() -> dict:
     if _fns is None:
         libs = [ctypes.CDLL(str(path)) for path in build()]
         fns = {}
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+        for name, sig in _SIGNATURES.items():
+            if not isinstance(sig, dict):
+                sig = {"_f32": sig, "_f64": sig}
+            for suffix, argtypes in sig.items():
                 found = [getattr(so, name + suffix) for so in libs
                          if hasattr(so, name + suffix)]
                 if len(found) != 1:

@@ -8,7 +8,11 @@ card has no JAX), so it runs there without the repo's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: fp32 sums of up to 8192 terms in another order than cuBLAS's
-stay within 1e-4 of the largest entry; f64 within 1e-12. The QRCP
+stay within 1e-4 of the largest entry; f64 within 1e-12. The f32 K1/K2
+kernels (three TF32 products per fp32 product on the tensor cores) are
+also held to fp32 accuracy against the f64 product: a relative Frobenius
+error of at most 4x that of ``torch.mm``/``torch.addmm`` in fp32 on the
+same operands. The QRCP
 kernels (K5, K6) must give exactly the plain version's pivots on inputs
 whose column norms are spread out (exp(-3·U) column scaling, as the JAX
 kernel test uses); their factors agree within 1e-4 (f32) / 1e-10 (f64)
@@ -53,6 +57,17 @@ def _orthonormal(k, seed):
     return np.linalg.qr(rng.standard_normal((k, k)))[0]
 
 
+def _relf(x, ref):
+    return float(torch.linalg.norm(x.double() - ref)
+                 / torch.linalg.norm(ref))
+
+
+def _f64_gate(lib_err):
+    """4x the library's fp32 error against f64, or 4 units of fp32
+    roundoff where the library happens to be exact (a sum of one term)."""
+    return 4 * max(lib_err, 2.0 ** -24)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,w,k", [(64, 64, 64), (3000, 1900, 200),
@@ -62,27 +77,162 @@ def test_wy_kernels_match_plain(cuda, dtype, m, w, k):
                      for x in _wy_operands(m, w, k, m + w))
     tol = 1e-4 if dtype == torch.float32 else 1e-12
     n0 = dict(twy.LAUNCHES)
+    # f32 with row lengths in multiples of 4 runs on the tensor cores,
+    # everything else on the SIMT kernels
+    simt = int(dtype == torch.float32 and (w % 4 != 0 or k % 4 != 0))
+    assert twy.takes_tensor_cores(V, A, Z, mask) \
+        == (dtype == torch.float32 and not simt)
     W = twy.masked_vt_a(V, A, mask)
     Wp = twy.masked_vt_a_reference(V, A, mask)
     assert float((W - Wp).abs().max()) <= tol * float(Wp.abs().max())
+    assert torch.equal(W, twy.masked_vt_a(V, A, mask))
     Ap = twy.a_minus_vz_masked_reference(A, V, Z, mask)
+    A0 = A.clone()
     out = twy.a_minus_vz_masked(A, V, Z, mask)
     torch.cuda.synchronize()
     assert out is A
     assert float((A - Ap).abs().max()) <= tol * float(Ap.abs().max())
-    assert twy.LAUNCHES["masked_vt_a"] == n0["masked_vt_a"] + 1
-    assert twy.LAUNCHES["a_minus_vz_masked"] == n0["a_minus_vz_masked"] + 1
+    assert torch.equal(A, twy.a_minus_vz_masked(A0.clone(), V, Z, mask))
+    assert twy.LAUNCHES["masked_vt_a"] == n0["masked_vt_a"] + 2
+    assert twy.LAUNCHES["a_minus_vz_masked"] == n0["a_minus_vz_masked"] + 2
+    assert twy.LAUNCHES["masked_vt_a_simt"] \
+        == n0["masked_vt_a_simt"] + 2 * simt
+    assert twy.LAUNCHES["a_minus_vz_masked_simt"] \
+        == n0["a_minus_vz_masked_simt"] + 2 * simt
+    if dtype == torch.float32:
+        # against the f64 products: within 4x the error of the library's
+        # fp32 calls on the same operands, and as close to the plain
+        # three-product emulation
+        Vd, A0d, Zd, md = (t.double() for t in (V, A0, Z, mask))
+        ref1 = Vd.T @ (A0d * md)
+        lib1 = _relf(torch.mm(V.T, A0 * mask), ref1)
+        assert _relf(W, ref1) <= _f64_gate(lib1)
+        assert _relf(W, twy.masked_vt_a_split_reference(
+            V, A0, mask).double()) <= _f64_gate(lib1)
+        ref2 = A0d - (Vd @ Zd) * md
+        lib2 = _relf(torch.addmm(A0, V, Z * mask, alpha=-1.0), ref2)
+        assert _relf(A, ref2) <= _f64_gate(lib2)
+        assert _relf(A, twy.a_minus_vz_masked_split_reference(
+            A0, V, Z, mask).double()) <= _f64_gate(lib2)
 
 
 @pytest.mark.cuda
-def test_masked_vt_a_kernel_multiplies_the_mask(cuda):
-    V, A, _, mask = (torch.tensor(x, device=cuda)
-                     for x in _wy_operands(70, 90, 5, 1))
+@pytest.mark.parametrize("m,b,w", [(8192, 256, 4096), (65536, 256, 2048),
+                                   (8192, 256, 256), (1000, 132, 260)])
+def test_masked_vt_a_holds_fp32_accuracy_over_long_reductions(cuda, m, b, w):
+    """The tensor cores' truncating accumulation must not show: against
+    f64, within 4x the error of torch.mm in fp32, with the reduction split
+    over blocks or not; an unchunked accumulation (chunk 0) is far worse."""
+    g = torch.Generator(device=cuda).manual_seed(m + w)
+    V = torch.randn((m, b), generator=g, device=cuda)
+    A = torch.randn((m, w), generator=g, device=cuda)
+    mask = (torch.rand(w, generator=g, device=cuda) < 0.5).float()
+    ref = V.double().T @ (A.double() * mask.double())
+    lib = _relf(torch.mm(V.T, A * mask), ref)
+    W = twy.masked_vt_a(V, A, mask)
+    assert _relf(W, ref) <= _f64_gate(lib)
+    assert torch.equal(W, twy.masked_vt_a(V, A, mask))
+    if m >= 8192:
+        assert _relf(twy.masked_vt_a(V, A, mask, chunk=0), ref) \
+            > 4 * _relf(W, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,w", [(4096, 1024, 4096), (1024, 8192, 1024),
+                                   (300, 36, 516)])
+def test_a_minus_vz_masked_holds_fp32_accuracy(cuda, m, k, w):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    A = torch.randn((m, w), generator=g, device=cuda)
+    V = torch.randn((m, k), generator=g, device=cuda)
+    Z = torch.randn((k, w), generator=g, device=cuda)
+    mask = (torch.rand(w, generator=g, device=cuda) < 0.5).float()
+    ref = A.double() - (V.double() @ Z.double()) * mask.double()
+    lib = _relf(torch.addmm(A, V, Z * mask, alpha=-1.0), ref)
+    out = twy.a_minus_vz_masked(A.clone(), V, Z, mask)
+    assert _relf(out, ref) <= _f64_gate(lib)
+    assert torch.equal(out, twy.a_minus_vz_masked(A.clone(), V, Z, mask))
+
+
+@pytest.mark.cuda
+def test_wy_simt_wrappers_count_on_their_own(cuda):
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(200, 132, 40, 9))
+    n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a_simt(V, A, mask)
+    Wp = twy.masked_vt_a_reference(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-4 * float(Wp.abs().max())
+    Ap = twy.a_minus_vz_masked_reference(A, V, Z, mask)
+    assert twy.a_minus_vz_masked_simt(A, V, Z, mask) is A
+    assert float((A - Ap).abs().max()) <= 1e-4 * float(Ap.abs().max())
+    assert twy.LAUNCHES == {**n0,
+                            "masked_vt_a_simt": n0["masked_vt_a_simt"] + 1,
+                            "a_minus_vz_masked_simt":
+                            n0["a_minus_vz_masked_simt"] + 1}
+
+
+@pytest.mark.cuda
+def test_wy_kernels_take_misaligned_views_on_the_guarded_path(cuda):
+    """A contiguous view that starts 4 bytes into its storage cannot be
+    read by 16-byte copies: the wrappers send it to the SIMT kernels."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(96, 64, 32, 11))
+    Av = torch.empty(96 * 64 + 1, device=cuda)[1:].view(96, 64).copy_(A)
+    assert Av.is_contiguous() and not twy.takes_tensor_cores(Av)
+    n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a(V, Av, mask)
+    Wp = twy.masked_vt_a_reference(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-4 * float(Wp.abs().max())
+    Ap = twy.a_minus_vz_masked_reference(A, V, Z, mask)
+    twy.a_minus_vz_masked(Av, V, Z, mask)
+    assert float((Av - Ap).abs().max()) <= 1e-4 * float(Ap.abs().max())
+    assert twy.LAUNCHES["masked_vt_a_simt"] == n0["masked_vt_a_simt"] + 1
+    assert twy.LAUNCHES["a_minus_vz_masked_simt"] \
+        == n0["a_minus_vz_masked_simt"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w", [(torch.float64, 90), (torch.float32, 90),
+                                     (torch.float32, 92)])
+def test_masked_vt_a_kernel_multiplies_the_mask(cuda, dtype, w):
+    """NaN under mask 0 gives NaN (A·mask, not a skip), on the SIMT
+    kernels (f64; f32 at w = 90) and on the tensor cores (f32 at w = 92)."""
+    V, A, _, mask = (torch.tensor(x, dtype=dtype, device=cuda)
+                     for x in _wy_operands(70, w, 8, 1))
+    assert twy.takes_tensor_cores(V, A) == (dtype == torch.float32
+                                            and w == 92)
     A[3, int(torch.nonzero(mask == 0)[0])] = float("nan")
     W = twy.masked_vt_a(V, A, mask)
     assert torch.equal(torch.isnan(W),
                        torch.isnan(twy.masked_vt_a_reference(V, A, mask)))
     assert torch.isnan(W).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+def test_wy_kernels_keep_the_non_finite_pattern(cuda, bad):
+    """On the tensor cores an Inf may come out NaN, but the
+    finite/non-finite pattern is the plain version's."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(72, 92, 8, 1))
+    live = int(torch.nonzero(mask == 1)[0])
+    dead = int(torch.nonzero(mask == 0)[0])
+    A1 = A.clone()
+    A1[3, live] = bad
+    A1[7, dead] = bad
+    V1 = V.clone()
+    V1[9, 2] = bad
+    assert twy.takes_tensor_cores(V1, A1, Z, mask)
+    W = twy.masked_vt_a(V1, A1, mask)
+    Wp = twy.masked_vt_a_reference(V1, A1, mask)
+    assert torch.equal(torch.isfinite(W), torch.isfinite(Wp))
+    assert not bool(torch.isfinite(W).all())
+    Z1 = Z.clone()
+    Z1[2, live] = bad
+    Z1[4, dead] = bad
+    Up = twy.a_minus_vz_masked_reference(A, V, Z1, mask)
+    U = twy.a_minus_vz_masked(A.clone(), V, Z1, mask)
+    assert torch.equal(torch.isfinite(U), torch.isfinite(Up))
+    assert not bool(torch.isfinite(U).all())
 
 
 @pytest.mark.cuda
@@ -119,7 +269,9 @@ def test_cuda_path_goes_through_the_kernels(cuda):
                            rt.RNGState(2), sketch=S.to(cuda))
     torch.cuda.synchronize()
     # 5 blocks, update groups of 2 + 2 + 1
-    assert twy.LAUNCHES == {"masked_vt_a": 5, "a_minus_vz_masked": 3}
+    assert twy.LAUNCHES == {"masked_vt_a": 5, "a_minus_vz_masked": 3,
+                            "masked_vt_a_simt": 0,
+                            "a_minus_vz_masked_simt": 0}
     assert tlu.LAUNCHES == {"getrfnp": 5}
     fc, _ = bqrrp_factored(torch.tensor(A), BQRRPConfig(**kw),
                            rt.RNGState(2), sketch=S)
@@ -211,7 +363,7 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
     torch.cuda.synchronize()
     assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
                               "qrcp_panel": nblocks}
-    assert twy.LAUNCHES == {"masked_vt_a": 0, "a_minus_vz_masked": 0}
+    assert not any(twy.LAUNCHES.values())
     assert tlu.LAUNCHES == {"getrfnp": 0}
     Qc, Rc, Jc, _, fc, _ = hqrrp(torch.tensor(A), cfg, rt.RNGState(2),
                                  sketch=G)
