@@ -26,7 +26,9 @@ matrices, KRILL and the fused Gaussian sketch:
   of PCG's wall time the card is busy, both SVD routes timed on the
   factor and a small f64 card-vs-CPU parity run;
 - the Gaussian sketch: ops.gaussian_sketch of a 131072×2048 matrix to
-  2560 rows (CQRRPT's sketch size d = 1.25·n).
+  2560 rows (CQRRPT's sketch size d = 1.25·n);
+- the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
+  at their earlier SIMT kernels and at the tensor-core ones, in turns.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and is checked against the JAX test gates at f32 (residual,
@@ -56,7 +58,8 @@ ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
 NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
-     "qrcp_panel", "kernel_matmat", "gaussian_sketch"), 0)
+     "qrcp_panel", "kernel_matmat", "gaussian_sketch",
+     "kernel_matmat_simt", "gaussian_sketch_simt"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -85,9 +88,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
 # on them, and HBM3
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_FP64 = 34e12          # outside the tensor cores (NVIDIA's data sheet)
+PEAK_FP64_TENSOR = 67e12   # FP64 matrix products on them (the same sheet)
 PEAK_BYTES = 3.35e12
-# an f32 K1/K2 result may be this many times further from the f64 product
-# (relative Frobenius error) than the library's fp32 product is
+# an f32 tensor-core result may be this many times further from the f64
+# result (relative Frobenius error) than the library's fp32 product (K1,
+# K2, K7) or the SIMT kernel (K4) is
 F64_ERR_FACTOR = 4.0
 SFU_PER_SM_CLOCK = 16      # special-function results per SM and clock (9.0)
 
@@ -122,6 +128,20 @@ def in_turns(old, new, reps: int) -> tuple:
     new, old within this one call; the mean of each pair."""
     t = [cuda_ms(fn, reps) for fn in (old, new, new, old)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds to launch one ``fn()``: the clock around ``reps``
+    calls with no synchronize between them (the card's queue is never
+    full at the sizes this is used for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def device_profile(fn):
@@ -170,29 +190,36 @@ def sfu_rate() -> float:
 
 
 def bound(flops: float, nbytes: float, special: float = 0.0,
-          tensor: bool = False) -> dict:
+          tensor: bool = False, product_flops: float = 0.0,
+          f64: bool = False) -> dict:
     """The least time the card could take: the largest of the operations
-    over the fp32 peak, the special-function operations (exp) over the
-    card's rate for them, and the bytes over the memory rate. With
-    ``tensor`` (a plain matrix product, which three TF32 products on the
-    tensor cores compute to fp32 accuracy) the operations take the lesser
-    of flops over the fp32 peak and 3·flops over the TF32 peak: the least
-    time of any route that keeps fp32 accuracy."""
-    t_flops = flops / PEAK_FP32
+    over the peak of their type (fp32, or fp64 with ``f64``), the
+    special-function operations (exp) over the card's rate for them, and
+    the bytes over the memory rate. With ``tensor`` (a plain matrix
+    product) the operations take the lesser of flops over that peak and
+    their time on the tensor cores: three TF32 products in fp32, which
+    compute it to fp32 accuracy, or one FP64 product. That is the least
+    time of any route that keeps the accuracy. ``product_flops`` are the
+    flops of a matrix product inside a function that also does other work
+    (K4's cross term): they are counted that way and added to the time of
+    ``flops``."""
+    peak = PEAK_FP64 if f64 else PEAK_FP32
+    tensor_peak = PEAK_FP64_TENSOR if f64 else PEAK_TF32 / 3
+    t_flops = flops / peak
     if tensor:
-        t_flops = min(t_flops, 3 * flops / PEAK_TF32)
+        t_flops = min(t_flops, flops / tensor_peak)
+    t_flops += min(product_flops / peak, product_flops / tensor_peak)
     t_ops = max(t_flops, special / sfu_rate() if special else 0.0)
     t_bytes = nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_matmat_work(d, n, s, esize):
-    """K4's operations and bytes: per kernel entry 2d for the cross term,
-    6 for norms, clamp, scale and sign, 2s for the product with V, and
-    one exponential; X, V and out cross the memory interface once."""
-    return dict(flops=n * n * (2 * d + 2 * s + 6), special=n * n,
-                nbytes=(d * n + 2 * n * s) * esize)
+def earlier_kernel_matmat_bound(work: dict) -> dict:
+    """K4's bound as it was counted before the cross term moved to the
+    tensor cores: all of its flops on FFMA."""
+    return bound(work["flops"] + work["product_flops"], work["nbytes"],
+                 work["special"])
 
 
 def select_pivots_work(Y, nsteps, live):
@@ -451,51 +478,138 @@ def phase_kernels(dev) -> dict:
         print(f"[kernel] qrcp_panel m={m} b={b} row0={r0}: sigma equal, "
               f"max|dW| {err:.3e} (max|plain| {float(Wp.abs().max()):.3e}),"
               f" max|dtau| {terr:.3e}", flush=True)
-    # K4 kernel_matmat: KRILL's operator product at its three shapes and a
-    # ragged case with d > 16 (two chunks of d), against the plain blocked
-    # version; the n 65536, s 1 case is the full-size run's and is timed
+    # K4 kernel_matmat: KRILL's operator product at its three shapes, a
+    # ragged case at d 17 (two k-steps) and one at d 70, which is past the
+    # tensor-core kernel's 32 coordinates and takes the SIMT kernel.
+    # Against the plain blocked version, and against the same in f64, where
+    # the tensor-core kernel may err at most F64_ERR_FACTOR times as much as
+    # the SIMT kernel; the n 65536, s 1 case is the full-size run's and is
+    # timed, SIMT and new in turns
     bw = 3.8                     # about the median-heuristic value at d 8
     for d, n, s_, timed in ((8, KRILL_N, 1, True), (8, 8192, 4, False),
-                            (8, 8192, 1, False), (70, 1000, 5, False)):
+                            (8, 8192, 1, False), (17, 1000, 5, False),
+                            (70, 1000, 5, False)):
         X, V = randn(d, n), randn(n, s_)
         bw_ = bw * math.sqrt(d / 8)
+        before = dict(kernels.LAUNCHES)
         Ko = kernels.kernel_matmat(X, V, bw_)
+        gate(kernels.LAUNCHES["kernel_matmat_simt"]
+             - before["kernel_matmat_simt"] == int(d > 32),
+             f"kernel_matmat d={d}: wrong body")
         Kp = kernels.kernel_matmat_reference(X, V, bw_, block=2048)
         err = float((Ko - Kp).abs().max())
         gate(err <= 1e-4 * float(Kp.abs().max()),
              f"kernel_matmat d={d} n={n} s={s_}: max|d| {err}")
         gate(torch.equal(Ko, kernels.kernel_matmat(X, V, bw_)),
              f"kernel_matmat d={d} n={n} s={s_}: two launches differ")
-        ms = cuda_ms(lambda: kernels.kernel_matmat(X, V, bw_), 10)
-        bnd = bound(**kernel_matmat_work(d, n, s_, 4))
+        ref = kernels.kernel_matmat_reference(X.double(), V.double(), bw_,
+                                              block=2048)
+        e_new, e_plain = relf(Ko, ref), relf(Kp, ref)
+        e_simt = relf(kernels.kernel_matmat_simt(X, V, bw_), ref)
+        e_emul = relf(Ko, kernels.kernel_matmat_split_reference(
+            X, V, bw_, block=2048).double())
+        gate(e_new <= F64_ERR_FACTOR * e_simt,
+             f"kernel_matmat d={d} n={n} s={s_}: error against f64 {e_new}, "
+             f"the SIMT kernel's {e_simt}")
+        # the small shapes take 100 launches a turn: with fewer the host,
+        # which launches a call in about 40 us, sets the time and not the card
+        ms_simt, ms = in_turns(lambda: kernels.kernel_matmat_simt(X, V, bw_),
+                               lambda: kernels.kernel_matmat(X, V, bw_),
+                               10 if timed else 100)
+        work = kernels.kernel_matmat_work(d, n, s_)
+        bnd, old_bnd = bound(**work), earlier_kernel_matmat_bound(work)
         if timed:
+            Xd, Vd = X.double(), V.double()
+            ms64 = cuda_ms(lambda: kernels.kernel_matmat(Xd, Vd, bw_), 3)
+            bnd64 = bound(**kernels.kernel_matmat_work(d, n, s_, 8),
+                          f64=True)
             out["kernel_matmat"] = dict(
                 max_abs_err=err, ms=ms,
                 plain_ms=cuda_ms(lambda: kernels.kernel_matmat_reference(
                     X, V, bw_, block=2048), 2, warmup=1),
-                **bnd, library_ms=None)
+                **bnd, library_ms=None, simt_ms=ms_simt,
+                earlier_bound_ms=old_bnd["bound_ms"], err_vs_f64=e_new,
+                simt_err_vs_f64=e_simt, plain_err_vs_f64=e_plain,
+                f64_ms=ms64, f64_bound_ms=bnd64["bound_ms"])
+            print(f"[kernel] kernel_matmat f64 d={d} n={n} s={s_} (the SIMT "
+                  f"kernel): {ms64:.4f} ms, bound {bnd64['bound_ms']:.4f} ms"
+                  f" ({bnd64['bound_by']}: the cross term's 2d n^2 flops at "
+                  f"{PEAK_FP64_TENSOR / 1e12:.0f} TFLOP/s, the tensor cores' "
+                  f"FP64 peak, and (2s + 6) n^2 at {PEAK_FP64 / 1e12:.0f} "
+                  f"TFLOP/s)", flush=True)
+            del Xd, Vd
+            # the sum over j in 1 to 16 parts: the blocks of the last wave
+            split_of = kernels.kernel_matmat_splits
+            try:
+                sweep = []
+                for z in (1, 2, 4, 8, 16):
+                    kernels.kernel_matmat_splits = lambda n, s, z=z: z
+                    sweep.append((z, cuda_ms(lambda: kernels.kernel_matmat(
+                        X, V, bw_), 10)))
+            finally:
+                kernels.kernel_matmat_splits = split_of
+            print(f"[kernel-splits] kernel_matmat d={d} n={n} s={s_}, parts "
+                  f"of the sum over j ({-(-n // 256)} blocks each): ms: "
+                  + "; ".join(f"{z}: {t:.4f}" for z, t in sweep)
+                  + f" (launched: {split_of(n, s_)})", flush=True)
+        else:
+            us = host_us(lambda: kernels.kernel_matmat(X, V, bw_))
+            us_simt = host_us(lambda: kernels.kernel_matmat_simt(X, V, bw_))
+            print(f"[kernel-host] kernel_matmat d={d} n={n} s={s_}: the host "
+                  f"launches a call in {us:.1f} us, one of the SIMT kernel in "
+                  f"{us_simt:.1f} us", flush=True)
         print(f"[kernel] kernel_matmat d={d} n={n} s={s_} ("
               f"{kernels.kernel_matmat_splits(n, s_)} splits of j): max|d| "
-              f"{err:.3e} (max|plain| {float(Kp.abs().max()):.3e}), "
-              f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms", flush=True)
+              f"{err:.3e} (max|plain| {float(Kp.abs().max()):.3e}); relative "
+              f"error against f64: kernel {e_new:.3e}, SIMT {e_simt:.3e}, "
+              f"plain f32 {e_plain:.3e}; kernel against the split emulation "
+              f"{e_emul:.3e}; two launches bit-equal; kernel {ms:.4f} ms, "
+              f"SIMT {ms_simt:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; earlier count {old_bnd['bound_ms']:.4f} "
+              f"ms)", flush=True)
+    # K4's diagonal: K(X, X)·I has K_ii = 1, and K is symmetric
+    X = randn(8, 1024)
+    Kd = kernels.kernel_matmat(X, torch.eye(1024, device=dev), bw)
+    derr = float((Kd.diagonal() - 1).abs().max())
+    gate(derr <= 1e-6, f"kernel_matmat: max|K_ii - 1| {derr}")
+    print(f"[kernel] kernel_matmat of I (1024): max|K_ii - 1| {derr:.3e}, "
+          f"max|K - K^T| {float((Kd - Kd.T).abs().max()):.3e}", flush=True)
     # K7 gaussian_sketch: CQRRPT's sketch (d = 1.25 n) of a 131072x2048
     # matrix (timed) and BQRRP's of an 8192x8192 one, against the plain
-    # version (the same S, stored); the library pair is randn/sqrt(d) and
-    # mm: two calls and a stored S of d*m*4 bytes
+    # version (the same S, stored) and against the same product in f64,
+    # where the kernel may err at most F64_ERR_FACTOR times as much as
+    # torch.mm in fp32 on the stored S; the library pair is randn/sqrt(d)
+    # and mm: two calls and a stored S of d*m*4 bytes
     for m, n, d, timed in ((SKETCH_M, SKETCH_N, SKETCH_D, True),
                            (N, N, 320, False), (1000, 300, 13, False)):
         A = randn(m, n)
+        gate(wy.takes_tensor_cores(A), "K7 operand off the tensor cores")
         So = kernels.gaussian_sketch_cuda(A, d, 11)
-        Sp = kernels.gaussian_sketch_reference(A, d, 11)
+        S = kernels.gaussian_sketch_matrix(d, m, 11, f32, dev)
+        Sp = S @ A
         err = float((So - Sp).abs().max())
         gate(err <= 1e-4 * float(Sp.abs().max()),
              f"gaussian_sketch {m}x{n} d={d}: max|d| {err}")
         gate(torch.equal(So, kernels.gaussian_sketch_cuda(A, d, 11)),
              f"gaussian_sketch {m}x{n} d={d}: two launches differ")
-        del So, Sp
-        ms = cuda_ms(lambda: kernels.gaussian_sketch_cuda(A, d, 11), 3,
-                     warmup=1)
-        bnd = bound(2 * d * m * n, 4 * (m * n + d * n))
+        ref = S.double() @ A.double()
+        e_new, e_lib = relf(So, ref), relf(Sp, ref)
+        e_simt = relf(kernels.gaussian_sketch_simt(A, d, 11), ref)
+        e_emul = relf(So, wy._three_products(S, A).double())
+        gate(e_new <= F64_ERR_FACTOR * e_lib,
+             f"gaussian_sketch {m}x{n} d={d}: error against f64 {e_new}, "
+             f"torch.mm's {e_lib}")
+        sweep = ([(c, relf(kernels.gaussian_sketch_cuda(A, d, 11, chunk=c),
+                           ref),
+                   cuda_ms(lambda: kernels.gaussian_sketch_cuda(
+                       A, d, 11, chunk=c), 2, warmup=1))
+                  for c in (1, 2, 4, 16, 0)] if timed else [])
+        del So, Sp, S, ref
+        ms_simt, ms = in_turns(
+            lambda: kernels.gaussian_sketch_simt(A, d, 11),
+            lambda: kernels.gaussian_sketch_cuda(A, d, 11), 3)
+        bnd = bound(2 * d * m * n, 4 * (m * n + d * n), tensor=True)
+        old_bnd = bound(2 * d * m * n, 4 * (m * n + d * n))
 
         def library():
             return torch.mm(torch.randn((d, m), generator=g, device=dev)
@@ -508,18 +622,33 @@ def phase_kernels(dev) -> dict:
                     A, d, 11), 1, warmup=0),
                 **bnd, library_ms=lib_ms,
                 library_call="torch.randn((d, m))/sqrt(d) then torch.mm: "
-                "two calls and S stored, another stream")
+                "two calls and S stored, another stream",
+                simt_ms=ms_simt, earlier_bound_ms=old_bnd["bound_ms"],
+                err_vs_f64=e_new, simt_err_vs_f64=e_simt,
+                library_err_vs_f64=e_lib)
+            print(f"[kernel-chunk] gaussian_sketch m={m} n={n} d={d}, stages"
+                  f" of 32 per chunk (0: one chunk): error against f64, ms: "
+                  + "; ".join(f"{c}: {e:.3e}, {t:.4f}" for c, e, t in sweep)
+                  + f" (default {wy.CHUNK})", flush=True)
         print(f"[kernel] gaussian_sketch m={m} n={n} d={d}: max|d| {err:.3e}"
-              f", {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms, randn+mm "
-              f"{lib_ms:.4f} ms", flush=True)
+              f"; relative error against f64: kernel {e_new:.3e}, SIMT "
+              f"{e_simt:.3e}, torch.mm fp32 on the stored S {e_lib:.3e}; "
+              f"kernel against the three-product emulation {e_emul:.3e}; two"
+              f" launches bit-equal; kernel {ms:.4f} ms, SIMT {ms_simt:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms (by FFMA "
+              f"{old_bnd['bound_ms']:.4f} ms), randn+mm {lib_ms:.4f} ms",
+              flush=True)
         del A
-    # K7 on the identity: out is S itself
-    Si = kernels.gaussian_sketch_cuda(torch.eye(512, device=dev), 512, 5)
-    err = float((Si - kernels.gaussian_sketch_matrix(512, 512, 5, f32, dev)
-                 ).abs().max())
-    gate(err <= 1e-6, f"gaussian_sketch of I: max|dS| {err}")
+    # K7 on the identity: out is S itself, from either kernel
+    S5 = kernels.gaussian_sketch_matrix(512, 512, 5, f32, dev)
+    eye = torch.eye(512, device=dev)
+    err = float((kernels.gaussian_sketch_cuda(eye, 512, 5) - S5).abs().max())
+    err_simt = float((kernels.gaussian_sketch_simt(eye, 512, 5) - S5
+                      ).abs().max())
+    gate(err <= 1e-6 and err_simt <= 1e-6,
+         f"gaussian_sketch of I: max|dS| {err}, SIMT {err_simt}")
     print(f"[kernel] gaussian_sketch of I (512): max|dS| {err:.3e} against "
-          f"the plain S", flush=True)
+          f"the plain S (SIMT kernel {err_simt:.3e})", flush=True)
     for name, rec in out.items():
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms']:.3f} ms "
@@ -651,9 +780,8 @@ def phase_old_vs_new(dev) -> None:
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     facs = {}
-    # under the profiler, in turns again: a later profile in one process
-    # can run slower, so each version keeps its run with the shorter wall
-    for which in ("simt", "new", "new", "simt"):
+    # under the profiler, once each
+    for which in ("simt", "new"):
         (fac, _), wall, rows = with_bodies(which, lambda: device_profile(
             lambda: bqrrp_factored(A, cfg, st)))
         if which not in facs or wall < facs[which][1]:
@@ -674,7 +802,7 @@ def phase_old_vs_new(dev) -> None:
             f"{sum(c for *_, c in rows)} launches\n" + "\n".join(
                 f"{ms:10.3f} ms {cnt:7d}  {key}" for key, ms, cnt in rows))
         _, res, orth = quality(A, fac)
-        print(f"[old-vs-new] {which} under the profiler (the shorter of 2): "
+        print(f"[old-vs-new] {which} under the profiler: "
               f"wall {wall:.4f} s, card busy {busy:.1f} ms "
               f"({100 * busy / 1e3 / wall:.1f} %, idle "
               f"{100 - 100 * busy / 1e3 / wall:.1f} %) in "
@@ -994,7 +1122,9 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
     (_, _, iters), t_pcg = timed(lambda: pcg(G, H, P, X0, cfg))
     _, t_prof, rows = device_profile(lambda: pcg(G, H, P, X0, cfg))
     busy = sum(ms for _, ms, _ in rows)
-    k4 = sum(ms for key, ms, _ in rows if "kernel_matmat" in key)
+    pack = sum(ms for key, ms, _ in rows if "pack_kernel" in key)
+    k4 = pack + sum(ms for key, ms, _ in rows if "kernel_matmat" in key
+                    or "add_splits" in key)
     gate(busy > 0, f"{tag}: the profiler saw no device time")
     print(f"[{tag}] rp_cholesky {t_chol:.4f} s; svd_econ of F "
           f"{tuple(F.shape)}: torch.linalg.svd {t_xla:.4f} s (|UtU-I|_F "
@@ -1006,7 +1136,9 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
           f"launches, the card busy {busy:.2f} ms "
           f"({100 * busy / 1e3 / t_prof:.1f} %, idle "
           f"{100 - 100 * busy / 1e3 / t_prof:.1f} %), K4 {k4:.2f} ms "
-          f"({100 * k4 / busy:.1f} % of busy)", flush=True)
+          f"({100 * k4 / busy:.1f} % of busy; its prologue, which scales, "
+          f"splits and packs X and V anew each launch, {pack:.3f} ms of "
+          f"that)", flush=True)
     _, hist_g, it_g = pcg(G, H, SpectralPrecond.prep(Ug, sig_g * sig_g, mus),
                           X0, cfg)
     F2, _, _ = rp_cholesky(G.with_reg(False), 2 * k,
@@ -1121,6 +1253,100 @@ def phase_sketch(dev) -> dict:
     return counts
 
 
+def krill_in_turns(dev, n, s, mus, k, reps) -> None:
+    """One KRILL problem solved with K4 pointed at its earlier SIMT kernel
+    and at the tensor-core one, in turns (old, new, new, old), the best of
+    ``reps`` solves each; every solve is gated on its launch counts (one
+    body only) and on convergence."""
+    from randlapack_tpu_torch import RNGState, pdkernels
+    from randlapack_tpu_torch.comps import PCGConfig
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    from randlapack_tpu_torch.ops import kernels
+    G, H = krill_problem(n, s, mus, dev)
+    cfg = KrillConfig(k=k, rpchol_block=64,
+                      pcg=PCGConfig(tol=1e-5, max_iters=200))
+    k4 = {"new": kernels.kernel_matmat, "simt": kernels.kernel_matmat_simt}
+
+    def solve(which):
+        best = None
+        for _ in range(reps):
+            try:
+                pdkernels.kernel_matmat = k4[which]
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                Xs, hist, iters, _ = krill_full_rpchol(G, H, mus, cfg,
+                                                       RNGState(6))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = read_counts()
+            finally:
+                pdkernels.kernel_matmat = k4["new"]
+            name = "kernel_matmat" + ("" if which == "new" else "_simt")
+            gate(counts == {**NO_LAUNCHES, name: iters + 1},
+                 f"KRILL with the {which} K4: launches {counts}")
+            final = float((hist[iters] / hist[0]).max())
+            gate(iters < 200 and final <= 1e-5,
+                 f"KRILL with the {which} K4: {iters} iterations, {final}")
+            best = secs if best is None else min(best, secs)
+        return best, iters, Xs
+
+    solve("new")                                           # warm-up
+    runs = [(which, *solve(which)) for which in ("simt", "new", "new", "simt")]
+    dX = float(torch.linalg.norm(runs[0][3] - runs[1][3])
+               / torch.linalg.norm(runs[0][3]))
+    print(f"[old-vs-new] krill_full_rpchol n={n} s={s} k={k} f32, K4 in "
+          f"turns, best of {reps}: "
+          + ", ".join(f"{which} {secs:.4f} s/{iters} iterations"
+                      for which, secs, iters, _ in runs)
+          + f"; relative difference of the two solutions {dX:.3e}",
+          flush=True)
+
+
+def phase_k4_k7_old_vs_new(dev) -> None:
+    """The KRILL solves (n 65536, and the host-paced n 8192 ones with one
+    and with four right-hand sides) and the 131072x2048 sketch through
+    their entry points with K4/K7 pointed at their earlier SIMT kernels
+    and at the tensor-core ones, in turns (old, new, new, old) within this
+    one call; every run is gated on its launch counts (one body only) and
+    on the path's own checks."""
+    from randlapack_tpu_torch import ops
+    from randlapack_tpu_torch.ops import kernels
+    krill_in_turns(dev, KRILL_N, 1, 1e-2, KRILL_K, 1)
+    krill_in_turns(dev, 8192, 1, 1e-2, 256, 3)
+    krill_in_turns(dev, 8192, 4, [1e-1, 1e-2, 1e-2, 1e-3], 512, 3)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    A = torch.randn((SKETCH_M, SKETCH_N), generator=g, device=dev)
+    k7 = {"new": kernels.gaussian_sketch_cuda,
+          "simt": kernels.gaussian_sketch_simt}
+
+    def sketch(which):
+        try:
+            kernels.gaussian_sketch_cuda = k7[which]
+            reset_counts()
+            out = ops.gaussian_sketch(A, SKETCH_D, 11)
+            counts = read_counts()
+            name = "gaussian_sketch" + ("" if which == "new" else "_simt")
+            gate(counts == {**NO_LAUNCHES, name: 1},
+                 f"sketch with the {which} K7: launches {counts}")
+            return out, cuda_ms(
+                lambda: ops.gaussian_sketch(A, SKETCH_D, 11), 3, warmup=0)
+        finally:
+            kernels.gaussian_sketch_cuda = k7["new"]
+
+    runs = [(which, *sketch(which)) for which in ("simt", "new", "new",
+                                                  "simt")]
+    dS = float(torch.linalg.norm(runs[0][1] - runs[1][1])
+               / torch.linalg.norm(runs[0][1]))
+    gate(dS <= 1e-5, f"the two K7 bodies differ by {dS}")
+    print(f"[old-vs-new] ops.gaussian_sketch {SKETCH_M}x{SKETCH_N} f32 to d="
+          f"{SKETCH_D}, K7 in turns: "
+          + ", ".join(f"{which} {ms:.4f} ms" for which, _, ms in runs)
+          + f"; relative difference of the two results {dS:.3e}", flush=True)
+
+
 def phase_kernel_anatomy(dev) -> None:
     """Where K5/K6's time goes: the same per-step work with fewer blocks
     (a 1-block grid has no cross-block barrier cost) or fewer barriers
@@ -1179,22 +1405,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
-    smi = phase_env()
-    phase_build()
-    timed = phase_kernels(dev)
-    counts = {"bqrrp": phase_main(dev, f"{smi}")}
-    phase_old_vs_new(dev)
-    phase_remainder(dev)
-    phase_small_vs_plain(dev)
-    counts["hqrrp"] = phase_hqrrp(dev, f"{smi}")
-    phase_hqrrp_phases(dev)
-    phase_hqrrp_cholqr(dev)
-    phase_hqrrp_small_vs_plain(dev)
-    counts["krill"] = phase_krill(dev)
-    counts["op"] = phase_sketch(dev)
+    seconds = {}
+
+    def run(phase, *args):
+        """``phase(*args)`` with its wall seconds kept for the last
+        ``[time]`` line."""
+        t0 = time.perf_counter()
+        result = phase(*args)
+        torch.cuda.synchronize()
+        seconds[phase.__name__[6:]] = time.perf_counter() - t0
+        return result
+
+    smi = run(phase_env)
+    run(phase_build)
+    timed = run(phase_kernels, dev)
+    counts = {"bqrrp": run(phase_main, dev, f"{smi}")}
+    run(phase_old_vs_new, dev)
+    run(phase_remainder, dev)
+    run(phase_small_vs_plain, dev)
+    counts["hqrrp"] = run(phase_hqrrp, dev, f"{smi}")
+    run(phase_hqrrp_phases, dev)
+    run(phase_hqrrp_cholqr, dev)
+    run(phase_hqrrp_small_vs_plain, dev)
+    counts["krill"] = run(phase_krill, dev)
+    counts["op"] = run(phase_sketch, dev)
+    run(phase_k4_k7_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
-        phase_kernel_anatomy(dev)
-        phase_profile(dev)
+        run(phase_kernel_anatomy, dev)
+        run(phase_profile, dev)
+    print("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; all {sum(seconds.values()):.1f} s", flush=True)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[path][name], **timed[name])
                for name, (src, rep, path) in KERNELS.items()]

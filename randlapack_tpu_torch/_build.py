@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _D, _U = ctypes.c_double, ctypes.c_uint
 _WY_SIMT = [_P, _P, _P, _P, _I, _I, _I, _P]
+_KMM_SIMT = [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P]
+_SKETCH_SIMT = [_P, _P, _I, _I, _I, _U, _U, _D, _P]
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 # of its _f32 and _f64 forms, or a dict suffix -> argtypes where the two
 # differ or one is missing
@@ -50,10 +52,22 @@ _SIGNATURES = {
     "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (P, W, taus, sigma, part, m, b, row0, pivot, force_global, stream)
     "rl_qrcp_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (X, V, norms, part, out, d, n, s, 1/(2 sigma^2), splits, stream)
-    "rl_kernel_matmat": [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
-    # (A, out, d, m, n, key0, key1, scale, stream)
-    "rl_gaussian_sketch": [_P, _P, _I, _I, _I, _U, _U, _D, _P],
+    # f32, tensor cores: (X, V, scratch, out, d, n, s, 1/(2 sigma^2), splits,
+    #                      stream)
+    # f64, SIMT: (X, V, norms, part, out, d, n, s, 1/(2 sigma^2), splits,
+    #             stream)
+    "rl_kernel_matmat": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
+                         "_f64": _KMM_SIMT},
+    "rl_kernel_matmat_simt": {"_f32": _KMM_SIMT},
+    # f32, tensor cores: (A, out, part, d, m, n, key0, key1, scale, splits,
+    #                      chunk, stream)
+    # f64, SIMT: (A, out, d, m, n, key0, key1, scale, stream)
+    "rl_gaussian_sketch": {"_f32": [_P, _P, _P, _I, _I, _I, _U, _U, _D, _I,
+                                    _I, _P],
+                           "_f64": _SKETCH_SIMT},
+    "rl_gaussian_sketch_simt": {"_f32": _SKETCH_SIMT},
+    # () -> clusters of K7's tensor-core kernel the card holds at once
+    "rl_gaussian_sketch_wave": {"": []},
 }
 
 _fns: dict | None = None

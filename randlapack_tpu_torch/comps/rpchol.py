@@ -126,4 +126,4 @@ def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState, noise=None):
         d[idx] = 0.0               # every drawn index has a kept winner
     # advance the counter so later branch()/spawn() streams differ from the
     # per-block streams consumed above (branch folds the counter in)
-    return F, piv, state.spawn()[1]
+    return F, piv, state.advance()

@@ -17,23 +17,54 @@ and ``csrc/gaussian_sketch.cu``).
 take the kernel for a CUDA tensor (and raise if it cannot launch) and the
 plain PyTorch version for a CPU tensor; nothing falls back from one to
 the other.
+
+In f32 both kernels run on the tensor cores. K4's cross term x_i·x_j is
+TF32 ``mma`` products of the split halves of the scaled points, and an
+entry costs one ``ex2`` (``kernel_matmat_split_reference`` is that
+arithmetic in plain PyTorch); K7's product is three TF32 ``wgmma``
+products per fp32 product with S generated by producer warps and shared
+among the blocks of a cluster (``gaussian_sketch_split_reference``). f64,
+f32 points of more than 32 coordinates (K4) and f32 operands that
+``wy.takes_tensor_cores`` refuses (K7) take the SIMT kernels of the same
+files, which also stay reachable as ``kernel_matmat_simt`` and
+``gaussian_sketch_simt``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..errors import require
-from .wy import _KERNEL_DTYPES, _device_route
+from .wy import (CHUNK, _KERNEL_DTYPES, _device_route, _split_tf32,
+                 _three_products, takes_tensor_cores)
 
-# kernel launches since the last reset
-LAUNCHES = {"kernel_matmat": 0, "gaussian_sketch": 0}
+# kernel launches since the last reset. The first two count the launches of
+# K4 and K7 by their wrappers, whatever body ran; the ``_simt`` ones count
+# every launch of the f32 SIMT bodies, by their own wrappers or as K4/K7's
+# guarded path
+LAUNCHES = {"kernel_matmat": 0, "gaussian_sketch": 0,
+            "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0}
 
-# kernel_matmat's tiling (csrc/kernel_matmat.cu): 64 rows i a block, tiles
-# of 128 columns j, V in chunks of 1, 4 or 16 columns
-_TI, _TJ = 64, 128
-_MIN_BLOCKS = 1024              # below this the j tiles are split over blocks
+# kernel_matmat's tiling (csrc/kernel_matmat.cu): tiles of 128 columns j, V
+# in chunks of 1, 4 or 16 columns; 256 rows i a block on the tensor cores
+# (at most 32 coordinates), 64 in the SIMT kernel
+_TI, _TJ = 256, 128
+_SIMT_TI = 64
+# below this many blocks the j tiles are split over more of them: about 8
+# a multiprocessor, the point where the last wave's idle share stops
+# showing (on an H100 at n 65536, s 1: 2.22 ms in 512 blocks, 2.02 in 1024,
+# 1.99 in 2048)
+_MIN_BLOCKS = 1024
+_MAX_TC_D = 32
+_LOG2E = 1.4426950408889634
+# gaussian_sketch's tiling (csrc/gaussian_sketch.cu): 128x128 tiles of out,
+# the 4 blocks of a cluster on neighbouring column tiles
+_SKETCH_TILE = 128
+_SKETCH_CLUSTER = 4
+_SKETCH_MIN_DEPTH = 1024        # least reduction length of one part
+_SKETCH_MAX_SPLITS = 8
 
 
 # --------------------------------------------------------------------------
@@ -69,21 +100,59 @@ def _column_chunk(s: int) -> int:
     return 1 if s == 1 else 4 if s <= 4 else 16
 
 
-def kernel_matmat_splits(n: int, s: int) -> int:
+def kernel_matmat_splits(n: int, s: int, rows: int = _TI,
+                         min_blocks: int = _MIN_BLOCKS) -> int:
     """Into how many parts the kernel's sum over j is split (each part a
     block of its own, the parts added in index order afterwards) so that
-    a small n still fills the card. Depends on the shapes alone."""
+    a small n still fills the card: blocks of ``rows`` rows i, at least
+    ``min_blocks`` of them where the j tiles allow (defaults: the
+    tensor-core kernel's). Depends on the shapes alone."""
     sc = _column_chunk(s)
-    blocks = -(-n // _TI) * -(-s // sc)
-    return max(1, min(-(-n // _TJ), _MIN_BLOCKS // blocks))
+    blocks = -(-n // rows) * -(-s // sc)
+    return max(1, min(-(-n // _TJ), min_blocks // blocks))
 
 
-def kernel_matmat(X, V, bandwidth):
-    """K4 on the card: K(X, X)·V for the squared-exponential kernel,
-    K_ij = exp(−max(‖x_i‖²+‖x_j‖²−2x_iᵀx_j, 0)/(2σ²)), fused (K is never
-    stored). X (d, n) one point per column, V (n, s) → (n, s); any n, d ≥ 1
-    and s; ``bandwidth`` a Python number or a tensor of one element."""
-    from .. import _build
+def kernel_matmat_work(d: int, n: int, s: int, esize: int = 4) -> dict:
+    """The work K(X, X)·V asks for at these shapes, whatever computes it:
+    per kernel entry 2d flops for the cross term (``product_flops``: a
+    matrix product, which may run on the tensor cores), 6 for norms,
+    clamp, scale and sign plus 2s for the product with V (``flops``) and
+    one exponential (``special``; none in f64, ``esize`` 8, where the
+    exponential is a polynomial on the FMA units); X, V and the result
+    cross the memory interface once (``nbytes``)."""
+    return dict(flops=n * n * (2 * s + 6), product_flops=n * n * 2 * d,
+                special=n * n if esize == 4 else 0,
+                nbytes=(d * n + 2 * n * s) * esize)
+
+
+def kernel_matmat_split_reference(X, V, bandwidth, block=None):
+    """K4 as the f32 tensor-core kernel computes it, in plain PyTorch:
+    with a = log₂e/(2σ²) the points are scaled to x′ = √(2a)·x, rounded to
+    fp32 and then to the sum of their TF32 halves, nᵢ′ = −‖xᵢ′‖²/2, the
+    cross term x′ᵢ·x′ⱼ is the four products of those halves, small ones
+    first (rows of zeros up to a multiple of 8 change nothing; lo·lo is
+    kept, unlike in a plain matrix product, because on and near the
+    diagonal the exponent is a difference of nearly equal numbers) and
+    K_ij = 2^min(x′ᵢ·x′ⱼ + nᵢ′ + nⱼ′, 0). ``block`` as in
+    ``kernel_matmat_reference``."""
+    require(X.dtype == torch.float32, "the TF32 split takes float32")
+    n = X.shape[1]
+    bw = float(bandwidth)
+    hi, lo = _split_tf32(X * float(math.sqrt(2.0 * _LOG2E / (2.0 * bw * bw))))
+    Xs = hi + lo                # exact in fp32: what the products see
+    nrm = -0.5 * torch.sum(Xs * Xs, dim=0)
+    b = n if block is None else max(1, min(block, n))
+    out = torch.zeros_like(V)
+    for start in range(0, n, b):
+        j = slice(start, min(start + b, n))
+        cross = ((lo.T @ lo[:, j] + lo.T @ hi[:, j]) + hi.T @ lo[:, j]) \
+            + hi.T @ hi[:, j]
+        e = cross + (nrm[:, None] + nrm[None, j])
+        out = out + torch.exp2(torch.clamp(e, max=0.0)) @ V[j, :]
+    return out
+
+
+def _check_kernel_matmat(X, V):
     require(X.dim() == 2 and V.dim() == 2,
             "kernel_matmat takes X (d,n) and V (n,s)")
     d, n = X.shape
@@ -100,18 +169,76 @@ def kernel_matmat(X, V, bandwidth):
     require(X.is_contiguous() and V.is_contiguous(),
             "kernel operands must be contiguous")
     require(max(d, n, s) < 2**31, "dimension too large")
-    sc = _column_chunk(s)
-    require(-(-s // sc) <= 65535, "s too large for the kernel grid")
+    require(-(-s // _column_chunk(s)) <= 65535,
+            "s too large for the kernel grid")
+    return d, n, s
+
+
+def _launch_kernel_matmat_simt(name, X, V, bandwidth, d, n, s):
+    """The SIMT kernel (``name``: its f32 or f64 entry point)."""
+    from .. import _build
     out = torch.empty((n, s), dtype=X.dtype, device=X.device)
-    if n and s:
+    splits = kernel_matmat_splits(n, s, _SIMT_TI)
+    norms = torch.empty((n,), dtype=X.dtype, device=X.device)
+    part = torch.empty((splits if splits > 1 else 0, n, s),
+                       dtype=X.dtype, device=X.device)
+    bw = float(bandwidth)
+    _build.call(name, out, X, V, norms, part, out, d, n, s,
+                1.0 / (2.0 * bw * bw), splits)
+    return out
+
+
+def kernel_matmat(X, V, bandwidth):
+    """K4 on the card: K(X, X)·V for the squared-exponential kernel,
+    K_ij = exp(−max(‖x_i‖²+‖x_j‖²−2x_iᵀx_j, 0)/(2σ²)), fused (K is never
+    stored). X (d, n) one point per column, V (n, s) → (n, s); any n, d ≥ 1
+    and s; ``bandwidth`` a Python number or a tensor of one element.
+
+    f32 with d ≤ 32 runs the cross term on the tensor cores (see
+    ``kernel_matmat_split_reference``); f64, and f32 with more
+    coordinates, run on the SIMT kernel."""
+    from .. import _build
+    d, n, s = _check_kernel_matmat(X, V)
+    if not (n and s):
+        return torch.empty((n, s), dtype=X.dtype, device=X.device)
+    if X.dtype == torch.float32 and d <= _MAX_TC_D:
+        out = torch.empty((n, s), dtype=X.dtype, device=X.device)
         splits = kernel_matmat_splits(n, s)
-        norms = torch.empty((n,), dtype=X.dtype, device=X.device)
-        part = torch.empty((splits if splits > 1 else 0, n, s),
-                           dtype=X.dtype, device=X.device)
+        n_pad = -(-n // _TJ) * _TJ
+        sc = _column_chunk(s)
+        ks = 1 if d <= 8 else 2 if d <= 16 else 4      # k-steps of 8
+        # one piece of scratch: the scaled points' TF32 halves in fragment
+        # order (16 ks floats a point), their norms, V in column chunks,
+        # then the parts of a split sum over j
+        scratch = torch.empty(
+            n_pad * (16 * ks + 1 + -(-s // sc) * sc)
+            + (splits * n * s if splits > 1 else 0),
+            dtype=X.dtype, device=X.device)
         bw = float(bandwidth)
-        _build.call("rl_kernel_matmat", out, X, V, norms, part, out, d, n,
-                    s, 1.0 / (2.0 * bw * bw), splits)
-        LAUNCHES["kernel_matmat"] += 1
+        _build.call("rl_kernel_matmat", out, X, V, scratch, out, d, n, s,
+                    1.0 / (2.0 * bw * bw), splits)
+    elif X.dtype == torch.float32:
+        out = _launch_kernel_matmat_simt("rl_kernel_matmat_simt", X, V,
+                                         bandwidth, d, n, s)
+        LAUNCHES["kernel_matmat_simt"] += 1
+    else:
+        out = _launch_kernel_matmat_simt("rl_kernel_matmat", X, V, bandwidth,
+                                         d, n, s)
+    LAUNCHES["kernel_matmat"] += 1
+    return out
+
+
+def kernel_matmat_simt(X, V, bandwidth):
+    """K4's f32 SIMT kernel (FFMA cross term, ``expf``) on its own: the
+    earlier design, kept as a yardstick and as the guarded path. Nothing
+    on a driver's path calls it."""
+    d, n, s = _check_kernel_matmat(X, V)
+    require(X.dtype == torch.float32, "the SIMT yardstick is float32")
+    if not (n and s):
+        return torch.empty((n, s), dtype=X.dtype, device=X.device)
+    out = _launch_kernel_matmat_simt("rl_kernel_matmat_simt", X, V,
+                                     bandwidth, d, n, s)
+    LAUNCHES["kernel_matmat_simt"] += 1
     return out
 
 
@@ -167,7 +294,7 @@ def _seed_key(seed: int) -> tuple[int, int]:
 
 
 def gaussian_sketch_matrix(d: int, m: int, seed: int, dtype=torch.float32,
-                           device="cpu"):
+                           device="cuda"):
     """The (d, m) sketching operator of K7, S ~ N(0, 1/d), entry by entry
     what the kernel generates: Philox4x32-10 on the counter (r // 4, i, 0,
     0) with the key (seed's low word, its high word) gives w0..w3; 23-bit
@@ -198,12 +325,46 @@ def gaussian_sketch_reference(A, d: int, seed: int):
     return S @ A
 
 
-def gaussian_sketch_cuda(A, d: int, seed: int):
-    """K7 on the card: S·A with S (d, m) ~ N(0, 1/d) generated inside the
-    kernel (see ``gaussian_sketch_matrix``); one pass over A for each 128
-    columns of the result. A (m, n) → (d, n); any m, d and n, int seed.
-    Two runs give the same bits."""
+def gaussian_sketch_split_reference(A, d: int, seed: int):
+    """K7 as the f32 tensor-core kernel computes it, in plain PyTorch:
+    the same S, and three products of the TF32 halves of S and A."""
+    S = gaussian_sketch_matrix(d, A.shape[0], seed, A.dtype, A.device)
+    return _three_products(S, A)
+
+
+def gaussian_sketch_splits(d: int, m: int, n: int, wave: int) -> int:
+    """Into how many parts K7's reduction over m is split (every work
+    item — a 128×128 tile of the result for each of the 4 blocks of a
+    cluster, neighbours along n — in as many items, the parts added in
+    index order afterwards) so that the items fill the last wave, a wave
+    being the ``wave`` clusters the card holds at once: the least count,
+    up to 8 and with parts at least 1024 long, that minimises the waves.
+    Depends on the shapes and the card alone."""
+    tiles = -(-d // _SKETCH_TILE) * -(-(-(-n // _SKETCH_TILE))
+                                      // _SKETCH_CLUSTER)
+    best, waves = 1, None
+    for z in range(1, max(1, min(_SKETCH_MAX_SPLITS,
+                                 m // _SKETCH_MIN_DEPTH)) + 1):
+        w = -(-tiles * z // wave) / z
+        if waves is None or w < waves - 1e-12:
+            best, waves = z, w
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sketch_wave(index: int) -> int:
+    """Clusters of K7's tensor-core kernel that card ``index`` holds at
+    once."""
     from .. import _build
+    with torch.cuda.device(index):
+        wave = _build.lib()["rl_gaussian_sketch_wave"]()
+    if wave <= 0:
+        raise RuntimeError(f"rl_gaussian_sketch_wave failed with "
+                           f"cudaError {-wave}")
+    return wave
+
+
+def _check_gaussian_sketch(A, d):
     require(A.dim() == 2, "gaussian_sketch takes A (m,n)")
     m, n = A.shape
     d = int(d)
@@ -215,14 +376,65 @@ def gaussian_sketch_cuda(A, d: int, seed: int):
     require(A.is_contiguous(), "kernel operands must be contiguous")
     require(max(d, m, n) < 2**31, "dimension too large")
     require(-(-d // 64) <= 65535, "d too large for the kernel grid")
+    return d, m, n
+
+
+def gaussian_sketch_cuda(A, d: int, seed: int, chunk=None):
+    """K7 on the card: S·A with S (d, m) ~ N(0, 1/d) generated inside the
+    kernel (see ``gaussian_sketch_matrix``). A (m, n) → (d, n); any m, d
+    and n, int seed. Two runs give the same bits.
+
+    f32 runs on the tensor cores as three TF32 products per fp32 product
+    (``gaussian_sketch_split_reference``), the running sum folded into
+    fp32 registers every ``chunk`` stages of 32 terms (default
+    ``wy.CHUNK``; 0: never), with S generated by producer warps beside the
+    products and shared among the 4 blocks of a cluster. It is
+    fp32-accurate, but an ``Inf`` in A splits into ``Inf`` and ``Inf − Inf
+    = NaN``, so where the plain version gives ``±Inf`` this may give
+    ``NaN``; the finite/non-finite pattern of the result is the plain
+    version's. f64,
+    and f32 operands that ``wy.takes_tensor_cores`` refuses (A not 16-byte
+    aligned, n not a multiple of 4), run on the SIMT kernel."""
+    from .. import _build
+    d, m, n = _check_gaussian_sketch(A, d)
     out = torch.empty((d, n), dtype=A.dtype, device=A.device)
-    if d and n and m:
-        key0, key1 = _seed_key(seed)
-        _build.call("rl_gaussian_sketch", out, A, out, d, m, n, key0, key1,
-                    float(1.0 / math.sqrt(d)))
-        LAUNCHES["gaussian_sketch"] += 1
+    if not (d and n and m):
+        return out.zero_()
+    key0, key1 = _seed_key(seed)
+    scale = float(1.0 / math.sqrt(d))
+    if takes_tensor_cores(A, out):
+        splits = gaussian_sketch_splits(d, m, n,
+                                        _sketch_wave(A.device.index))
+        part = torch.empty((splits if splits > 1 else 0, d, n),
+                           dtype=A.dtype, device=A.device)
+        _build.call("rl_gaussian_sketch", out, A, out, part, d, m, n, key0,
+                    key1, scale, splits, CHUNK if chunk is None else chunk)
+    elif A.dtype == torch.float32:
+        _build.call("rl_gaussian_sketch_simt", out, A, out, d, m, n, key0,
+                    key1, scale)
+        LAUNCHES["gaussian_sketch_simt"] += 1
     else:
-        out.zero_()
+        _build.call("rl_gaussian_sketch", out, A, out, d, m, n, key0, key1,
+                    scale)
+    LAUNCHES["gaussian_sketch"] += 1
+    return out
+
+
+def gaussian_sketch_simt(A, d: int, seed: int):
+    """K7's f32 SIMT kernel (FFMA product, S generated once per 128
+    columns by the threads that multiply) on its own: the earlier design,
+    kept as a yardstick and as the guarded path. Nothing on a driver's
+    path calls it."""
+    from .. import _build
+    d, m, n = _check_gaussian_sketch(A, d)
+    require(A.dtype == torch.float32, "the SIMT yardstick is float32")
+    out = torch.empty((d, n), dtype=A.dtype, device=A.device)
+    if not (d and n and m):
+        return out.zero_()
+    key0, key1 = _seed_key(seed)
+    _build.call("rl_gaussian_sketch_simt", out, A, out, d, m, n, key0, key1,
+                float(1.0 / math.sqrt(d)))
+    LAUNCHES["gaussian_sketch_simt"] += 1
     return out
 
 

@@ -30,13 +30,19 @@ class RNGState:
         self.key = int(seed) if _key is None else _key
         self.counter = _counter
 
-    def spawn(self, device="cpu"):
+    def advance(self) -> "RNGState":
+        """The state after one draw: the counter advanced, no generator
+        built."""
+        return RNGState(_key=self.key, _counter=self.counter + 1)
+
+    def spawn(self, device="cuda"):
         """Return ``(generator, next_state)``: ``generator`` lives on
-        ``device`` and is seeded from (key, counter); ``next_state`` has
-        the counter advanced."""
+        ``device`` (the card unless the caller asks for the CPU) and is
+        seeded from (key, counter); ``next_state`` has the counter
+        advanced."""
         gen = torch.Generator(device=device)
         gen.manual_seed(_derive(self.key, self.counter))
-        return gen, RNGState(_key=self.key, _counter=self.counter + 1)
+        return gen, self.advance()
 
     def branch(self, i: int = 1) -> "RNGState":
         """Independent stream — the analogue of ``state.key.incr(i)``.

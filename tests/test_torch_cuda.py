@@ -12,8 +12,10 @@ stay within 1e-4 of the largest entry; f64 within 1e-12. The f32 K1/K2
 kernels (three TF32 products per fp32 product on the tensor cores) are
 also held to fp32 accuracy against the f64 product: a relative Frobenius
 error of at most 4x that of ``torch.mm``/``torch.addmm`` in fp32 on the
-same operands. The QRCP
-kernels (K5, K6) must give exactly the plain version's pivots on inputs
+same operands. The f32 K4 (TF32 ``mma`` cross term, ``ex2``) and K7
+(three TF32 ``wgmma`` products, S made by producer warps) are held the
+same way: K7 to 4x ``torch.mm``'s error on the stored S, K4 to 4x its SIMT
+kernel's. The QRCP kernels (K5, K6) must give exactly the plain version's pivots on inputs
 whose column norms are spread out (exp(-3·U) column scaling, as the JAX
 kernel test uses); their factors agree within 1e-4 (f32) / 1e-10 (f64)
 of the largest entry. The kernel product (K4) sums n terms of one sign
@@ -403,15 +405,64 @@ def test_kernel_matmat_matches_plain(cuda, dtype, d, n, s):
     X = torch.tensor(rng.standard_normal((d, n)), dtype=dtype, device=cuda)
     V = torch.tensor(rng.standard_normal((n, s)), dtype=dtype, device=cuda)
     bw = 0.9 * np.sqrt(d)
-    n0 = tk.LAUNCHES["kernel_matmat"]
+    n0 = dict(tk.LAUNCHES)
     out = tk.kernel_matmat_routed(X, V, bw)
     again = tk.kernel_matmat(X, V, bw)
     ref = tk.kernel_matmat_reference(X, V, bw)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["kernel_matmat"] == n0 + 2
+    assert tk.LAUNCHES["kernel_matmat"] == n0["kernel_matmat"] + 2
+    # f32 beyond 32 coordinates is the SIMT kernel's, like all of f64
+    simt = int(dtype == torch.float32 and d > 32)
+    assert tk.LAUNCHES["kernel_matmat_simt"] \
+        == n0["kernel_matmat_simt"] + 2 * simt
     tol = 1e-4 if dtype == torch.float32 else 1e-11
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     assert torch.equal(out, again)          # no race decides a bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,s", [(8, 8192, 1), (8, 4096, 4), (3, 1000, 1),
+                                   (17, 257, 16), (30, 1000, 130),
+                                   (32, 515, 5), (8, 65536, 1)])
+def test_kernel_matmat_tensor_cores_hold_fp32_accuracy(cuda, d, n, s):
+    """f32, d ≤ 32: against the f64 plain version at most 4x the SIMT
+    kernel's error; from the split emulation, whose products cuBLAS sums
+    in fp32 in its own order, no further than that plus the emulation's
+    own distance from f64; two launches bit-equal; the SIMT kernel counted
+    apart."""
+    rng = np.random.default_rng(d + n + s)
+    X = torch.tensor(rng.standard_normal((d, n)), dtype=torch.float32,
+                     device=cuda)
+    V = torch.tensor(rng.standard_normal((n, s)), dtype=torch.float32,
+                     device=cuda)
+    bw = 1.36 * np.sqrt(d)
+    n0 = dict(tk.LAUNCHES)
+    out = tk.kernel_matmat(X, V, bw)
+    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1}
+    simt = tk.kernel_matmat_simt(X, V, bw)
+    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1,
+                           "kernel_matmat_simt":
+                           n0["kernel_matmat_simt"] + 1}
+    ref = tk.kernel_matmat_reference(X.double(), V.double(), bw, block=4096)
+    gate = _f64_gate(_relf(simt, ref))
+    assert _relf(out, ref) <= gate
+    emul = tk.kernel_matmat_split_reference(X, V, bw, block=4096)
+    assert _relf(out, emul.double()) <= gate + _relf(emul, ref)
+    assert torch.equal(out, tk.kernel_matmat(X, V, bw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 8, 17, 32])
+def test_kernel_matmat_has_a_unit_diagonal(cuda, d):
+    """K·I is K: 1 on the diagonal within 1e-6 at the median-heuristic
+    bandwidth, never above 1, symmetric to rounding."""
+    rng = np.random.default_rng(d)
+    X = torch.tensor(rng.standard_normal((d, 700)), dtype=torch.float32,
+                     device=cuda)
+    K = tk.kernel_matmat(X, torch.eye(700, device=cuda), 1.36 * np.sqrt(d))
+    assert float((K.diagonal() - 1).abs().max()) <= 1e-6
+    assert float(K.max()) <= 1.0
+    assert float((K - K.T).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -430,6 +481,12 @@ def test_kernel_linop_matmat_takes_the_kernel(cuda):
         V.cpu())
     assert float((out.cpu() - ref).abs().max()) <= 1e-11 * float(
         ref.abs().max())
+    # and in f32 the tensor-core body, not the SIMT one
+    n0 = dict(tk.LAUNCHES)
+    out32 = SquaredExpKernelLinOp(X.float(), 1.7, mus).matmat(V.float())
+    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1}
+    assert float((out32.cpu() - ref).abs().max()) <= 1e-4 * float(
+        ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -440,13 +497,17 @@ def test_kernel_linop_matmat_takes_the_kernel(cuda):
 def test_gaussian_sketch_matches_plain(cuda, dtype, m, n, d):
     rng = np.random.default_rng(m + n + d)
     A = torch.tensor(rng.standard_normal((m, n)), dtype=dtype, device=cuda)
-    n0 = tk.LAUNCHES["gaussian_sketch"]
+    n0 = dict(tk.LAUNCHES)
     out = tk.gaussian_sketch(A, d, 11)
     again = tk.gaussian_sketch(A, d, 11)
     other = tk.gaussian_sketch(A, d, 12)
     ref = tk.gaussian_sketch_reference(A, d, 11)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["gaussian_sketch"] == n0 + 3
+    assert tk.LAUNCHES["gaussian_sketch"] == n0["gaussian_sketch"] + 3
+    # f32 with n not a multiple of 4 is the SIMT kernel's, like all of f64
+    simt = int(dtype == torch.float32 and n % 4 != 0)
+    assert tk.LAUNCHES["gaussian_sketch_simt"] \
+        == n0["gaussian_sketch_simt"] + 3 * simt
     tol = 1e-4 if dtype == torch.float32 else 1e-11
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     assert torch.equal(out, again)
@@ -454,12 +515,120 @@ def test_gaussian_sketch_matches_plain(cuda, dtype, m, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(2048, 256, 64), (1000, 300, 13),
+                                   (512, 512, 320), (65536, 128, 128),
+                                   (8192, 1028, 200), (40, 8, 1),
+                                   (4096, 2048, 130), (300, 516, 257)])
+def test_gaussian_sketch_tensor_cores_hold_fp32_accuracy(cuda, m, n, d):
+    """f32 on the tensor cores: against the f64 product of the stored S at
+    most 4x torch.mm's fp32 error, as close to the three-product
+    emulation, two launches bit-equal, no SIMT launch. The shapes leave
+    0 to 3 blocks of a cluster past the columns of A, rows of S ragged.
+    m 65536 is a long reduction: the chunked accumulation must hide the
+    tensor cores' truncation, which shows without it (chunk 0)."""
+    rng = np.random.default_rng(m + n + d)
+    A = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32,
+                     device=cuda)
+    assert twy.takes_tensor_cores(A)
+    S = tk.gaussian_sketch_matrix(d, m, 11, torch.float32, cuda)
+    ref = S.double() @ A.double()
+    gate = _f64_gate(_relf(S @ A, ref))
+    n0 = dict(tk.LAUNCHES)
+    out = tk.gaussian_sketch_cuda(A, d, 11)
+    assert tk.LAUNCHES == {**n0, "gaussian_sketch": n0["gaussian_sketch"] + 1}
+    assert _relf(out, ref) <= gate
+    assert _relf(out, tk.gaussian_sketch_split_reference(A, d, 11).double()) \
+        <= gate
+    assert torch.equal(out, tk.gaussian_sketch_cuda(A, d, 11))
+    if m >= 65536:
+        assert _relf(tk.gaussian_sketch_cuda(A, d, 11, chunk=0), ref) \
+            > 4 * _relf(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1025, 300])
+def test_gaussian_sketch_guarded_shapes_take_the_simt_kernel(cuda, n):
+    """n not a multiple of 4, or a contiguous view that starts 4 bytes
+    into its storage, cannot be read by 16-byte copies: the wrapper sends
+    them to the SIMT kernel, which also answers on its own."""
+    rng = np.random.default_rng(n)
+    A = torch.tensor(rng.standard_normal((600, n)), dtype=torch.float32,
+                     device=cuda)
+    if n % 4 == 0:
+        A = torch.empty(600 * n + 1, device=cuda)[1:].view(600, n).copy_(A)
+    assert A.is_contiguous() and not twy.takes_tensor_cores(A)
+    n0 = dict(tk.LAUNCHES)
+    out = tk.gaussian_sketch(A, 70, 3)
+    assert tk.LAUNCHES == {**n0, "gaussian_sketch": n0["gaussian_sketch"] + 1,
+                           "gaussian_sketch_simt":
+                           n0["gaussian_sketch_simt"] + 1}
+    ref = tk.gaussian_sketch_reference(A, 70, 3)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(out, tk.gaussian_sketch_simt(A, 70, 3))
+    assert tk.LAUNCHES["gaussian_sketch"] == n0["gaussian_sketch"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+def test_gaussian_sketch_keeps_the_non_finite_pattern(cuda, bad):
+    """On the tensor cores an Inf in A may come out NaN, but the columns
+    that are non-finite are the plain version's."""
+    rng = np.random.default_rng(3)
+    A = torch.tensor(rng.standard_normal((300, 64)), dtype=torch.float32,
+                     device=cuda)
+    A[17, 5] = bad
+    A[250, 40] = bad
+    out = tk.gaussian_sketch(A, 24, 9)
+    ref = tk.gaussian_sketch_reference(A, 24, 9)
+    assert torch.equal(torch.isfinite(out), torch.isfinite(ref))
+    assert not bool(torch.isfinite(out[:, 5]).any())
+    assert bool(torch.isfinite(out[:, 6]).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gaussian_sketch_of_identity_is_the_plain_S(cuda, dtype):
-    m, d = 515, 70
+@pytest.mark.parametrize("m", [515, 516])
+def test_gaussian_sketch_of_identity_is_the_plain_S(cuda, dtype, m):
+    """m 516 takes the tensor cores in f32 (their cheaper evaluation of
+    S's formulas must stay within 1e-6 of the plain S), m 515 the SIMT
+    kernel."""
+    d = 70
+    n0 = tk.LAUNCHES["gaussian_sketch_simt"]
     S = tk.gaussian_sketch(torch.eye(m, dtype=dtype, device=cuda), d, 2**40 + 5)
+    assert tk.LAUNCHES["gaussian_sketch_simt"] - n0 \
+        == int(dtype == torch.float32 and m % 4 != 0)
     Sp = tk.gaussian_sketch_matrix(d, m, 2**40 + 5, dtype, cuda)
     Sc = tk.gaussian_sketch_matrix(d, m, 2**40 + 5, dtype, "cpu")
     tol = 1e-6 if dtype == torch.float32 else 1e-14
     assert float((S - Sp).abs().max()) <= tol
     assert float((S.cpu() - Sc).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_krill_and_the_sketch_run_on_the_tensor_core_bodies(cuda):
+    """A small f32 KRILL solve and the sketch through their entry points:
+    K4 launches once per PCG iteration and once more, K7 once, and
+    neither SIMT body runs."""
+    from randlapack_tpu_torch.comps import PCGConfig
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    from randlapack_tpu_torch.pdkernels import (SquaredExpKernelLinOp,
+                                                standardize_dataset)
+    rng = np.random.default_rng(6)
+    X = standardize_dataset(torch.tensor(rng.standard_normal((8, 2048)),
+                                         dtype=torch.float32, device=cuda))
+    H = torch.tensor(rng.standard_normal((2048, 1)), dtype=torch.float32,
+                     device=cuda)
+    G = SquaredExpKernelLinOp(X, 3.85, 1e-2)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    _, hist, iters, _ = krill_full_rpchol(
+        G, H, 1e-2, KrillConfig(k=128, rpchol_block=32,
+                                pcg=PCGConfig(tol=1e-5, max_iters=100)),
+        rt.RNGState(0))
+    assert iters < 100 and float(hist[iters, 0] / hist[0, 0]) <= 1e-5
+    assert tk.LAUNCHES == {"kernel_matmat": iters + 1, "gaussian_sketch": 0,
+                           "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0}
+    from randlapack_tpu_torch import ops
+    ops.gaussian_sketch(X.T.contiguous(), 16, 1)
+    assert tk.LAUNCHES["gaussian_sketch"] == 1
+    assert tk.LAUNCHES["gaussian_sketch_simt"] == 0

@@ -75,10 +75,10 @@ def test_kernel_matmat_routes_by_device():
     assert tk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n,s,splits", [(65536, 1, 1), (8192, 1, 8),
-                                        (8192, 4, 8), (1000, 1, 8),
-                                        (1000, 130, 7), (1, 1, 1),
-                                        (100000, 16, 1)])
+@pytest.mark.parametrize("n,s,splits", [(65536, 1, 4), (8192, 1, 32),
+                                        (8192, 4, 32), (1000, 1, 8),
+                                        (1000, 130, 8), (1, 1, 1),
+                                        (100000, 16, 2)])
 def test_kernel_matmat_splits(n, s, splits):
     """The split of the sum over j depends on the shapes alone, never
     exceeds the number of j tiles and stops once the grid is full."""
@@ -214,7 +214,7 @@ def test_gaussian_sketch_matrix_follows_its_definition():
     """S[i, r] from (seed, i, r) alone: the words of counter (r//4, i, 0,
     0), key (seed low, seed high); Box–Muller, both branches."""
     d, m, seed = 6, 11, 2**35 + 17
-    S = tk.gaussian_sketch_matrix(d, m, seed, torch.float64)
+    S = tk.gaussian_sketch_matrix(d, m, seed, torch.float64, "cpu")
     for i, r in [(0, 0), (5, 10), (3, 5), (2, 7)]:
         w = _philox_ints((r // 4, i, 0, 0), (seed & 0xFFFFFFFF, seed >> 32))
         wa, wb = w[2 * ((r % 4) // 2)], w[2 * ((r % 4) // 2) + 1]
@@ -225,7 +225,7 @@ def test_gaussian_sketch_matrix_follows_its_definition():
             / math.sqrt(d)
         assert float(S[i, r]) == pytest.approx(want, rel=1e-13, abs=1e-15)
     # no dependence on how much of S is asked for
-    big = tk.gaussian_sketch_matrix(9, 16, seed, torch.float64)
+    big = tk.gaussian_sketch_matrix(9, 16, seed, torch.float64, "cpu")
     assert torch.allclose(big[:d, :m] * 3.0, S * math.sqrt(d), rtol=1e-15,
                           atol=0)
 
@@ -254,7 +254,7 @@ def test_gaussian_sketch_matrix_moments():
     """d·m = 131072 entries: mean, variance·d and 4th moment within five
     standard errors of N(0, 1/d)'s (0, 1, 3)."""
     d, m = 64, 2048
-    Z = tk.gaussian_sketch_matrix(d, m, 7, torch.float64) * math.sqrt(d)
+    Z = tk.gaussian_sketch_matrix(d, m, 7, torch.float64, "cpu") * math.sqrt(d)
     N = d * m
     assert abs(float(Z.mean())) < 5 / math.sqrt(N)
     assert abs(float(Z.var()) - 1.0) < 5 * math.sqrt(2 / N)
@@ -263,5 +263,6 @@ def test_gaussian_sketch_matrix_moments():
     assert abs(float((Z[:, :-1] * Z[:, 1:]).mean())) < 5 / math.sqrt(N)
     assert abs(float((Z[:-1] * Z[1:]).mean())) < 5 / math.sqrt(N)
     # a negative seed is its 64-bit two's complement
-    assert torch.equal(tk.gaussian_sketch_matrix(3, 5, -1),
-                       tk.gaussian_sketch_matrix(3, 5, 2**64 - 1))
+    assert torch.equal(tk.gaussian_sketch_matrix(3, 5, -1, device="cpu"),
+                       tk.gaussian_sketch_matrix(3, 5, 2**64 - 1,
+                                                 device="cpu"))

@@ -88,17 +88,17 @@ def test_tf32_policy_enforced():
 
 def test_rng_state_spawn_and_branch():
     st = rt.RNGState(7)
-    g1, st1 = st.spawn()
-    g1b, _ = rt.RNGState(7).spawn()
+    g1, st1 = st.spawn("cpu")
+    g1b, _ = rt.RNGState(7).spawn("cpu")
     assert st1.counter == 1 and st.counter == 0
     a = torch.randn(64, generator=g1, dtype=torch.float64)
     assert torch.equal(a, torch.randn(64, generator=g1b,
                                       dtype=torch.float64))
-    g2, _ = st1.spawn()
+    g2, _ = st1.spawn("cpu")
     assert not torch.equal(a, torch.randn(64, generator=g2,
                                           dtype=torch.float64))
-    gb, _ = st.branch(1).spawn()
-    gb2, _ = st.branch(2).spawn()
+    gb, _ = st.branch(1).spawn("cpu")
+    gb2, _ = st.branch(2).spawn("cpu")
     xb = torch.randn(64, generator=gb, dtype=torch.float64)
     assert not torch.equal(a, xb)
     assert not torch.equal(xb, torch.randn(64, generator=gb2,
