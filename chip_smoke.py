@@ -28,15 +28,17 @@ matrices, KRILL and the fused Gaussian sketch:
 - the Gaussian sketch: ops.gaussian_sketch of a 131072×2048 matrix to
   2560 rows (CQRRPT's sketch size d = 1.25·n);
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
-  at their earlier SIMT kernels and at the tensor-core ones, in turns.
+  at their earlier SIMT kernels and at the tensor-core ones, in turns;
+- K5 and K6 with their earlier cooperative kernels and the step kernels,
+  in turns at the main shapes, and the 8192² HQRRP with each pair.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and is checked against the JAX test gates at f32 (residual,
 orthogonality, permutation, launch counts). Every phase prints one line;
 any failed gate raises, and the script exits non-zero. The last two
 lines are a JSON summary of the kernels and the device line.
-``--profile`` adds K5/K6 timings at fewer blocks and barriers and a
-torch.profiler breakdown of one HQRRP factorization by kernel group (the
+``--profile`` adds K5/K6 timings of both pairs at fewer blocks (us a
+step) and a torch.profiler breakdown of one HQRRP factorization by kernel group (the
 full table goes to chiprun_out/).
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -59,7 +61,8 @@ NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
-     "kernel_matmat_simt", "gaussian_sketch_simt"), 0)
+     "kernel_matmat_simt", "gaussian_sketch_simt",
+     "qrcp_select_pivots_coop", "qrcp_panel_coop"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -430,54 +433,67 @@ def phase_kernels(dev) -> dict:
         print(f"[kernel] getrfnp k={k}: same s, max|dF| {err:.3e}, "
               f"min|u_jj| {umin:.6f}", flush=True)
     # K5 qrcp_select_pivots: the HQRRP sketch Y (138, 8192), 128 steps,
-    # some columns retired (and a ragged case)
+    # some columns retired (and a ragged case); the step kernel and the
+    # earlier cooperative one against the plain version, timed in turns
     for d, n, steps, timed in ((138, N, 128, True), (74, 1000, 64, False)):
         Y = spread(d, n)
         live = torch.ones(n, dtype=f32, device=dev)
         retired = torch.randperm(n, generator=g, device=dev)[:n // 8]
         live[retired] = 0.0
         ck = qrcp.qrcp_select_pivots_cuda(Y, steps, live)
+        cc = qrcp.qrcp_select_pivots_coop(Y, steps, live)
         cp = qr.qrcp_select_pivots(Y, steps, live)
-        gate(torch.equal(ck, cp), f"qrcp_select_pivots {d}x{n}: pivots "
-             "differ from the plain version's")
+        gate(torch.equal(ck, cp) and torch.equal(cc, cp),
+             f"qrcp_select_pivots {d}x{n}: pivots differ from the plain "
+             "version's")
         gate(not bool(torch.isin(ck, retired).any()),
              "qrcp_select_pivots chose a retired column")
         if timed:
+            ms_coop, ms = in_turns(
+                lambda: qrcp.qrcp_select_pivots_coop(Y, steps, live),
+                lambda: qrcp.qrcp_select_pivots_cuda(Y, steps, live), 10)
             out["qrcp_select_pivots"] = dict(
-                max_abs_err=float((ck - cp).abs().max()),
-                ms=cuda_ms(lambda: qrcp.qrcp_select_pivots_cuda(
-                    Y, steps, live), 10),
+                max_abs_err=float((ck - cp).abs().max()), ms=ms,
+                us_per_step=ms * 1e3 / steps, coop_ms=ms_coop,
+                coop_us_per_step=ms_coop * 1e3 / steps,
                 plain_ms=cuda_ms(lambda: qr.qrcp_select_pivots(
                     Y, steps, live), 2, warmup=1),
                 **bound(*select_pivots_work(Y, steps, live)),
                 library_ms=None)
         print(f"[kernel] qrcp_select_pivots d={d} n={n} steps={steps} "
-              f"({n // 8} retired): pivots equal", flush=True)
+              f"({n // 8} retired): pivots of both kernels equal", flush=True)
     # K6 qrcp_panel: the HQRRP panel (8192, 128) at row0 0 and 4096 (and
-    # a ragged case)
+    # a ragged case), both kernels
     for m, b, r0, timed in ((N, 128, 0, True), (N, 128, 4096, False),
                             (1000, 100, 333, False)):
         P = spread(m, b)
-        W, taus, sigma = qrcp.qrcp_panel_cuda(P, r0)
         Wp, _, tp, sp = qr.qrcp_panel(P, r0)
-        err = float((W - Wp).abs().max())
-        terr = float((taus - tp).abs().max())
-        gate(torch.equal(sigma, sp), f"qrcp_panel {m}x{b} row0={r0}: "
-             "sigma differs from the plain version's")
-        gate(err <= 1e-4 * float(Wp.abs().max()) and terr <= 1e-4,
-             f"qrcp_panel {m}x{b} row0={r0}: max|dW| {err}, "
-             f"max|dtau| {terr}")
+        for name, fn in (("step", qrcp.qrcp_panel_cuda),
+                         ("coop", qrcp.qrcp_panel_coop)):
+            W, taus, sigma = fn(P, r0)
+            err = float((W - Wp).abs().max())
+            terr = float((taus - tp).abs().max())
+            gate(torch.equal(sigma, sp), f"qrcp_panel ({name}) {m}x{b} "
+                 f"row0={r0}: sigma differs from the plain version's")
+            gate(err <= 1e-4 * float(Wp.abs().max()) and terr <= 1e-4,
+                 f"qrcp_panel ({name}) {m}x{b} row0={r0}: max|dW| {err}, "
+                 f"max|dtau| {terr}")
+            if name == "step":
+                errs = (err, terr)
         if timed:
+            ms_coop, ms = in_turns(lambda: qrcp.qrcp_panel_coop(P, r0),
+                                   lambda: qrcp.qrcp_panel_cuda(P, r0), 10)
             out["qrcp_panel"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: qrcp.qrcp_panel_cuda(P, r0), 10),
+                max_abs_err=errs[0], ms=ms, us_per_step=ms * 1e3 / b,
+                coop_ms=ms_coop, coop_us_per_step=ms_coop * 1e3 / b,
                 plain_ms=cuda_ms(lambda: qr.qrcp_panel(P, r0), 2,
                                  warmup=1),
                 **bound(*panel_work(m, b, r0, 4)),
                 library_ms=None)
-        print(f"[kernel] qrcp_panel m={m} b={b} row0={r0}: sigma equal, "
-              f"max|dW| {err:.3e} (max|plain| {float(Wp.abs().max()):.3e}),"
-              f" max|dtau| {terr:.3e}", flush=True)
+        print(f"[kernel] qrcp_panel m={m} b={b} row0={r0}: sigma of both "
+              f"kernels equal, step kernel max|dW| {errs[0]:.3e} "
+              f"(max|plain| {float(Wp.abs().max()):.3e}), max|dtau| "
+              f"{errs[1]:.3e}", flush=True)
     # K4 kernel_matmat: KRILL's operator product at its three shapes, a
     # ragged case at d 17 (two k-steps) and one at d 70, which is past the
     # tensor-core kernel's 32 coordinates and takes the SIMT kernel.
@@ -654,7 +670,11 @@ def phase_kernels(dev) -> dict:
                f", library {rec['library_ms']:.3f} ms "
                f"({rec['library_call']})")
         old = (f", earlier SIMT kernel {rec['simt_ms']:.4f} ms"
-               if "simt_ms" in rec else "")
+               if "simt_ms" in rec else
+               f" ({rec['us_per_step']:.2f} us a step), earlier cooperative"
+               f" kernel {rec['coop_ms']:.4f} ms "
+               f"({rec['coop_us_per_step']:.2f} us a step)"
+               if "coop_ms" in rec else "")
         print(f"[kernel-time] {name}: kernel {rec['ms']:.4f} ms{old}, plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}){lib}", flush=True)
@@ -1347,26 +1367,113 @@ def phase_k4_k7_old_vs_new(dev) -> None:
           + f"; relative difference of the two results {dS:.3e}", flush=True)
 
 
+def phase_k5_k6_old_vs_new(dev) -> None:
+    """K5 and K6 with their earlier cooperative kernels and the step
+    kernels in turns (old, new, new, old) at the main shapes (K6 at the
+    first, middle and last panel of the 8192^2 factorization), then
+    hqrrp_lapack_format 8192^2 through its entry point with each pair, in
+    turns, best of 3 each; every factorization is gated on its launch
+    counts (one pair only), the last of each on residual and
+    orthogonality, and the two pivot orders J are compared."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp_lapack_format
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops import qrcp
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    Y = torch.randn(138, N, generator=g, device=dev)
+    live = (torch.rand(N, generator=g, device=dev) > 0.125).float()
+    lines = []
+    old, new = in_turns(lambda: qrcp.qrcp_select_pivots_coop(Y, 128, live),
+                        lambda: qrcp.qrcp_select_pivots_cuda(Y, 128, live),
+                        10)
+    lines.append(f"K5 138x{N} 128 steps: coop {old:.4f} ms "
+                 f"({old * 1e3 / 128:.2f} us a step), step {new:.4f} ms "
+                 f"({new * 1e3 / 128:.2f} us a step)")
+    for r0 in (0, N // 2, N - 128):
+        P = torch.randn(N, 128, generator=g, device=dev)
+        old, new = in_turns(lambda: qrcp.qrcp_panel_coop(P, r0),
+                            lambda: qrcp.qrcp_panel_cuda(P, r0), 10)
+        lines.append(f"K6 {N}x128 row0 {r0}: coop {old:.4f} ms "
+                     f"({old * 1e3 / 128:.2f} us a step), step {new:.4f} ms"
+                     f" ({new * 1e3 / 128:.2f} us a step)")
+    print("[old-vs-new] " + "; ".join(lines), flush=True)
+
+    cfg = HQRRPConfig(block_size=128, update_defer=4)
+    A, st = fast_decay_matrix(N, N, RNGState(7), device=dev)
+    pairs = {"step": (qrcp.qrcp_select_pivots_cuda, qrcp.qrcp_panel_cuda),
+             "coop": (qrcp.qrcp_select_pivots_coop, qrcp.qrcp_panel_coop)}
+    expected = {"step": HQRRP_LAUNCHES,
+                "coop": {**NO_LAUNCHES, "qrcp_select_pivots_coop": 64,
+                         "qrcp_panel_coop": 64}}
+    outs = {}
+
+    def best_of_3(which):
+        best = None
+        try:
+            qrcp.qrcp_select_pivots_cuda, qrcp.qrcp_panel_cuda = pairs[which]
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                reset_counts()
+                start.record()
+                outs[which] = hqrrp_lapack_format(A, cfg, st)
+                end.record()
+                torch.cuda.synchronize()
+                gate(read_counts() == expected[which],
+                     f"HQRRP with the {which} kernels: {read_counts()}")
+                t = start.elapsed_time(end) / 1e3
+                best = t if best is None else min(best, t)
+        finally:
+            qrcp.qrcp_select_pivots_cuda, qrcp.qrcp_panel_cuda = pairs["step"]
+        return best
+
+    best_of_3("step")                                      # warm-up
+    turns = [(which, best_of_3(which))
+             for which in ("coop", "step", "step", "coop")]
+    quality = []
+    for which in ("coop", "step"):
+        packed, taus, R, J, _ = outs[which]
+        _, res, orth = hqrrp_quality(A, packed, taus, R, J)
+        gate(res <= RES_GATE and orth <= ORTH_GATE,
+             f"HQRRP with the {which} kernels: residual {res}, orth {orth}")
+        quality.append(f"{which} residual {res:.3e}, orth {orth:.3e}")
+    same = torch.equal(outs["coop"][3], outs["step"][3])
+    print(f"[old-vs-new] hqrrp_lapack_format {N}x{N} f32 b128/defer4, K5/K6 "
+          "in turns, best of 3: " + ", ".join(
+              f"{which} {t:.4f} s" for which, t in turns)
+          + f"; {'; '.join(quality)}; J equal between the two: {same}",
+          flush=True)
+
+
 def phase_kernel_anatomy(dev) -> None:
-    """Where K5/K6's time goes: the same per-step work with fewer blocks
-    (a 1-block grid has no cross-block barrier cost) or fewer barriers
-    per step (K6 without pivoting runs 2 instead of 3)."""
+    """Where K5/K6's time goes, for the step kernels and the earlier
+    cooperative ones: the same per-step work with fewer blocks, or (K6)
+    without pivoting (one exchange fewer a step for the cooperative
+    kernel); ms and us a step."""
     from randlapack_tpu_torch.ops import qrcp
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     anatomy = []
+    kinds = {"K5": (qrcp.qrcp_select_pivots_cuda,
+                    qrcp.qrcp_select_pivots_coop),
+             "K6": (qrcp.qrcp_panel_cuda, qrcp.qrcp_panel_coop)}
     for d, n in ((138, N), (138, 2048), (138, 256)):
         Y = torch.randn(d, n, generator=g, device=dev)
         live = torch.ones(n, device=dev)
-        anatomy.append((f"K5 {d}x{n} 128 steps", cuda_ms(
-            lambda: qrcp.qrcp_select_pivots_cuda(Y, 128, live), 10)))
+        for name, fn in zip(("step", "coop"), kinds["K5"]):
+            anatomy.append((f"K5 {name} {d}x{n}", cuda_ms(
+                lambda: fn(Y, 128, live), 10)))
     for m, r0, pv in ((N, 0, True), (N, 0, False), (N, 4096, True),
                       (N, N - 256, True), (N, N - 128, True)):
         P = torch.randn(m, 128, generator=g, device=dev)
-        anatomy.append((f"K6 {m}x128 row0={r0} pivot={pv}", cuda_ms(
-            lambda: qrcp.qrcp_panel_cuda(P, r0, pv), 10)))
-    print("[kernel-anatomy] " + "; ".join(f"{k}: {v:.4f} ms"
-                                          for k, v in anatomy), flush=True)
+        for name, fn in zip(("step", "coop"), kinds["K6"]):
+            anatomy.append((f"K6 {name} {m}x128 row0={r0} pivot={pv}",
+                            cuda_ms(lambda: fn(P, r0, pv), 10)))
+    print("[kernel-anatomy] " + "; ".join(
+        f"{k}: {v:.4f} ms, {v * 1e3 / 128:.2f} us a step"
+        for k, v in anatomy), flush=True)
 
 
 def phase_profile(dev) -> None:
@@ -1430,6 +1537,7 @@ def main() -> int:
     counts["krill"] = run(phase_krill, dev)
     counts["op"] = run(phase_sketch, dev)
     run(phase_k4_k7_old_vs_new, dev)
+    run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
         run(phase_kernel_anatomy, dev)
         run(phase_profile, dev)

@@ -48,10 +48,19 @@ _SIGNATURES = {
     "rl_a_minus_vz_masked_simt": {"_f32": _WY_SIMT},
     # (M, F, s, k, stream)
     "rl_getrfnp": [_P, _P, _P, _I, _P],
-    # (Y, live, chosen, work, d, n, nsteps, force_global, stream)
-    "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # step kernels: (Y, live, chosen, work, d, n, nsteps, stream)
+    "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (P, W, taus, sigma, part, m, b, row0, pivot, stream)
+    "rl_qrcp_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (d, n) / (m, b, row0) -> the step kernel's grid, 0: the shape takes
+    # the cooperative kernel
+    "rl_qrcp_select_pivots_grid": [_I, _I],
+    "rl_qrcp_panel_grid": [_I, _I, _I],
+    # cooperative kernels: (Y, live, chosen, work, d, n, nsteps,
+    # force_global, stream)
+    "rl_qrcp_select_pivots_coop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (P, W, taus, sigma, part, m, b, row0, pivot, force_global, stream)
-    "rl_qrcp_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_qrcp_panel_coop": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # f32, tensor cores: (X, V, scratch, out, d, n, s, 1/(2 sigma^2), splits,
     #                      stream)
     # f64, SIMT: (X, V, norms, part, out, d, n, s, 1/(2 sigma^2), splits,

@@ -122,7 +122,8 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
     it = 0
     while it < cfg.max_iters:
         unconverged = (res > tol_abs) if seminorm is None else None
-        # the one device read of an iteration
+        # a device read; lockstep mode makes no other in an iteration,
+        # block mode up to four more (two in each _psd_solve)
         if not bool(unconverged.any() if seminorm is None
                     else sn_z > sn_stop):
             break

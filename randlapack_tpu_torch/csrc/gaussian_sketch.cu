@@ -490,18 +490,6 @@ __device__ __forceinline__ void split_frag(const float (&araw)[BK / 8][4],
     for (int e = 0; e < 4; ++e) split_tf32(araw[q][e], ah[q][e], al[q][e]);
 }
 
-// Called after wgmma_wait_all: the tensor cores read a stage's A fragments
-// from these registers until then, which the compiler cannot know, so
-// they stay live (and out of reuse) up to here.
-__device__ __forceinline__ void release_frag(const uint32_t (&ah)[BK / 8][4],
-                                             const uint32_t (&al)[BK / 8][4]) {
-#pragma unroll
-  for (int q = 0; q < BK / 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      asm volatile("" :: "r"(ah[q][e]), "r"(al[q][e]) : "memory");
-}
-
 // one stage on the tensor cores: part (+)= A-fragments x S tile, the two
 // small products first; `keep` 0 starts the accumulator from zero
 __device__ __forceinline__ void multiply_stage(

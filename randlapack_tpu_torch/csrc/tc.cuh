@@ -1,6 +1,7 @@
 // What the tensor-core kernels of this directory share (wy.cu: K1/K2,
 // gaussian_sketch.cu: K7): the fp32 -> TF32 hi/lo split, cp.async and
 // fence wrappers, wgmma.mma_async.m64n128k8 (tf32 in, fp32 accumulate) with
+// the guard that keeps its register operand live until the wait, and
 // its shared-memory descriptor for a K-major operand in unswizzled core
 // matrices, and the pass that adds the parts of a split reduction in index
 // order. Every kernel that includes this walks its reduction in stages of
@@ -113,6 +114,18 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
+}
+
+// Called right after wgmma_wait_all on a stage's TF32 A fragments: the
+// tensor cores read them from these registers until the wait, which the
+// compiler cannot know, so they stay live (and out of reuse) up to here.
+__device__ __forceinline__ void release_frag(const uint32_t (&ah)[BK / 8][4],
+                                             const uint32_t (&al)[BK / 8][4]) {
+#pragma unroll
+  for (int q = 0; q < BK / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      asm volatile("" :: "r"(ah[q][e]), "r"(al[q][e]) : "memory");
 }
 
 // W = part[0] + part[1] + ... in index order, 4 floats a thread

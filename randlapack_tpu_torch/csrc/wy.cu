@@ -459,6 +459,7 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
       fence_proxy_async();
     }
     wgmma_wait_all();
+    release_frag(ah, al);
     const bool last = cp.kt == cp.nk - 1;
     if (++since == chunk || last) {
       since = 0;

@@ -135,9 +135,14 @@ def _drmac_downdate(W, i: int, r_row, dN, eN, update_mask):
     LAPACK dlaqp2's rule). ``W`` is the working matrix after step ``i``'s
     reflector, ``r_row`` = W[i, :], ``update_mask`` (bool) the columns to
     downdate. Returns ``(dN, eN)``."""
-    tol3z = math.sqrt(torch.finfo(W.dtype).eps)
-    trail = torch.sqrt((W[i + 1:] ** 2).sum(0))
-    one = torch.ones((), dtype=W.dtype, device=W.device)
+    return _drmac_rule(dN, eN, r_row, torch.sqrt((W[i + 1:] ** 2).sum(0)),
+                       update_mask)
+
+
+def _drmac_rule(dN, eN, r_row, trail, update_mask):
+    """``_drmac_downdate`` given the exact trailing norms ``trail``."""
+    tol3z = math.sqrt(torch.finfo(dN.dtype).eps)
+    one = torch.ones((), dtype=dN.dtype, device=dN.device)
     dsafe = torch.where(dN > 0, dN, one)
     esafe = torch.where(eN > 0, eN, one)
     temp = r_row.abs() / dsafe

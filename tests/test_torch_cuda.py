@@ -15,10 +15,12 @@ error of at most 4x that of ``torch.mm``/``torch.addmm`` in fp32 on the
 same operands. The f32 K4 (TF32 ``mma`` cross term, ``ex2``) and K7
 (three TF32 ``wgmma`` products, S made by producer warps) are held the
 same way: K7 to 4x ``torch.mm``'s error on the stored S, K4 to 4x its SIMT
-kernel's. The QRCP kernels (K5, K6) must give exactly the plain version's pivots on inputs
-whose column norms are spread out (exp(-3·U) column scaling, as the JAX
-kernel test uses); their factors agree within 1e-4 (f32) / 1e-10 (f64)
-of the largest entry. The kernel product (K4) sums n terms of one sign
+kernel's. The QRCP kernels (K5, K6; the step kernels and the earlier
+cooperative ones) must give exactly the pivots of the plain version and
+of the step schedule's plain model (``ops.qrcp.qrcp_*_schedule``) on
+inputs whose column norms are spread out (exp(-3·U) column scaling, as
+the JAX kernel test uses) or tie exactly; their factors agree within
+1e-4 (f32) / 1e-10 (f64) of the largest entry. The kernel product (K4) sums n terms of one sign
 pattern in its own order: 1e-4 (f32) / 1e-11 (f64) of the largest entry.
 The Gaussian sketch (K7) generates S from the same Philox words as its
 plain version, but ``logf``/``cosf`` on the card differ from PyTorch's
@@ -296,28 +298,68 @@ def _reset_all():
             counts[name] = 0
 
 
+# K5/K6 routes: the step kernel (the shape may send it to the cooperative
+# one), the cooperative kernel with slabs in shared memory where they fit,
+# and with slabs in device memory
+_QRCP_ROUTES = ["step", "coop", "coop_global"]
+
+
+def _select_on(route, Y, b, live):
+    if route == "step":
+        return tqrcp.qrcp_select_pivots_cuda(Y, b, live)
+    return tqrcp.qrcp_select_pivots_coop(Y, b, live,
+                                         force_global=route == "coop_global")
+
+
+def _panel_on(route, P, r0, pivot):
+    if route == "step":
+        return tqrcp.qrcp_panel_cuda(P, r0, pivot)
+    return tqrcp.qrcp_panel_coop(P, r0, pivot,
+                                 force_global=route == "coop_global")
+
+
+def _launched(counts_before, name, route):
+    """Which counter a launch of ``route`` went to: the step kernel's, or
+    (for shapes it refuses, and for the cooperative routes) the
+    cooperative kernel's."""
+    step = tqrcp.LAUNCHES[name] - counts_before[name]
+    coop = (tqrcp.LAUNCHES[name + "_coop"]
+            - counts_before[name + "_coop"])
+    return step, coop
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("force_global", [False, True])
+@pytest.mark.parametrize("route", _QRCP_ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("d,n,b", [(74, 512, 64), (26, 256, 16),
                                    (138, 8192, 128), (138, 1000, 128),
-                                   (12, 37, 12)])
-def test_select_pivots_kernel_matches_plain(cuda, dtype, d, n, b,
-                                            force_global):
+                                   (12, 37, 12), (31, 300, 31),
+                                   (33, 300, 33), (64, 130, 64),
+                                   (65, 130, 65), (160, 513, 128),
+                                   (161, 513, 128), (256, 300, 128),
+                                   (257, 400, 100)])
+def test_select_pivots_kernel_matches_plain(cuda, dtype, d, n, b, route):
+    """Pivots equal to the plain version's and to the step schedule's
+    model, at the step kernel's row boundaries (2, 5 or 8 rows a lane:
+    d 64/65, 160/161, 256/257 -- past 256 the cooperative kernel takes
+    it), d below and above a warp's width and n off the 64-column slab."""
     Y = torch.tensor(_spread((d, n), d + n), dtype=dtype, device=cuda)
     live = torch.ones(n, dtype=dtype, device=cuda)
     live[torch.tensor([0, 3, 5, 8, 9, 20, n - 1])] = 0.0
-    n0 = tqrcp.LAUNCHES["qrcp_select_pivots"]
-    out = tqrcp.qrcp_select_pivots_cuda(Y, b, live, force_global)
+    n0 = dict(tqrcp.LAUNCHES)
+    out = _select_on(route, Y, b, live)
     ref = tqr.qrcp_select_pivots(Y, b, live)
     torch.cuda.synchronize()
-    assert tqrcp.LAUNCHES["qrcp_select_pivots"] == n0 + 1
+    step, coop = _launched(n0, "qrcp_select_pivots", route)
+    assert (step, coop) == ((1, 0) if route == "step" and d <= 256
+                            else (0, 1))
     assert torch.equal(out, ref)
+    assert torch.equal(out, tqrcp.qrcp_select_pivots_schedule(Y, b, live))
     assert not set(out.tolist()) & {0, 3, 5, 8, 9, 20, n - 1}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("force_global", [False, True])
+@pytest.mark.parametrize("route", _QRCP_ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,b,r0,pivot", [(512, 64, 0, True),
                                           (512, 64, 128, True),
@@ -325,27 +367,123 @@ def test_select_pivots_kernel_matches_plain(cuda, dtype, d, n, b,
                                           (8192, 128, 0, True),
                                           (8192, 128, 4096, True),
                                           (1000, 100, 333, True),
-                                          (64, 64, 0, True)])
-def test_panel_kernel_matches_plain(cuda, dtype, m, b, r0, pivot,
-                                    force_global):
+                                          (64, 64, 0, True),
+                                          (300, 1, 299, True),
+                                          (700, 31, 669, True),
+                                          (700, 33, 667, True),
+                                          (700, 33, 100, False),
+                                          (1000, 128, 872, True),
+                                          (1000, 129, 0, True),
+                                          (1000, 256, 744, True),
+                                          (2000, 256, 0, True)])
+def test_panel_kernel_matches_plain(cuda, dtype, m, b, r0, pivot, route):
+    """sigma equal to the plain version's and to the step schedule's
+    model, W and taus within 1e-4 (f32) / 1e-10 (f64) of the largest
+    entry, at b 1, 31, 33, 128 (the step kernel's most), 129 and 256
+    (past it: the cooperative kernel), row0 = m - b and rows not a
+    multiple of the 256- (f32) or 128-row (f64) slab."""
     P = torch.tensor(_spread((m, b), m + b + r0), dtype=dtype, device=cuda)
-    n0 = tqrcp.LAUNCHES["qrcp_panel"]
-    if force_global:
-        W, taus, sigma = tqrcp.qrcp_panel_cuda(P, r0, pivot,
-                                               force_global=True)
-        V = None
-    else:
+    n0 = dict(tqrcp.LAUNCHES)
+    if route == "step":
         W, V, taus, sigma = tqrcp.qrcp_panel_routed(P, r0, pivot)
+    else:
+        W, taus, sigma = _panel_on(route, P, r0, pivot)
+        V = None
     Wp, Vp, tp, sp = tqr.qrcp_panel(P, r0, pivot)
     torch.cuda.synchronize()
-    assert tqrcp.LAUNCHES["qrcp_panel"] == n0 + 1
+    step, coop = _launched(n0, "qrcp_panel", route)
+    assert (step, coop) == ((1, 0) if route == "step" and b <= 128
+                            else (0, 1))
     assert torch.equal(sigma, sp)
+    assert torch.equal(sigma, tqrcp.qrcp_panel_schedule(P, r0, pivot)[3])
     assert torch.equal(W[:r0], P[:r0, sigma])
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     assert float((W - Wp).abs().max()) <= tol * float(Wp.abs().max())
     assert float((taus - tp).abs().max()) <= tol
     if V is not None:
         assert float((V - Vp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", _QRCP_ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qrcp_kernels_break_exact_ties_to_the_lower_index(cuda, dtype,
+                                                          route):
+    """A duplicated column of the largest norm ties at the first step,
+    where every kernel and the plain version take the same norms of the
+    same values: the lower index goes first, as torch.argmax decides. Its
+    twin is left at rounding level, so K5 (30 steps) never takes it and
+    K6 takes it last."""
+    Y = _spread((40, 200), 17)
+    Y[:, 60] *= 2 * np.linalg.norm(Y, axis=0).max() / np.linalg.norm(
+        Y[:, 60])
+    Y[:, 150] = Y[:, 60]
+    Y = torch.tensor(Y, dtype=dtype, device=cuda)
+    live = torch.ones(200, dtype=dtype, device=cuda)
+    out = _select_on(route, Y, 30, live)
+    ref = tqr.qrcp_select_pivots(Y, 30, live)
+    assert torch.equal(out, ref) and int(out[0]) == 60
+    assert 150 not in out.tolist()
+    P = _spread((600, 48), 18)
+    P[:, 7] *= 2 * np.linalg.norm(P, axis=0).max() / np.linalg.norm(
+        P[:, 7])
+    P[:, 40] = P[:, 7]
+    P = torch.tensor(P, dtype=dtype, device=cuda)
+    W, taus, sigma = _panel_on(route, P, 200, True)
+    _, _, _, sp = tqr.qrcp_panel(P, 200, True)
+    assert torch.equal(sigma, sp)
+    assert int(sigma[0]) == 7 and int(sigma[-1]) == 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", _QRCP_ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qrcp_kernels_take_zero_and_nan_columns(cuda, dtype, route):
+    """A zero column is chosen last, with tau 0 and alpha = x_i; a NaN
+    column is chosen first (torch.argmax's rule) and the kernels still
+    return a permutation; K5 with all but 5 columns retired picks them,
+    then column 0, as the plain version does."""
+    P = _spread((500, 40), 19)
+    P[:, 13] = 0.0
+    Pt = torch.tensor(P, dtype=dtype, device=cuda)
+    W, taus, sigma = _panel_on(route, Pt, 50, True)
+    Wp, _, tp, sp = tqr.qrcp_panel(Pt, 50, True)
+    assert torch.equal(sigma, sp) and int(sigma[-1]) == 13
+    assert float(taus[-1]) == 0.0 and float(W[50 + 39, 39]) == 0.0
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((W - Wp).abs().max()) <= tol * float(Wp.abs().max())
+    P[3, 21] = np.nan
+    W, taus, sigma = _panel_on(route, torch.tensor(P, dtype=dtype,
+                                                   device=cuda), 0, True)
+    assert int(sigma[0]) == 21
+    assert sorted(sigma.tolist()) == list(range(40))
+    Y = _spread((30, 300), 20)
+    Y[5, 77] = np.nan
+    Yt = torch.tensor(Y, dtype=dtype, device=cuda)
+    live = torch.ones(300, dtype=dtype, device=cuda)
+    assert int(_select_on(route, Yt, 10, live)[0]) == 77
+    live = torch.zeros(300, dtype=dtype, device=cuda)
+    live[torch.tensor([250, 4, 131, 66, 299])] = 1.0
+    Yt = torch.tensor(_spread((30, 300), 21), dtype=dtype, device=cuda)
+    out = _select_on(route, Yt, 8, live)
+    assert torch.equal(out, tqr.qrcp_select_pivots(Yt, 8, live))
+    assert set(out[:5].tolist()) == {250, 4, 131, 66, 299}
+    assert out[5:].tolist() == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_hqrrp_main_path_takes_the_step_kernels(cuda):
+    """HQRRP at 8192^2 f32, b 128 (64 blocks): 64 launches of each step
+    kernel and none of the cooperative ones."""
+    from randlapack_tpu_torch.drivers import hqrrp_lapack_format
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(8192, 8192, rt.RNGState(7), device=cuda)
+    _reset_all()
+    hqrrp_lapack_format(A, HQRRPConfig(block_size=128, update_defer=4), st)
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": 64, "qrcp_panel": 64,
+                              "qrcp_select_pivots_coop": 0,
+                              "qrcp_panel_coop": 0}
 
 
 @pytest.mark.cuda
@@ -364,7 +502,9 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
                                  rt.RNGState(2), sketch=G.to(cuda))
     torch.cuda.synchronize()
     assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
-                              "qrcp_panel": nblocks}
+                              "qrcp_panel": nblocks,
+                              "qrcp_select_pivots_coop": 0,
+                              "qrcp_panel_coop": 0}
     assert not any(twy.LAUNCHES.values())
     assert tlu.LAUNCHES == {"getrfnp": 0}
     Qc, Rc, Jc, _, fc, _ = hqrrp(torch.tensor(A), cfg, rt.RNGState(2),
@@ -384,14 +524,15 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
     with pytest.raises(NotImplementedError, match="only 'auto'"):
         tqrcp.qrcp_panel_routed(Ag[:, :64].contiguous(), 0,
                                 use_pallas="never")
-    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": 0, "qrcp_panel": 0}
+    assert not any(tqrcp.LAUNCHES.values())
     # CholQR panels go through K3 instead of K6
     _reset_all()
     chol = HQRRPConfig(block_size=64, panel_qr=PanelQR.cholqr)
     hqrrp(torch.tensor(A, device=cuda), chol, rt.RNGState(2))
     torch.cuda.synchronize()
     assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
-                              "qrcp_panel": 0}
+                              "qrcp_panel": 0, "qrcp_select_pivots_coop": 0,
+                              "qrcp_panel_coop": 0}
     assert tlu.LAUNCHES == {"getrfnp": nblocks}
 
 

@@ -183,7 +183,7 @@ def test_cpu_tensors_take_the_plain_versions():
     outs = [hqrrp(At, HQRRPConfig(block_size=32, pallas_qrcp=route,
                                   pallas_panel=route), rt.RNGState(1))
             for route in ("auto", "never")]
-    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": 0, "qrcp_panel": 0}
+    assert not any(tqrcp.LAUNCHES.values())
     assert tlu.LAUNCHES == {"getrfnp": 0}
     for a, b in zip(outs[0][:5], outs[1][:5]):
         assert torch.equal(a, b)
