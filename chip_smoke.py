@@ -11,7 +11,9 @@ matrices, KRILL and the fused Gaussian sketch:
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
   candidates per slot, 2 stages, update defer 4), then bqrrp_q; the same
   factorization with K1/K2 pointed at their earlier SIMT kernels and at
-  the tensor-core ones, in turns and under torch.profiler;
+  the tensor-core ones, then with K3 pointed at its earlier flat kernel
+  and at the blocked one, each pair in turns and under torch.profiler
+  (K3's pair also on HQRRP's CholQR-panel run);
 - HQRRP: hqrrp_lapack_format with bench.py's config 6 (b 128, update
   defer 4), then Q from the packed reflectors; hqrrp with its ``fail``
   flag and a phase breakdown, a CholQR-panel run and a small f64
@@ -62,7 +64,7 @@ NO_LAUNCHES = dict.fromkeys(
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
      "kernel_matmat_simt", "gaussian_sketch_simt",
-     "qrcp_select_pivots_coop", "qrcp_panel_coop"), 0)
+     "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -267,7 +269,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build()
     _build.lib()
-    regs = [f"{path.stem.split('_')[0][3:]}: " + ", ".join(
+    regs = [f"{path.stem.rsplit('_', 1)[0][3:]}: " + ", ".join(
         ln.split(":", 1)[1].strip() for ln in
         path.with_suffix(".log").read_text().splitlines()
         if "registers" in ln) for path in paths]
@@ -413,25 +415,66 @@ def phase_kernels(dev) -> dict:
               f"bit-equal; kernel {ms_new:.4f} ms, SIMT {ms_simt:.4f} ms, "
               f"addmm_ unmasked {lib_ms:.4f} ms", flush=True)
         del A, V, Z, Ap, Ak, ref
-    # K3 getrfnp: a 256x256 orthonormal block (and a ragged 200)
-    for k, timed in ((256, True), (200, False)):
-        M = torch.linalg.qr(randn(k, k))[0].contiguous()
+    # K3 getrfnp: the blocked kernel at BQRRP's k 256 and HQRRP CholQR's
+    # k 128 (timed against the earlier flat kernel in turns, and against
+    # cuSOLVER's unpivoted LU of M - diag(s), the signs handed to it), a
+    # ragged 200 and f64
+    for k, dtype, timed in ((256, f32, True), (128, f32, True),
+                            (200, f32, False), (256, torch.float64, False)):
+        M = torch.linalg.qr(torch.randn(k, k, generator=g, device=dev,
+                                        dtype=dtype))[0].contiguous()
         F, s = lu.getrfnp_cuda(M)
+        F2, s2 = lu.getrfnp_cuda(M)
+        Ff, sf = lu.getrfnp_flat(M)
         Fp, sp = lu.getrfnp(M)
+        tol = 1e-4 if dtype == f32 else 1e-10
         err = float((F - Fp).abs().max())
         umin = float(torch.triu(F).diagonal().abs().min())
-        gate(torch.equal(s, sp), f"getrfnp k={k}: sign vectors differ")
-        gate(err <= 1e-4, f"getrfnp k={k}: max|dF| {err}")
+        eye = torch.eye(k, dtype=dtype, device=dev)
+        res = float(((torch.tril(F, -1) + eye) @ torch.triu(F)
+                     - (M - torch.diag(s))).abs().max())
+        LU, _, info = torch.linalg.lu_factor_ex(M - torch.diag(s),
+                                                pivot=False)
+        e_lib = float((F - LU).abs().max())
+        e_flat = float((Ff - Fp).abs().max())
+        gate(torch.equal(s, sp) and torch.equal(sf, sp),
+             f"getrfnp k={k}: sign vectors differ")
+        gate(err <= tol and e_flat <= tol, f"getrfnp k={k}: max|dF| {err}, "
+             f"flat {e_flat}")
+        gate(res <= tol, f"getrfnp k={k}: |LU - (M - diag s)| {res}")
         gate(umin >= 1 - 1e-5, f"getrfnp k={k}: min|u_jj| {umin}")
+        gate(torch.equal(F, F2) and torch.equal(s, s2),
+             f"getrfnp k={k}: two launches differ")
+        gate(int(info) == 0 and e_lib <= tol,
+             f"getrfnp k={k}: lu_factor_ex info {int(info)}, max|dF| {e_lib}")
+        line = (f"[kernel] getrfnp k={k} {str(dtype)[6:]}: same s as the plain "
+                f"and the flat kernel, max|dF| {err:.3e} (flat {e_flat:.3e}),"
+                f" |LU - (M - diag s)| {res:.3e}, min|u_jj| {umin:.6f}, two "
+                f"launches bit-equal, bit-equal to the flat kernel "
+                f"{torch.equal(F, Ff)}; lu_factor_ex(pivot=False, s given) "
+                f"max|dF| {e_lib:.3e}")
         if timed:
-            out["getrfnp"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: lu.getrfnp_cuda(M), 20),
-                plain_ms=cuda_ms(lambda: lu.getrfnp(M), 3, warmup=1),
-                **bound(2 * k ** 3 / 3, 4 * (2 * k * k + k)),
-                library_ms=None)
-        print(f"[kernel] getrfnp k={k}: same s, max|dF| {err:.3e}, "
-              f"min|u_jj| {umin:.6f}", flush=True)
+            flat_ms, ms = in_turns(lambda: lu.getrfnp_flat(M),
+                                   lambda: lu.getrfnp_cuda(M), 100)
+            lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(
+                M - torch.diag(s), pivot=False), 100)
+            rec = dict(ms=ms, flat_ms=flat_ms, us_per_step=ms * 1e3 / k,
+                       library_ms=lib_ms,
+                       library_call="torch.linalg.lu_factor_ex(M - diag(s),"
+                       " pivot=False), s given")
+            if k == 256:
+                out["getrfnp"] = dict(
+                    max_abs_err=err, lib_max_abs_err=e_lib,
+                    plain_ms=cuda_ms(lambda: lu.getrfnp(M), 3, warmup=1),
+                    **bound(2 * k ** 3 / 3, 4 * (2 * k * k + k)), **rec)
+            else:
+                out["getrfnp"].update({f"{key}_k{k}": v
+                                       for key, v in rec.items()
+                                       if key != "library_call"})
+            line += (f"; blocked {ms:.4f} ms ({ms * 1e3 / k:.3f} us a step), "
+                     f"flat {flat_ms:.4f} ms ({flat_ms * 1e3 / k:.3f} us a "
+                     f"step), in turns; lu_factor_ex {lib_ms:.4f} ms")
+        print(line, flush=True)
     # K5 qrcp_select_pivots: the HQRRP sketch Y (138, 8192), 128 steps,
     # some columns retired (and a ragged case); the step kernel and the
     # earlier cooperative one against the plain version, timed in turns
@@ -674,7 +717,12 @@ def phase_kernels(dev) -> dict:
                f" ({rec['us_per_step']:.2f} us a step), earlier cooperative"
                f" kernel {rec['coop_ms']:.4f} ms "
                f"({rec['coop_us_per_step']:.2f} us a step)"
-               if "coop_ms" in rec else "")
+               if "coop_ms" in rec else
+               f" ({rec['us_per_step']:.3f} us a step), earlier flat kernel "
+               f"{rec['flat_ms']:.4f} ms; k 128: {rec['ms_k128']:.4f} ms, flat "
+               f"{rec['flat_ms_k128']:.4f} ms, library "
+               f"{rec['library_ms_k128']:.4f} ms"
+               if "flat_ms" in rec else "")
         print(f"[kernel-time] {name}: kernel {rec['ms']:.4f} ms{old}, plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}){lib}", flush=True)
@@ -806,6 +854,7 @@ def phase_old_vs_new(dev) -> None:
             lambda: bqrrp_factored(A, cfg, st)))
         if which not in facs or wall < facs[which][1]:
             facs[which] = (fac, wall, rows)
+    MAIN_PROFILE["new"] = facs["new"]
     for which, (fac, wall, rows) in facs.items():
         busy = sum(ms for _, ms, _ in rows)
         gate(busy > 0, "the profiler saw no device time")
@@ -838,6 +887,115 @@ def phase_old_vs_new(dev) -> None:
     dR = float((fs.R - fn.R).abs().max() / fn.R.abs().max())
     print(f"[old-vs-new] J equal between the two: {same}; rel max|dR| "
           f"{dR:.3e}", flush=True)
+
+
+# the profiled run of the main path that phase_old_vs_new makes, reused as
+# the blocked-K3 run of phase_k3_old_vs_new (the same configuration)
+MAIN_PROFILE = {}
+
+
+def phase_k3_old_vs_new(dev) -> None:
+    """The 8192x8192 BQRRP factorization with K3 pointed at the earlier
+    flat kernel and at the blocked one: best-of-2 times in turns (flat,
+    blocked, blocked, flat), then each under torch.profiler (wall time, the
+    card's busy time and idle share, K3's share), with residual,
+    orthogonality and whether both give the same J (the blocked run under
+    the profiler is phase_old_vs_new's, when it ran); then HQRRP's
+    CholQR-panel run (3000x2000, 16 K3 launches) in turns, best of 2."""
+    from pathlib import Path
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig,
+                                              PanelQR, bqrrp_factored, hqrrp)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops import lu
+    bodies = {"blocked": lu.getrfnp_cuda, "flat": lu.getrfnp_flat}
+
+    def with_k3(which, fn):
+        try:
+            lu.getrfnp_cuda = bodies[which]
+            return fn()
+        finally:
+            lu.getrfnp_cuda = bodies["blocked"]
+
+    def best_of_2(which, run, expected):
+        def timed():
+            times = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                reset_counts()
+                start.record()
+                result = run()
+                end.record()
+                torch.cuda.synchronize()
+                gate(read_counts() == expected[which],
+                     f"launches with the {which} K3 {read_counts()}")
+                times.append(start.elapsed_time(end) / 1e3)
+            return min(times), result
+        return with_k3(which, timed)
+
+    cfg = BQRRPConfig(block_size=256, pivot_candidates=2, stages=2,
+                      update_defer=4)
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    expected = {"blocked": EXPECTED_LAUNCHES,
+                "flat": {**EXPECTED_LAUNCHES, "getrfnp": 0,
+                         "getrfnp_flat": 32}}
+    turns = [(which, best_of_2(which, lambda: bqrrp_factored(A, cfg, st),
+                               expected)[0])
+             for which in ("flat", "blocked", "blocked", "flat")]
+    print("[old-vs-new] bqrrp_factored 8192x8192 f32, K3 flat against "
+          "blocked, best of 2, in turns: " + ", ".join(
+              f"{which} {t:.4f} s" for which, t in turns), flush=True)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    facs = {}
+    for which in ("flat", "blocked"):
+        if which == "blocked" and "new" in MAIN_PROFILE:
+            fac, wall, rows = MAIN_PROFILE["new"]
+        else:
+            (fac, _), wall, rows = with_k3(which, lambda: device_profile(
+                lambda: bqrrp_factored(A, cfg, st)))
+        busy = sum(ms for _, ms, _ in rows)
+        gate(busy > 0, "the profiler saw no device time")
+        k3 = [(ms, cnt) for key, ms, cnt in rows if "getrfnp" in key]
+        gate(len(k3) == 1 and k3[0][1] == 32,
+             f"K3 ({which}) not found 32 times in the profile: {k3}")
+        (out / f"bqrrp_profile_k3_{which}.txt").write_text(
+            f"wall {wall:.4f} s, device {busy:.1f} ms, "
+            f"{sum(c for *_, c in rows)} launches\n" + "\n".join(
+                f"{ms:10.3f} ms {cnt:7d}  {key}" for key, ms, cnt in rows))
+        _, res, orth = quality(A, fac)
+        facs[which] = fac
+        print(f"[old-vs-new] K3 {which} under the profiler: wall {wall:.4f} "
+              f"s, card busy {busy:.1f} ms (idle "
+              f"{100 - 100 * busy / 1e3 / wall:.1f} %), K3 {k3[0][0]:.2f} ms "
+              f"in {k3[0][1]} launches ({100 * k3[0][0] / busy:.1f} % of "
+              f"busy); residual {res:.3e}, orth {orth:.3e}, fail "
+              f"{bool(fac.fail)}", flush=True)
+        gate(res <= RES_GATE and orth <= ORTH_GATE and not bool(fac.fail),
+             f"quality with the {which} K3")
+    print(f"[old-vs-new] K3: J equal between the two: "
+          f"{torch.equal(facs['flat'].J, facs['blocked'].J)}, R equal: "
+          f"{torch.equal(facs['flat'].R, facs['blocked'].R)}", flush=True)
+
+    A, st = fast_decay_matrix(3000, 2000, RNGState(1), device=dev)
+    chol = HQRRPConfig(block_size=128, panel_qr=PanelQR.cholqr)
+    panel = {**NO_LAUNCHES, "qrcp_select_pivots": 16}
+    expected = {"blocked": {**panel, "getrfnp": 16},
+                "flat": {**panel, "getrfnp_flat": 16}}
+    runs = [(which, *best_of_2(which, lambda: hqrrp(A, chol, st), expected))
+            for which in ("flat", "blocked", "blocked", "flat")]
+    quality_ = []
+    for which, _, (Q, R, J, _, fail, _) in runs[:2]:
+        res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+        gate(res <= RES_GATE and not bool(fail),
+             f"cholqr-panel run with the {which} K3: residual {res}")
+        quality_.append(f"{which} residual {res:.3e}")
+    print("[old-vs-new] hqrrp 3000x2000 f32 cholqr panels, K3 flat against "
+          "blocked, best of 2, in turns: " + ", ".join(
+              f"{which} {t:.4f} s" for which, t, _ in runs)
+          + f"; {', '.join(quality_)}", flush=True)
 
 
 def phase_remainder(dev) -> None:
@@ -1528,6 +1686,7 @@ def main() -> int:
     timed = run(phase_kernels, dev)
     counts = {"bqrrp": run(phase_main, dev, f"{smi}")}
     run(phase_old_vs_new, dev)
+    run(phase_k3_old_vs_new, dev)
     run(phase_remainder, dev)
     run(phase_small_vs_plain, dev)
     counts["hqrrp"] = run(phase_hqrrp, dev, f"{smi}")

@@ -5,8 +5,8 @@ shared library of its own with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The ``nvcc``
 processes of all files run at once. A library goes into ``build/kernels/``
 beside the package, named by its source, a hash of that source, the
-shared ``*.cuh`` headers and the flags, so an unchanged file reuses its
-library; ``nvcc``'s report (registers, shared memory and spills per
+``*.cu`` files it includes, the shared ``*.cuh`` headers and the flags, so
+an unchanged file reuses its library; ``nvcc``'s report (registers, shared memory and spills per
 kernel, from ``-Xptxas -v``) is written beside it as ``<name>.log``.
 
 Only the CUDA branches of the kernel wrappers import this module: the
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -46,8 +47,9 @@ _SIGNATURES = {
     # the f32 SIMT kernels, with the f64 forms' arguments
     "rl_masked_vt_a_simt": {"_f32": _WY_SIMT},
     "rl_a_minus_vz_masked_simt": {"_f32": _WY_SIMT},
-    # (M, F, s, k, stream)
+    # (M, F, s, k, stream): the blocked kernel and the earlier flat one
     "rl_getrfnp": [_P, _P, _P, _I, _P],
+    "rl_getrfnp_flat": [_P, _P, _P, _I, _P],
     # step kernels: (Y, live, chosen, work, d, n, nsteps, stream)
     "rl_qrcp_select_pivots": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (P, W, taus, sigma, part, m, b, row0, pivot, stream)
@@ -91,7 +93,9 @@ def _sources() -> list[Path]:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [src, *sorted(_CSRC.glob("*.cuh"))]:
+    included = [_CSRC / name for name in
+                re.findall(r'^#include "(\w+\.cu)"', src.read_text(), re.M)]
+    for f in [src, *included, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"

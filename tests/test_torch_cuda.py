@@ -20,7 +20,10 @@ cooperative ones) must give exactly the pivots of the plain version and
 of the step schedule's plain model (``ops.qrcp.qrcp_*_schedule``) on
 inputs whose column norms are spread out (exp(-3·U) column scaling, as
 the JAX kernel test uses) or tie exactly; their factors agree within
-1e-4 (f32) / 1e-10 (f64) of the largest entry. The kernel product (K4) sums n terms of one sign
+1e-4 (f32) / 1e-10 (f64) of the largest entry. K3 (the blocked LU and the
+earlier flat one) gives the plain version's signs exactly and F within
+1e-4 (f32) / 1e-10 (f64); the blocked one is also held to the model of
+its schedule, within 1e-5 / 1e-12. The kernel product (K4) sums n terms of one sign
 pattern in its own order: 1e-4 (f32) / 1e-11 (f64) of the largest entry.
 The Gaussian sketch (K7) generates S from the same Philox words as its
 plain version, but ``logf``/``cosf`` on the card differ from PyTorch's
@@ -239,23 +242,88 @@ def test_wy_kernels_keep_the_non_finite_pattern(cuda, bad):
     assert not bool(torch.isfinite(U).all())
 
 
+def _lu_gates(M, F, s, tol):
+    """|u_jj| >= 1 and L·U = M − diag(s) within ``tol``."""
+    k = M.shape[0]
+    U = torch.triu(F)
+    assert float(U.diagonal().abs().min()) >= 1.0 - 1e-5
+    L = torch.tril(F, -1) + torch.eye(k, dtype=M.dtype, device=M.device)
+    assert float((L @ U - (M - torch.diag(s))).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 48, 128, 200, 256, 300, 2048])
+def test_getrfnp_kernel_matches_plain(cuda, dtype, k):
+    """The blocked kernel against the plain recursive version (s equal,
+    F within 1e-4 / 1e-10) and against the model of its own schedule
+    (``getrfnp_schedule``: the same terms in the same order, one rounding
+    fewer a term, so within 1e-5 / 1e-12)."""
+    M = torch.tensor(_orthonormal(k, k), dtype=dtype, device=cuda)
+    n0 = dict(tlu.LAUNCHES)
+    F, s = tlu.getrfnp_routed(M)
+    torch.cuda.synchronize()
+    assert tlu.LAUNCHES == {**n0, "getrfnp": n0["getrfnp"] + 1}
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 1e-10
+    Fp, sp = tlu.getrfnp(M)
+    assert torch.equal(s, sp)
+    assert float((F - Fp).abs().max()) <= tol
+    Fm, sm = tlu.getrfnp_schedule(M)
+    assert torch.equal(s, sm)
+    assert float((F - Fm).abs().max()) <= (1e-5 if f32 else 1e-12)
+    _lu_gates(M, F, s, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k", [1, 48, 256, 300])
-def test_getrfnp_kernel_matches_plain(cuda, dtype, k):
+def test_getrfnp_flat_matches_plain(cuda, dtype, k):
+    """The earlier flat kernel, reachable as ``getrfnp_flat`` and counted
+    apart."""
     M = torch.tensor(_orthonormal(k, k), dtype=dtype, device=cuda)
-    n0 = tlu.LAUNCHES["getrfnp"]
-    F, s = tlu.getrfnp_routed(M)
-    Fp, sp = tlu.getrfnp(M)
+    n0 = dict(tlu.LAUNCHES)
+    F, s = tlu.getrfnp_flat(M)
     torch.cuda.synchronize()
-    assert tlu.LAUNCHES["getrfnp"] == n0 + 1
+    assert tlu.LAUNCHES == {**n0, "getrfnp_flat": n0["getrfnp_flat"] + 1}
+    Fp, sp = tlu.getrfnp(M)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     assert torch.equal(s, sp)
     assert float((F - Fp).abs().max()) <= tol
-    U = torch.triu(F)
-    assert float(U.diagonal().abs().min()) >= 1.0 - 1e-5
-    L = torch.tril(F, -1) + torch.eye(k, dtype=dtype, device=cuda)
-    assert float((L @ U - (M - torch.diag(s))).abs().max()) <= tol
+    _lu_gates(M, F, s, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [128, 256])
+def test_getrfnp_kernel_is_deterministic_and_agrees_with_the_library(
+        cuda, dtype, k):
+    """Two launches give the same bits, and F agrees with cuSOLVER's
+    unpivoted LU of M − diag(s) (the signs handed to it) within the K3
+    gates."""
+    M = torch.tensor(_orthonormal(k, 3 * k), dtype=dtype, device=cuda)
+    F, s = tlu.getrfnp_cuda(M)
+    F2, s2 = tlu.getrfnp_cuda(M)
+    assert torch.equal(F, F2) and torch.equal(s, s2)
+    LU, _, info = torch.linalg.lu_factor_ex(M - torch.diag(s), pivot=False)
+    assert int(info) == 0
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((F - LU).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_getrfnp_kernel_takes_the_adversarial_rotations(cuda):
+    """The rotation block on which a fixed sign choice is singular."""
+    th = 0.7
+    R2 = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    for dtype in (torch.float32, torch.float64):
+        M = torch.tensor(np.kron(np.eye(40), R2), dtype=dtype, device=cuda)
+        F, s = tlu.getrfnp_cuda(M)
+        Fp, sp = tlu.getrfnp(M)
+        assert torch.equal(s, sp)
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        assert float((F - Fp).abs().max()) <= tol
+        _lu_gates(M, F, s, tol)
 
 
 @pytest.mark.cuda
@@ -276,7 +344,7 @@ def test_cuda_path_goes_through_the_kernels(cuda):
     assert twy.LAUNCHES == {"masked_vt_a": 5, "a_minus_vz_masked": 3,
                             "masked_vt_a_simt": 0,
                             "a_minus_vz_masked_simt": 0}
-    assert tlu.LAUNCHES == {"getrfnp": 5}
+    assert tlu.LAUNCHES == {"getrfnp": 5, "getrfnp_flat": 0}
     fc, _ = bqrrp_factored(torch.tensor(A), BQRRPConfig(**kw),
                            rt.RNGState(2), sketch=S)
     assert torch.equal(fg.J.cpu(), fc.J)
@@ -506,7 +574,7 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
                               "qrcp_select_pivots_coop": 0,
                               "qrcp_panel_coop": 0}
     assert not any(twy.LAUNCHES.values())
-    assert tlu.LAUNCHES == {"getrfnp": 0}
+    assert tlu.LAUNCHES == {"getrfnp": 0, "getrfnp_flat": 0}
     Qc, Rc, Jc, _, fc, _ = hqrrp(torch.tensor(A), cfg, rt.RNGState(2),
                                  sketch=G)
     assert torch.equal(Jg.cpu(), Jc) and not bool(fg)
@@ -533,7 +601,7 @@ def test_hqrrp_goes_through_the_qrcp_kernels(cuda, m, n):
     assert tqrcp.LAUNCHES == {"qrcp_select_pivots": nblocks,
                               "qrcp_panel": 0, "qrcp_select_pivots_coop": 0,
                               "qrcp_panel_coop": 0}
-    assert tlu.LAUNCHES == {"getrfnp": nblocks}
+    assert tlu.LAUNCHES == {"getrfnp": nblocks, "getrfnp_flat": 0}
 
 
 @pytest.mark.cuda
