@@ -29,6 +29,15 @@ matrices, KRILL and the fused Gaussian sketch:
   factor and a small f64 card-vs-CPU parity run;
 - the Gaussian sketch: ops.gaussian_sketch of a 131072×2048 matrix to
   2560 rows (CQRRPT's sketch size d = 1.25·n);
+- CQRRPT and CQRRT at BASELINE config 3, a 131072×2048 f32
+  fast_decay_matrix (decay 9): config 3 as bench.py builds it (SRHT
+  sketch, explicit BQRRP b 256 on the sketch, blocked-inverse trsm; best
+  of 3 and a phase split; no kernel launches), the sketch QRCP through
+  HQRRP b 128 (16 K5 and 16 K6 launches), the default configuration
+  (SASO, geqp3) and CQRRT with SASO and SRHT, each gated on residual,
+  orthogonality, ``fail``, J and launches; the SASO (scatter, gather) and
+  SRHT sketches alone beside K7; K5/K6 at CQRRPT's shapes against their
+  plain versions and a small f64 card-vs-CPU parity run;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -73,6 +82,14 @@ HQRRP_LAUNCHES = {**NO_LAUNCHES, "qrcp_select_pivots": 64, "qrcp_panel": 64}
 KRILL_N, KRILL_K = 65536, 1024
 # the sketch of CQRRPT at a 131072×2048 matrix: d = 1.25·n rows
 SKETCH_M, SKETCH_N, SKETCH_D = 131072, 2048, 2560
+# config 3 of BASELINE.md: CQRRPT of a 131072x2048 tall matrix (bench.py's
+# recipe), its sketch d = 1.25·n; gates from tests/test_qr_drivers.py at
+# f32 and the rank k
+TALL_M, TALL_N = 131072, 2048
+# the sketch QRCP through HQRRP at b 128: 16 blocks on the 2560x2048
+# sketch, one K5 and one K6 launch each
+CQRRPT_HQRRP_LAUNCHES = {**NO_LAUNCHES, "qrcp_select_pivots": 16,
+                         "qrcp_panel": 16}
 KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "masked_vt_a": ("randlapack_tpu_torch/csrc/wy.cu",
                     "randlapack_tpu/ops/pallas_wy.py:91", "bqrrp"),
@@ -1431,6 +1448,242 @@ def phase_sketch(dev) -> dict:
     return counts
 
 
+def tall_quality(A, Q, R, J, k):
+    """Residual ‖Q_k R_k − A[:, J]‖_F/‖A‖_F and ‖Q_kᵀQ_k − I‖_F, in f64."""
+    Qk, Rk = Q[:, :k].double(), R[:k].double()
+    AJ = A.index_select(1, J).double()
+    res = float(torch.linalg.norm(Qk @ Rk - AJ) / torch.linalg.norm(AJ))
+    orth = float(torch.linalg.norm(
+        Qk.T @ Qk - torch.eye(k, dtype=Qk.dtype, device=Qk.device)))
+    return res, orth
+
+
+def tall_gates(tag, A, Q, R, J, rank, fail, counts, expected, secs,
+               peak) -> None:
+    """One ``[cqrrpt…]`` line and the f32 gates of tests/test_qr_drivers.py
+    at the rank k: residual ≤ 10·eps^0.75, orthogonality ≤
+    10·eps^0.75·√k, ``fail`` False, J a permutation, the launch counts.
+    ``peak`` is the run's peak device memory in GiB."""
+    m, n = A.shape
+    k = int(rank) if rank is not None else n
+    res, orth = tall_quality(A, Q, R, J, k)
+    orth_gate = RES_GATE * math.sqrt(k)
+    print(f"[{tag}] {m}x{n} f32: {secs}; residual {res:.3e} (gate "
+          f"{RES_GATE:.2e}), orth {orth:.3e} (gate {orth_gate:.2e}), rank "
+          f"{k}, fail {bool(fail)}, peak memory {peak:.2f} GiB, launches "
+          f"{({c: v for c, v in counts.items() if v}) or 'none'}",
+          flush=True)
+    gate(bool(torch.isfinite(Q).all() and torch.isfinite(R).all()),
+         f"{tag}: non-finite output")
+    gate(torch.equal(torch.sort(J).values, torch.arange(n, device=J.device)),
+         f"{tag}: J is not a permutation")
+    gate(res <= RES_GATE, f"{tag}: residual {res}")
+    gate(orth <= orth_gate, f"{tag}: orthogonality {orth}")
+    gate(not bool(fail), f"{tag}: fail flag raised")
+    gate(counts == expected, f"{tag}: launches {counts} != {expected}")
+
+
+def timed_run(fn, reps: int):
+    """``fn()`` ``reps`` times after one warm-up: the last output, wall
+    seconds of each run around a synchronize, the launch counts and the
+    peak device memory (GiB, inputs included) of the last run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out, times, read_counts(), peak
+
+
+def phase_cqrrpt(dev, card: str, k7_ms: float) -> dict:
+    """CQRRPT and CQRRT at BASELINE config 3 (131072x2048 f32,
+    fast_decay_matrix(..., RNGState(2), decay=9.0)): config 3 as bench.py
+    builds it (best of 3, then a timing=True split), the same matrix with
+    the sketch QRCP through HQRRP (K5/K6), the default configuration (SASO,
+    geqp3) and CQRRT with SASO and SRHT; the sketches alone beside K7; K5
+    and K6 against their plain versions at this path's shapes; a small f64
+    card-vs-CPU parity run. Returns the HQRRP run's launch counts."""
+    import dataclasses
+    from randlapack_tpu_torch import RNGState, sketching
+    from randlapack_tpu_torch.drivers import (CQRRPTConfig, CQRRTConfig,
+                                              QRCPKind, SketchKind, cqrrpt,
+                                              cqrrt)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(TALL_M, TALL_N, RNGState(2), decay=9.0,
+                              device=dev)
+    m, n = A.shape
+    flops = 2.0 * m * n ** 2                    # bench.py's count
+    cfg3 = CQRRPTConfig(sketch="srht", qrcp=QRCPKind.bqrrp,
+                        bqrrp_block=256, bqrrp_pivot_candidates=2,
+                        trsm_mode="blockinv")
+
+    # -- config 3: best of 3, then the phase split --------------------------
+    (Q, R, J, rank, fail, _), times, counts, peak = timed_run(
+        lambda: cqrrpt(A, cfg3, st), 3)
+    t = min(times)
+    tall_gates("cqrrpt", A, Q, R, J, rank, fail, counts, NO_LAUNCHES,
+               f"cqrrpt config 3 (srht, bqrrp b256 pc2, blockinv) on {card}"
+               f": runs {[round(x, 4) for x in times]} s, best {t:.4f} s = "
+               f"{flops / t / 1e9:.1f} GFLOP/s (2mn^2)", peak)
+    del Q, R
+    *_, phases = cqrrpt(A, cfg3, st, timing=True)
+    print("[cqrrpt-phases] config 3, timing=True (blockinv: the timed path "
+          "gathers A[:, J] as a_mod_piv; the untimed one folds the gather "
+          "into a_mod_trsm): " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in phases.items()), flush=True)
+
+    # -- the sketch QRCP through HQRRP: K5/K6 ------------------------------
+    cfg_h = dataclasses.replace(cfg3, qrcp=QRCPKind.hqrrp, bqrrp_block=128)
+    (Q, R, J, rank, fail, _), times, hq_counts, peak = timed_run(
+        lambda: cqrrpt(A, cfg_h, st), 1)
+    tall_gates("cqrrpt-hqrrp", A, Q, R, J, rank, fail, hq_counts,
+               CQRRPT_HQRRP_LAUNCHES,
+               f"cqrrpt srht, hqrrp b128, blockinv: {times[0]:.4f} s", peak)
+    del Q, R
+
+    # -- the default configuration (SASO, geqp3): geqp3 on the sketch -------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    Q, R, J, rank, fail, _, ph = cqrrpt(A, CQRRPTConfig(), st, timing=True)
+    secs = time.perf_counter() - t0
+    tall_gates("cqrrpt-default", A, Q, R, J, rank, fail, read_counts(),
+               NO_LAUNCHES,
+               f"cqrrpt default (saso, geqp3), timing=True: {secs:.4f} s, "
+               f"of which saso {ph['saso']:.4f} s and geqp3 on the "
+               f"{int(1.25 * n)}x{n} sketch (qrcp) {ph['qrcp']:.4f} s",
+               torch.cuda.max_memory_allocated() / 2 ** 30)
+    del Q, R
+
+    # -- CQRRT with SASO and SRHT --------------------------------------------
+    for kind in (SketchKind.saso, SketchKind.srht):
+        (Q, R, fail, _), times, counts, peak = timed_run(
+            lambda: cqrrt(A, CQRRTConfig(sketch=kind), st), 1)
+        tall_gates(f"cqrrt-{kind.value}", A, Q, R,
+                   torch.arange(n, device=dev), None, fail, counts,
+                   NO_LAUNCHES, f"cqrrt {kind.value}: {times[0]:.4f} s",
+                   peak)
+        del Q, R
+
+    # -- the sketches alone, beside K7 ---------------------------------------
+    d = int(1.25 * n)
+    gen_ms = cuda_ms(lambda: sketching.fill_sparse(
+        sketching.SparseDist(d, m), st, device=dev), 3, warmup=1)
+    op, _ = sketching.fill_sparse(sketching.SparseDist(d, m), st,
+                                  device=dev)
+    scatter = sketching.saso_left_apply(op, A, method="scatter")
+    again = sketching.saso_left_apply(op, A, method="scatter")
+    gather = sketching.saso_left_apply(op, A, method="gather")
+    sc_ms = cuda_ms(lambda: sketching.saso_left_apply(
+        op, A, method="scatter"), 5)
+    ga_ms = cuda_ms(lambda: sketching.saso_left_apply(
+        op, A, method="gather"), 5)
+    sop, _ = sketching.srht_skop(d, m, st, device=dev)
+    srht_ms = cuda_ms(lambda: sketching.srht_left_apply(sop, A), 5)
+    agree = float(torch.linalg.norm(scatter - gather)
+                  / torch.linalg.norm(gather))
+    bit_equal = torch.equal(scatter, again)
+    runs_apart = float((scatter - again).abs().max() / gather.abs().max())
+    print(f"[cqrrpt-sketch] {m}x{n} f32 to d={d}: saso scatter "
+          f"{sc_ms:.4f} ms, gather {ga_ms:.4f} ms, scatter vs gather rel "
+          f"{agree:.3e}, two scatter runs bit-equal {bit_equal} (max|diff| "
+          f"{runs_apart:.3e} of max|SA|), fill_sparse {gen_ms:.4f} ms; srht "
+          f"{srht_ms:.4f} ms; K7 gaussian_sketch {k7_ms:.4f} ms (kernel "
+          f"phase)", flush=True)
+    gate(agree <= 1e-5, f"saso scatter vs gather {agree}")
+    del scatter, again, gather, op, sop
+
+    # -- K5/K6 at this path's shapes against their plain versions -----------
+    phase_cqrrpt_kernels(dev, A, d)
+    del A
+    phase_cqrrpt_small_vs_plain(dev)
+    return hq_counts
+
+
+def phase_cqrrpt_kernels(dev, A, d) -> None:
+    """K5 and K6 on the shapes CQRRPT's HQRRP gives them (the 138x2048
+    sketch of the 2560x2048 sketch; a 2560x128 panel), against their plain
+    versions; the launches here are not the path's."""
+    from randlapack_tpu_torch.ops import qr as tqr, qrcp as tqrcp
+    n = A.shape[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    Y = torch.randn((138, n), generator=g, device=dev) \
+        * torch.exp(-3 * torch.rand(n, generator=g, device=dev))
+    live = torch.ones(n, device=dev)
+    live[::8] = 0.0
+    P = torch.randn((d, 128), generator=g, device=dev) \
+        * torch.exp(-3 * torch.rand(128, generator=g, device=dev))
+    piv = tqrcp.qrcp_select_pivots_cuda(Y, 128, live)
+    piv_ref = tqr.qrcp_select_pivots(Y, 128, live)
+    W, taus, sigma = tqrcp.qrcp_panel_cuda(P, 0, True)
+    Wr, _, taus_r, sr = tqr.qrcp_panel(P, 0, True)
+    dW = float(max((W - Wr).abs().max() / Wr.abs().max(),
+                   (taus - taus_r).abs().max()))
+    print(f"[cqrrpt-kernels] K5 on 138x{n} (128 steps, 1/8 retired): pivots"
+          f" equal {torch.equal(piv, piv_ref)}; K6 on {d}x128: sigma equal "
+          f"{torch.equal(sigma, sr)}, rel max|dW|, |dtau| {dW:.3e}", flush=True)
+    gate(torch.equal(piv, piv_ref), "K5 pivots at the cqrrpt shape")
+    gate(torch.equal(sigma, sr) and dW <= 1e-4, "K6 at the cqrrpt shape")
+
+
+def phase_cqrrpt_small_vs_plain(dev) -> None:
+    """cqrrpt on the card against the CPU, f64, 4096x256, the same
+    operators (drawn on the CPU) injected on both devices: same pivots,
+    R within 1e-10 of max|R|."""
+    import dataclasses
+    from randlapack_tpu_torch import RNGState, sketching
+    from randlapack_tpu_torch.drivers import CQRRPTConfig, QRCPKind, cqrrpt
+    g = torch.Generator().manual_seed(6)
+    m, n = 4096, 256
+    A = torch.randn(m, n, generator=g, dtype=torch.float64) \
+        * torch.logspace(0, -6, n, dtype=torch.float64)
+    d = int(1.25 * n)
+    st = RNGState(3)
+    saso, _ = sketching.fill_sparse(sketching.SparseDist(d, m), st,
+                                    dtype=torch.float64, device="cpu")
+    srht, _ = sketching.srht_skop(d, m, st, dtype=torch.float64,
+                                  device="cpu")
+    S_b = torch.randn(80, d, generator=g, dtype=torch.float64) / math.sqrt(80)
+    G_h = 2 * torch.rand(74, d, generator=g, dtype=torch.float64) - 1
+
+    def on(op, device):
+        return dataclasses.replace(op, **{
+            f.name: getattr(op, f.name).to(device)
+            for f in dataclasses.fields(op)
+            if isinstance(getattr(op, f.name), torch.Tensor)})
+
+    runs = [("saso/geqp3", CQRRPTConfig(), saso, None),
+            ("srht/bqrrp/blockinv", CQRRPTConfig(
+                sketch="srht", qrcp=QRCPKind.bqrrp, bqrrp_block=64,
+                bqrrp_pivot_candidates=2, trsm_mode="blockinv",
+                trsm_block=64, gram_block=128), srht, S_b),
+            ("srht/hqrrp", CQRRPTConfig(sketch="srht", qrcp=QRCPKind.hqrrp,
+                                        bqrrp_block=64), srht, G_h)]
+    for name, cfg, op, qs in runs:
+        reset_counts()
+        Qg, Rg, Jg, rg, fg, _ = cqrrpt(
+            A.to(dev), cfg, st, sketch=on(op, dev),
+            qrcp_sketch=None if qs is None else qs.to(dev))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        Qc, Rc, Jc, rc, fc, _ = cqrrpt(A, cfg, st, sketch=op,
+                                       qrcp_sketch=qs)
+        dR = float((Rg.cpu() - Rc).abs().max() / Rc.abs().max())
+        same_j = torch.equal(Jg.cpu(), Jc)
+        print(f"[cqrrpt-small-vs-plain] {m}x{n} f64 {name} card vs CPU: J "
+              f"equal {same_j}, rank {int(rg)}/{int(rc)}, rel max|dR| "
+              f"{dR:.3e}, card launches K5/K6 {counts['qrcp_select_pivots']}"
+              f"/{counts['qrcp_panel']}", flush=True)
+        gate(same_j and int(rg) == int(rc) and dR <= 1e-10
+             and bool(fg) == bool(fc), f"cqrrpt {name} card vs CPU")
+
+
 def krill_in_turns(dev, n, s, mus, k, reps) -> None:
     """One KRILL problem solved with K4 pointed at its earlier SIMT kernel
     and at the tensor-core one, in turns (old, new, new, old), the best of
@@ -1695,6 +1948,8 @@ def main() -> int:
     run(phase_hqrrp_small_vs_plain, dev)
     counts["krill"] = run(phase_krill, dev)
     counts["op"] = run(phase_sketch, dev)
+    counts["cqrrpt"] = run(phase_cqrrpt, dev, f"{smi}",
+                           timed["gaussian_sketch"]["ms"])
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
@@ -1705,6 +1960,9 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[path][name], **timed[name])
                for name, (src, rep, path) in KERNELS.items()]
+    for k in kernels:   # K5/K6 also run inside CQRRPT's sketch QRCP
+        if KERNELS[k["name"]][2] == "hqrrp":
+            k["cqrrpt_launches"] = counts["cqrrpt"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

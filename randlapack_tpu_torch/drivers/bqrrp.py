@@ -1,14 +1,22 @@
-"""BQRRP — blocked randomized QR with column pivoting, factored (block-WY,
-implicit-Q) form (counterpart of ``randlapack_tpu/drivers/bqrrp.py``;
-reference: RandLAPACK/drivers/rl_bqrrp.hh BQRRP::call :155).
+"""BQRRP — blocked randomized QR with column pivoting (counterpart of
+``randlapack_tpu/drivers/bqrrp.py``; reference: RandLAPACK/drivers/
+rl_bqrrp.hh BQRRP::call :155), in both of the JAX package's forms.
 
 Per block: LU pivots on a one-time sketch (``luqr``), a sketch-
-preconditioned CholQR panel, the LAPACK ``orhr_col`` Householder
-reconstruction, the masked WY trailing update and an exact sketch
+preconditioned CholQR panel, a trailing update and an exact sketch
 downdate (rl_bqrrp.hh:630-650). Retirement is mask-based inside a stage
 and ONE permutation per stage moves the pivots to the window front, so
 ``stages > 1`` shrinks the trailing window; ``update_defer = g`` applies
 the trailing update once per g blocks as one k = g·b product.
+
+* ``bqrrp`` — the explicit form: Q = [Q₁ | Q₂ | …] accumulated directly
+  (panels re-projected against the filled basis, BCGS2), the trailing
+  update A ← A − Q_panel·(Q_panelᵀA ⊙ live) as plain products (the JAX
+  package computes it in ``jnp``, outside any Pallas kernel), and a final
+  CholQR pass on the finished Q. CQRRPT's sketch QRCP runs this form.
+* ``bqrrp_factored`` — the factored (block-WY, implicit-Q) form: the
+  LAPACK ``orhr_col`` Householder reconstruction and the masked WY
+  trailing update through the kernels K1–K3.
 
 The JAX package's ``lax.cond`` rescues become Python ``if``s on a device
 bool (one host sync per block on the healthy path); ``fori_loop``s become
@@ -25,7 +33,7 @@ import typing
 
 import torch
 
-from ..config import require_fp32_matmul
+from ..config import STABLE_PRECISION, require_fp32_matmul
 from ..errors import require
 from ..ops import util
 from ..ops.cholqr import (_cholesky, _finite_scaled, _pow2, cholqr,
@@ -163,6 +171,248 @@ def _safe_triu_diag(R):
     ref = torch.where(mx > 0.0, mx * eps, 1.0)
     dsafe = torch.where(d.abs() > ref, d, ref)
     return R - torch.diag(d) + torch.diag(dsafe)
+
+
+def _tp_matmul(X, Y, trailing_precision):
+    """X·Y at the configured trailing precision: only "highest" (true
+    fp32/f64) is ported."""
+    _require_highest(trailing_precision)
+    return X @ Y
+
+
+def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
+           g0: int, q_hi: int, nblocks: int):
+    """Explicit-form stage: ``nblocks`` panel blocks inside the column
+    window starting at global column ``g0``. ``A_loc`` (owned, updated in
+    place), ``A_sk_loc``, ``R_loc`` (K rows × window columns, written in
+    place) and ``J_loc`` are local to the window; ``Q`` is the full basis,
+    filled through column g0 + nblocks·b ≤ q_hi. Returns the permuted
+    ``(A_loc, A_sk_loc, R_loc, J_loc, fail)``.
+
+    The chosen columns' R values (the BCGS2 projection and R11) are
+    written into ``R_loc`` as each block commits; the JAX package stacks
+    them in a scatter-free buffer and adds it after the permutation,
+    which gives the same values."""
+    m, w = A_loc.shape
+    b = cfg.block_size
+    K = R_loc.shape[0]
+    dt, dev = A_loc.dtype, A_loc.device
+    Qp = Q[:, :q_hi]
+    order = torch.zeros(nblocks * b, dtype=torch.int64, device=dev)
+    retired = torch.zeros(w, dtype=dt, device=dev)
+
+    def block(i, A_work, A_sk, fail, j=None, Qg=None, Tg=None):
+        """One panel block. With ``j`` given (update-deferred group slot)
+        the trailing update is left to the group's end and the true panel
+        and T row-block are recovered through the pending aggregates,
+        A_j = A_stale − Qg·Tg."""
+        deferred = j is not None
+        c = i * b
+
+        # -- qrcp_wide: LU pivots on the masked live sketch -------------
+        live = 1.0 - retired
+        chosen = _select_pivots(A_sk * live[None, :], b, cfg)
+        chosen = _fix_pivots(chosen, retired)
+
+        # -- panel QR: sketch-preconditioned CholQR ---------------------
+        A_sk_panel = A_sk.index_select(1, chosen)
+        panel = A_work.index_select(1, chosen)
+        if deferred and j > 0:
+            panel = panel - Qg @ Tg.index_select(1, chosen)
+        patch = torch.zeros((K, b), dtype=dt, device=dev)
+        if cfg.block_reorth:
+            # BCGS2 against the filled basis prefix; the correction goes
+            # into R's earlier rows at the chosen columns
+            proj = Qp.T @ panel
+            panel = panel - Qp @ proj
+            patch[:q_hi] = proj
+        if cfg.qr_tall == QRTall.cholqr:
+            R_sk = _safe_triu_diag(qr_econ(A_sk_panel)[1])
+            Q_panel, R11, failp = preconditioned_cholqr(panel, R_sk)
+            if cfg.panel_reorth:
+                Q_panel, R2, f2 = cholqr(Q_panel)
+                R11 = R2 @ R11
+                failp = failp | f2
+            if bool(failp):
+                Q_panel, R11 = qr_econ(panel)
+        else:
+            Q_panel, R11 = qr_econ(panel)
+            failp = torch.zeros((), dtype=torch.bool, device=dev)
+        R11 = torch.triu(R11)
+        patch[g0 + c:g0 + c + b] = R11
+
+        # -- trailing update over the (masked) window -------------------
+        retired[chosen] = 1.0
+        live2 = 1.0 - retired
+        T = Q_panel.T @ A_work
+        if deferred and j > 0:
+            # T must read the TRUE trailing matrix
+            T = T - (Q_panel.T @ Qg) @ Tg
+        T = T * live2[None, :]
+        if not deferred:
+            A_work -= _tp_matmul(Q_panel, T, cfg.trailing_precision)
+
+        # -- sketch downdate --------------------------------------------
+        SQ = torch.linalg.solve_triangular(
+            _safe_triu_diag(R11), A_sk_panel, upper=True, left=False)
+        A_sk, fail = _sanitize_sketch(A_sk - SQ @ T, fail)
+
+        # -- commit -----------------------------------------------------
+        Qp[:, g0 + c:g0 + c + b] = Q_panel
+        R_loc[g0 + c:g0 + c + b] = T
+        R_loc[:, chosen] += patch
+        order[c:c + b] = chosen
+        fail = fail | failp
+        if not deferred:
+            return A_sk, fail
+        Qg = Q_panel if j == 0 else torch.cat([Qg, Q_panel], 1)
+        Tg = T if j == 0 else torch.cat([Tg, T], 0)
+        return A_sk, fail, Qg, Tg
+
+    A_work, A_sk = A_loc, A_sk_loc
+    g = max(1, min(int(cfg.update_defer), nblocks))
+    if g == 1:
+        for i in range(nblocks):
+            A_sk, fail = block(i, A_work, A_sk, fail)
+    else:
+        for i0 in range(0, nblocks, g):
+            Qg = Tg = None
+            for j in range(min(g, nblocks - i0)):
+                A_sk, fail, Qg, Tg = block(i0 + j, A_work, A_sk, fail, j,
+                                           Qg, Tg)
+            # ONE wide k = g·b trailing update (the per-block GEMM sum,
+            # reordered)
+            A_work -= _tp_matmul(Qg, Tg, cfg.trailing_precision)
+
+    # stage-end permutation: pivots (in selection order) to the front,
+    # the rest in their relative order, for the next (narrower) window
+    k_sel = nblocks * b
+    cols = torch.arange(w, device=dev)
+    pos = torch.zeros(w, dtype=torch.int64, device=dev)
+    pos[order] = torch.arange(k_sel, device=dev)
+    perm = torch.argsort(torch.where(retired > 0, pos, k_sel + cols),
+                         stable=True)
+    return (A_work.index_select(1, perm), A_sk.index_select(1, perm),
+            R_loc.index_select(1, perm), J_loc.index_select(0, perm), fail)
+
+
+def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
+          precision=STABLE_PRECISION, timing: bool = False,
+          sketch: torch.Tensor | None = None):
+    """Blocked randomized QRCP of A (any aspect ratio), explicit form:
+    A[:, J] ≈ Q R.
+
+    Returns ``(Q, R, J, rank, fail, next_state)``: Q (m, K) orthonormal,
+    R (K, n) upper-trapezoidal, J (n,) int64, K = min(m, n) (a
+    non-multiple K runs a one-block remainder stage, rl_bqrrp.hh:569-576),
+    ``rank`` an int32 upper-bound estimate from diag(R), ``fail`` the
+    CholQR breakdown flag. ``timing=True`` appends the phase dict
+    (``sketch``, ``stage_<s>``, ``final_orth``). ``sketch`` injects the
+    (d, m) Gaussian sketch S (d = int(d_factor·b)); when it is None, S is
+    drawn from ``state`` on A's device. ``A`` is not modified.
+    """
+    require_fp32_matmul()
+    _check_cfg(cfg)
+    _require_highest(precision)
+    require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
+    timer = PhaseTimer()
+
+    def _phase(name):
+        return timer.phase(name) if timing else contextlib.nullcontext()
+
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    b = min(cfg.block_size, min(m, n))
+    if b != cfg.block_size:
+        cfg = dataclasses.replace(cfg, block_size=b)
+    K = min(m, n)
+    K_full, r = divmod(K, b)
+    K_full *= b
+    d = int(cfg.d_factor * b)
+    S = cfg.stages if (cfg.stages > 1 and K_full > 0
+                       and K_full % (cfg.stages * b) == 0) else 1
+    chunk = K_full // S if K_full else 0
+
+    with _phase("sketch"):
+        A_sk = _sketch_product(A, d, state, sketch)
+        state = state.advance()
+        if timing:
+            device_sync(A_sk)
+
+    Q = torch.zeros((m, K), dtype=dt, device=dev)
+    R = torch.zeros((K, n), dtype=dt, device=dev)
+    J = torch.arange(n, device=dev)
+    fail = torch.zeros((), dtype=torch.bool, device=dev)
+    A_work = A
+
+    # stage plan: (g0, q_hi, nblocks, stage cfg) — S full stages plus an
+    # optional one-block remainder stage of width r
+    plan = [(s * chunk, min((s + 1) * chunk, K_full), chunk // b, cfg)
+            for s in range(S) if chunk]
+    if r:
+        plan.append((K_full, K, 1, dataclasses.replace(
+            cfg, block_size=r,
+            pivot_candidates=(None if cfg.pivot_candidates is None
+                              else max(1, cfg.pivot_candidates)))))
+
+    for s, (g0, q_hi, nblocks, scfg) in enumerate(plan):
+        # the stage owns a contiguous copy of its window (the first copy
+        # also keeps the caller's A intact under the in-place updates)
+        A_loc = A_work[:, g0:].clone(memory_format=torch.contiguous_format)
+        with _phase(f"stage_{s}"):
+            A_loc, A_sk_loc, R_loc, J_loc, fail = _stage(
+                A_loc, A_sk[:, g0:], Q, R[:, g0:], J[g0:], fail, scfg, g0,
+                q_hi, nblocks)
+            if timing:
+                device_sync(Q)
+        if g0 == 0:
+            A_work, A_sk, R, J = A_loc, A_sk_loc, R_loc, J_loc
+        else:
+            A_work[:, g0:] = A_loc
+            A_sk[:, g0:] = A_sk_loc
+            R[:, g0:] = R_loc
+            J[g0:] = J_loc
+
+    with _phase("final_orth"):
+        eps = torch.finfo(dt).eps
+        for _ in range(cfg.final_orth):
+            # one CholQR pass on the finished Q; a degenerate Q (colliding
+            # fallback panels) breaks the unshifted Cholesky, and the
+            # shifted factor keeps the outputs finite with `fail` raised
+            G = Q.T @ Q
+            L = _cholesky(G)
+            bad = torch.isnan(L).any() | (torch.diagonal(L) <= 0).any()
+            if bool(bad):
+                s2 = 11.0 * eps * torch.trace(G) + eps
+                L = _cholesky(G + s2 * torch.eye(K, dtype=dt, device=dev))
+            Q = torch.linalg.solve_triangular(L.T, Q, upper=True,
+                                              left=False)
+            R = L.T @ R
+            fail = fail | bad
+        if timing:
+            device_sync(Q)
+
+    diag = torch.diagonal(R[:, :K])
+    tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
+    rank = util.naive_rank_est(diag, tol)
+    if timing:
+        return Q, R, J, rank, fail, state, timer.report()
+    return Q, R, J, rank, fail, state
+
+
+def _sketch_product(A, d, state: RNGState, sketch):
+    """S·A for the dense (d, m) Gaussian sketch S, N(0, 1/d) entries: the
+    injected ``sketch``, or drawn from ``state`` on A's device (the caller
+    advances ``state``)."""
+    m = A.shape[0]
+    if sketch is None:
+        gen, _ = state.spawn(A.device)
+        sketch = torch.randn((d, m), generator=gen, dtype=A.dtype,
+                             device=A.device) / math.sqrt(d)
+    require(isinstance(sketch, torch.Tensor)
+            and tuple(sketch.shape) == (d, m),
+            f"sketch must be a {(d, m)} tensor")
+    return sketch.to(device=A.device, dtype=A.dtype) @ A
 
 
 def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig):
@@ -359,15 +609,8 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     d = int(cfg.d_factor * b)
 
     with _phase("sketch"):
-        gen, state = state.spawn(dev)
-        if sketch is None:
-            Smat = torch.randn((d, m), generator=gen, dtype=dt,
-                               device=dev) / math.sqrt(d)
-        else:
-            require(tuple(sketch.shape) == (d, m),
-                    f"sketch must be {(d, m)}, got {tuple(sketch.shape)}")
-            Smat = sketch.to(device=dev, dtype=dt)
-        Y = Smat @ A
+        Y = _sketch_product(A, d, state, sketch)
+        state = state.advance()
         if timing:
             device_sync(Y)
 

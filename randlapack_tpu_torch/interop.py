@@ -4,7 +4,9 @@ either package's ``bqrrp_q``/``bqrrp_apply_qt`` can consume factors the
 other made; HQRRP's GEQP3-format ``(packed, taus, R, J)`` crosses the same
 way, and so does KRILL's state: the kernel operator, the spectral
 preconditioner (one package's drives the other's ``pcg``) and the
-RPCholesky factor with its pivots."""
+RPCholesky factor with its pivots. The sketching operators cross too (a
+SASO's rows and values, an SRHT's signs and sampled rows), so both
+packages can apply the same draw."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from .drivers.bqrrp import BQRRPFactors
 from .linops.symmetric import SpectralPrecond
 from .pdkernels import SquaredExpKernelLinOp
+from .sketching import SparseDist, SparseSkOp, SRHTSkOp
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -97,3 +100,37 @@ def rpchol_from_numpy(arrays: dict, device="cuda"):
 def rpchol_to_numpy(F, pivots) -> dict:
     """RPCholesky's factor and pivots → a dict of numpy arrays."""
     return {"F": _to_numpy(F), "pivots": _to_numpy(pivots)}
+
+
+def saso_from_numpy(dist_fields: dict, rows, vals,
+                    device="cuda") -> SparseSkOp:
+    """A SASO from its distribution's fields (``{"n_rows", "n_cols",
+    "vec_nnz"}``) and its (vec_nnz, long_axis) rows (int64 on
+    ``device``) and values."""
+    return SparseSkOp(SparseDist(**{k: int(v) for k, v in
+                                    dist_fields.items()}),
+                      torch.tensor(np.asarray(rows), dtype=torch.int64,
+                                   device=device),
+                      torch.tensor(np.asarray(vals), device=device))
+
+
+def saso_to_numpy(S: SparseSkOp) -> tuple:
+    """A SASO → ``(dist_fields, rows, vals)`` as ``saso_from_numpy``
+    takes them."""
+    return ({"n_rows": S.dist.n_rows, "n_cols": S.dist.n_cols,
+             "vec_nnz": S.dist.vec_nnz}, _to_numpy(S.rows),
+            _to_numpy(S.vals))
+
+
+def srht_from_numpy(d: int, m: int, signs, rows, device="cuda") -> SRHTSkOp:
+    """A d×m SRHT from its (m,) signs and (d,) sampled rows (int64)."""
+    return SRHTSkOp(int(d), int(m),
+                    torch.tensor(np.asarray(signs), device=device),
+                    torch.tensor(np.asarray(rows), dtype=torch.int64,
+                                 device=device))
+
+
+def srht_to_numpy(S: SRHTSkOp) -> tuple:
+    """An SRHT → ``(d, m, signs, rows)`` as ``srht_from_numpy`` takes
+    them."""
+    return S.n_rows, S.n_cols, _to_numpy(S.signs), _to_numpy(S.rows)

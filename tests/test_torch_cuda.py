@@ -34,8 +34,11 @@ import pytest
 import torch
 
 import randlapack_tpu_torch as rt
-from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig, PanelQR,
-                                          bqrrp_factored, bqrrp_q, hqrrp)
+from randlapack_tpu_torch.drivers import (BQRRPConfig, CQRRPTConfig,
+                                          CQRRTConfig, HQRRPConfig, PanelQR,
+                                          QRCPKind, SketchKind,
+                                          bqrrp_factored, bqrrp_q, cqrrpt,
+                                          cqrrt, hqrrp)
 from randlapack_tpu_torch.ops import kernels as tk
 from randlapack_tpu_torch.ops import lu as tlu
 from randlapack_tpu_torch.ops import qr as tqr
@@ -841,3 +844,164 @@ def test_krill_and_the_sketch_run_on_the_tensor_core_bodies(cuda):
     ops.gaussian_sketch(X.T.contiguous(), 16, 1)
     assert tk.LAUNCHES["gaussian_sketch"] == 1
     assert tk.LAUNCHES["gaussian_sketch_simt"] == 0
+
+
+# -- the tall-QR slice: CQRRPT, CQRRT and the sketches ------------------------
+
+EPS32 = float(np.finfo(np.float32).eps)
+_TALL_GATE = 10 * EPS32 ** 0.75      # tests/test_qr_drivers.py at f32
+
+
+def _tall_gates(A, Q, R, J, k):
+    """Residual ≤ 10·eps^0.75 and orthogonality ≤ 10·eps^0.75·√k at the
+    rank k, measured in f64."""
+    Qk, Rk = Q[:, :k].double(), R[:k].double()
+    AJ = A[:, J].double()
+    res = float(torch.linalg.norm(Qk @ Rk - AJ) / torch.linalg.norm(AJ))
+    orth = float(torch.linalg.norm(
+        Qk.T @ Qk - torch.eye(k, dtype=Qk.dtype, device=Qk.device)))
+    assert res <= _TALL_GATE, res
+    assert orth <= _TALL_GATE * np.sqrt(k), orth
+
+
+@pytest.fixture
+def tall_f32(cuda):
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(8192, 512, rt.RNGState(2), decay=9.0,
+                              device=cuda)
+    return A, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,k5k6", [
+    (dict(), 0),
+    (dict(sketch="srht", qrcp=QRCPKind.bqrrp, bqrrp_block=64,
+          bqrrp_pivot_candidates=2, trsm_mode="blockinv"), 0),
+    (dict(sketch="gaussian", qrcp=QRCPKind.hqrrp, bqrrp_block=32), 16),
+    (dict(sketch="srht", qrcp=QRCPKind.hqrrp, bqrrp_block=32,
+          trsm_mode="blockinv", q_form="trsm", gram_block=0), 16),
+])
+def test_cqrrpt_on_the_card_f32(tall_f32, kw, k5k6):
+    """8192x512 f32 under the JAX tests' f32 gates; the sketch QRCP
+    through HQRRP at b 32 (16 blocks on the 640x512 sketch) launches K5
+    and K6 once a block, and nothing else launches a kernel."""
+    A, st = tall_f32
+    _reset_all()
+    Q, R, J, rank, fail, _ = cqrrpt(A, CQRRPTConfig(**kw), st)
+    torch.cuda.synchronize()
+    assert tqrcp.LAUNCHES == {"qrcp_select_pivots": k5k6,
+                              "qrcp_panel": k5k6,
+                              "qrcp_select_pivots_coop": 0,
+                              "qrcp_panel_coop": 0}
+    assert not any(twy.LAUNCHES.values()) and not any(tlu.LAUNCHES.values())
+    assert not bool(fail) and int(rank) == 512
+    assert torch.equal(torch.sort(J).values, torch.arange(512, device=J.device))
+    _tall_gates(A, Q, R, J, int(rank))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sketch", list(SketchKind))
+def test_cqrrt_on_the_card_f32(tall_f32, sketch):
+    A, st = tall_f32
+    _reset_all()
+    Q, R, fail, _ = cqrrt(A, CQRRTConfig(sketch=sketch), st)
+    torch.cuda.synchronize()
+    assert not any(tqrcp.LAUNCHES.values())
+    assert not bool(fail)
+    _tall_gates(A, Q, R, torch.arange(512, device=A.device), 512)
+    Qn, Rn, fail_n, _ = cqrrt(A, CQRRTConfig(sketch=sketch, compute_q=False),
+                              st)
+    assert Qn is None and not bool(fail_n)
+    assert float((Rn - R).abs().max() / R.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_saso_scatter_and_gather_agree_on_the_card(cuda, dtype):
+    """The two SASO applications agree within 1e-5 (f32) / 1e-12 (f64)
+    relative; the scatter sums duplicate rows with atomics, so two of its
+    runs need not be bit-equal and are held to the same bound."""
+    from randlapack_tpu_torch import sketching as tsk
+    g = torch.Generator(device=cuda).manual_seed(3)
+    A = torch.randn((65536, 256), generator=g, dtype=dtype, device=cuda)
+    op, _ = tsk.fill_sparse(tsk.SparseDist(320, 65536), rt.RNGState(4),
+                            dtype=dtype, device=cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    sc = tsk.saso_left_apply(op, A, method="scatter")
+    again = tsk.saso_left_apply(op, A, method="scatter")
+    ga = tsk.saso_left_apply(op, A, method="gather")
+    dense = tsk.saso_to_dense(op).double() @ A.double()
+    for out in (sc, again, ga):
+        assert float(torch.linalg.norm(out.double() - dense)
+                     / torch.linalg.norm(dense)) <= tol
+    assert float(torch.linalg.norm(sc - ga) / torch.linalg.norm(ga)) <= tol
+    assert all(len(set(c)) == 2 for c in op.rows.T[:2000].tolist())
+
+
+@pytest.mark.cuda
+def test_srht_on_the_card_matches_the_cpu(cuda):
+    from randlapack_tpu_torch import sketching as tsk
+    rng = np.random.default_rng(8)
+    A = torch.tensor(rng.standard_normal((3000, 40)))
+    op, _ = tsk.srht_skop(256, 3000, rt.RNGState(2), dtype=torch.float64,
+                          device="cpu")
+    gop = tsk.SRHTSkOp(256, 3000, op.signs.to(cuda), op.rows.to(cuda))
+    out = tsk.srht_left_apply(gop, A.to(cuda)).cpu()
+    ref = tsk.srht_left_apply(op, A)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,qs_rows", [
+    (dict(), 0),
+    (dict(sketch="srht", qrcp=QRCPKind.bqrrp, bqrrp_block=64,
+          bqrrp_pivot_candidates=2, trsm_mode="blockinv", trsm_block=64,
+          gram_block=128), 80),
+    (dict(sketch="gaussian", qrcp=QRCPKind.hqrrp, bqrrp_block=64,
+          orthogonalization=True), 74),
+])
+def test_cqrrpt_card_matches_the_cpu_f64(cuda, kw, qs_rows):
+    """The same operators (drawn on the CPU) on both devices, f64: same
+    pivots and rank, R within 1e-10 of max|R|, Q within 1e-10."""
+    import dataclasses
+    from randlapack_tpu_torch import sketching as tsk
+    rng = np.random.default_rng(6)
+    m, n = 4096, 256
+    d = int(1.25 * n)
+    A = torch.tensor(rng.standard_normal((m, n)) * np.logspace(0, -6, n))
+    cfg = CQRRPTConfig(**kw)
+    st = rt.RNGState(3)
+    if cfg.sketch == "saso":
+        op, _ = tsk.fill_sparse(tsk.SparseDist(d, m), st,
+                                dtype=torch.float64, device="cpu")
+    elif cfg.sketch == "srht":
+        op, _ = tsk.srht_skop(d, m, st, dtype=torch.float64, device="cpu")
+    else:
+        op = torch.tensor(rng.standard_normal((d, m)) / np.sqrt(d))
+    qs = None
+    if qs_rows:
+        qs = torch.tensor(rng.uniform(-1, 1, (qs_rows, d)))
+    noise = torch.tensor(rng.standard_normal((m, n)))
+
+    def on(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(cuda)
+        return dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).to(cuda) for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+
+    _reset_all()
+    Qg, Rg, Jg, rg, fg, _ = cqrrpt(A.to(cuda), cfg, st, sketch=on(op),
+                                   qrcp_sketch=None if qs is None
+                                   else qs.to(cuda), noise=noise.to(cuda))
+    torch.cuda.synchronize()
+    k = 4 if cfg.qrcp == QRCPKind.hqrrp else 0
+    assert tqrcp.LAUNCHES["qrcp_select_pivots"] == tqrcp.LAUNCHES[
+        "qrcp_panel"] == k
+    Qc, Rc, Jc, rc, fc, _ = cqrrpt(A, cfg, st, sketch=op, qrcp_sketch=qs,
+                                   noise=noise)
+    assert torch.equal(Jg.cpu(), Jc) and int(rg) == int(rc) == n
+    assert bool(fg) == bool(fc) is False
+    assert float((Rg.cpu() - Rc).abs().max()) <= 1e-10 * float(
+        Rc.abs().max())
+    assert float((Qg.cpu() - Qc).abs().max()) <= 1e-10
