@@ -6,7 +6,8 @@ Builds the hand-written kernels from randlapack_tpu_torch/csrc/ (one
 nvcc per source, all at once, sm_90a, into build/kernels/), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives the port's paths — two factorizations of 8192×8192 f32 fast-decay
-matrices, KRILL and the fused Gaussian sketch:
+matrices, KRILL, the fused Gaussian sketch, the tall QR drivers and the
+low-rank drivers:
 
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
   candidates per slot, 2 stages, update defer 4), then bqrrp_q; the same
@@ -38,6 +39,19 @@ matrices, KRILL and the fused Gaussian sketch:
   orthogonality, ``fail``, J and launches; the SASO (scatter, gather) and
   SRHT sketches alone beside K7; K5/K6 at CQRRPT's shapes against their
   plain versions and a small f64 card-vs-CPU parity run;
+- the low-rank slice: RSVD at BASELINE config 1 (rsvd_fixed_rank of a
+  4096² f32 fast_decay_matrix, decay 80, rank 256, QB block 64; best of 5,
+  GFLOP/s by 12mnk, a phase split, peak memory, gated against the optimal
+  rank-256 tail, on the SVD's consistency with QB's error, orthogonality
+  and no kernel launch; QB's error on four draws held to an independent
+  plain f64 QB on the same draws), the SVD routes on its 256×4096 B with
+  the Jacobi one checked against B's f64 SVD, the same RSVD at 8192²,
+  the card SVD route against the library's default driver in turns
+  (KRILL's full-size solve, config 1), REVD2 over the implicit kernel
+  operator at KRILL's size (n 65536, rank 1024: 15 K4 launches a call,
+  orthogonality, λ, eigenpair residuals, K4's share by CUDA events; the
+  port's LUs against the library's default backend) and nystrom_pc_data
+  at n 8192 against the dense kernel matrix's eigenvalues;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -80,6 +94,22 @@ EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
 HQRRP_LAUNCHES = {**NO_LAUNCHES, "qrcp_select_pivots": 64, "qrcp_panel": 64}
 # KRILL, bench.py's recipe; the full-size run has 8× its n and 4× its k
 KRILL_N, KRILL_K = 65536, 1024
+# REVD2 over KRILL's full-size kernel operator at KRILL's rank: SYPS's three
+# passes, SYRF's product and Y at s = k, then ten power-estimate passes at
+# s = 1, each a K4 launch
+REVD2_K = 1024
+REVD2_LAUNCHES = {**NO_LAUNCHES, "kernel_matmat": 15}
+# BASELINE config 1 (bench.py:336-357): RSVD of a 4096² fast-decay matrix
+# (decay 80: the optimal rank-256 tail ~1e-2), rank 256, QB block 64; and
+# the same at 8192² (BASELINE.md's target shape)
+RSVD_N, RSVD_K, RSVD_B = 4096, 256, 64
+RSVD_ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(RSVD_K)
+# QB's error against the optimal rank-k tail. With one power iteration and
+# no oversampling the algorithm itself lands at 1.09-1.10x on config 1's
+# matrix: [rsvd-draws] holds the port (f32 and f64) to an independent
+# plain f64 QB on the same four draws, and that reads 1.0915-1.1026 too.
+# The gate sits 1.6 % above the worst of those readings
+RSVD_TAIL_FACTOR = 1.12
 # the sketch of CQRRPT at a 131072×2048 matrix: d = 1.25·n rows
 SKETCH_M, SKETCH_N, SKETCH_D = 131072, 2048, 2560
 # config 3 of BASELINE.md: CQRRPT of a 131072x2048 tall matrix (bench.py's
@@ -650,6 +680,61 @@ def phase_kernels(dev) -> dict:
     gate(derr <= 1e-6, f"kernel_matmat: max|K_ii - 1| {derr}")
     print(f"[kernel] kernel_matmat of I (1024): max|K_ii - 1| {derr:.3e}, "
           f"max|K - K^T| {float((Kd - Kd.T).abs().max()):.3e}", flush=True)
+    # K4 at REVD2's width, s = k = 1024. At the [revd2-kernel] shape (n
+    # 65536) against its plain version on the same X and V (the f32
+    # blocked product, 1e-4 of max|plain|), which holds the 273 MB scratch
+    # buffer and the grid at that shape, then timed beside the plain
+    # version and the bound. At n 8192 also against the split emulation
+    # and, as at s 1, within F64_ERR_FACTOR of the SIMT kernel's error
+    # against the f64 plain version (the f64 product at n 65536 would
+    # take minutes). The kernel evaluates K afresh for every 16-column
+    # chunk of V (s/16 = 64 times what the bound counts)
+    X, V = randn(8, 8192), randn(8192, REVD2_K)
+    Ko = kernels.kernel_matmat(X, V, bw)
+    ref = kernels.kernel_matmat_reference(X.double(), V.double(), bw,
+                                          block=2048)
+    emul = kernels.kernel_matmat_split_reference(X, V, bw, block=2048)
+    err8 = float((Ko - emul).abs().max())
+    e_new = relf(Ko, ref)
+    e_simt = relf(kernels.kernel_matmat_simt(X, V, bw), ref)
+    gate(err8 <= 1e-4 * float(emul.abs().max()),
+         f"kernel_matmat n=8192 s={REVD2_K}: max|d| {err8} from the split "
+         f"emulation")
+    gate(e_new <= F64_ERR_FACTOR * e_simt,
+         f"kernel_matmat n=8192 s={REVD2_K}: error against f64 {e_new}, the "
+         f"SIMT kernel's {e_simt}")
+    del X, V, Ko, ref, emul
+    X, V = randn(8, KRILL_N), randn(KRILL_N, REVD2_K)
+    Ko = kernels.kernel_matmat(X, V, bw)
+    plain = kernels.kernel_matmat_reference(X, V, bw, block=2048)
+    err = float((Ko - plain).abs().max())
+    e_plain = float(torch.linalg.norm(Ko - plain) / torch.linalg.norm(plain))
+    gate(bool(torch.isfinite(Ko).all()) and err <= 1e-4 * float(
+        plain.abs().max()), f"kernel_matmat n={KRILL_N} s={REVD2_K}: max|d| "
+         f"{err} from the plain version")
+    gate(torch.equal(Ko, kernels.kernel_matmat(X, V, bw)),
+         f"kernel_matmat n={KRILL_N} s={REVD2_K}: two launches differ")
+    del Ko, plain
+    wide_ms = cuda_ms(lambda: kernels.kernel_matmat(X, V, bw), 3, warmup=1)
+    wide_plain = cuda_ms(lambda: kernels.kernel_matmat_reference(
+        X, V, bw, block=2048), 1, warmup=1)
+    wide = bound(**kernels.kernel_matmat_work(8, KRILL_N, REVD2_K))
+    out["kernel_matmat"].update(
+        wide_s=REVD2_K, wide_n=KRILL_N, wide_ms=wide_ms,
+        wide_plain_ms=wide_plain, wide_bound_ms=wide["bound_ms"],
+        wide_bound_by=wide["bound_by"], wide_max_abs_err=err,
+        wide_rel_err_vs_plain=e_plain, n8192_s1024_err_vs_f64=e_new,
+        n8192_s1024_simt_err_vs_f64=e_simt)
+    print(f"[kernel] kernel_matmat d=8 s={REVD2_K} (REVD2's width): n "
+          f"{KRILL_N}: max|d| from the plain version {err:.3e}, relative "
+          f"{e_plain:.3e}, two launches bit-equal, kernel {wide_ms:.4f} ms, "
+          f"plain {wide_plain:.4f} ms, bound {wide['bound_ms']:.4f} ms "
+          f"({wide['bound_by']}: n^2 (2s + 6) flops at "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s), kernel/bound "
+          f"{wide_ms / wide['bound_ms']:.2f}; n 8192: max|d| from the split "
+          f"emulation {err8:.3e}, relative error against f64 {e_new:.3e} "
+          f"(SIMT {e_simt:.3e})", flush=True)
+    del X, V
     # K7 gaussian_sketch: CQRRPT's sketch (d = 1.25 n) of a 131072x2048
     # matrix (timed) and BQRRP's of an 8192x8192 one, against the plain
     # version (the same S, stored) and against the same product in f64,
@@ -806,6 +891,37 @@ def phase_main(dev, card: str) -> dict:
     print("[main-phases] " + ", ".join(f"{k} {v:.4f} s"
                                        for k, v in phases.items()),
           flush=True)
+    # the LU of the pivot pass through ops.qr.lu_factor (cuSOLVER) against
+    # the library's default backend (MAGMA for a tall matrix): best of 2
+    # in turns, and whether every run chose the same J
+    from randlapack_tpu_torch.ops import qr as tqr
+    port_lu = tqr.lu_factor
+
+    def best_of_2(lu):
+        tqr.lu_factor = lu
+        try:
+            bqrrp_factored(A, cfg, st)
+            runs = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                f, _ = bqrrp_factored(A, cfg, st)
+                end.record()
+                torch.cuda.synchronize()
+                runs.append((start.elapsed_time(end) / 1e3, f.J))
+            return min(t for t, _ in runs), [J for _, J in runs]
+        finally:
+            tqr.lu_factor = port_lu
+
+    turns = [(w, *best_of_2(torch.linalg.lu_factor_ex if w == "library"
+                            else port_lu))
+             for w in ("library", "port", "port", "library")]
+    same = all(torch.equal(J, fac.J) for *_, Js in turns for J in Js)
+    print("[main-lu] bqrrp_factored 8192x8192 f32, the pivot pass's LU by "
+          "the library's default backend against ops.qr.lu_factor, best of "
+          "2 in turns: " + ", ".join(f"{w} {t:.4f} s" for w, t, _ in turns)
+          + f"; J equal in every run {same}", flush=True)
     return counts
 
 
@@ -1309,8 +1425,11 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
     (F, _, _), t_chol = timed(lambda: rp_cholesky(
         G.with_reg(False), k, RPCholConfig(block_size=64), RNGState(6)))
     svd_econ(F[:4096], "gram_eigh"), svd_econ(F[:4096], "xla")   # warm up
+    torch.linalg.svd(F[:4096], full_matrices=False)
     (Ug, sig_g, _), t_gram = timed(lambda: svd_econ(F, "gram_eigh"))
     (V, sig, _), t_xla = timed(lambda: svd_econ(F, "xla"))
+    (Ud, _, _), t_lib = timed(lambda: torch.linalg.svd(
+        F, full_matrices=False))
     P = SpectralPrecond.prep(V, sig * sig, mus)
     cfg = PCGConfig(tol=1e-5, max_iters=max_iters)
     X0 = torch.zeros_like(H)
@@ -1322,9 +1441,11 @@ def pcg_anatomy(tag, G, H, mus, k, max_iters) -> None:
                     or "add_splits" in key)
     gate(busy > 0, f"{tag}: the profiler saw no device time")
     print(f"[{tag}] rp_cholesky {t_chol:.4f} s; svd_econ of F "
-          f"{tuple(F.shape)}: torch.linalg.svd {t_xla:.4f} s (|UtU-I|_F "
-          f"{orth(V):.2e}, sigma {float(sig[0]):.3e}..{float(sig[-1]):.3e}),"
-          f" gram_eigh {t_gram:.4f} s (|UtU-I|_F {orth(Ug):.2e}); pcg "
+          f"{tuple(F.shape)}: xla (QR, then gesvd of R) {t_xla:.4f} s "
+          f"(|UtU-I|_F {orth(V):.2e}, sigma {float(sig[0]):.3e}.."
+          f"{float(sig[-1]):.3e}), torch.linalg.svd with the library's "
+          f"default driver {t_lib:.4f} s (|UtU-I|_F {orth(Ud):.2e}), "
+          f"gram_eigh {t_gram:.4f} s (|UtU-I|_F {orth(Ug):.2e}); pcg "
           f"{t_pcg:.4f} s for {iters} iterations = "
           f"{1e3 * t_pcg / max(iters, 1):.3f} ms each (host clock); under "
           f"the profiler {t_prof:.4f} s, {sum(c for *_, c in rows)} device "
@@ -1604,6 +1725,391 @@ def phase_cqrrpt(dev, card: str, k7_ms: float) -> dict:
     del A
     phase_cqrrpt_small_vs_plain(dev)
     return hq_counts
+
+
+def rsvd_checks(tag, A, U, S, Vt, err, k) -> tuple:
+    """The gates every [rsvd…] run holds: U and Vᵀ orthonormal to
+    10·eps32^0.75·√k (PERF.md §2's rule at f32), S finite and descending,
+    and err (QB's relative Frobenius error) consistent with the SVD's own
+    ‖A − U·diag(S)·Vt‖_F/‖A‖_F within 1e-5; all in f64. Returns
+    (residual, orthogonality of U, of Vt)."""
+    Ad = A.double()
+    res = float(torch.linalg.norm(Ad - (U.double() * S.double()) @ Vt.double())
+                / torch.linalg.norm(Ad))
+    eye = torch.eye(k, dtype=torch.float64, device=A.device)
+    orth_u = float(torch.linalg.norm(U.double().T @ U.double() - eye))
+    orth_v = float(torch.linalg.norm(Vt.double() @ Vt.double().T - eye))
+    gate(tuple(U.shape) == (A.shape[0], k) and tuple(Vt.shape)
+         == (k, A.shape[1]) and tuple(S.shape) == (k,), f"{tag}: shapes")
+    gate(bool(torch.isfinite(U).all() and torch.isfinite(S).all()
+              and torch.isfinite(Vt).all()), f"{tag}: non-finite output")
+    gate(bool((S[:-1] >= S[1:]).all()), f"{tag}: S not descending")
+    gate(abs(res - err) <= 1e-5, f"{tag}: err {err} against the SVD's "
+         f"residual {res}")
+    gate(max(orth_u, orth_v) <= RSVD_ORTH_GATE,
+         f"{tag}: orthogonality U {orth_u}, Vt {orth_v}")
+    return res, orth_u, orth_v
+
+
+def plain_qb_err(A, omegas) -> float:
+    """The relative Frobenius error of blocked randomized QB with one
+    power iteration and no oversampling (Halko, Martinsson and Tropp
+    2011, algorithm 4.4; blocked as Martinsson and Voronin 2016), written
+    straight from the papers with a Householder QR at every step: for
+    each start Ω, Y = W·Ω, Y = Wᵀ·Y, Y = W·Y (orthonormalized in
+    between), Qᵢ = orth(Y − Q·QᵀY), W ← W − Qᵢ·QᵢᵀW. None of the port's
+    code runs here."""
+    W, Q = A.clone(), A.new_zeros((A.shape[0], 0))
+    for om in omegas:
+        Y = torch.linalg.qr(W @ om).Q
+        Y = torch.linalg.qr(W.T @ Y).Q
+        Y = W @ Y
+        Qi = torch.linalg.qr(Y - Q @ (Q.T @ Y)).Q
+        W = W - Qi @ (Qi.T @ W)
+        Q = torch.cat([Q, Qi], 1)
+    return float(torch.linalg.norm(W) / torch.linalg.norm(A))
+
+
+def phase_rsvd(dev, card: str) -> None:
+    """BASELINE config 1 through rsvd_fixed_rank (bench.py:336-357):
+    best of 5 after a warm-up, GFLOP/s by bench.py's 12·m·n·k, peak
+    memory, gates against the optimal rank-256 tail; the phase split
+    (qb_blocked, svd_econ of B, U = Q·Û, each timed around its public
+    call); the three SVD routes on B; [svd-jacobi] against the f64 SVD of
+    B."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import QBConfig, qb_blocked
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops.svd import svd_econ
+    n, k = RSVD_N, RSVD_K
+    A, st = fast_decay_matrix(n, n, RNGState(1), decay=80.0, device=dev)
+    cfg = RSVDConfig(QBConfig(block_size=RSVD_B))
+    (U, S, Vt, err, _), times, counts, peak = timed_run(
+        lambda: rsvd_fixed_rank(A, k, cfg, st), 5)
+    t, err = min(times), float(err)
+    sig = torch.linalg.svdvals(A.double())
+    tail = float(torch.linalg.norm(sig[k:]) / torch.linalg.norm(sig))
+    res, orth_u, orth_v = rsvd_checks("rsvd", A, U, S, Vt, err, k)
+    print(f"[rsvd] rsvd_fixed_rank {n}x{n} f32 fast-decay (decay 80), rank "
+          f"{k}, QB block {RSVD_B} on {card}: runs "
+          f"{[round(x, 4) for x in times]} s, best {t:.4f} s = "
+          f"{12.0 * n * n * k / t / 1e9:.1f} GFLOP/s (12mnk); QB err "
+          f"{err:.4e} against the optimal tail {tail:.4e} (x{err / tail:.3f}"
+          f"), |A - U S Vt|/|A| {res:.4e}, orth U {orth_u:.3e} Vt "
+          f"{orth_v:.3e} (gate {RSVD_ORTH_GATE:.2e}), sigma "
+          f"{float(S[0]):.4e}..{float(S[-1]):.4e}, peak memory {peak:.3f} "
+          f"GiB, launches {counts}", flush=True)
+    gate(err <= RSVD_TAIL_FACTOR * tail, f"rsvd: err {err} against "
+         f"{RSVD_TAIL_FACTOR} x the optimal rank-{k} tail {tail}")
+    gate(counts == NO_LAUNCHES, f"rsvd: launches {counts}")
+    del U, Vt
+    # the second witness of QB's error: the timed runs' starts (drawn
+    # here as qb_blocked draws them, block i from state.branch(i)) and
+    # three other draws, each injected into the port in f32 and in f64 and
+    # into plain_qb_err, an independent f64 QB with Householder QR at
+    # every step (the same range in exact arithmetic)
+    Ad = A.double()
+    rows = []
+    for seed in (None, 11, 12, 13):
+        s0 = st if seed is None else RNGState(seed)
+        om = [torch.randn((n, RSVD_B), generator=s0.branch(i).spawn(dev)[0],
+                          device=dev) for i in range(k // RSVD_B)]
+        e32 = float(rsvd_fixed_rank(A, k, cfg, s0, omegas=om)[3])
+        e64 = float(rsvd_fixed_rank(Ad, k, cfg, s0,
+                                    omegas=[o.double() for o in om])[3])
+        rows.append((e32, e64, plain_qb_err(Ad, [o.double() for o in om])))
+    print(f"[rsvd-draws] QB err / optimal tail (port f32, port f64, plain "
+          f"f64 QB) for the timed runs' starts and three other draws: "
+          + "; ".join(f"{a / tail:.4f}, {b / tail:.4f}, {c / tail:.4f}"
+                      for a, b, c in rows), flush=True)
+    gate(abs(rows[0][0] - err) <= 1e-4 * err, f"rsvd: the redrawn starts "
+         f"give err {rows[0][0]}, the timed runs {err}")
+    for e32, e64, e_ref in rows:
+        gate(abs(e32 - e_ref) <= 1e-3 * e_ref and abs(e64 - e_ref)
+             <= 1e-8 * e_ref, f"rsvd: err f32 {e32}, f64 {e64} against the "
+             f"plain f64 QB's {e_ref}")
+        gate(e32 <= RSVD_TAIL_FACTOR * tail, f"rsvd: err {e32} against "
+             f"{RSVD_TAIL_FACTOR} x the optimal rank-{k} tail {tail}")
+    del sig, Ad
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    _, t_prof, rows = device_profile(lambda: rsvd_fixed_rank(A, k, cfg, st))
+    busy = sum(ms for _, ms, _ in rows)
+    gate(busy > 0, "rsvd: the profiler saw no device time")
+    print(f"[rsvd-profile] one call under torch.profiler: {t_prof:.4f} s, "
+          f"{sum(c for *_, c in rows)} device launches, the card busy "
+          f"{busy:.2f} ms ({100 * busy / 1e3 / t_prof:.1f} %, idle "
+          f"{100 - 100 * busy / 1e3 / t_prof:.1f} %); top: " + "; ".join(
+              f"{key[:50]} {ms:.2f} ms/{cnt}" for key, ms, cnt in rows[:8]),
+          flush=True)
+    (Q, B, _, _), t_qb = timed(lambda: qb_blocked(A, k, cfg.qb, st))
+    (Ub, S, Vt), t_svd = timed(lambda: svd_econ(B, cfg.svd_method))
+    _, t_u = timed(lambda: Q @ Ub)
+    print(f"[rsvd-phases] qb_blocked {t_qb:.4f} s, svd_econ of B "
+          f"{tuple(B.shape)} {t_svd:.4f} s, U = Q Ub {t_u:.4f} s; "
+          f"{t_qb + t_svd + t_u:.4f} s against {t:.4f} s best untimed "
+          f"({k // RSVD_B} blocks, each with 4 host reads: the Householder-"
+          f"fallback flags of rf and of the re-orthogonalization, the "
+          f"pivots of RS's two PLU stabilizations)", flush=True)
+    routes, outs = {}, {}
+    for method in ("xla", "gram_eigh", "jacobi", "default driver"):
+        fn = ((lambda M: tuple(torch.linalg.svd(M, full_matrices=False)))
+              if method == "default driver" else
+              (lambda M: svd_econ(M, method)))
+        fn(B[:8, :64])                                     # warm-up
+        outs[method], routes[method] = timed(lambda: fn(B))
+    Uj, Sj, Vtj = outs["jacobi"]
+    Bd = B.double()
+    _, s64, _ = torch.linalg.svd(Bd, full_matrices=False)
+    top = s64 >= 1e-3 * s64[0]
+    s_err = float(((Sj.double() - s64).abs() / s64)[top].max())
+    trip = float(torch.linalg.vector_norm(
+        Bd @ Vtj.double().T - Uj.double() * Sj.double(), dim=0).max()
+        / s64[0])
+    def orth2(U, Vt):
+        return max(float(torch.linalg.norm(
+            M.double().T @ M.double() - torch.eye(
+                M.shape[1], dtype=torch.float64, device=dev)))
+            for M in (U, Vt.T))
+
+    print(f"[svd-routes] svd_econ of B {tuple(B.shape)} f32 (one call each, "
+          f"after a warm-up call on an 8x64 corner; 'default driver' is "
+          f"torch.linalg.svd as the library picks it): " + ", ".join(
+              f"{m_} {v:.4f} s (max |UtU-I|_F, |VtVt^T-I|_F "
+              f"{orth2(outs[m_][0], outs[m_][2]):.2e})"
+              for m_, v in routes.items()), flush=True)
+    print(f"[svd-jacobi] svd_econ(B, 'jacobi') {tuple(B.shape)} f32: "
+          f"{routes['jacobi']:.4f} s; against the f64 SVD of B: max "
+          f"relative error of sigma >= 1e-3 sigma_1 ({int(top.sum())} "
+          f"values) {s_err:.3e}, max |B v_i - sigma_i u_i|/sigma_1 "
+          f"{trip:.3e}", flush=True)
+    gate(s_err <= 1e-5, f"svd-jacobi: sigma relative error {s_err}")
+    gate(trip <= 1e-5, f"svd-jacobi: triplet residual {trip}")
+
+
+def library_default_svd(B):
+    """``torch.linalg.svd`` with the library's default card driver
+    (``gesvdj``): the route ``svd_econ("xla")`` took on the card before it
+    reduced B by a Householder QR and took ``gesvd`` of R."""
+    return tuple(torch.linalg.svd(B, full_matrices=False))
+
+
+def phase_svd_route_turns(dev) -> None:
+    """What the card route of ``svd_econ("xla")`` costs and saves, against
+    the library's default driver, in turns (old, new, new, old) after a
+    warm-up of each: KRILL's full-size f32 solve through
+    ``krill_full_rpchol`` and, apart, its preconditioner build
+    (``rpchol_pc_data``: RPCholesky and the SVD of F) and PCG; config 1's
+    RSVD, best of 3 a turn."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import (PCGConfig, QBConfig, pcg,
+                                            rpchol_pc_data)
+    from randlapack_tpu_torch.drivers import (KrillConfig, RSVDConfig,
+                                              krill_full_rpchol,
+                                              rsvd_fixed_rank)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.linops import SpectralPrecond
+    from randlapack_tpu_torch.ops import svd as tsvd
+    mu = 1e-2
+    G, H = krill_problem(KRILL_N, 1, mu, dev)
+    mus = torch.full((1,), mu, dtype=H.dtype, device=dev)
+    A, st = fast_decay_matrix(RSVD_N, RSVD_N, RNGState(1), decay=80.0,
+                              device=dev)
+    kcfg = KrillConfig(k=KRILL_K, rpchol_block=64,
+                       pcg=PCGConfig(tol=1e-5, max_iters=200))
+    rcfg = RSVDConfig(QBConfig(block_size=RSVD_B))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def turn():
+        (_, _, iters, _), t_krill = timed(lambda: krill_full_rpchol(
+            G, H, mu, kcfg, RNGState(6)))
+        (V, lam, _, _), t_pc = timed(lambda: rpchol_pc_data(
+            G.with_reg(False), KRILL_K, RNGState(6), block_size=64))
+        P = SpectralPrecond.prep(V, lam, mus)
+        _, t_pcg = timed(lambda: pcg(G.with_reg(True), H, P,
+                                     torch.zeros_like(H), kcfg.pcg))
+        t_rsvd = min(timed(lambda: rsvd_fixed_rank(A, RSVD_K, rcfg, st))[1]
+                     for _ in range(3))
+        return t_krill, iters, t_pc, t_pcg, t_rsvd
+
+    route, runs = tsvd._svd_library, {"old": [], "new": []}
+    try:
+        for i, which in enumerate(("old", "new", "old", "new", "new",
+                                   "old")):
+            tsvd._svd_library = (library_default_svd if which == "old"
+                                 else route)
+            row = turn()
+            if i >= 2:                    # the first two are the warm-ups
+                runs[which].append(row)
+    finally:
+        tsvd._svd_library = route
+    print("[svd-route-turns] svd_econ('xla') on the card, the library's "
+          "default driver (old) against QR then gesvd of R (new), in turns "
+          "after a warm-up of each: krill_full_rpchol n=65536 f32 k=1024 s, "
+          "iterations, rpchol_pc_data s, pcg s; rsvd config 1 best of 3 s: "
+          + "; ".join(f"{w} " + ", ".join(
+              f"({a:.4f}, {i}, {b:.4f}, {c:.4f}, {d:.4f})"
+              for a, i, b, c, d in runs[w]) for w in ("old", "new")),
+          flush=True)
+
+
+def phase_rsvd_8192(dev, card: str) -> None:
+    """Config 1's recipe at BASELINE.md's 8192² target shape, rank 256,
+    best of 3."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import QBConfig
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    n, k = 2 * RSVD_N, RSVD_K
+    A, st = fast_decay_matrix(n, n, RNGState(1), decay=80.0, device=dev)
+    cfg = RSVDConfig(QBConfig(block_size=RSVD_B))
+    (U, S, Vt, err, _), times, counts, peak = timed_run(
+        lambda: rsvd_fixed_rank(A, k, cfg, st), 3)
+    t, err = min(times), float(err)
+    res, orth_u, orth_v = rsvd_checks("rsvd-8192", A, U, S, Vt, err, k)
+    gate(counts == NO_LAUNCHES, f"rsvd-8192: launches {counts}")
+    print(f"[rsvd-8192] rsvd_fixed_rank {n}x{n} f32 fast-decay (decay 80), "
+          f"rank {k} on {card}: runs {[round(x, 4) for x in times]} s, best "
+          f"{t:.4f} s = {12.0 * n * n * k / t / 1e9:.1f} GFLOP/s (12mnk); QB "
+          f"err {err:.4e}, |A - U S Vt|/|A| {res:.4e}, orth U "
+          f"{orth_u:.3e} Vt {orth_v:.3e}, peak memory {peak:.3f} GiB",
+          flush=True)
+
+
+def phase_revd2(dev, card: str) -> dict:
+    """REVD2 over the implicit kernel operator at KRILL's full size (the
+    [krill] points, n 65536, d 8, unregularized), rank 1024, f32: warm-up,
+    best of 2, then one run with CUDA events around each K4 launch for its
+    share; the port's LUs against the library's default backend; gates on
+    fail, orthogonality, λ, 15 K4 launches a call and the top-8 eigenpair
+    residuals (K·v by K4). Returns the launch counts of one call."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import REVD2Config, revd2_fixed_rank
+    G, _ = krill_problem(KRILL_N, 1, 0.0, dev)
+    op = G.with_reg(False)
+    k, cfg = REVD2_K, REVD2Config()
+    (V, lam, est, nu, fail, _), times, counts, peak = timed_run(
+        lambda: revd2_fixed_rank(op, k, cfg, RNGState(4)), 2)
+    t = min(times)
+    gate(counts == REVD2_LAUNCHES, f"revd2-kernel: launches {counts}")
+    gate(not bool(fail), "revd2-kernel: fail flag raised")
+    # K4's device time inside one call, by CUDA events around each launch
+    # (torch.profiler's tables take minutes here: cuSOLVER's SVD launches
+    # tens of thousands of small kernels)
+    from randlapack_tpu_torch import pdkernels
+    launch, spans = pdkernels.kernel_matmat, []
+
+    def timed_launch(*args):
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
+        result = launch(*args)
+        span[1].record()
+        spans.append(span)
+        return result
+
+    pdkernels.kernel_matmat = timed_launch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        revd2_fixed_rank(op, k, cfg, RNGState(4))
+        torch.cuda.synchronize()
+        t_ev = time.perf_counter() - t0
+    finally:
+        pdkernels.kernel_matmat = launch
+    k4_each = [a.elapsed_time(b) for a, b in spans]
+    k4 = sum(k4_each)
+    gate(len(spans) == 15 and k4 > 0, f"revd2-kernel: {len(spans)} timed "
+         f"K4 launches")
+    orth = float(torch.linalg.norm(V.double().T @ V.double() - torch.eye(
+        k, dtype=torch.float64, device=dev)))
+    gate(orth <= 10 * EPS32 ** 0.75 * math.sqrt(k),
+         f"revd2-kernel: orthogonality {orth}")
+    gate(bool((lam >= 0).all() and (lam[:-1] >= lam[1:]).all()),
+         "revd2-kernel: lambda negative or not descending")
+    l1 = float(lam[0])
+    KV = op.matmat(V[:, :8].contiguous())
+    eres = (torch.linalg.vector_norm(KV - V[:, :8] * lam[:8], dim=0)
+            / l1).tolist()
+    gate(max(eres) <= 1e-3, f"revd2-kernel: eigenpair residuals {eres}")
+    # the port's LUs (ops.qr.lu_factor: REVD2's PLU stabilization at this
+    # shape, config 1's at 4096x64, BQRRP's pivot pass on an 8192x256
+    # transposed sketch panel) against the library's own choice of backend
+    from randlapack_tpu_torch.ops.qr import lu_factor
+    lu_rows = []
+    for shape in ((KRILL_N, k), (RSVD_N, RSVD_B), (N, 256)):
+        Y = torch.randn(shape, device=dev)
+        piv_lib = torch.linalg.lu_factor_ex(Y)[1]
+        piv_port = lu_factor(Y)[1]
+        lu_rows.append((shape, cuda_ms(lambda: torch.linalg.lu_factor_ex(Y),
+                                       3, warmup=1),
+                        cuda_ms(lambda: lu_factor(Y), 3, warmup=1),
+                        torch.equal(piv_lib, piv_port)))
+    del Y
+    gate(torch.backends.cuda.preferred_linalg_library()
+         == torch._C._LinalgBackend.Default,
+         "lu_factor left the linalg backend changed")
+    print("[revd2-lu] lu_factor_ex f32, the library's default backend "
+          "against ops.qr.lu_factor (cuSOLVER): " + "; ".join(
+              f"{m_}x{n_} {a_:.2f} ms against {b_:.2f} ms, pivots equal "
+              f"{eq}" for (m_, n_), a_, b_, eq in lu_rows), flush=True)
+    print(f"[revd2-kernel] revd2_fixed_rank over SquaredExpKernelLinOp n="
+          f"{KRILL_N} d=8 f32 (bandwidth {G.bandwidth:.3f}), k={k} on "
+          f"{card}: runs {[round(x, 4) for x in times]} s, best {t:.4f} s; "
+          f"a call with CUDA events around each K4 launch {t_ev:.4f} s, K4 "
+          f"{k4:.1f} ms ({100 * k4 / 1e3 / t_ev:.1f} % of it; the five at "
+          f"s={k} {sum(k4_each[:5]):.1f} ms, the ten at s=1 "
+          f"{sum(k4_each[5:]):.1f} ms); fail {bool(fail)}, |V^T V - "
+          f"I|_F {orth:.3e}, lambda {l1:.4e}..{float(lam[-1]):.4e}, err_est/"
+          f"lambda_1 {float(est) / l1:.3e}, nu {float(nu):.4e}, top-8 "
+          f"|K v - lambda v|/lambda_1 max {max(eres):.3e}; peak memory "
+          f"{peak:.3f} GiB; launches {counts}", flush=True)
+    return counts
+
+
+def phase_nystrom(dev, card: str) -> None:
+    """nystrom_pc_data (adaptive REVD2 from k 64, tol 1e-6) over the
+    [krill] recipe's points at n 8192; its top-8 λ against eigvalsh of the
+    dense kernel matrix in f64 on the card."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import nystrom_pc_data
+    from randlapack_tpu_torch.pdkernels import squared_exp_kernel
+    n = 8192
+    G, _ = krill_problem(n, 1, 0.0, dev)
+    op = G.with_reg(False)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    V, lam, k_used, _ = nystrom_pc_data(op, 64, RNGState(5), 1e-2, tol=1e-6)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    Xd = op.X.double()
+    w = torch.linalg.eigvalsh(squared_exp_kernel(Xd, Xd, op.bandwidth))
+    w = w.flip(0)[:8]
+    rel = ((lam[:8].double() - w).abs() / w).tolist()
+    print(f"[nystrom] nystrom_pc_data n={n} d=8 f32 (bandwidth "
+          f"{op.bandwidth:.3f}) from k 64, tol 1e-6 on {card}: {secs:.4f} s, "
+          f"k_used {k_used}, K4 launches {counts['kernel_matmat']}; top-8 "
+          f"lambda against the dense f64 eigvalsh: max relative "
+          f"{max(rel):.3e} (lambda_1 {float(w[0]):.4e})", flush=True)
+    gate(max(rel) <= 1e-3, f"nystrom: top-8 lambda relative errors {rel}")
+    gate(counts["kernel_matmat"] > 0 and counts == {
+        **NO_LAUNCHES, "kernel_matmat": counts["kernel_matmat"]},
+        f"nystrom: launches {counts}")
 
 
 def phase_cqrrpt_kernels(dev, A, d) -> None:
@@ -1950,6 +2456,11 @@ def main() -> int:
     counts["op"] = run(phase_sketch, dev)
     counts["cqrrpt"] = run(phase_cqrrpt, dev, f"{smi}",
                            timed["gaussian_sketch"]["ms"])
+    run(phase_rsvd, dev, f"{smi}")
+    run(phase_rsvd_8192, dev, f"{smi}")
+    run(phase_svd_route_turns, dev)
+    revd2_counts = run(phase_revd2, dev, f"{smi}")
+    run(phase_nystrom, dev, f"{smi}")
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
@@ -1963,6 +2474,8 @@ def main() -> int:
     for k in kernels:   # K5/K6 also run inside CQRRPT's sketch QRCP
         if KERNELS[k["name"]][2] == "hqrrp":
             k["cqrrpt_launches"] = counts["cqrrpt"][k["name"]]
+        elif k["name"] == "kernel_matmat":    # and K4 inside REVD2
+            k["revd2_launches"] = revd2_counts["kernel_matmat"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

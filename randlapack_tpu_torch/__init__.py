@@ -10,7 +10,10 @@ Ported so far: the factored BQRRP path (``drivers.bqrrp_factored``,
 ``bqrrp_q``, ``bqrrp_apply_qt``), HQRRP (``drivers.hqrrp``,
 ``hqrrp_lapack_format``), KRILL (``drivers.krill_full_rpchol``,
 ``krill_restricted_rpchol`` over ``pdkernels``, ``linops`` and ``comps``),
-the fused Gaussian sketch (``ops.gaussian_sketch``) and what they run.
+the fused Gaussian sketch (``ops.gaussian_sketch``), the tall QR drivers
+(``drivers.cqrrpt``, ``cqrrt``, ``bqrrp``), the low-rank drivers
+(``drivers.rsvd_fixed_rank``, ``rsvd``, ``revd2_fixed_rank``, ``revd2``
+over ``comps``' orth, RS, RF, QB, SYPS and SYRF) and what they run.
 """
 from .rng import RNGState, as_state
 from . import (comps, config, drivers, gen, interop, linops, ops, pdkernels,

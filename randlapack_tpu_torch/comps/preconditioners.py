@@ -1,14 +1,15 @@
 """Preconditioner constructors (counterpart of
 ``randlapack_tpu/comps/preconditioners.py``; reference:
 RandLAPACK/comps/rl_preconditioners.hh: make_right_orthogonalizer :194,
-rpchol_pc_data :348). The sketch-based constructors of the JAX package
-(``rpc_data_svd_saso``, ``right_precond_saso``, ``nystrom_pc_data``) are
+nystrom_pc_data :283, rpchol_pc_data :348). The sketch-based constructors
+of the JAX package (``rpc_data_svd_saso``, ``right_precond_saso``) are
 not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from ..config import STABLE_PRECISION
 from ..ops.svd import svd_econ
 from ..rng import RNGState
 from .rpchol import RPCholConfig, rp_cholesky
@@ -30,6 +31,21 @@ def make_right_orthogonalizer(V_sk: torch.Tensor, sigma_sk: torch.Tensor,
     scale = torch.where(keep, 1.0 / torch.where(denom > 0, denom, ones),
                         torch.zeros_like(denom))
     return V_sk * scale[None, :], keep.sum().to(torch.int32)
+
+
+def nystrom_pc_data(A, k: int, state: RNGState, mus, tol: float = 1e-6,
+                    precision=STABLE_PRECISION, draw=None):
+    """Adaptive Nyström preconditioner data for a PSD operator: REVD2's
+    eigenpairs from rank k, doubling (the reference composes
+    SYPS→SYRF→REVD2, :293-317). ``mus`` is not read, as in the JAX
+    package; ``draw`` goes to ``drivers.revd2``.
+
+    Returns ``(V, lam, k_used, next_state)``.
+    """
+    from ..drivers.revd2 import REVD2Config, revd2
+    V, lam, k_used, _, _, state = revd2(A, k, tol, REVD2Config(), state,
+                                        precision=precision, draw=draw)
+    return V, lam, k_used, state
 
 
 def rpchol_pc_data(A, k: int, state: RNGState, block_size: int = 64,

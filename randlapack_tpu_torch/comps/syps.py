@@ -1,0 +1,53 @@
+"""Symmetric power sketch — SYPS (counterpart of
+``randlapack_tpu/comps/syps.py``; reference: RandLAPACK/comps/rl_syps.hh:
+SYPS::call :82/:96): Ω ← A·Ω on a symmetric operator, stabilized every
+``passes_per_stab`` passes. A is a dense symmetric tensor or a symmetric
+linop with ``matmat(X)`` and a ``dim`` property.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import STABLE_PRECISION
+from ..ops.wy import _require_highest
+from ..rng import RNGState
+from .orth import Stab, stabilize
+from .rs import _gaussian_start
+
+
+def _apply_sym(A, X):
+    """A·X for a dense tensor or a linop (whose ``matmat`` takes no
+    precision here: every product is fp32 or f64)."""
+    if isinstance(A, torch.Tensor):
+        return A @ X
+    return A.matmat(X)
+
+
+def _sym_dim(A) -> int:
+    """The order n of a symmetric operator (``Tensor.dim`` is a method,
+    a linop's ``dim`` a property)."""
+    return A.shape[0] if isinstance(A, torch.Tensor) else A.dim
+
+
+@dataclasses.dataclass(frozen=True)
+class SYPSConfig:
+    passes_over_data: int = 3
+    passes_per_stab: int = 1
+    stab: Stab = Stab.plu
+
+
+def syps(A, k: int, cfg: SYPSConfig, state: RNGState,
+         precision=STABLE_PRECISION, omega=None):
+    """n×k power-iterated sketch of a symmetric operator. ``omega``
+    injects the n×k Gaussian start (``state`` still advances). Returns
+    ``(Omega, next_state)``."""
+    _require_highest(precision)
+    n = _sym_dim(A)
+    omega, state = _gaussian_start((n, k), A.dtype, A.device, state, omega)
+    for p in range(cfg.passes_over_data):
+        omega = _apply_sym(A, omega)
+        if (p + 1) % cfg.passes_per_stab == 0:
+            omega, _ = stabilize(omega, cfg.stab, precision)
+    return omega, state

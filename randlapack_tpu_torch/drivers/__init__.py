@@ -1,13 +1,18 @@
 """User-facing drivers (reference: RandLAPACK/drivers/)."""
+from .rsvd import RSVDConfig, rsvd, rsvd_fixed_rank
+from .cqrrt import CQRRTConfig, SketchKind, cqrrt
+from .cqrrpt import CQRRPTConfig, QRCPKind, cqrrpt
 from .bqrrp import (BQRRPConfig, BQRRPFactors, QRTall, bqrrp, bqrrp_apply_qt,
                     bqrrp_factored, bqrrp_q)
-from .cqrrpt import CQRRPTConfig, QRCPKind, cqrrpt
-from .cqrrt import CQRRTConfig, SketchKind, cqrrt
-from .hqrrp import HQRRPConfig, PanelQR, hqrrp, hqrrp_lapack_format
+from .revd2 import REVD2Config, revd2, revd2_fixed_rank
 from .krill import KrillConfig, krill_full_rpchol, krill_restricted_rpchol
+from .hqrrp import HQRRPConfig, PanelQR, hqrrp, hqrrp_lapack_format
 
-__all__ = ["BQRRPConfig", "BQRRPFactors", "QRTall", "bqrrp",
-           "bqrrp_apply_qt", "bqrrp_factored", "bqrrp_q", "CQRRPTConfig",
-           "QRCPKind", "cqrrpt", "CQRRTConfig", "SketchKind", "cqrrt",
-           "HQRRPConfig", "PanelQR", "hqrrp", "hqrrp_lapack_format",
-           "KrillConfig", "krill_full_rpchol", "krill_restricted_rpchol"]
+__all__ = ["RSVDConfig", "rsvd", "rsvd_fixed_rank",
+           "CQRRTConfig", "SketchKind", "cqrrt",
+           "CQRRPTConfig", "QRCPKind", "cqrrpt",
+           "BQRRPConfig", "BQRRPFactors", "QRTall", "bqrrp",
+           "bqrrp_apply_qt", "bqrrp_factored", "bqrrp_q",
+           "REVD2Config", "revd2", "revd2_fixed_rank",
+           "KrillConfig", "krill_full_rpchol", "krill_restricted_rpchol",
+           "HQRRPConfig", "PanelQR", "hqrrp", "hqrrp_lapack_format"]

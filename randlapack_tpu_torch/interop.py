@@ -6,7 +6,9 @@ way, and so does KRILL's state: the kernel operator, the spectral
 preconditioner (one package's drives the other's ``pcg``) and the
 RPCholesky factor with its pivots. The sketching operators cross too (a
 SASO's rows and values, an SRHT's signs and sampled rows), so both
-packages can apply the same draw."""
+packages can apply the same draw. So do the low-rank results: QB's
+(Q, B, errs), a low-rank SVD's (U, S, Vt) and REVD2's Nyström pair
+(V, λ), from which either package builds its ``SpectralPrecond``."""
 from __future__ import annotations
 
 import numpy as np
@@ -134,3 +136,21 @@ def srht_to_numpy(S: SRHTSkOp) -> tuple:
     """An SRHT → ``(d, m, signs, rows)`` as ``srht_from_numpy`` takes
     them."""
     return S.n_rows, S.n_cols, _to_numpy(S.signs), _to_numpy(S.rows)
+
+
+def tensors_from_numpy(arrays, device="cuda") -> tuple:
+    """Numpy arrays (or anything ``np.asarray`` takes) → a tuple of
+    tensors on ``device``, in the same order."""
+    return tuple(torch.tensor(np.asarray(a), device=device) for a in arrays)
+
+
+def tensors_to_numpy(*tensors) -> tuple:
+    """Tensors → a tuple of numpy arrays, in the same order."""
+    return tuple(_to_numpy(t) for t in tensors)
+
+
+# the low-rank results cross as tuples in their drivers' order: QB's
+# (Q, B, errs), a low-rank SVD's (U, S, Vt), REVD2's Nyström pair (V, λ)
+qb_from_numpy = lowrank_svd_from_numpy = nystrom_from_numpy = \
+    tensors_from_numpy
+qb_to_numpy = lowrank_svd_to_numpy = nystrom_to_numpy = tensors_to_numpy

@@ -2,7 +2,8 @@
 Householder reconstruction and application, the masked WY update, the
 fused kernel product and Gaussian sketch, the economy SVD and matrix
 utilities."""
-from .cholqr import cholqr, cholqr2, preconditioned_cholqr, shifted_cholqr3
+from .cholqr import (cholqr, cholqr2, cholqr_auto, preconditioned_cholqr,
+                     shifted_cholqr3)
 from .householder import apply_reflectors, getrfnp, orhr_col
 from .kernels import (gaussian_sketch, gaussian_sketch_reference,
                       kernel_matmat_auto, kernel_matmat_reference,
@@ -18,7 +19,8 @@ from .wy import (a_minus_vz_masked_mixed, a_minus_vz_masked_reference,
 from . import util
 
 __all__ = [
-    "cholqr", "cholqr2", "preconditioned_cholqr", "shifted_cholqr3",
+    "cholqr", "cholqr2", "cholqr_auto", "preconditioned_cholqr",
+    "shifted_cholqr3",
     "apply_reflectors", "getrfnp", "getrfnp_routed", "orhr_col",
     "geqp3", "lu_pivot_columns", "qr_econ", "qrcp_panel",
     "qrcp_select_pivots", "wy_T",

@@ -4,7 +4,9 @@ reference: RandLAPACK/comps/rl_orth.hh:69-98, rl_scholqr3_linops.hh:45).
 Every function returns an explicit failure flag as a bool tensor on the
 input's device instead of raising, like the reference's ``chol_fail``.
 A failed Cholesky gives an all-NaN factor, as XLA's does, so the flag
-logic is the JAX package's.
+logic is the JAX package's. ``cholqr_auto``'s rescue ladder, ``lax.cond``
+in the JAX package, is a pair of host branches (at most two host reads a
+call).
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ def gram_syrk(A, precision=STABLE_PRECISION, block: int = 512):
     the SYRK flop saving (rl_orth.hh:74 uses ``syrk``): block i gives
     G[i·b:(i+1)·b, i·b:] = A_iᵀ·A[:, i·b:], Σ flops m·n·b·(nb+1)/2 against
     m·n² (5/8 at nb = 4). The strictly-upper blocks are mirrored and the
-    diagonal blocks symmetrized, so G is EXACTLY symmetric. One full GEMM
-    when n does not split into two or more blocks of ``block``."""
+    diagonal blocks symmetrized, so on this blocked path G is EXACTLY
+    symmetric. When n does not split into two or more blocks of
+    ``block`` it is one full GEMM, whose G is symmetric only to
+    rounding."""
     _require_highest(precision)
     m, n = A.shape
     nb = n // block
@@ -133,3 +137,53 @@ def preconditioned_cholqr(A: torch.Tensor, R_pre: torch.Tensor):
     Returns ``(Q, R, fail)`` with R = R_chol · R_pre."""
     Q, R_chol, fail = cholqr(_solve_rt(A, R_pre))
     return Q, R_chol @ R_pre, fail
+
+
+def _clamp_triu_diag(R):
+    """Relative floor max|diag R|·eps on a triangular factor's diagonal,
+    so the solve in ``preconditioned_cholqr`` stays finite on deficient
+    inputs (a local copy of ``drivers.bqrrp._safe_triu_diag``: ops do not
+    import drivers)."""
+    d = torch.diagonal(R)
+    mx = d.abs().max()
+    one = torch.ones((), dtype=R.dtype, device=R.device)
+    ref = torch.where(mx > 0.0, mx * torch.finfo(R.dtype).eps, one)
+    dsafe = torch.where(d.abs() > ref, d, ref)
+    return torch.triu(R) - torch.diag(d) + torch.diag(dsafe)
+
+
+def _kappa_est(R):
+    """max|diag R| / min|diag R|: the free condition estimate of a
+    Cholesky factor (NaN when the factor is)."""
+    d = torch.diagonal(R).abs()
+    return d.max() / torch.clamp(d.min(), min=torch.finfo(R.dtype).tiny)
+
+
+def cholqr_auto(A: torch.Tensor, precision=STABLE_PRECISION):
+    """Condition-aware CholQR (the reference's a-posteriori logic,
+    rl_cqrrpt.hh:311-332, as a rescue ladder). The first pass's diag(R)
+    ratio picks the rung:
+
+      κ_est ≤ 0.1/√eps, finite    → CholeskyQR2
+      else                         → shifted CholQR3
+      that fails or κ_est > 0.03/eps → CholQR preconditioned by the
+                                     Householder R (diagonal floored)
+
+    Each rescue rung runs only when reached: one host read decides the
+    first branch, a second (only on the rescue path) the next. Returns
+    ``(Q, R, fail)``; ``fail`` means that even the last rung broke down.
+    """
+    _require_highest(precision)
+    eps = torch.finfo(A.dtype).eps
+    Q1, R1, f1 = cholqr(A)
+    kappa = _kappa_est(R1)
+    if not bool(f1 | ~torch.isfinite(kappa) | (kappa > 0.1 / eps ** 0.5)):
+        Q, R2, f2 = cholqr(Q1)
+        return Q, R2 @ R1, f2
+    Qs, Rs, fs = shifted_cholqr3(A)
+    ks = _kappa_est(Rs)
+    if not bool(fs | ~torch.isfinite(ks) | (ks > 0.03 / eps)):
+        return Qs, Rs, fs
+    R_h = _clamp_triu_diag(torch.linalg.qr(A, mode="r")[1][:A.shape[1], :])
+    Q, R, f = preconditioned_cholqr(A, R_h)
+    return Q, R, f | ~torch.isfinite(Q).all()

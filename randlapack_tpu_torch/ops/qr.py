@@ -2,7 +2,8 @@
 QR, column-pivoted Householder QR (``geqp3``), HQRRP's sketch pivot pass
 and panel QR(CP) with Drmač norm downdating, the compact-WY T factor,
 and LU-based pivot selection (the reference BQRRP's ``luqr`` qrcp_wide,
-rl_bqrrp.hh:339-356).
+rl_bqrrp.hh:339-356) through ``lu_factor``, the port's one pivoted LU
+(PLU stabilization in ``comps.orth`` takes it too).
 
 ``qrcp_select_pivots`` and ``qrcp_panel`` are the plain versions of the
 kernels K5 and K6 (``ops/qrcp.py``, ``csrc/qrcp.cu``): Python loops of
@@ -11,6 +12,7 @@ package's masking, penalties and tie rules kept as they are."""
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -20,6 +22,31 @@ from .cholqr import _pow2
 def qr_econ(A: torch.Tensor):
     """Economy Householder QR → (Q, R)."""
     return torch.linalg.qr(A, mode="reduced")
+
+
+_LU_BACKEND = threading.Lock()
+
+
+def lu_factor(A: torch.Tensor):
+    """``torch.linalg.lu_factor_ex(A)`` → ``(LU, pivots, info)``. On the
+    card, where the caller has left ``torch.backends.cuda.
+    preferred_linalg_library`` at "default", cuSOLVER is asked for: for a
+    tall matrix the library's own choice (MAGMA) takes several times as
+    long with the same pivots (``chip_smoke.py``'s ``[revd2-lu]`` line;
+    PERF.md §6). A backend the caller chose stands. The preference is
+    process-wide: a lock keeps two of these calls from restoring each
+    other's setting, but a linalg call on another thread during one of
+    them takes cuSOLVER too."""
+    if (A.device.type != "cuda"
+            or torch.backends.cuda.preferred_linalg_library()
+            != torch._C._LinalgBackend.Default):
+        return torch.linalg.lu_factor_ex(A)
+    with _LU_BACKEND:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return torch.linalg.lu_factor_ex(A)
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
 
 
 def lu_pivot_columns(A_panel_t: torch.Tensor) -> torch.Tensor:
@@ -46,7 +73,7 @@ def lu_pivot_columns(A_panel_t: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(n, device=A_panel_t.device)
     pad = torch.zeros_like(A_panel_t)
     pad[rows, rows % d] = delta
-    LU, piv, _ = torch.linalg.lu_factor_ex(A_panel_t + pad)
+    LU, piv, _ = lu_factor(A_panel_t + pad)
     # A = P·L·U, so row i of L·U is row perm[i] of A, the column that
     # holds P's one in column i
     P, _, _ = torch.lu_unpack(LU, piv, unpack_data=False)

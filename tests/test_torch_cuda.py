@@ -1005,3 +1005,164 @@ def test_cqrrpt_card_matches_the_cpu_f64(cuda, kw, qs_rows):
     assert float((Rg.cpu() - Rc).abs().max()) <= 1e-10 * float(
         Rc.abs().max())
     assert float((Qg.cpu() - Qc).abs().max()) <= 1e-10
+
+
+# -- the low-rank slice: K4 at wide s, RSVD and REVD2 on the card -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 17, 256, 1024])
+def test_kernel_matmat_wide_s_holds_fp32_accuracy(cuda, s):
+    """REVD2's shapes (V n×k, k in the hundreds to thousands): against the
+    split emulation within its own distance from f64 plus the gate, and
+    against the f64 plain version at most 4x the SIMT kernel's error."""
+    rng = np.random.default_rng(s)
+    d, n = 8, 2048
+    X = torch.tensor(rng.standard_normal((d, n)), dtype=torch.float32,
+                     device=cuda)
+    V = torch.tensor(rng.standard_normal((n, s)), dtype=torch.float32,
+                     device=cuda)
+    bw = 1.36 * np.sqrt(d)
+    out = tk.kernel_matmat(X, V, bw)
+    ref = tk.kernel_matmat_reference(X.double(), V.double(), bw, block=1024)
+    gate = _f64_gate(_relf(tk.kernel_matmat_simt(X, V, bw), ref))
+    assert _relf(out, ref) <= gate
+    emul = tk.kernel_matmat_split_reference(X, V, bw, block=1024)
+    assert _relf(out, emul.double()) <= gate + _relf(emul, ref)
+    assert torch.equal(out, tk.kernel_matmat(X, V, bw))
+
+
+def _reset_kernels():
+    _reset_all()
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+
+
+def _launches():
+    return {**twy.LAUNCHES, **tlu.LAUNCHES, **tqrcp.LAUNCHES, **tk.LAUNCHES}
+
+
+def _aligned_cols(ref, x):
+    s = torch.sign((ref * x).sum(0))
+    return x * torch.where(s == 0, torch.ones_like(s), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("svd_method", ["auto", "jacobi"])
+def test_rsvd_card_matches_the_cpu_f64(cuda, svd_method):
+    """The same injected starts on both devices, f64: U, Vt (sign-aligned)
+    within 1e-10, S and err within 1e-12 relative; no kernel launch (the
+    JAX package runs RSVD outside Pallas)."""
+    from randlapack_tpu_torch.comps import QBConfig
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    rng = np.random.default_rng(9)
+    m, n, k, b = 500, 300, 32, 16
+    A = torch.tensor(rng.standard_normal((m, n))
+                     * np.exp(-np.arange(n) / 20.0))
+    omegas = [torch.tensor(rng.standard_normal((n, b))) for _ in range(k // b)]
+    cfg = RSVDConfig(QBConfig(block_size=b), svd_method)
+    _reset_kernels()
+    Ug, Sg, Vtg, eg, sg = rsvd_fixed_rank(A.to(cuda), k, cfg, rt.RNGState(1),
+                                          omegas=[o.to(cuda) for o in omegas])
+    torch.cuda.synchronize()
+    assert not any(_launches().values())
+    Uc, Sc, Vtc, ec, sc = rsvd_fixed_rank(A, k, cfg, rt.RNGState(1),
+                                          omegas=omegas)
+    assert (sg.key, sg.counter) == (sc.key, sc.counter)
+    assert float((Sg.cpu() - Sc).abs().max()) <= 1e-12 * float(Sc[0])
+    assert abs(float(eg) - float(ec)) <= 1e-12 * float(ec)
+    lead = slice(0, 16)              # well-separated triplets
+    assert float((_aligned_cols(Uc[:, lead], Ug.cpu()[:, lead])
+                  - Uc[:, lead]).abs().max()) <= 1e-10
+    assert float((_aligned_cols(Vtc.T[:, lead], Vtg.cpu().T[:, lead])
+                  - Vtc.T[:, lead]).abs().max()) <= 1e-10
+
+
+def _kernel_op(n, dtype, device, seed=3):
+    from randlapack_tpu_torch.pdkernels import (SquaredExpKernelLinOp,
+                                                standardize_dataset)
+    rng = np.random.default_rng(seed)
+    X = standardize_dataset(torch.tensor(rng.standard_normal((8, n)),
+                                         dtype=dtype))
+    return SquaredExpKernelLinOp(X.to(device), 3.0, 0.0,
+                                 evals_include_reg=False)
+
+
+@pytest.mark.cuda
+def test_revd2_card_matches_the_cpu_f64(cuda):
+    """REVD2 over the kernel operator, f64 (K4's SIMT kernel on the card,
+    its plain version on the CPU), same injected draws: λ and err within
+    1e-10 of λ₁, V's leading columns (sign-aligned) within 1e-8; 15 K4
+    launches (3 SYPS passes, SYRF, Y, 10 power-estimate passes)."""
+    from randlapack_tpu_torch.drivers import REVD2Config, revd2_fixed_rank
+    n, k = 1024, 64
+    rng = np.random.default_rng(4)
+    omega = torch.tensor(rng.standard_normal((n, k)))
+    v0 = torch.tensor(rng.standard_normal((n, 1)))
+    opc = _kernel_op(n, torch.float64, "cpu")
+    opg = _kernel_op(n, torch.float64, cuda)
+    _reset_kernels()
+    Vg, lg, eg, _, fg, _ = revd2_fixed_rank(opg, k, REVD2Config(),
+                                            rt.RNGState(0), omega=omega.to(
+                                                cuda), v0=v0.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches() == {**{name: 0 for name in _launches()},
+                           "kernel_matmat": 15}
+    Vc, lc, ec, _, fc, _ = revd2_fixed_rank(opc, k, REVD2Config(),
+                                            rt.RNGState(0), omega=omega,
+                                            v0=v0)
+    assert not bool(fg) and not bool(fc)
+    l1 = float(lc[0])
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-10 * l1
+    assert abs(float(eg) - float(ec)) <= 1e-10 * l1
+    lead = slice(0, 8)
+    assert float((_aligned_cols(Vc[:, lead], Vg.cpu()[:, lead])
+                  - Vc[:, lead]).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_revd2_f32_reaches_the_tensor_core_kernel(cuda):
+    """An f32 CUDA operator: every product of REVD2 is K4's tensor-core
+    body (15 launches, none of the SIMT one), V orthonormal, λ ≥ 0 and
+    descending, ``fail`` False."""
+    from randlapack_tpu_torch.drivers import REVD2Config, revd2_fixed_rank
+    op = _kernel_op(4096, torch.float32, cuda)
+    _reset_kernels()
+    V, lam, err, _, fail, _ = revd2_fixed_rank(op, 128, REVD2Config(),
+                                               rt.RNGState(2))
+    torch.cuda.synchronize()
+    assert _launches() == {**{name: 0 for name in _launches()},
+                           "kernel_matmat": 15}
+    assert not bool(fail) and bool(torch.isfinite(err))
+    orth = torch.linalg.norm(V.T.double() @ V.double()
+                             - torch.eye(128, dtype=torch.float64,
+                                         device=cuda))
+    assert float(orth) <= 10 * (2.0 ** -23) ** 0.75 * np.sqrt(128)
+    assert bool((lam >= 0).all()) and bool((lam[:-1] >= lam[1:]).all())
+
+
+@pytest.mark.cuda
+def test_svd_econ_keeps_u_orthonormal_where_the_default_driver_does_not(
+        cuda):
+    """A 65536×1024 f32 RPCholesky factor of the kernel matrix (KRILL's
+    preconditioner basis at full size): ``torch.linalg.svd`` with the
+    library's default card driver, the route ``svd_econ("xla")`` took
+    before its QR-then-``gesvd`` route, leaves ‖UᵀU − I‖_F above the f32
+    rule 10·eps^0.75·√k = 2.0e-3; ``svd_econ`` meets it, with σ within
+    1e-5·σ₁ of the f64 SVD of the same factor."""
+    from randlapack_tpu_torch.comps import RPCholConfig, rp_cholesky
+    from randlapack_tpu_torch.ops.svd import svd_econ
+    k = 1024
+    F, _, _ = rp_cholesky(_kernel_op(65536, torch.float32, cuda), k,
+                          RPCholConfig(block_size=64), rt.RNGState(6))
+    eye = torch.eye(k, dtype=torch.float64, device=cuda)
+
+    def orth(U):
+        return float(torch.linalg.norm(U.double().T @ U.double() - eye))
+
+    gate = 10 * EPS32 ** 0.75 * np.sqrt(k)
+    U_lib = torch.linalg.svd(F, full_matrices=False)[0]
+    U, s, _ = svd_econ(F, "xla")
+    s64 = torch.linalg.svdvals(F.double())
+    assert orth(U_lib) > gate, (orth(U_lib), gate)
+    assert orth(U) <= gate, (orth(U), gate)
+    assert float((s.double() - s64).abs().max()) <= 1e-5 * float(s64[0])

@@ -92,8 +92,10 @@ def test_svd_method_resolution():
     assert tsvd.resolve_svd_method("auto") == "xla"
     assert tsvd.resolve_svd_method("gram_eigh") == "gram_eigh"
     assert jsvd.resolve_svd_method("auto") == "xla"       # JAX on the CPU
-    with pytest.raises(NotImplementedError):
-        tsvd.svd_econ(torch.eye(3), "jacobi")
+    # "jacobi" is ported: the one-sided Jacobi route, not an error
+    U, S, Vt = tsvd.svd_econ(torch.eye(3, dtype=torch.float64), "jacobi")
+    assert torch.equal(S, torch.ones(3, dtype=torch.float64))
+    assert torch.allclose(U @ Vt, torch.eye(3, dtype=torch.float64))
     with pytest.raises(RandLAPACKError):
         tsvd.svd_econ(torch.eye(3), "qdwh")
 

@@ -243,7 +243,14 @@ def test_sample_distinct_uniform_in_chunks():
 def test_gram_syrk_matches_the_full_gram(n, block):
     A = torch.tensor(_mat(300, n, n))
     G = tchol.gram_syrk(A, block=block)
-    assert torch.equal(G, G.T)
+    if n % block == 0 and n // block >= 2:
+        # the blocked path mirrors its upper blocks: EXACTLY symmetric
+        assert torch.equal(G, G.T)
+    else:
+        # the fallback is one full GEMM, symmetric only to rounding (as
+        # in the JAX package's own test, tests/test_ops.py)
+        assert float(torch.linalg.norm(G - G.T)
+                     / torch.linalg.norm(G)) <= 1e-15
     assert _rel(G, A.T @ A) <= 1e-13
     assert _rel(G, jchol.gram_syrk(jnp.asarray(A.numpy()), HI, block)) \
         <= 1e-13
