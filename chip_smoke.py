@@ -6,8 +6,8 @@ Builds the hand-written kernels from randlapack_tpu_torch/csrc/ (one
 nvcc per source, all at once, sm_90a, into build/kernels/), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives the port's paths — two factorizations of 8192×8192 f32 fast-decay
-matrices, KRILL, the fused Gaussian sketch, the tall QR drivers and the
-low-rank drivers:
+matrices, KRILL, the fused Gaussian sketch, the tall QR drivers, the
+low-rank drivers and the operator slice:
 
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
   candidates per slot, 2 stages, update defer 4), then bqrrp_q; the same
@@ -52,6 +52,18 @@ low-rank drivers:
   orthogonality, λ, eigenpair residuals, K4's share by CUDA events; the
   port's LUs against the library's default backend) and nystrom_pc_data
   at n 8192 against the dense kernel matrix's eigenvalues;
+- the operator slice (no kernel on it): ABRIK at BASELINE config 5
+  (abrik of an 8192x4096 f32 fast_decay_matrix, decay 12, k 64, block
+  64, 4 iterations; best of 3 by CUDA events, GFLOP/s by 8mnk·4, peak
+  memory, the triplet-0 residual; gated on the bases' orthogonality, the
+  Krylov relation, σ against the f64 call and no launch), its
+  timing=True split with a profile and the band factor's SVD by route,
+  RSVD at rank 64 on the same matrix, ABRIK over SparseLinOp against
+  the dense tensor at densities 0.01 and 0.05 with one SpMM each way
+  against the dense product, cholqr_linops over a 65536x1024 sparse
+  operator (density 0.02) against its dense one and column-blocked,
+  and an f64 card-vs-CPU run of the operator battery, ABRIK and the
+  four CholQR drivers;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -110,6 +122,11 @@ RSVD_ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(RSVD_K)
 # plain f64 QB on the same four draws, and that reads 1.0915-1.1026 too.
 # The gate sits 1.6 % above the worst of those readings
 RSVD_TAIL_FACTOR = 1.12
+# BASELINE config 5 (bench.py:482-500): ABRIK of an 8192x4096 fast-decay
+# matrix (decay 12), k 64, block 64, 4 Krylov iterations; the bases'
+# orthogonality gate is PERF.md §2's rule at f32 for their 256 columns
+ABRIK_M, ABRIK_N, ABRIK_K, ABRIK_B, ABRIK_Q = 8192, 4096, 64, 64, 4
+ABRIK_ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(ABRIK_B * ABRIK_Q)
 # the sketch of CQRRPT at a 131072×2048 matrix: d = 1.25·n rows
 SKETCH_M, SKETCH_N, SKETCH_D = 131072, 2048, 2560
 # config 3 of BASELINE.md: CQRRPT of a 131072x2048 tall matrix (bench.py's
@@ -2112,6 +2129,418 @@ def phase_nystrom(dev, card: str) -> None:
         f"nystrom: launches {counts}")
 
 
+def event_runs(fn, reps: int):
+    """``fn()`` ``reps`` times after one warm-up, each run timed by CUDA
+    events: the last output, the seconds of each run, the launch counts
+    and the peak device memory (GiB, inputs included) of the last run,
+    and that peak above what was allocated before it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    return out, times, read_counts(), peak / 2 ** 30, (peak - base) / 2 ** 30
+
+
+def profile_summary(fn, top: int = 8) -> tuple:
+    """``fn()`` under torch.profiler: wall seconds, device launches, busy
+    ms, idle share and the ``top`` device rows as text."""
+    _, wall, rows = device_profile(fn)
+    busy = sum(ms for _, ms, _ in rows)
+    gate(busy > 0, "the profiler saw no device time")
+    text = "; ".join(f"{key[:48]} {ms:.2f} ms/{cnt}"
+                     for key, ms, cnt in rows[:top])
+    return wall, sum(c for *_, c in rows), busy, \
+        100 - 100 * busy / 1e3 / wall, text
+
+
+def abrik_problem(dev):
+    """BASELINE config 5's input (bench.py:482-500): the 8192x4096 f32
+    fast_decay_matrix(decay=12) from RNGState(5), the state it returns and
+    ABRIK's configuration (b 64, q 4)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import ABRIKConfig
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(ABRIK_M, ABRIK_N, RNGState(5), decay=12.0,
+                              device=dev)
+    return A, st, ABRIKConfig(block_size=ABRIK_B, max_iters=ABRIK_Q)
+
+
+def triplet0(A, U, S, Vt) -> float:
+    """bench.py's ‖A v₀ − σ₀u₀‖ (f64)."""
+    return float(torch.linalg.norm(A.double() @ Vt[0].double()
+                                   - S[0].double() * U[:, 0].double()))
+
+
+# config 5's time, triplet-0 residual and S, for [abrik-vs-rsvd]
+ABRIK_RESULT = {}
+
+
+def phase_abrik(dev, card: str) -> dict:
+    """BASELINE config 5 through abrik (bench.py:482-500): best of 3 by
+    CUDA events after a warm-up, GFLOP/s by bench.py's 8·m·n·k·4, peak
+    memory and the triplet-0 residual (reported: the spectrum is nearly
+    flat at the top, so four iterations need not converge it). Gates, on
+    abrik_factor with the timed runs' start: the bases' orthogonality,
+    the Krylov relation A·V = U·B, the top σ against the same call in
+    f64, and no kernel launch. Returns the launch counts."""
+    from randlapack_tpu_torch.drivers import abrik, abrik_factor
+    A, st, cfg = abrik_problem(dev)
+    m, n, k = ABRIK_M, ABRIK_N, ABRIK_K
+    (U, S, Vt, info, _), times, counts, peak, above = event_runs(
+        lambda: abrik(A, k, cfg, st), 3)
+    t = min(times)
+    r0 = triplet0(A, U, S, Vt)
+    v0 = torch.randn((n, ABRIK_B), generator=st.spawn(dev)[0], device=dev)
+    Ub, Vb, B, cap, iters, _ = abrik_factor(A, st, cfg, v0=v0)
+    Ad = A.double()
+    K = ABRIK_B * ABRIK_Q
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    orth_u = float(torch.linalg.norm(Ub.double().T @ Ub.double() - eye))
+    orth_v = float(torch.linalg.norm(Vb.double().T @ Vb.double() - eye))
+    kry = float(torch.linalg.norm(Ad @ Vb.double() - Ub.double() @ B.double())
+                / torch.linalg.norm(Ad))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, S64, _, info64, _ = abrik(Ad, k, cfg, st, v0=v0.double())
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    sgap = float((S.double() - S64).abs().max() / S64[0])
+    print(f"[abrik] abrik {m}x{n} f32 fast-decay (decay 12), k {k}, block "
+          f"{ABRIK_B}, {ABRIK_Q} iterations (BASELINE config 5) on {card}: "
+          f"runs {[round(x, 5) for x in times]} s (CUDA events), best "
+          f"{t:.5f} s = {8.0 * m * n * k * 4 / t / 1e9:.1f} GFLOP/s "
+          f"(8mnk*4); triplet-0 residual |A v0 - s0 u0| {r0:.4e} (reported; "
+          f"s0 {float(S[0]):.4e}); iterations {info['num_krylov_iters']}; "
+          f"abrik_factor on the same start: |Ub^T Ub - I|_F {orth_u:.3e}, "
+          f"|Vb^T Vb - I|_F {orth_v:.3e} (gate {ABRIK_ORTH_GATE:.3e}), "
+          f"|A Vb - Ub B|_F/|A|_F {kry:.3e} (gate 1e-4); top {k} sigma "
+          f"against the f64 call ({t64:.3f} s): max |ds|/s0 {sgap:.3e} (gate "
+          f"1e-4); peak memory {peak:.3f} GiB, {above:.3f} GiB above the "
+          f"tensors allocated before the call; launches {counts}",
+          flush=True)
+    gate(info["num_krylov_iters"] == ABRIK_Q and iters == ABRIK_Q
+         and info64["num_krylov_iters"] == ABRIK_Q, "abrik: iterations")
+    gate(bool(torch.isfinite(U).all() and torch.isfinite(S).all()
+              and torch.isfinite(Vt).all()) and tuple(U.shape) == (m, k)
+         and tuple(Vt.shape) == (k, n), "abrik: output shape or finiteness")
+    gate(max(orth_u, orth_v) <= ABRIK_ORTH_GATE,
+         f"abrik: orthogonality U {orth_u}, V {orth_v}")
+    gate(kry <= 1e-4, f"abrik: Krylov relation {kry}")
+    gate(sgap <= 1e-4, f"abrik: sigma against f64 {sgap}")
+    gate(counts == NO_LAUNCHES, f"abrik: launches {counts}")
+    ABRIK_RESULT.update(seconds=t, triplet0=r0, S=S)
+    return counts
+
+
+
+def phase_abrik_phases(dev) -> None:
+    """Config 5's timing=True split (the 13 slots of rl_abrik.hh:734 the
+    JAX package fills: every phase synced, all q iterations) and one
+    untimed call under torch.profiler: card busy and idle share, top
+    device rows."""
+    from randlapack_tpu_torch.drivers import abrik, abrik_factor
+    from randlapack_tpu_torch.ops.svd import svd_econ
+    A, st, cfg = abrik_problem(dev)
+    abrik(A, ABRIK_K, cfg, st, timing=True)
+    *_, report = abrik(A, ABRIK_K, cfg, st, timing=True)
+    wall, launches, busy, idle, text = profile_summary(
+        lambda: abrik(A, ABRIK_K, cfg, st))
+    # the band factor's SVD (get_factors) by route, on this run's B
+    B = abrik_factor(A, st, cfg)[2]
+    routes = {"xla (the port's)": lambda: svd_econ(B, "xla"),
+              "default driver": lambda: torch.linalg.svd(
+                  B, full_matrices=False),
+              "gram_eigh": lambda: svd_econ(B, "gram_eigh"),
+              "host LAPACK": lambda: torch.linalg.svd(
+                  B.cpu(), full_matrices=False)}
+    svd_ms = {}
+    for name, fn in routes.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        svd_ms[name] = (time.perf_counter() - t0) * 1e3
+    print(f"[abrik-phases] timing=True: " + ", ".join(
+        f"{k_} {v:.5f} s" for k_, v in report.items())
+          + f"; one call under torch.profiler {wall:.5f} s, {launches} "
+          f"device launches, card busy {busy:.2f} ms (idle {idle:.1f} %; "
+          f"{ABRIK_Q - 2} host reads of the stop flag); top: {text}; the "
+          f"SVD of the {tuple(B.shape)} band factor, one warm call each: "
+          + ", ".join(f"{k_} {v:.2f} ms" for k_, v in svd_ms.items()),
+          flush=True)
+
+
+def phase_abrik_vs_rsvd(dev) -> None:
+    """bench.py:502-524 on config 5's A: rsvd_fixed_rank at rank 64 with
+    QBConfig(block_size=64), best of 3 by CUDA events; both times, both
+    triplet-0 residuals and the largest relative sigma gap (reported)."""
+    from randlapack_tpu_torch.comps import QBConfig
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    A, st, _ = abrik_problem(dev)
+    cfg = RSVDConfig(QBConfig(block_size=ABRIK_B))      # 64, as bench.py
+    (U, S, Vt, err, _), times, counts, peak, _ = event_runs(
+        lambda: rsvd_fixed_rank(A, ABRIK_K, cfg, st), 3)
+    r0 = triplet0(A, U, S, Vt)
+    S_ab = ABRIK_RESULT["S"]
+    gap = float(((S_ab - S).abs() / S.clamp(min=1e-30)).max())
+    print(f"[abrik-vs-rsvd] rank {ABRIK_K} on config 5's A: abrik "
+          f"{ABRIK_RESULT['seconds']:.5f} s, rsvd_fixed_rank (QB block 64) "
+          f"runs {[round(x, 5) for x in times]} s, best {min(times):.5f} s; "
+          f"triplet-0 residual abrik {ABRIK_RESULT['triplet0']:.4e}, rsvd "
+          f"{r0:.4e}; largest relative sigma gap {gap:.4e}; rsvd QB err "
+          f"{float(err):.4e}, peak {peak:.3f} GiB, launches "
+          f"{'none' if counts == NO_LAUNCHES else counts}", flush=True)
+    gate(counts == NO_LAUNCHES, f"abrik-vs-rsvd: launches {counts}")
+
+
+def phase_abrik_sparse(dev, card: str) -> None:
+    """bench.py:646-690: ABRIK (b 64, q 4, k 64, RNGState(22)) over
+    SparseLinOp.from_dense of an 8192x4096 matrix from
+    gen_exp_singvals(4096, 1e6) masked to density 0.01 and 0.05
+    (RNGState(21)), against the same call on the dense tensor: nnz, both
+    times (best of 3), their ratio and the sigma gap (gate 1e-4
+    relative); one matmat and one tmatmat at 64 columns against the dense
+    A @ X and A.T @ Y in turns, two calls' bit-equality (also under
+    PyTorch's deterministic mode), and tmatmat's device launches under
+    torch.profiler."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import abrik
+    from randlapack_tpu_torch.gen import (gen_exp_singvals,
+                                          gen_sparse_from_singvals)
+    from randlapack_tpu_torch.linops import SparseLinOp
+    _, _, cfg = abrik_problem(dev)
+    m, n, k = ABRIK_M, ABRIK_N, ABRIK_K
+    sv = gen_exp_singvals(n, 1e6, torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    X = torch.randn((n, k), generator=g, device=dev)
+    Y = torch.randn((m, k), generator=g, device=dev)
+    for dens in (0.01, 0.05):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Ad, _ = gen_sparse_from_singvals(m, n, sv, dens, RNGState(21))
+        op = SparseLinOp.from_dense(Ad)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        p_gen = torch.cuda.max_memory_allocated() / 2 ** 30
+        (_, S_sp, _, _, _), t_sp, c_sp, p_sp, _ = event_runs(
+            lambda: abrik(op, k, cfg, RNGState(22)), 3)
+        (_, S_dn, _, _, _), t_dn, c_dn, p_dn, _ = event_runs(
+            lambda: abrik(Ad, k, cfg, RNGState(22)), 3)
+        gap = float(((S_sp - S_dn).abs() / S_dn.clamp(min=1e-30)).max())
+        mm = in_turns(lambda: Ad @ X, lambda: op.matmat(X), 20)
+        tm = in_turns(lambda: Ad.T @ Y, lambda: op.tmatmat(Y), 20)
+        same = (torch.equal(op.matmat(X), op.matmat(X)),
+                torch.equal(op.tmatmat(Y), op.tmatmat(Y)))
+        # does PyTorch's deterministic mode change the SpMM it picks?
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            same_det = torch.equal(op.tmatmat(Y), op.tmatmat(Y))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        _, _, rows = device_profile(
+            lambda: [op.tmatmat(Y) for _ in range(5)])
+        print(f"[abrik-sparse] density {dens}: nnz {op.nnz} "
+              f"({op.nnz / (m * n):.4f}; int32 CSR indices "
+              f"{op.A.crow_indices().dtype == torch.int32}), generated and "
+              f"converted in {t_gen:.3f} s at a peak of {p_gen:.3f} GiB; "
+              f"abrik over SparseLinOp best "
+              f"{min(t_sp):.5f} s {[round(x, 5) for x in t_sp]}, over the "
+              f"dense tensor best {min(t_dn):.5f} s; sparse/dense "
+              f"{min(t_sp) / min(t_dn):.3f}; max relative sigma gap "
+              f"{gap:.3e} (gate 1e-4); peak {p_sp:.3f} / {p_dn:.3f} GiB; "
+              f"at {k} columns, in turns: A@X dense {mm[0]:.4f} ms, CSR "
+              f"{mm[1]:.4f} ms; A^T@Y dense {tm[0]:.4f} ms, CSR of A^T "
+              f"{tm[1]:.4f} ms; two calls bit-equal matmat {same[0]}, "
+              f"tmatmat {same[1]} (tmatmat under torch.use_deterministic_"
+              f"algorithms {same_det}); five tmatmat calls on the card: "
+              + "; ".join(f"{key[:60]} x{cnt}" for key, _, cnt in rows),
+              flush=True)
+        gate(gap <= 1e-4, f"abrik-sparse {dens}: sigma gap {gap}")
+        gate(c_sp == NO_LAUNCHES and c_dn == NO_LAUNCHES,
+             f"abrik-sparse: launches {c_sp} {c_dn}")
+        del Ad, op
+
+
+def phase_cholqr_linops_sparse(dev, card: str) -> None:
+    """bench.py:691-712: cholqr_linops over SparseLinOp.from_dense of a
+    65536x1024 matrix from gen_exp_singvals(1024, 1e4) at density 0.02
+    (RNGState(23)) and over the DenseLinOp of the same array, best of 3
+    each, and gram_block=256 on the sparse operator with its peak memory
+    against the one-shot run's. Gates: fail equal; where False, both R
+    within 1e-4 relative; ‖RᵀR − AᵀA‖_F/‖AᵀA‖_F reported."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (CholQRLinopsConfig,
+                                              cholqr_linops)
+    from randlapack_tpu_torch.gen import (gen_exp_singvals,
+                                          gen_sparse_from_singvals)
+    from randlapack_tpu_torch.linops import DenseLinOp, SparseLinOp
+    m, n = 65536, 1024
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    At, _ = gen_sparse_from_singvals(
+        m, n, gen_exp_singvals(n, 1e4, torch.float32, device=dev), 0.02,
+        RNGState(23))
+    op, dop = SparseLinOp.from_dense(At), DenseLinOp(At)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    p_gen = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = {}
+    for name, A_, cfg in (("sparse", op, CholQRLinopsConfig()),
+                          ("dense", dop, CholQRLinopsConfig()),
+                          ("sparse gram_block 256", op,
+                           CholQRLinopsConfig(gram_block=256))):
+        (R, fail, _), times, counts, peak, above = event_runs(
+            lambda: cholqr_linops(A_, cfg), 3)
+        gate(counts == NO_LAUNCHES, f"cholqr-linops {name}: launches")
+        runs[name] = (R, bool(fail), min(times), peak, above)
+    Ad = At.double()
+    G = Ad.T @ Ad
+    errs = {name: float(torch.linalg.norm(r[0].double().T @ r[0].double()
+                                          - G) / torch.linalg.norm(G))
+            for name, r in runs.items()}
+    Rs, Rd = runs["sparse"][0], runs["dense"][0]
+    dR = float(torch.linalg.norm(Rs - Rd) / torch.linalg.norm(Rd))
+    dRb = float(torch.linalg.norm(runs["sparse gram_block 256"][0] - Rd)
+                / torch.linalg.norm(Rd))
+    print(f"[cholqr-linops-sparse] cholqr_linops {m}x{n} f32, density 0.02 "
+          f"(nnz {op.nnz}; generated and converted in {t_gen:.3f} s at a "
+          f"peak of {p_gen:.3f} GiB) on {card}: " + "; ".join(
+              f"{name} best {r[2]:.5f} s, fail {r[1]}, peak {r[3]:.3f} GiB "
+              f"({r[4]:.3f} above the inputs), |R^T R - A^T A|_F/|A^T A|_F "
+              f"{errs[name]:.3e}" for name, r in runs.items())
+          + f"; sparse/dense {runs['sparse'][2] / runs['dense'][2]:.3f}; R "
+          f"sparse vs dense {dR:.3e}, gram_block 256 vs dense {dRb:.3e} "
+          f"(gate 1e-4)", flush=True)
+    gate(len({r[1] for r in runs.values()}) == 1,
+         f"cholqr-linops: fail differs {[r[1] for r in runs.values()]}")
+    if not runs["dense"][1]:
+        gate(dR <= 1e-4 and dRb <= 1e-4, f"cholqr-linops: R {dR}, {dRb}")
+
+
+def phase_linops_small_vs_plain(dev) -> None:
+    """The operator slice on the card against the CPU, f64, small sizes,
+    the same inputs and draws on both: the operator battery (dense,
+    sparse, four composites x matmat, tmatmat, rmatmat, fro_nrm, cols,
+    the views, materialize) within 1e-13, abrik (both qr_explicit modes)
+    with iterations equal, S within 1e-10 s0, U and V within 1e-9 after
+    sign alignment, and the four CholQR drivers over the sparse operator
+    with fail equal and R within 1e-10 |R|."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch import linops as tl
+    from randlapack_tpu_torch.drivers import (ABRIKConfig, CholQRLinopsConfig,
+                                              CQRRTLinopsConfig, abrik,
+                                              cholqr_linops, cqrrt_linops,
+                                              scholqr3_linops,
+                                              scholqr3_linops_basic)
+    g = torch.Generator().manual_seed(10)
+    f64 = torch.float64
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, dtype=f64)
+
+    def sparse(shape, density=0.2):
+        M = rand(*shape) * (torch.rand(*shape, generator=g, dtype=f64)
+                            < density)
+        return M
+
+    mats = {"A": rand(40, 28), "S": sparse((40, 28)), "B1": rand(40, 16),
+            "B2": rand(16, 28), "S2": sparse((16, 28)), "S3": sparse((40, 16)),
+            "C": rand(16, 16)}
+
+    def ops(device):
+        d = {k_: v.to(device) for k_, v in mats.items()}
+        D, Sp = tl.DenseLinOp, tl.SparseLinOp.from_dense
+        C = tl.CompositeLinOp
+        return {"dense": D(d["A"]), "sparse": Sp(d["S"]),
+                "composite_dd": C(D(d["B1"]), D(d["B2"])),
+                "composite_ds": C(D(d["B1"]), Sp(d["S2"])),
+                "composite_sd": C(Sp(d["S3"]), D(d["B2"])),
+                "composite_nested": C(D(d["B1"]), C(D(d["C"]), D(d["B2"])))}
+
+    Xs = {"mat": rand(28, 5), "t": rand(40, 5), "r": rand(5, 40),
+          "blk": rand(28, 5), "col": rand(16, 5), "sub": rand(12, 5)}
+    methods = {
+        "matmat": lambda op, X: op.matmat(X["mat"]),
+        "tmatmat": lambda op, X: op.tmatmat(X["t"]),
+        "rmatmat": lambda op, X: op.rmatmat(X["r"]),
+        "fro_nrm": lambda op, X: op.fro_nrm(),
+        "cols": lambda op, X: op.cols(6, 8),
+        "row_block": lambda op, X: op.row_block(8, 24).matmat(X["blk"]),
+        "col_block": lambda op, X: op.col_block(4, 20).matmat(X["col"]),
+        "submatrix": lambda op, X: tl.submatrix(op, 8, 24, 4, 16).matmat(
+            X["sub"]),
+        "materialize": lambda op, X: tl.materialize(op)}
+    on_card, on_cpu = ops(dev), ops("cpu")
+    Xg = {k_: v.to(dev) for k_, v in Xs.items()}
+    worst = 0.0
+    for tag in on_cpu:
+        for name, fn in methods.items():
+            ref = fn(on_cpu[tag], Xs)
+            got = fn(on_card[tag], Xg).cpu()
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            gate(rel <= 1e-13, f"linops {tag}.{name} card vs CPU: {rel}")
+            worst = max(worst, rel)
+    A = rand(96, 60) * torch.logspace(0, -4, 60, dtype=f64)
+    ab = []
+    for qr in ("geqrf", "cqrrt"):
+        cfg = ABRIKConfig(block_size=6, max_iters=4, qr_explicit=qr)
+        v0 = rand(60, 6)
+        sk = [rand(8, 60 if (i % 2 == 0 and i > 0) else 96)
+              for i in range(8)]
+        outs = [abrik(M, 10, cfg, RNGState(0), v0=v0.to(M.device),
+                      qr_sketches=[s.to(M.device) for s in sk])
+                for M in (A.to(dev), A)]
+        (Ug, Sg, Vtg, ig, _), (Uc, Sc, Vtc, ic, _) = outs
+        gate(ig["num_krylov_iters"] == ic["num_krylov_iters"],
+             f"abrik {qr}: iterations")
+        dS = float((Sg.cpu() - Sc).abs().max() / Sc[0])
+        sgn_u = torch.sign((Ug.cpu() * Uc).sum(0))
+        sgn_v = torch.sign((Vtg.cpu() * Vtc).sum(1))
+        dU = float((Ug.cpu() * sgn_u - Uc).abs().max())
+        dV = float((Vtg.cpu() * sgn_v[:, None] - Vtc).abs().max())
+        gate(dS <= 1e-10 and dU <= 1e-9 and dV <= 1e-9,
+             f"abrik {qr} card vs CPU: S {dS}, U {dU}, V {dV}")
+        ab.append(f"{qr} S {dS:.2e} U {dU:.2e} V {dV:.2e}")
+    Ac = rand(120, 24) * torch.logspace(0, -3, 24, dtype=f64)
+    Ac = Ac * (torch.rand(120, 24, generator=g, dtype=f64) < 0.5)
+    G = rand(120, 36)
+    drivers = {
+        "cholqr_linops": lambda op, dv: cholqr_linops(
+            op, CholQRLinopsConfig(gram_block=10, passes=2))[:2],
+        "scholqr3_linops": lambda op, dv: scholqr3_linops(op)[:2],
+        "cqrrt_linops": lambda op, dv: cqrrt_linops(
+            op, CQRRTLinopsConfig(d_factor=1.5), RNGState(0),
+            sketch=G.to(dv))[:2],
+        "scholqr3_linops_basic": lambda op, dv:
+            scholqr3_linops_basic(op)[1:]}
+    ch = []
+    for name, fn in drivers.items():
+        Rg, fg = fn(tl.SparseLinOp.from_dense(Ac.to(dev)), dev)
+        Rc, fc = fn(tl.SparseLinOp.from_dense(Ac), "cpu")
+        dR = float((Rg.cpu() - Rc).abs().max() / torch.linalg.norm(Rc))
+        gate(bool(fg) == bool(fc) and dR <= 1e-10,
+             f"{name} card vs CPU: fail {bool(fg)}/{bool(fc)}, R {dR}")
+        ch.append(f"{name} {dR:.2e}")
+    print(f"[linops-small-vs-plain] f64 card vs CPU: operator battery (6 "
+          f"operators x 9 methods) max rel {worst:.2e}; abrik: "
+          + ", ".join(ab) + "; R over SparseLinOp: " + ", ".join(ch),
+          flush=True)
+
+
 def phase_cqrrpt_kernels(dev, A, d) -> None:
     """K5 and K6 on the shapes CQRRPT's HQRRP gives them (the 138x2048
     sketch of the 2560x2048 sketch; a 2560x128 panel), against their plain
@@ -2461,6 +2890,12 @@ def main() -> int:
     run(phase_svd_route_turns, dev)
     revd2_counts = run(phase_revd2, dev, f"{smi}")
     run(phase_nystrom, dev, f"{smi}")
+    run(phase_abrik, dev, f"{smi}")
+    run(phase_abrik_phases, dev)
+    run(phase_abrik_vs_rsvd, dev)
+    run(phase_abrik_sparse, dev, f"{smi}")
+    run(phase_cholqr_linops_sparse, dev, f"{smi}")
+    run(phase_linops_small_vs_plain, dev)
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:

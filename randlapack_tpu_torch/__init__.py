@@ -13,13 +13,20 @@ Ported so far: the factored BQRRP path (``drivers.bqrrp_factored``,
 the fused Gaussian sketch (``ops.gaussian_sketch``), the tall QR drivers
 (``drivers.cqrrpt``, ``cqrrt``, ``bqrrp``), the low-rank drivers
 (``drivers.rsvd_fixed_rank``, ``rsvd``, ``revd2_fixed_rank``, ``revd2``
-over ``comps``' orth, RS, RF, QB, SYPS and SYRF) and what they run.
+over ``comps``' orth, RS, RF, QB, SYPS and SYRF), the operator slice
+(``linops``' dense, sparse and composite operators and the CSR/CSC
+views, ``sketching``'s dense sketches, sided application and sparse
+formats, the generators of ``gen``, ``extras.io``, ABRIK through
+``drivers.abrik`` and the Q-less CholQR family over operators,
+``drivers.cholqr_linops``, ``scholqr3_linops``, ``cqrrt_linops``) and
+what they run.
 """
 from .rng import RNGState, as_state
-from . import (comps, config, drivers, gen, interop, linops, ops, pdkernels,
-               sketching, utils)
+from . import (comps, config, drivers, extras, gen, interop, linops, ops,
+               pdkernels, sketching, utils)
 
 __version__ = "0.1.0"
-__all__ = ["RNGState", "as_state", "comps", "config", "drivers", "gen",
+__all__ = ["RNGState", "as_state", "comps", "config", "drivers", "extras",
+           "gen",
            "interop", "linops", "ops", "pdkernels", "sketching", "utils",
            "__version__"]

@@ -8,16 +8,21 @@ RPCholesky factor with its pivots. The sketching operators cross too (a
 SASO's rows and values, an SRHT's signs and sampled rows), so both
 packages can apply the same draw. So do the low-rank results: QB's
 (Q, B, errs), a low-rank SVD's (U, S, Vt) and REVD2's Nyström pair
-(V, λ), from which either package builds its ``SpectralPrecond``."""
+(V, λ), from which either package builds its ``SpectralPrecond``. The
+operator slice's state crosses too: a sparse operator from its COO
+arrays, a CSR view from its ``(indptr, indices, data)`` and a dense
+sketching operator from its distribution's fields and its matrix."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .drivers.bqrrp import BQRRPFactors
+from .linops import CSRMatrixView, SparseLinOp
 from .linops.symmetric import SpectralPrecond
 from .pdkernels import SquaredExpKernelLinOp
-from .sketching import SparseDist, SparseSkOp, SRHTSkOp
+from .sketching import (DenseDist, DenseSkOp, ScalarDist, SparseDist,
+                        SparseSkOp, SRHTSkOp)
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -154,3 +159,49 @@ def tensors_to_numpy(*tensors) -> tuple:
 qb_from_numpy = lowrank_svd_from_numpy = nystrom_from_numpy = \
     tensors_from_numpy
 qb_to_numpy = lowrank_svd_to_numpy = nystrom_to_numpy = tensors_to_numpy
+
+
+def sparse_linop_from_numpy(rows, cols, vals, shape,
+                            device="cuda") -> SparseLinOp:
+    """A sparse operator from COO arrays (the JAX operator's
+    ``A.indices[:, 0]``, ``A.indices[:, 1]`` and ``A.data``), on
+    ``device``; duplicates stay stored entries."""
+    return SparseLinOp.from_coo(rows, cols, vals, tuple(shape),
+                                device=device)
+
+
+def sparse_linop_to_numpy(op: SparseLinOp) -> tuple:
+    """A sparse operator → ``(rows, cols, vals, shape)`` of its stored
+    entries."""
+    rows, cols = _to_numpy(op.indices)
+    return rows, cols, _to_numpy(op.data), op.shape
+
+
+def csr_view_from_numpy(indptr, indices, data, shape, row0: int = 0,
+                        device="cuda") -> CSRMatrixView:
+    """A CSR matrix (or row window, from ``row0``) from its arrays."""
+    indptr, indices, data = tensors_from_numpy((indptr, indices, data),
+                                               device)
+    return CSRMatrixView(indptr, indices, data, tuple(shape), row0)
+
+
+def csr_view_to_numpy(A: CSRMatrixView) -> tuple:
+    """A CSR view → ``(indptr, indices, data, shape, row0)``."""
+    return (*tensors_to_numpy(A.indptr, A.indices, A.data), A.shape,
+            A.row0)
+
+
+def dense_skop_from_numpy(dist_fields: dict, mat,
+                          device="cuda") -> DenseSkOp:
+    """A dense sketching operator from its distribution's fields
+    (``{"n_rows", "n_cols", "family"}``, the family by its value,
+    "gaussian" or "uniform") and its matrix."""
+    dist = DenseDist(int(dist_fields["n_rows"]), int(dist_fields["n_cols"]),
+                     ScalarDist(dist_fields.get("family", "gaussian")))
+    return DenseSkOp(dist, torch.tensor(np.asarray(mat), device=device))
+
+
+def dense_skop_to_numpy(S: DenseSkOp) -> tuple:
+    """A dense sketching operator → ``(dist_fields, mat)``."""
+    return ({"n_rows": S.dist.n_rows, "n_cols": S.dist.n_cols,
+             "family": S.dist.family.value}, _to_numpy(S.mat))

@@ -28,7 +28,10 @@ pattern in its own order: 1e-4 (f32) / 1e-11 (f64) of the largest entry.
 The Gaussian sketch (K7) generates S from the same Philox words as its
 plain version, but ``logf``/``cosf`` on the card differ from PyTorch's
 by an ulp or two: S within 1e-6 absolute (f32) / 1e-14 (f64), S·A within
-1e-4 / 1e-11 of the largest entry."""
+1e-4 / 1e-11 of the largest entry. The operator slice (no kernel): the
+sparse products (cuSPARSE) and the sparse triangular solve within 1e-5
+(f32) / 1e-12 or 1e-13 (f64) of the CPU's largest entry, ABRIK in f64 as
+its CPU parity test gates it."""
 import numpy as np
 import pytest
 import torch
@@ -1166,3 +1169,123 @@ def test_svd_econ_keeps_u_orthonormal_where_the_default_driver_does_not(
     assert orth(U_lib) > gate, (orth(U_lib), gate)
     assert orth(U) <= gate, (orth(U), gate)
     assert float((s.double() - s64).abs().max()) <= 1e-5 * float(s64[0])
+
+
+# -- the operator slice: cuSPARSE products, the sparse solve, ABRIK ----------
+
+def _sparse_pair(m, n, density, dtype, cuda, seed):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(m, n, generator=g, dtype=dtype) \
+        * (torch.rand(m, n, generator=g) < density)
+    from randlapack_tpu_torch.linops import SparseLinOp
+    return (SparseLinOp.from_dense(A), SparseLinOp.from_dense(A.to(cuda)),
+            g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+def test_sparse_linop_products_on_the_card(cuda, dtype, tol):
+    """``SparseLinOp`` matmat/tmatmat/rmatmat/cols on the card (cuSPARSE
+    SpMM on int32 CSR) against the same operator on the CPU. Two card
+    calls agree to rounding but need not be bit-equal: the SpMM the
+    library picks (``csrmm_alg2``) splits long rows between threads and
+    adds the parts in no fixed order (here ``tmatmat``, ~60 entries a
+    row of Aᵀ, differed between calls; ``matmat``, ~14 a row, did not)."""
+    op_c, op_g, g = _sparse_pair(3000, 700, 0.02, dtype, cuda, 1)
+    assert op_g.A.crow_indices().dtype == torch.int32
+    X = torch.randn(700, 64, generator=g, dtype=dtype)
+    Y = torch.randn(3000, 64, generator=g, dtype=dtype)
+    Z = torch.randn(5, 3000, generator=g, dtype=dtype)
+    for name, args in (("matmat", (X,)), ("tmatmat", (Y,)),
+                       ("rmatmat", (Z,)), ("cols", (100, 64))):
+        ref = getattr(op_c, name)(*args)
+        card = [getattr(op_g, name)(*(a.to(cuda) if isinstance(
+            a, torch.Tensor) else a for a in args)) for _ in range(2)]
+        assert card[0].is_cuda
+        assert float((card[0].cpu() - ref).abs().max()) \
+            <= tol * float(ref.abs().max()), name
+        assert float((card[0] - card[1]).abs().max()) \
+            <= tol * float(ref.abs().max()), name
+    assert float(op_g.fro_nrm()) == pytest.approx(float(op_c.fro_nrm()),
+                                                  rel=10 * tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["coo", "csr"])
+def test_sparse_data_products_on_the_card(cuda, fmt):
+    """``left_spmm``, ``right_spmm`` and ``spgemm`` on COO and CSR
+    tensors on the card against the same calls on the CPU, f64."""
+    from randlapack_tpu_torch.sketching import sparse_data as sd
+    rng = np.random.default_rng(5)
+    shape = (300, 200)
+    rows, cols = rng.integers(0, 300, 2000), rng.integers(0, 200, 2000)
+    vals = rng.standard_normal(2000)
+    if fmt == "coo":
+        def make(dev):
+            return sd.to_bcoo(rows, cols, vals, shape, device=dev)
+    else:
+        csr = sd.coo_to_csr(rows, cols, vals, shape)
+
+        def make(dev):
+            return sd.to_bcsr(*csr, shape, device=dev)
+    B = torch.tensor(rng.standard_normal((200, 7)))
+    C = torch.tensor(rng.standard_normal((7, 300)))
+    sp_c, sp_g = make("cpu"), make(cuda)
+    pairs = [(sd.left_spmm(sp_c, B), sd.left_spmm(sp_g, B.to(cuda))),
+             (sd.right_spmm(C, sp_c), sd.right_spmm(C.to(cuda), sp_g)),
+             (sd.spgemm(sp_c, sp_c.t() if fmt == "coo"
+                        else sp_c.t().to_sparse_csr()).to_dense(),
+              sd.spgemm(sp_g, sp_g.t() if fmt == "coo"
+                        else sp_g.t().to_sparse_csr()).to_dense())]
+    for ref, got in pairs:
+        assert got.is_cuda
+        assert float((got.cpu() - ref).abs().max()) \
+            <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower,unit", [(True, False), (False, True)])
+def test_sparse_trsm_on_the_card(cuda, lower, unit):
+    from randlapack_tpu_torch.sketching import sparse_trsm
+    n = 700
+    rng = np.random.default_rng(3)
+    T = np.where(rng.random((n, n)) < 0.02, rng.standard_normal((n, n)), 0.0)
+    T = (np.tril(T, -1) if lower else np.triu(T, 1)) \
+        + np.diag(2.0 + rng.random(n))
+    rows, cols = np.nonzero(T)
+    B = torch.tensor(rng.standard_normal((n, 4)))
+    ref = sparse_trsm(rows, cols, T[rows, cols], n, B, lower, unit, 256)
+    got = sparse_trsm(rows, cols, T[rows, cols], n, B.to(cuda), lower, unit,
+                      256)
+    assert got.is_cuda
+    assert float((got.cpu() - ref).abs().max()) \
+        <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qr", ["geqrf", "cqrrt"])
+def test_abrik_on_the_card_f64_against_the_cpu(cuda, qr):
+    """ABRIK over the sparse operator in f64 on the card and on the CPU,
+    the same start and QR sketches injected: iterations equal, S within
+    1e-10·σ₀, U and V within 1e-9 after sign alignment, no kernel."""
+    from randlapack_tpu_torch.drivers import ABRIKConfig, abrik
+    op_c, op_g, g = _sparse_pair(400, 250, 0.1, torch.float64, cuda, 4)
+    cfg = ABRIKConfig(block_size=8, max_iters=5, qr_explicit=qr)
+    v0 = torch.randn(250, 8, generator=g, dtype=torch.float64)
+    sk = [torch.randn(10, 250 if (i % 2 == 0 and i > 0) else 400,
+                      generator=g, dtype=torch.float64) for i in range(10)]
+    _reset_kernels()
+    Ug, Sg, Vtg, ig, _ = abrik(op_g, 12, cfg, rt.RNGState(0),
+                               v0=v0.to(cuda),
+                               qr_sketches=[s.to(cuda) for s in sk])
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in _launches().values())
+    Uc, Sc, Vtc, ic, _ = abrik(op_c, 12, cfg, rt.RNGState(0), v0=v0,
+                               qr_sketches=sk)
+    assert ig["num_krylov_iters"] == ic["num_krylov_iters"]
+    assert float((Sg.cpu() - Sc).abs().max()) <= 1e-10 * float(Sc[0])
+    su = torch.sign((Ug.cpu() * Uc).sum(0))
+    sv = torch.sign((Vtg.cpu() * Vtc).sum(1))
+    assert float((Ug.cpu() * su - Uc).abs().max()) <= 1e-9
+    assert float((Vtg.cpu() * sv[:, None] - Vtc).abs().max()) <= 1e-9
