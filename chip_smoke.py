@@ -7,7 +7,7 @@ nvcc per source, all at once, sm_90a, into build/kernels/), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives the port's paths — two factorizations of 8192×8192 f32 fast-decay
 matrices, KRILL, the fused Gaussian sketch, the tall QR drivers, the
-low-rank drivers and the operator slice:
+low-rank drivers, the operator slice and least squares:
 
 - BQRRP: bqrrp_factored with the headline configuration (b 256, 2 pivot
   candidates per slot, 2 stages, update defer 4), then bqrrp_q; the same
@@ -64,6 +64,19 @@ low-rank drivers and the operator slice:
   operator (density 0.02) against its dense one and column-blocked,
   and an f64 card-vs-CPU run of the operator battery, ABRIK and the
   four CholQR drivers;
+- least squares (no kernel on it but trailing_wy_update's): BASELINE
+  config 2 (spls of a 100000x2000 f32 fast_decay_matrix, decay 7: the
+  LSQR default, PCG, "qr", no refinement, four right-hand sides, damped
+  LSQR and the default in f64; best of 3 by CUDA events, iterations,
+  residuals, x-error and peak memory, gated against the f64 call at κ·eps
+  for LSQR and κ²·eps for PCG, κ from the f64 R of A), the default
+  call's steps by CUDA events with LSQR's bandwidth and busy share, the
+  solver operators on a 128x128 grid Laplacian (device and host solves,
+  padded widths, residuals gated by the triangular solves' backward
+  error) and ABRIK over K⁻¹·D, trailing_wy_update at 8192² (one K1 and
+  one K2 launch, A unchanged), a 1e7-entry Matrix Market file read by
+  the native reader (built with g++ into build/native/) and by scipy,
+  and a small f64 card-vs-CPU run;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -2849,6 +2862,620 @@ def phase_profile(dev) -> None:
           flush=True)
 
 
+# BASELINE config 2 (bench.py:586-645): sketch-and-precondition least
+# squares of a 100000x2000 f32 fast-decay matrix (decay 7), mu 0,
+# PCGSaddleConfig(tol=1e-6, max_iters=60); the gates are in PERF.md §2
+SPLS_M, SPLS_N, SPLS_TOL, SPLS_ITERS = 100000, 2000, 1e-6, 60
+SPLS_DAMP = 1e-2
+# the solver operators' problem: the 5-point Laplacian of a 128x128 grid
+# (n 16384), 64 right-hand sides
+GRID, SOLVER_RHS = 128, 64
+# [trailing-wy]: BQRRP's shapes (A 8192², b 256), the live window from 2048
+WY_N, WY_B, WY_DEAD = 8192, 256, 2048
+# [mm-native]: a Matrix Market file of this many entries
+MM_NNZ = 10_000_000
+
+
+def spls_problem(dev, dtype=torch.float32):
+    """Config 2's input: fast_decay_matrix(100000, 2000, RNGState(3),
+    decay=7.0) and x_t from torch.Generator seed 9 on the card (bench.py
+    draws x_t with jax.random.key(9), so b differs from bench.py's), b =
+    A·x_t, four more columns X_t for the multi-RHS run."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, _ = fast_decay_matrix(SPLS_M, SPLS_N, RNGState(3), dtype=dtype,
+                             decay=7.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    xt = torch.randn(SPLS_N, generator=g, dtype=dtype, device=dev)
+    Xt = torch.randn((SPLS_N, 4), generator=g, dtype=dtype, device=dev)
+    return A, xt, Xt
+
+
+def ls_quality(A64, fro2, b, x, xt, mu=0.0) -> dict:
+    """In f64: ‖Ax−b‖/‖b‖, the normal-equations residual
+    ‖Aᵀ(b−Ax) − μx‖/((‖A‖_F²+μ)‖x‖) and ‖x−x_t‖/‖x_t‖."""
+    b, x, xt = b.double(), x.double(), xt.double()
+    r = b - A64 @ x
+    nb, nx = torch.linalg.norm(b), torch.linalg.norm(x)
+    return dict(rel=float(torch.linalg.norm(r) / nb),
+                ne=float(torch.linalg.norm(A64.T @ r - mu * x)
+                         / ((fro2 + mu) * nx)),
+                xerr=float(torch.linalg.norm(x - xt) / torch.linalg.norm(xt)))
+
+
+def phase_spls(dev, card: str) -> dict:
+    """BASELINE config 2 through spls, each run best of 3 by CUDA events
+    after a warm call: the LSQR default, solver="pcg", precond="qr",
+    refine_precond=False, four right-hand sides (PCG), damped LSQR at
+    mu 1e-2 and the default in f64 on the same A. Per run: seconds,
+    iterations, the residuals, the x-error, peak memory above the inputs
+    (the bandwidth of an LSQR iteration is in [spls-phases]). Gates (PERF.md
+    §2, from the algorithms; κ from the f64 R of A): iterations below
+    max_iters; no kernel launch; in f32 at μ 0 the normal-equations
+    residual ≤ √n·eps32 (a backward-stable least-squares solve) and
+    ‖Ax−b‖/‖b‖ ≤ (1+2κ)·eps32 (the residual's perturbation bound for a
+    backward error of eps32, b consistent); each LSQR run's x-error at
+    most a tenth of PCG's (κ·eps against κ²·eps); in f64 ‖Ax−b‖/‖b‖ ≤
+    tol + √n·κ·eps64 (LSQR stops once φ̄ ≤ tol·‖b‖, and φ̄ tracks the
+    true residual to rounding); the damped run's normal-equations
+    residual ≤ √n·eps32. Controls that each gate must refuse (gated to
+    fail, [spls-controls]): x = x_t/2 (residual and normal equations),
+    x_t plus a random 1e-2 relative perturbation and unpreconditioned
+    LSQR stopped at the default's count (normal equations), the damped
+    solution halved, and the f64 call stopped at half its iterations
+    (the f64 residual). Returns the launch counts."""
+    import dataclasses
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import LSQRConfig, PCGSaddleConfig, lsqr
+    from randlapack_tpu_torch.drivers import SPLSConfig, spls
+    A, xt, Xt = spls_problem(dev)
+    m, n = A.shape
+    A64 = A.double()
+    fro2 = float(torch.linalg.norm(A64) ** 2)
+    b = A @ xt
+    B4 = A @ Xt
+    base = SPLSConfig(pcg=PCGSaddleConfig(tol=SPLS_TOL, max_iters=SPLS_ITERS))
+    R64 = torch.linalg.qr(A64, mode="r")[1]
+    sv = torch.linalg.svdvals(R64)
+    kappa = float(sv[0] / sv[-1])
+    del R64
+    xt64, b64 = xt.double(), A64 @ xt.double()
+    runs = [("lsqr (default)", A, b, xt, 0.0, base),
+            ("pcg", A, b, xt, 0.0, dataclasses.replace(base, solver="pcg")),
+            ("qr", A, b, xt, 0.0, dataclasses.replace(base, precond="qr")),
+            ("no refine", A, b, xt, 0.0,
+             dataclasses.replace(base, refine_precond=False)),
+            ("pcg 4 rhs", A, B4, Xt, 0.0, base),
+            (f"lsqr damped mu {SPLS_DAMP:g}", A, b, xt, SPLS_DAMP, base),
+            ("f64 default", A64, b64, xt64, 0.0, base)]
+    out, xs, all_counts = {}, {}, {}
+    for tag, Am, bm, xm, mu, cfg in runs:
+        (x, hist, iters, _), times, counts, peak, above = event_runs(
+            lambda: spls(Am, bm, mu, cfg, RNGState(4)), 3)
+        q = ls_quality(A64, fro2, bm, x, xm, mu)
+        t = min(times)
+        out[tag] = dict(q, iters=iters, t=t, mu=mu, above=above)
+        xs[tag] = x
+        print(f"[spls] {m}x{n} {str(Am.dtype)[6:]} {tag} on {card}: runs "
+              f"{[round(s, 5) for s in times]} s (CUDA events), best "
+              f"{t:.5f} s, {iters} iterations; |Ax-b|/|b| "
+              f"{q['rel']:.4e}, |A^T r|/(|A|_F^2 |x|) "
+              f"{q['ne']:.4e}, x-error {q['xerr']:.4e}; peak memory "
+              f"{peak:.3f} GiB, {above:.3f} GiB above the inputs; launches "
+              f"{'none' if counts == NO_LAUNCHES else counts}", flush=True)
+        gate(bool(torch.isfinite(x).all()) and x.shape == xm.shape,
+             f"spls {tag}: output shape or finiteness")
+        gate(iters < SPLS_ITERS, f"spls {tag}: {iters} iterations")
+        gate(counts == NO_LAUNCHES, f"spls {tag}: launches {counts}")
+        all_counts = counts
+    e64 = float(torch.finfo(torch.float64).eps)
+    ne_gate = math.sqrt(n) * EPS32
+    res_gate = (1 + 2 * kappa) * EPS32
+    res64_gate = SPLS_TOL + math.sqrt(n) * kappa * e64
+    print(f"[spls] kappa(A) {kappa:.4e} (f64 R of A); kappa*eps32 "
+          f"{kappa * EPS32:.3e}, kappa^2*eps32 {kappa ** 2 * EPS32:.3e}; "
+          f"gates: f32 NE {ne_gate:.3e}, f32 residual {res_gate:.3e}, f64 "
+          f"residual {res64_gate:.4e}", flush=True)
+
+    def refused(tag, q, gates):
+        """Print a control's readings and gate that each named gate
+        refuses it."""
+        print(f"[spls-controls] {tag}: |Ax-b|/|b| {q['rel']:.4e}, NE "
+              f"{q['ne']:.4e}, x-error {q['xerr']:.4e}; must fail "
+              f"{', '.join(gates)}", flush=True)
+        limits = {"residual": ("rel", res_gate), "NE": ("ne", ne_gate),
+                  "f64 residual": ("rel", res64_gate)}
+        for name in gates:
+            key, lim = limits[name]
+            gate(q[key] > lim, f"spls control {tag} passes the {name} gate "
+                 f"({q[key]} <= {lim})")
+
+    for tag, r in out.items():
+        if tag == "f64 default":
+            gate(r["rel"] <= res64_gate, f"spls f64: residual {r['rel']}")
+            continue
+        if r["mu"] > 0:
+            print(f"[spls-gates] {tag}: NE {r['ne']:.3e} (gate "
+                  f"{ne_gate:.3e})", flush=True)
+            gate(r["ne"] <= ne_gate, f"spls {tag}: damped NE residual "
+                 f"{r['ne']}")
+            continue
+        print(f"[spls-gates] {tag}: residual {r['rel']:.3e} (gate "
+              f"{res_gate:.3e}), NE {r['ne']:.3e} (gate {ne_gate:.3e}), "
+              f"x-error {r['xerr']:.3e} (not gated alone: kappa*eps32 "
+              f"{kappa * EPS32:.3f})", flush=True)
+        gate(r["rel"] <= res_gate, f"spls {tag}: residual {r['rel']}")
+        gate(r["ne"] <= ne_gate, f"spls {tag}: NE residual {r['ne']}")
+    # LSQR's κ·eps against the normal equations' κ²·eps, as
+    # tests/test_psd_track.py:226 holds the JAX package to it
+    for tag in ("lsqr (default)", "qr", "no refine"):
+        gate(out[tag]["xerr"] <= out["pcg"]["xerr"] / 10,
+             f"spls {tag}: x-error {out[tag]['xerr']} not 10x below PCG's")
+    g = torch.Generator(device=dev).manual_seed(10)
+    u = torch.randn(n, generator=g, dtype=A.dtype, device=dev)
+    u *= 1e-2 * torch.linalg.norm(xt) / torch.linalg.norm(u)
+    refused("x = x_t/2", ls_quality(A64, fro2, b, xt / 2, xt),
+            ["residual", "NE"])
+    refused("x = x_t + 1e-2 perturbation",
+            ls_quality(A64, fro2, b, xt + u, xt), ["NE"])
+    damped = f"lsqr damped mu {SPLS_DAMP:g}"
+    refused("damped solution halved", ls_quality(
+        A64, fro2, b, xs[damped] / 2, xt, SPLS_DAMP), ["NE"])
+    half64 = out["f64 default"]["iters"] // 2
+    x64h = spls(A64, b64, 0.0, dataclasses.replace(base, pcg=PCGSaddleConfig(
+        tol=SPLS_TOL, max_iters=half64)), RNGState(4))[0]
+    refused(f"f64 default stopped at {half64} iterations",
+            ls_quality(A64, fro2, b64, x64h, xt64), ["f64 residual"])
+    it32 = out["lsqr (default)"]["iters"]
+    refused(f"unpreconditioned LSQR, {it32} iterations", ls_quality(
+        A64, fro2, b, lsqr(A, b, None, LSQRConfig(
+            tol=SPLS_TOL, max_iters=it32))[0], xt), ["NE"])
+    # reported, not gated: f32 LSQR reaches its rounding floor by half its
+    # iterations, so a solve stopped there reads as a converged one
+    x = spls(A, b, 0.0, dataclasses.replace(base, pcg=PCGSaddleConfig(
+        tol=SPLS_TOL, max_iters=it32 // 2)), RNGState(4))[0]
+    q = ls_quality(A64, fro2, b, x, xt)
+    print(f"[spls-controls] f32 default stopped at {it32 // 2} iterations: "
+          f"|Ax-b|/|b| {q['rel']:.4e}, NE {q['ne']:.4e}, x-error "
+          f"{q['xerr']:.4e}; reported (the f64 gate refuses truncation)",
+          flush=True)
+    return all_counts
+
+
+
+def event_ms(fn) -> tuple:
+    """``fn()`` once, timed by CUDA events: its output and milliseconds."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_spls_phases(dev) -> None:
+    """The default call split into its steps, each timed by CUDA events on
+    a warm card (one warm pass first): the SASO draw, its apply, svd_econ
+    of the 8000x2000 sketch, the orthogonalizer, the refinement and the
+    LSQR iterations (ms an iteration; bandwidth at 2mn·4 bytes an
+    iteration against 3.35 TB/s); the card-busy share of
+    the solve under torch.profiler; iterations with and without the
+    refinement, for LSQR and PCG; the refinement's fail flag (gated
+    False) and rank."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import (LSQRConfig, PCGSaddleConfig,
+                                            lsqr, make_right_orthogonalizer,
+                                            pcg_saddle)
+    from randlapack_tpu_torch.comps.preconditioners import \
+        refine_right_precond
+    from randlapack_tpu_torch.ops.svd import svd_econ
+    from randlapack_tpu_torch.sketching import (SparseDist, fill_sparse,
+                                                saso_left_apply)
+    A, xt, _ = spls_problem(dev)
+    m, n = A.shape
+    d = 4 * n
+    b = A @ xt
+    lcfg = LSQRConfig(tol=SPLS_TOL, max_iters=SPLS_ITERS)
+    passes = []
+    for warm in (True, False):
+        (S, _), t_draw = event_ms(lambda: fill_sparse(
+            SparseDist(d, m, 8), RNGState(4), dtype=A.dtype, device=dev))
+        A_sk, t_apply = event_ms(lambda: saso_left_apply(S, A))
+        (_, sig, Vt), t_svd = event_ms(lambda: svd_econ(A_sk))
+        (M0, rank), t_orth = event_ms(
+            lambda: make_right_orthogonalizer(Vt.T, sig, 0.0))
+        (M, fail), t_ref = event_ms(
+            lambda: refine_right_precond(A_sk, M0, 0.0))
+        (x, _, it), t_lsqr = event_ms(lambda: lsqr(A, b, M, lcfg))
+        passes.append((S, A_sk, sig, M, x))
+    wall, launches, busy, idle, text = profile_summary(
+        lambda: lsqr(A, b, M, lcfg))
+    _, _, it0 = lsqr(A, b, M0, lcfg)
+    pcfg = PCGSaddleConfig(tol=SPLS_TOL, max_iters=SPLS_ITERS)
+    z = torch.zeros((n, 1), dtype=A.dtype, device=dev)
+    _, _, pit = pcg_saddle(A, b[:, None], z, 0.0, M, z, pcfg)
+    _, _, pit0 = pcg_saddle(A, b[:, None], z, 0.0, M0, z, pcfg)
+    per_it = t_lsqr / max(it, 1)
+    bw = 2.0 * m * n * 4 / (per_it * 1e-3) / 1e12
+    total = t_draw + t_apply + t_svd + t_orth + t_ref + t_lsqr
+    print(f"[spls-phases] default call's steps (CUDA events, warm): SASO "
+          f"draw (d {d}, vec_nnz 8) {t_draw:.2f} ms, apply {t_apply:.2f} "
+          f"ms, svd_econ of the {d}x{n} sketch {t_svd:.2f} ms "
+          f"({100 * t_svd / total:.1f} %), orthogonalizer {t_orth:.2f} ms, "
+          f"refinement {t_ref:.2f} ms, LSQR {t_lsqr:.2f} ms for "
+          f"{it} iterations = {per_it:.3f} ms an iteration = {bw:.3f} TB/s "
+          f"at 2mn·4 bytes ({100 * bw / (PEAK_BYTES / 1e12):.1f} % of 3.35 "
+          f"TB/s); the steps sum to {total:.2f} ms; "
+          f"LSQR under torch.profiler: wall {wall * 1e3:.2f} ms, {launches} "
+          f"device launches, card busy {busy:.2f} ms (idle {idle:.1f} %; "
+          f"{it} host reads of the stop test); top: {text}", flush=True)
+    print(f"[spls-phases] refinement's effect: LSQR {it} iterations with "
+          f"it, {it0} without; PCG {pit} with, {pit0} without; refinement "
+          f"fail {bool(fail)}, rank {int(rank)}", flush=True)
+    gate(not bool(fail) and int(rank) == n, "spls: refinement failed")
+    gate(it < SPLS_ITERS and it0 < SPLS_ITERS, "spls-phases: iterations")
+    # which step makes the f32 x differ from run to run: each step again
+    # on the previous step's output of the second pass, bit for bit, and
+    # the whole chain from the gather form of the apply, twice
+    (S1, Ask1, sig1, M1, x1), (S2, Ask2, sig2, M2, x2) = passes
+    xerr = [float(torch.linalg.norm(v - xt) / torch.linalg.norm(xt))
+            for v in (x1, x2)]
+
+    def chain(A_sk):
+        _, sg, vt = svd_econ(A_sk)
+        Mr = refine_right_precond(A_sk, make_right_orthogonalizer(
+            vt.T, sg, 0.0)[0], 0.0)[0]
+        return Mr, lsqr(A, b, Mr, lcfg)[0]
+
+    same = dict(
+        draw=torch.equal(S1.rows, S2.rows) and torch.equal(S1.vals, S2.vals),
+        apply=torch.equal(Ask1, Ask2),
+        svd=torch.equal(svd_econ(Ask2)[1], sig2),
+        chain=torch.equal(chain(Ask2)[1], x2),
+        lsqr=torch.equal(lsqr(A, b, M2, lcfg)[0], x2))
+    Ag1, Ag2 = (saso_left_apply(S2, A, method="gather") for _ in range(2))
+    (_, xg1), (_, xg2) = chain(Ag1), chain(Ag2)
+    xerr_g = [float(torch.linalg.norm(v - xt) / torch.linalg.norm(xt))
+              for v in (xg1, xg2)]
+    print(f"[spls-phases] bit-equal on repeat: {same}; x-error of the two "
+          f"passes {xerr[0]:.4e}, {xerr[1]:.4e}; gather-form apply "
+          f"bit-equal {torch.equal(Ag1, Ag2)}, its two x bit-equal "
+          f"{torch.equal(xg1, xg2)}, x-error {xerr_g[0]:.4e}, "
+          f"{xerr_g[1]:.4e}", flush=True)
+
+
+def grid_laplacian(k: int):
+    """The 5-point Laplacian of a k x k grid (n k², SPD) as COO arrays."""
+    import numpy as np
+    import scipy.sparse as sp
+    T = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(k, k))
+    E = sp.diags([-1.0, -1.0], [-1, 1], shape=(k, k))
+    K = (sp.kron(sp.identity(k), T) + sp.kron(E, sp.identity(k))).tocoo()
+    return K.row.astype(np.int64), K.col.astype(np.int64), K.data, K
+
+
+def phase_solver_linops(dev, card: str) -> None:
+    """The solver operators on the 5-point Laplacian of a 128x128 grid
+    (n 16384), 64 right-hand sides, f32: CholSolverLinOp (full and half)
+    and LUSolverLinOp (matmat, tmatmat), with device solves and host
+    solves: the host factorization (with packing) seconds, one solve by
+    CUDA events (warm), each packed factor's padded width L and bytes,
+    and the relative residual ‖K·X − B‖/‖B‖ (half: ‖L̃·X − B‖/‖B‖; tmatmat:
+    Kᵀ), gated by the backward error of f32 sparse triangular solves with
+    rows of at most w entries: w·eps32·‖K‖₁·‖X‖/‖B‖ (the Laplacian is
+    diagonally dominant, so |L||U| does not grow past K's scale; half:
+    ‖L̃‖ ≤ ‖K‖₁^½); then ABRIK over
+    CompositeLinOp(K⁻¹, D), D 16384x64 Gaussian, k 8, b 8, 6 iterations:
+    its σ against the f64 host SVD of K⁻¹D (gated max|σ − σ_ref| ≤
+    1e-4·σ₁ from both sides: f32 rounding at σ₁'s scale), no kernel
+    launch."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import ABRIKConfig, abrik
+    from randlapack_tpu_torch.extras import CholSolverLinOp, LUSolverLinOp
+    from randlapack_tpu_torch.linops import CompositeLinOp, DenseLinOp
+    rows, cols, vals, K = grid_laplacian(GRID)
+    n = K.shape[0]
+    Kc = K.tocsr()
+    norm1 = float(abs(Kc).sum(axis=0).max())
+    g = torch.Generator(device=dev).manual_seed(12)
+    B = torch.randn((n, SOLVER_RHS), generator=g, device=dev)
+    Bh = B.double().cpu().numpy()
+    kinds = [("chol", lambda ds: CholSolverLinOp(rows, cols, vals, n,
+                                                 device_solves=ds,
+                                                 device=dev), "matmat"),
+             ("chol half", lambda ds: CholSolverLinOp(
+                 rows, cols, vals, n, half=True, device_solves=ds,
+                 device=dev), "matmat"),
+             ("lu", lambda ds: LUSolverLinOp(rows, cols, vals, n,
+                                             device_solves=ds, device=dev),
+              "matmat"),
+             ("lu", None, "tmatmat")]
+    made = {}
+    reset_counts()
+    for kind, make, f in kinds:
+        for ds in (True, False):
+            key = (kind, ds)
+            if key not in made:
+                t0 = time.perf_counter()
+                made[key] = make(ds)
+                torch.cuda.synchronize()
+                made[key + ("t",)] = time.perf_counter() - t0
+            op = made[key]
+            getattr(op, f)(B)
+            X, ms = event_ms(lambda: getattr(op, f)(B))
+            Xh = X.double().cpu().numpy()
+            if kind == "chol half":
+                fac = op.factors
+                R = (fac.L @ Xh)[fac.perm_r] - Bh
+            else:
+                R = (Kc.T if f == "tmatmat" else Kc) @ Xh - Bh
+            res = float(np.linalg.norm(R) / np.linalg.norm(Bh))
+            fac = op.factors
+            w = max(int(np.diff(M.tocsr().indptr).max())
+                    for M in (fac.L, fac.U) if M is not None)
+            scale = norm1 ** 0.5 if kind == "chol half" else norm1
+            res_gate = w * EPS32 * scale * float(
+                np.linalg.norm(Xh) / np.linalg.norm(Bh))
+            widths = ""
+            if ds:
+                names = ["L", "U"] if kind != "chol half" else ["L"]
+                if f == "tmatmat":
+                    names = ["Ut", "Lt"]
+                widths = ", packed " + ", ".join(
+                    f"{nm} width {op.packed(nm).width} "
+                    f"({op.packed(nm).nbytes / 2 ** 20:.1f} MiB)"
+                    for nm in names)
+            print(f"[solver-linops] {kind} {f} n {n} (grid {GRID}^2, "
+                  f"{len(vals)} nnz), {SOLVER_RHS} rhs f32, "
+                  f"{'device' if ds else 'host'} solves on {card}: "
+                  f"factorization + packing {made[key + ('t',)]:.3f} s, one "
+                  f"solve {ms:.2f} ms (CUDA events){widths}; |KX-B|/|B| "
+                  f"{res:.3e} (gate {res_gate:.3e}, w {w})", flush=True)
+            gate(X.is_cuda and bool(torch.isfinite(X).all()),
+                 f"solver-linops {kind}: output")
+            gate(res <= res_gate, f"solver-linops {kind} {f}: residual {res}")
+    counts = read_counts()
+    gate(counts == NO_LAUNCHES, f"solver-linops: launches {counts}")
+    D = torch.randn((n, 64), generator=g, device=dev)
+    comp = CompositeLinOp(made[("chol", True)], DenseLinOp(D))
+    cfg = ABRIKConfig(block_size=8, max_iters=6)
+    reset_counts()
+    (U, S, Vt, info, _), ms = event_ms(
+        lambda: abrik(comp, 8, cfg, RNGState(13)))
+    counts = read_counts()
+    KinvD = spla.splu(K.tocsc()).solve(D.double().cpu().numpy())
+    s_ref = np.linalg.svd(KinvD, compute_uv=False)[:8]
+    s = S.double().cpu().numpy()
+    gap = float(np.max(np.abs(s - s_ref) / s_ref))
+    print(f"[solver-linops] abrik over CompositeLinOp(CholSolverLinOp, "
+          f"DenseLinOp(D {n}x64)), k 8, b 8, 6 iterations: {ms:.2f} ms, "
+          f"sigma {s[:3]} vs the f64 host SVD {s_ref[:3]}, largest relative "
+          f"gap {gap:.3e}; launches {'none' if counts == NO_LAUNCHES else counts}",
+          flush=True)
+    gate(float(np.max(np.abs(s - s_ref))) <= 1e-4 * s_ref[0],
+         f"solver-linops abrik: sigma {s} against {s_ref}")
+    gate(counts == NO_LAUNCHES, f"solver-linops abrik: launches {counts}")
+
+
+def phase_trailing_wy(dev) -> dict:
+    """trailing_wy_update at BQRRP's shapes (A 8192², V 8192x256, T upper
+    256², columns from 2048 live) against its plain version: exactly one
+    K1 and one K2 launch, A unchanged, the error against the f64 result
+    within 4x that of the plain fp32 version (PERF.md §2's K1/K2 gate),
+    max|d| relative to the plain output; its time beside K1 + the Tᵀ·W
+    product + K2 (+ the copy of A). Returns the launch counts."""
+    from randlapack_tpu_torch.ops import wy
+    g = torch.Generator(device=dev).manual_seed(14)
+    A = torch.randn((WY_N, WY_N), generator=g, device=dev)
+    V = torch.randn((WY_N, WY_B), generator=g, device=dev) / math.sqrt(WY_N)
+    T = torch.triu(torch.randn((WY_B, WY_B), generator=g, device=dev))
+    mask = (torch.arange(WY_N, device=dev) >= WY_DEAD).float()
+    A0 = A.clone()
+    reset_counts()
+    out = wy.trailing_wy_update(A, V, T, mask)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plain = A - (V @ (T.T @ (V.T @ (A * mask)))) * mask
+    A64, V64, T64, m64 = (t.double() for t in (A, V, T, mask))
+    ref = A64 - (V64 @ (T64.T @ (V64.T @ (A64 * m64)))) * m64
+    err, err_plain = relf(out, ref), relf(plain, ref)
+    dmax = float((out - plain).abs().max() / plain.abs().max())
+    t_all = cuda_ms(lambda: wy.trailing_wy_update(A, V, T, mask), 20)
+    W = wy.masked_vt_a(V, A, mask)
+    Z = T.T @ W
+    Ac = A.clone()
+    t_k1 = cuda_ms(lambda: wy.masked_vt_a(V, A, mask), 20)
+    t_mm = cuda_ms(lambda: T.T @ W, 20)
+    t_k2 = cuda_ms(lambda: wy.a_minus_vz_masked(Ac, V, Z, mask), 20)
+    t_copy = cuda_ms(lambda: A.clone(), 20)
+    t_plain = cuda_ms(lambda: A - (V @ (T.T @ (V.T @ (A * mask)))) * mask,
+                      20)
+    print(f"[trailing-wy] trailing_wy_update A {WY_N}^2, b {WY_B}, live from "
+          f"{WY_DEAD}: {t_all:.4f} ms; K1 {t_k1:.4f} + T^T W {t_mm:.4f} + K2 "
+          f"{t_k2:.4f} + copy of A {t_copy:.4f} = "
+          f"{t_k1 + t_mm + t_k2 + t_copy:.4f} ms; plain {t_plain:.4f} ms; "
+          f"error vs f64 {err:.3e} (plain fp32 {err_plain:.3e}, gate "
+          f"{F64_ERR_FACTOR:g}x); max|d|/max|plain| {dmax:.3e}; A unchanged "
+          f"{torch.equal(A, A0)}; launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    gate(counts == {**NO_LAUNCHES, "masked_vt_a": 1, "a_minus_vz_masked": 1},
+         f"trailing-wy: launches {counts}")
+    gate(torch.equal(A, A0), "trailing-wy: A changed")
+    gate(err <= F64_ERR_FACTOR * err_plain, f"trailing-wy: error {err}")
+    return counts
+
+
+def phase_mm_native(dev) -> None:
+    """A Matrix Market file of 1e7 entries written and read by the native
+    route and by scipy (each route forced by extras.io.PREFER_NATIVE and
+    asserted by extras.io.ROUTES): the four times, the arrays equal (f64
+    values exact), and the route a default call takes with this scipy."""
+    import os
+    import tempfile
+    import numpy as np
+    import scipy
+    from randlapack_tpu_torch.extras import io
+    t0 = time.perf_counter()
+    native = io.native_module()
+    t_build = time.perf_counter() - t0
+    gate(native is not None, "mm-native: the native reader did not build")
+    rng = np.random.default_rng(15)
+    m = n = 1 << 20
+    rows = rng.integers(0, m, MM_NNZ).astype(np.int32)
+    cols = rng.integers(0, n, MM_NNZ).astype(np.int32)
+    vals = rng.standard_normal(MM_NNZ)
+    order = np.lexsort((cols, rows))
+
+    def timed(fn, prefer):
+        io.PREFER_NATIVE = prefer
+        try:
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+        finally:
+            io.PREFER_NATIVE = None
+
+    def same(read):
+        r, c, v, shape = read
+        o = np.lexsort((c, r))
+        return (shape == (m, n) and np.array_equal(r[o], rows[order])
+                and np.array_equal(c[o], cols[order])
+                and np.array_equal(v[o], vals[order]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pn, ps = os.path.join(tmp, "n.mtx"), os.path.join(tmp, "s.mtx")
+        before = dict(io.ROUTES)
+        _, t_wn = timed(lambda: io.mm_write(pn, rows, cols, vals, (m, n)),
+                        True)
+        _, t_ws = timed(lambda: io.mm_write(ps, rows, cols, vals, (m, n)),
+                        False)
+        rn, t_rn = timed(lambda: io.mm_read(pn), True)
+        rs, t_rs = timed(lambda: io.mm_read(ps), False)
+        took = {k: io.ROUTES[k] - before[k] for k in io.ROUTES}
+        default = "native" if io.prefer_native() else "scipy"
+        t0 = time.perf_counter()
+        rd = io.mm_read(pn)
+        t_rd = time.perf_counter() - t0
+        size = os.path.getsize(pn), os.path.getsize(ps)
+    equal = same(rn) and same(rs) and same(rd)
+    print(f"[mm-native] {MM_NNZ} entries ({size[0] / 2 ** 20:.1f} / "
+          f"{size[1] / 2 ** 20:.1f} MiB native / scipy file), scipy "
+          f"{scipy.__version__}: build or load {t_build:.2f} s; write "
+          f"native {t_wn:.2f} s, scipy {t_ws:.2f} s; read native "
+          f"{t_rn:.2f} s, scipy {t_rs:.2f} s; a default read takes "
+          f"{default} ({t_rd:.2f} s); routes {took}; arrays equal {equal}",
+          flush=True)
+    gate(took == {"read_native": 1, "read_scipy": 1, "write_native": 1,
+                  "write_scipy": 1}, f"mm-native: routes {took}")
+    gate(equal, "mm-native: a route read different arrays")
+
+
+def phase_spls_small_vs_plain(dev) -> None:
+    """spls (every branch), lsqr, both preconditioners and the three
+    solver operators on the card against the CPU, f64, small sizes, the
+    same SASO on both: iterations within 1, x within 100·κ·eps (LSQR,
+    run to its stall stop) or 10·κ²·eps (PCG, run to tol 1e-12; κ 1e3),
+    A·M's σ within 1e-9, solves within 1e-12 of the largest entry."""
+    import dataclasses
+    import numpy as np
+    import scipy.sparse as sp
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import (LSQRConfig, PCGSaddleConfig,
+                                            lsqr, right_precond_saso,
+                                            rpc_data_svd_saso)
+    from randlapack_tpu_torch.drivers import SPLSConfig, spls
+    from randlapack_tpu_torch.extras import CholSolverLinOp, LUSolverLinOp
+    from randlapack_tpu_torch.sketching import SparseDist, fill_sparse
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(16)
+    m, n = 600, 50
+    U = torch.linalg.qr(torch.randn(m, n, generator=g, dtype=f64))[0]
+    V = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=f64))[0]
+    A = (U * torch.logspace(0, -3, n, dtype=f64)) @ V.T
+    b = A @ torch.randn(n, generator=g, dtype=f64)
+    B3 = A @ torch.randn(n, 3, generator=g, dtype=f64)
+    S, _ = fill_sparse(SparseDist(4 * n, m, 8), RNGState(3), dtype=f64,
+                       device="cpu")
+    Sg = dataclasses.replace(S, rows=S.rows.to(dev), vals=S.vals.to(dev))
+    worst = 0.0
+    reset_counts()
+    eps, kap = float(torch.finfo(f64).eps), 1e3
+    lsqr_gate, pcg_gate = 100 * kap * eps, 10 * kap ** 2 * eps
+    # LSQR and PCG at μ 0 run until converged (tol 1e-12): before that
+    # their iterates are not defined to rounding at this κ, and PCG's x at
+    # tol 1e-10 moves with the sketch's summation order (the card's scatter
+    # sums in no fixed order) by more than 10·κ²·eps (printed, not gated);
+    # converged it does not (tests/test_torch_spls.py::
+    # test_converged_x_ignores_the_sketch_summation_order)
+    def card_vs_cpu(kw, mu, rhs, tol):
+        cfg = SPLSConfig(pcg=PCGSaddleConfig(tol=tol, max_iters=200), **kw)
+        xg, _, ig, _ = spls(A.to(dev), rhs.to(dev), mu, cfg, RNGState(3),
+                            sketch=Sg)
+        xc, _, ic, _ = spls(A, rhs, mu, cfg, RNGState(3), sketch=S)
+        return (float(torch.linalg.norm(xg.cpu() - xc)
+                      / torch.linalg.norm(xc)), ig, ic)
+
+    for kw, mu, rhs, tol, xgate in [
+            ({}, 0.0, b, 1e-12, lsqr_gate),
+            ({"refine_precond": False}, 0.0, b, 1e-12, lsqr_gate),
+            ({"precond": "qr"}, 0.0, b, 1e-12, lsqr_gate),
+            ({"solver": "pcg"}, 0.0, b, 1e-12, pcg_gate),
+            ({}, 1e-4, b, 1e-12, 1e-10), ({}, 1e-6, B3, 1e-10, pcg_gate)]:
+        d, ig, ic = card_vs_cpu(kw, mu, rhs, tol)
+        worst = max(worst, d / xgate)
+        gate(abs(ig - ic) <= 1 and d <= xgate,
+             f"spls {kw} mu {mu} card vs CPU: {ig}/{ic} iterations, {d}")
+    d_pcg10 = card_vs_cpu({"solver": "pcg"}, 0.0, b, 1e-10)[0]
+    Mg, rg, fg, _ = right_precond_saso(A.to(dev), 4 * n, 0.0, RNGState(3),
+                                       sketch=Sg)
+    Mc, rc, fc, _ = right_precond_saso(A, 4 * n, 0.0, RNGState(3), sketch=S)
+    sg = torch.linalg.svdvals(A @ Mg.cpu())
+    sc = torch.linalg.svdvals(A @ Mc)
+    d_m = float((sg - sc).abs().max() / sc[0])
+    Vg, sig_g, _ = rpc_data_svd_saso(A.to(dev), 4 * n, RNGState(3),
+                                     sketch=Sg)
+    Vc, sig_c, _ = rpc_data_svd_saso(A, 4 * n, RNGState(3), sketch=S)
+    d_s = float((sig_g.cpu() - sig_c).abs().max() / sig_c[0])
+    xg, _, ig = lsqr(A.to(dev), b.to(dev), Mg, LSQRConfig(tol=1e-12))
+    xc, _, ic = lsqr(A, b, Mc, LSQRConfig(tol=1e-12))
+    d_l = float(torch.linalg.norm(xg.cpu() - xc) / torch.linalg.norm(xc))
+    gate(int(rg) == int(rc) and bool(fg) == bool(fc) is False
+         and d_m <= 1e-9 and d_s <= 1e-12 and d_l <= lsqr_gate
+         and abs(ig - ic) <= 1, "preconditioners / lsqr card vs CPU")
+    rng = np.random.default_rng(17)
+    Ms = sp.random(400, 400, density=0.02, random_state=rng)
+    K = (Ms @ Ms.T + sp.eye(400) * 4).tocoo()
+    Bs = torch.tensor(rng.standard_normal((400, 6)))
+    d_op = 0.0
+    for name, make in [("chol", lambda d: CholSolverLinOp(
+            K.row, K.col, K.data, 400, f64, device=d)),
+            ("half", lambda d: CholSolverLinOp(K.row, K.col, K.data, 400,
+                                               f64, half=True, device=d)),
+            ("lu", lambda d: LUSolverLinOp(K.row, K.col, K.data, 400, f64,
+                                           device=d))]:
+        og, oc = make(dev), make("cpu")
+        for f in ("matmat", "tmatmat"):
+            ref = getattr(oc, f)(Bs)
+            got = getattr(og, f)(Bs.to(dev)).cpu()
+            d_op = max(d_op, float((got - ref).abs().max()
+                                   / ref.abs().max()))
+    counts = read_counts()
+    print(f"[spls-small-vs-plain] {m}x{n} f64 card vs CPU, one SASO: spls "
+          f"(6 branches) worst rel |dx| {worst:.3f} of its gate (LSQR "
+          f"{lsqr_gate:.1e}, PCG {pcg_gate:.1e}; PCG stopped at tol 1e-10, "
+          f"not gated: {d_pcg10 / pcg_gate:.3f}); right_precond_saso "
+          f"sigma(A M) {d_m:.3e}, rank {int(rg)}; rpc_data_svd_saso sigma "
+          f"{d_s:.3e}; lsqr {ig}/{ic} iterations, rel |dx| {d_l:.3e}; "
+          f"solver operators (chol, half, lu; matmat, tmatmat) n 400 rel "
+          f"max|d| {d_op:.3e}; launches "
+          f"{'none' if counts == NO_LAUNCHES else counts}", flush=True)
+    gate(d_op <= 1e-12, f"solver operators card vs CPU: {d_op}")
+    gate(counts == NO_LAUNCHES, f"spls-small-vs-plain: launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2896,6 +3523,12 @@ def main() -> int:
     run(phase_abrik_sparse, dev, f"{smi}")
     run(phase_cholqr_linops_sparse, dev, f"{smi}")
     run(phase_linops_small_vs_plain, dev)
+    counts["spls"] = run(phase_spls, dev, f"{smi}")
+    run(phase_spls_phases, dev)
+    run(phase_solver_linops, dev, f"{smi}")
+    counts["trailing_wy"] = run(phase_trailing_wy, dev)
+    run(phase_mm_native, dev)
+    run(phase_spls_small_vs_plain, dev)
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
@@ -2911,6 +3544,9 @@ def main() -> int:
             k["cqrrpt_launches"] = counts["cqrrpt"][k["name"]]
         elif k["name"] == "kernel_matmat":    # and K4 inside REVD2
             k["revd2_launches"] = revd2_counts["kernel_matmat"]
+        elif k["name"] in ("masked_vt_a", "a_minus_vz_masked"):
+            # and K1/K2 once each inside trailing_wy_update
+            k["trailing_wy_launches"] = counts["trailing_wy"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

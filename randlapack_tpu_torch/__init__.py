@@ -18,15 +18,19 @@ over ``comps``' orth, RS, RF, QB, SYPS and SYRF), the operator slice
 views, ``sketching``'s dense sketches, sided application and sparse
 formats, the generators of ``gen``, ``extras.io``, ABRIK through
 ``drivers.abrik`` and the Q-less CholQR family over operators,
-``drivers.cholqr_linops``, ``scholqr3_linops``, ``cqrrt_linops``) and
-what they run.
+``drivers.cholqr_linops``, ``scholqr3_linops``, ``cqrrt_linops``), least
+squares (``drivers.spls`` over ``comps.lsqr`` and the sketch
+preconditioners), the solver operators and native Matrix Market IO of
+``extras``, the memory and profiling utilities, ``testing`` and what
+they run.
 """
 from .rng import RNGState, as_state
 from . import (comps, config, drivers, extras, gen, interop, linops, ops,
-               pdkernels, sketching, utils)
+               pdkernels, sketching, testing, utils)
 
 __version__ = "0.1.0"
 __all__ = ["RNGState", "as_state", "comps", "config", "drivers", "extras",
            "gen",
-           "interop", "linops", "ops", "pdkernels", "sketching", "utils",
+           "interop", "linops", "ops", "pdkernels", "sketching", "testing",
+           "utils",
            "__version__"]

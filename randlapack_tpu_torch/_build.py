@@ -9,8 +9,11 @@ beside the package, named by its source, a hash of that source, the
 an unchanged file reuses its library; ``nvcc``'s report (registers, shared memory and spills per
 kernel, from ``-Xptxas -v``) is written beside it as ``<name>.log``.
 
-Only the CUDA branches of the kernel wrappers import this module: the
-package imports and its CPU tests run where there is no ``nvcc``.
+Only the CUDA branches of the kernel wrappers import this module for the
+kernels: the package imports and its CPU tests run where there is no
+``nvcc``. It also builds the host-side native Matrix Market reader and
+writer (``native/fast_mm.cpp``, a CPython extension) with ``g++`` into
+``build/native/``, keyed the same way, for ``extras.io``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_NATIVE_SRC = Path(__file__).resolve().parent / "native" / "fast_mm.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NATIVE_DIR = BUILD_DIR.parent / "native"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -189,3 +194,46 @@ def call(name: str, out, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}{suffix} launch failed with "
                            f"cudaError {err}")
+
+
+def _native_flags() -> list[str]:
+    import sysconfig
+
+    import numpy
+    return ["-O3", "-std=c++17", "-shared", "-fPIC",
+            "-I" + sysconfig.get_paths()["include"],
+            "-I" + numpy.get_include()]
+
+
+def build_native() -> Path:
+    """Compile ``native/fast_mm.cpp`` with ``g++`` unless its library
+    exists (named by a hash of the source, the flags, which hold the
+    Python and numpy headers' paths, and numpy's version). Returns the
+    library's path; raises ``OSError`` when there is no ``g++`` and
+    ``subprocess.CalledProcessError`` when it fails."""
+    import sysconfig
+
+    import numpy
+    flags = _native_flags()
+    h = hashlib.sha256(" ".join(flags + [numpy.__version__]).encode())
+    h.update(_NATIVE_SRC.read_bytes())
+    out = NATIVE_DIR / (f"fast_mm_{h.hexdigest()[:16]}"
+                        + sysconfig.get_config_var("EXT_SUFFIX"))
+    if not out.exists():
+        NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(["g++", *flags, "-o", str(tmp), str(_NATIVE_SRC)],
+                       check=True, capture_output=True)
+        os.replace(tmp, out)
+    return out
+
+
+def load_native():
+    """The native Matrix Market module (``fast_mm_read``,
+    ``fast_mm_write``), built on first use."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("_randlapack_native",
+                                                  build_native())
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -17,6 +17,14 @@ from .errors import require
 # trailing updates, sketch application).
 STABLE_PRECISION = "highest"
 
+# Precision of sketch application (S @ A): the JAX package names it apart
+# and sets it to HIGHEST too, so here it is the same single rule.
+SKETCH_PRECISION = STABLE_PRECISION
+
+# the JAX precision names (``jax.lax.Precision`` members and their string
+# forms) that mean full fp32 products: the only ones the port runs
+_FP32_NAMES = ("highest", "float32")
+
 
 def require_fp32_matmul() -> None:
     """Raise unless fp32 matmuls run in full fp32 (no TF32 anywhere)."""
@@ -25,3 +33,29 @@ def require_fp32_matmul() -> None:
             f"{torch.get_float32_matmul_precision()!r}")
     require(not torch.backends.cuda.matmul.allow_tf32,
             "torch.backends.cuda.matmul.allow_tf32 must be False")
+
+
+def eps(dtype) -> float:
+    """Machine epsilon of a torch dtype, or of anything ``numpy.dtype``
+    takes."""
+    if isinstance(dtype, torch.dtype):
+        return float(torch.finfo(dtype).eps)
+    import numpy as np
+    return float(np.finfo(np.dtype(dtype)).eps)
+
+
+def resolve_precision(precision):
+    """None → ``STABLE_PRECISION``. A JAX precision name (or a
+    ``jax.lax.Precision`` member, by its name) that means full fp32
+    products → ``STABLE_PRECISION``; any other (``default``, ``high``,
+    ``bfloat16``, ``tensorfloat32``) raises ``NotImplementedError``: the
+    port has one rule, true fp32/f64 products, which the drivers enforce
+    with ``require_fp32_matmul``."""
+    if precision is None:
+        return STABLE_PRECISION
+    name = str(getattr(precision, "name", precision)).lower()
+    if name not in _FP32_NAMES:
+        raise NotImplementedError(
+            f"precision {precision!r}: only full fp32 products "
+            f"({STABLE_PRECISION!r}) are ported")
+    return STABLE_PRECISION

@@ -8,6 +8,7 @@ from .revd2 import REVD2Config, revd2, revd2_fixed_rank
 from .krill import KrillConfig, krill_full_rpchol, krill_restricted_rpchol
 from .hqrrp import HQRRPConfig, PanelQR, hqrrp, hqrrp_lapack_format
 from .abrik import ABRIKConfig, abrik, abrik_factor
+from .spls import SPLSConfig, spls
 from .cholqr_linops import (CholQRLinopsConfig, CQRRTLinopsConfig,
                             blocked_gram, blocked_gram_precond,
                             cholqr_linops, cqrrt_linops, materialize_q,
@@ -24,4 +25,5 @@ __all__ = ["RSVDConfig", "rsvd", "rsvd_fixed_rank",
            "ABRIKConfig", "abrik", "abrik_factor",
            "CholQRLinopsConfig", "CQRRTLinopsConfig", "blocked_gram",
            "blocked_gram_precond", "cholqr_linops", "cqrrt_linops",
-           "materialize_q", "scholqr3_linops", "scholqr3_linops_basic"]
+           "materialize_q", "scholqr3_linops", "scholqr3_linops_basic",
+           "SPLSConfig", "spls"]

@@ -11,13 +11,19 @@ packages can apply the same draw. So do the low-rank results: QB's
 (V, λ), from which either package builds its ``SpectralPrecond``. The
 operator slice's state crosses too: a sparse operator from its COO
 arrays, a CSR view from its ``(indptr, indices, data)`` and a dense
-sketching operator from its distribution's fields and its matrix."""
+sketching operator from its distribution's fields and its matrix. The
+solver operators' host factors cross as numpy COO arrays and
+permutations, so both packages can solve with one factorization (the
+JAX operators keep scipy's SuperLU object, which
+``splu_factors_to_numpy`` reads)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .drivers.bqrrp import BQRRPFactors
+from .extras.solver_linops import (CholSolverLinOp, HostFactors,
+                                   LUSolverLinOp)
 from .linops import CSRMatrixView, SparseLinOp
 from .linops.symmetric import SpectralPrecond
 from .pdkernels import SquaredExpKernelLinOp
@@ -205,3 +211,52 @@ def dense_skop_to_numpy(S: DenseSkOp) -> tuple:
     """A dense sketching operator → ``(dist_fields, mat)``."""
     return ({"n_rows": S.dist.n_rows, "n_cols": S.dist.n_cols,
              "family": S.dist.family.value}, _to_numpy(S.mat))
+
+
+def _coo_arrays(M) -> tuple:
+    M = M.tocoo()
+    return M.row.astype(np.int32), M.col.astype(np.int32), M.data
+
+
+def splu_factors_to_numpy(lu) -> dict:
+    """A scipy ``SuperLU`` (P_r·K·P_c = L·U) → ``{"L": (rows, cols,
+    vals), "U": (rows, cols, vals), "perm_r", "perm_c"}``."""
+    return {"L": _coo_arrays(lu.L), "U": _coo_arrays(lu.U),
+            "perm_r": np.asarray(lu.perm_r), "perm_c": np.asarray(lu.perm_c)}
+
+
+def solver_factors_to_numpy(op) -> dict:
+    """A solver operator's host factors → ``{"L", "U", "perm_r",
+    "perm_c"}`` as ``splu_factors_to_numpy`` gives them; a half-solve
+    operator's have only ``"L"`` (L_c) and ``"perm_r"``."""
+    f = op.factors
+    out = {"L": _coo_arrays(f.L), "perm_r": np.asarray(f.perm_r)}
+    if f.U is not None:
+        out.update(U=_coo_arrays(f.U), perm_c=np.asarray(f.perm_c))
+    return out
+
+
+def solver_linop_from_numpy(arrays: dict, n: int, dtype=torch.float32,
+                            device_solves: bool = True, lu: bool = False,
+                            device="cuda"):
+    """The solver operator over the factors in ``arrays`` (as
+    ``solver_factors_to_numpy`` gives them): a ``CholSolverLinOp`` (a
+    half-solve one when there is no ``"U"``), or with ``lu`` an
+    ``LUSolverLinOp``; no factorization is run."""
+    import scipy.sparse as sp
+
+    def csr(rows, cols, vals):
+        return sp.csr_matrix((np.asarray(vals, np.float64),
+                              (np.asarray(rows), np.asarray(cols))),
+                             shape=(n, n))
+
+    half = "U" not in arrays
+    factors = HostFactors(
+        csr(*arrays["L"]), None if half else csr(*arrays["U"]),
+        np.asarray(arrays["perm_r"]),
+        None if half else np.asarray(arrays["perm_c"]))
+    if lu:
+        return LUSolverLinOp.from_factors(factors, n, dtype, device_solves,
+                                          device)
+    return CholSolverLinOp.from_factors(factors, n, dtype, device_solves,
+                                        device)

@@ -1,15 +1,44 @@
 """Householder-format reconstruction (counterpart of
 ``randlapack_tpu/ops/householder.py``; reference: lapack::orhr_col used in
-rl_bqrrp.hh:453-510) and Q from packed reflectors. ``getrfnp``, the
-adaptive-sign LU ``orhr_col`` is built on, lives beside its kernel in
-``ops/lu.py`` and is re-exported here."""
+rl_bqrrp.hh:453-510) and Q from packed reflectors: the blocked
+``orhr_col`` and the column-by-column ``householder_reconstruct``.
+``getrfnp``, the adaptive-sign LU ``orhr_col`` is built on, lives beside
+its kernel in ``ops/lu.py`` and is re-exported here."""
 from __future__ import annotations
 
 import torch
 
 from .lu import getrfnp, getrfnp_routed
 
-__all__ = ["apply_reflectors", "getrfnp", "orhr_col"]
+__all__ = ["apply_reflectors", "getrfnp", "householder_reconstruct",
+           "orhr_col"]
+
+
+def householder_reconstruct(Q: torch.Tensor):
+    """Given orthonormal Q (m, k), return ``(packed, taus, signs)`` such
+    that the k reflectors (LAPACK convention: unit heads implicit, tails
+    strictly below the diagonal of ``packed``) applied to I reproduce
+    Q·diag(signs). Householder QR of an orthonormal Q has R = diag(±1),
+    so its reflectors are Q's implicit form: one ``_larfg`` step a column,
+    in the JAX package's order."""
+    from .qr import _larfg
+    m, k = Q.shape
+    rows = torch.arange(m, device=Q.device)
+    cols = torch.arange(k, device=Q.device)
+    W = Q.clone()
+    V = torch.zeros_like(Q)
+    taus = torch.zeros((k,), dtype=Q.dtype, device=Q.device)
+    for i in range(k):
+        v, tau, alpha = _larfg(W[:, i], i)
+        w = torch.where(cols >= i, tau * (v @ W), 0.0)
+        W = W - torch.outer(v, w)
+        coli = torch.where(rows < i, W[:, i], 0.0)
+        coli[i] = alpha
+        W[:, i] = coli
+        V[:, i] = v
+        taus[i] = tau
+    signs = torch.sign(torch.diagonal(W[:k, :]))
+    return torch.tril(V, -1), taus, signs
 
 
 def orhr_col(Q_panel: torch.Tensor, row0: int):

@@ -267,6 +267,19 @@ def a_minus_vz_masked_routed(A, V, Z, mask):
     return A.copy_(a_minus_vz_masked_reference(A, V, Z, mask))
 
 
+def trailing_wy_update(A, V, T, mask):
+    """The whole masked trailing update, out of place:
+    A − V·(Tᵀ·(Vᵀ·(A ⊙ mask))) ⊙ mask (``randlapack_tpu/ops/pallas_wy.py``
+    ``trailing_wy_update``). On CUDA: K1, then Z = Tᵀ·W by cuBLAS, then K2
+    on a copy of A, so the caller's A is left as it was; the kernels take
+    any shape, so there is no shape gate. On the CPU: the plain versions.
+    """
+    W = masked_vt_a_routed(V, A, mask)
+    Z = T.T @ W
+    return a_minus_vz_masked_routed(
+        torch.clone(A, memory_format=torch.contiguous_format), V, Z, mask)
+
+
 def _require_highest(trailing_precision):
     if trailing_precision != "highest":
         raise NotImplementedError(

@@ -12,6 +12,7 @@ JAX package: every CSC operation is a transposed CSR one.
 from __future__ import annotations
 
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -140,6 +141,94 @@ def _pad_csr_rows(rows, cols, vals, n, dtype):
     return cols_pad, vals_pad, L
 
 
+class PackedTriangular(NamedTuple):
+    """A sparse triangular matrix packed for ``packed_trsm`` on one device:
+    the off-diagonal-block entries as padded CSR rows (``cols``, ``vals``:
+    (npad, L), L the widest row, pad entries 0) and the diagonal blocks
+    densified (``diag``: (nb, bs, bs))."""
+    cols: torch.Tensor
+    vals: torch.Tensor
+    diag: torch.Tensor
+    n: int
+    lower: bool
+
+    @property
+    def width(self) -> int:
+        """L, the padded row length every row is stored at."""
+        return self.cols.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cols, self.vals, self.diag))
+
+
+def pack_triangular(rows, cols, vals, n: int, lower: bool = True,
+                    unit_diagonal: bool = False, block: int = 256,
+                    dtype=None, device="cuda") -> PackedTriangular:
+    """Pack the triangular T given in COO form (host index arrays) for
+    ``packed_trsm``: padded CSR rows built once on the host, the diagonal
+    blocks of ``block`` rows densified by one accumulating scatter on
+    ``device``. Values are cast to ``dtype`` (default: the values' own)."""
+    vals_np = _host(vals)
+    cols_pad, vals_pad, L = _pad_csr_rows(rows, cols, vals_np, n,
+                                          vals_np.dtype)
+    dtype = dtype or torch.from_numpy(vals_np[:0]).dtype
+    bs = min(block, n)
+    nb = -(-n // bs)
+    npad = nb * bs
+    cols_pad = torch.as_tensor(cols_pad, device=device)
+    vals_pad = torch.as_tensor(vals_pad, device=device).to(dtype)
+    if npad != n:
+        cols_pad = torch.nn.functional.pad(cols_pad, (0, 0, 0, npad - n))
+        vals_pad = torch.nn.functional.pad(vals_pad, (0, 0, 0, npad - n))
+
+    # densify the diagonal blocks (one scatter over the packed entries)
+    ri = torch.arange(npad, device=device)[:, None].expand(npad, L)
+    in_diag = (cols_pad // bs) == (ri // bs)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    scatter_vals = torch.where(in_diag, vals_pad, zero)
+    if unit_diagonal:
+        # LAPACK semantics: stored diagonal entries are ignored
+        scatter_vals = torch.where(cols_pad == ri, zero, scatter_vals)
+    D = torch.zeros((nb, bs, bs), dtype=dtype, device=device)
+    D.index_put_((ri // bs, ri % bs, cols_pad % bs), scatter_vals,
+                 accumulate=True)
+    eye = torch.eye(bs, dtype=dtype, device=device)
+    if unit_diagonal:
+        D = D + eye[None]
+    elif npad != n:
+        # pad rows beyond n get an identity diagonal
+        fix = (torch.arange(npad, device=device) >= n).to(dtype).view(nb,
+                                                                      bs)
+        D = D + fix[:, :, None] * eye[None]
+    # off-diagonal entries only in the gather layers
+    return PackedTriangular(cols_pad, torch.where(in_diag, zero, vals_pad),
+                            D, n, lower)
+
+
+def packed_trsm(T: PackedTriangular, B: torch.Tensor) -> torch.Tensor:
+    """Solve T·X = B for a packed T on B's device, one block row at a
+    time in the JAX package's blocking and order: the coupling to the
+    solved rows by a gather-FMA layer, then the dense triangular solve of
+    the diagonal block. Returns X (n, k), or (n,) for a vector B."""
+    if B.ndim == 1:
+        return packed_trsm(T, B[:, None])[:, 0]
+    nb, bs = T.diag.shape[:2]
+    npad = nb * bs
+    D, vals = T.diag.to(B.dtype), T.vals.to(B.dtype)
+    if npad != T.n:
+        B = torch.nn.functional.pad(B, (0, 0, 0, npad - T.n))
+    X = torch.zeros_like(B)
+    for i in (range(nb) if T.lower else range(nb - 1, -1, -1)):
+        c = i * bs
+        cp, vp = T.cols[c:c + bs], vals[c:c + bs]
+        acc = torch.einsum("rl,rln->rn", vp, X[cp])
+        X[c:c + bs] = torch.linalg.solve_triangular(
+            D[i], B[c:c + bs] - acc, upper=not T.lower)
+    return X[:T.n]
+
+
 def sparse_trsm(rows, cols, vals, n: int, B: torch.Tensor,
                 lower: bool = True, unit_diagonal: bool = False,
                 block: int = 256, precision=None):
@@ -148,55 +237,11 @@ def sparse_trsm(rows, cols, vals, n: int, B: torch.Tensor,
     linops run bulk multi-RHS solves through it,
     ext_cholsolver_linop.hh).
 
-    T is given in COO form (host index arrays): the packing into padded
-    CSR rows happens once on the host. The diagonal blocks of ``block``
-    rows are densified once (one accumulating scatter) and solved with the
-    dense triangular solve; the off-diagonal coupling is applied by
-    gather-FMA layers, one block row at a time, in the JAX package's
-    blocking and order. Returns X (n, k), or (n,) for a vector B.
+    T is given in COO form (host index arrays): ``pack_triangular`` packs
+    it (padded CSR rows on the host, dense diagonal blocks of ``block``
+    rows), ``packed_trsm`` solves. A caller that solves with one T many
+    times packs it once. Returns X (n, k), or (n,) for a vector B.
     """
-    if B.ndim == 1:
-        return sparse_trsm(rows, cols, vals, n, B[:, None], lower,
-                           unit_diagonal, block, precision)[:, 0]
-    dev, dtype = B.device, B.dtype
-    cols_pad, vals_pad, L = _pad_csr_rows(rows, cols, vals, n,
-                                          _host(vals).dtype)
-    bs = min(block, n)
-    nb = -(-n // bs)
-    npad = nb * bs
-    cols_pad = torch.as_tensor(cols_pad, device=dev)
-    vals_pad = torch.as_tensor(vals_pad, device=dev).to(dtype)
-    if npad != n:
-        cols_pad = torch.nn.functional.pad(cols_pad, (0, 0, 0, npad - n))
-        vals_pad = torch.nn.functional.pad(vals_pad, (0, 0, 0, npad - n))
-        B = torch.nn.functional.pad(B, (0, 0, 0, npad - n))
-
-    # densify the diagonal blocks (one scatter over the packed entries)
-    ri = torch.arange(npad, device=dev)[:, None].expand(npad, L)
-    in_diag = (cols_pad // bs) == (ri // bs)
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    scatter_vals = torch.where(in_diag, vals_pad, zero)
-    if unit_diagonal:
-        # LAPACK semantics: stored diagonal entries are ignored
-        scatter_vals = torch.where(cols_pad == ri, zero, scatter_vals)
-    D = torch.zeros((nb, bs, bs), dtype=dtype, device=dev)
-    D.index_put_((ri // bs, ri % bs, cols_pad % bs), scatter_vals,
-                 accumulate=True)
-    eye = torch.eye(bs, dtype=dtype, device=dev)
-    if unit_diagonal:
-        D = D + eye[None]
-    elif npad != n:
-        # pad rows beyond n get an identity diagonal
-        fix = (torch.arange(npad, device=dev) >= n).to(dtype).view(nb, bs)
-        D = D + fix[:, :, None] * eye[None]
-    # off-diagonal entries only in the gather layers
-    vals_off = torch.where(in_diag, zero, vals_pad)
-
-    X = torch.zeros_like(B)
-    for i in (range(nb) if lower else range(nb - 1, -1, -1)):
-        c = i * bs
-        cp, vp = cols_pad[c:c + bs], vals_off[c:c + bs]
-        acc = torch.einsum("rl,rln->rn", vp, X[cp])
-        X[c:c + bs] = torch.linalg.solve_triangular(
-            D[i], B[c:c + bs] - acc, upper=not lower)
-    return X[:n]
+    return packed_trsm(pack_triangular(rows, cols, vals, n, lower,
+                                       unit_diagonal, block, B.dtype,
+                                       B.device), B)

@@ -1,4 +1,9 @@
-"""Auxiliary subsystems: phase timing."""
-from .timing import PhaseTimer, device_sync
+"""Auxiliary subsystems: phase timing, profiling, memory tracking."""
+from .timing import (PhaseTimer, debug_checks, device_sync,
+                     format_phase_breakdown, profile_trace)
+from .memory import (PeakRSSTracker, analytical_peak_bytes,
+                     device_memory_stats, get_rss_kb)
 
-__all__ = ["PhaseTimer", "device_sync"]
+__all__ = ["PhaseTimer", "debug_checks", "device_sync",
+           "format_phase_breakdown", "profile_trace", "PeakRSSTracker",
+           "analytical_peak_bytes", "device_memory_stats", "get_rss_kb"]

@@ -31,7 +31,13 @@ by an ulp or two: S within 1e-6 absolute (f32) / 1e-14 (f64), S·A within
 1e-4 / 1e-11 of the largest entry. The operator slice (no kernel): the
 sparse products (cuSPARSE) and the sparse triangular solve within 1e-5
 (f32) / 1e-12 or 1e-13 (f64) of the CPU's largest entry, ABRIK in f64 as
-its CPU parity test gates it."""
+its CPU parity test gates it. ``trailing_wy_update`` (K1, a cuBLAS
+product, K2 on a copy): one launch of each, A unchanged, within 1e-4
+(f32) / 1e-12 (f64) of the plain version's largest entry. The least
+squares slice (no kernel): spls in f64 against the CPU with one SASO,
+iterations within 1, x within 100·κ·eps (LSQR to its stall stop) or
+10·κ²·eps (PCG), κ 1e3; the solver operators' device and host solves
+within 1e-12 (f64) / 1e-5 (f32) of the CPU's largest entry."""
 import numpy as np
 import pytest
 import torch
@@ -1289,3 +1295,113 @@ def test_abrik_on_the_card_f64_against_the_cpu(cuda, qr):
     sv = torch.sign((Vtg.cpu() * Vtc).sum(1))
     assert float((Ug.cpu() * su - Uc).abs().max()) <= 1e-9
     assert float((Vtg.cpu() * sv[:, None] - Vtc).abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (512, 384, 64)),
+                                         (torch.float32, (300, 250, 30)),
+                                         (torch.float64, (300, 250, 30))])
+def test_trailing_wy_update_on_the_card(cuda, dtype, shape):
+    """One K1 and one K2 launch, A unchanged, the result within 1e-4 (f32)
+    / 1e-12 (f64) of the plain version's largest entry."""
+    m, w, b = shape
+    V, A, _, mask = _wy_operands(m, w, b, 11)
+    T = np.triu(np.random.default_rng(12).standard_normal((b, b)))
+    Vt, At, Tt, mt = (torch.tensor(x, dtype=dtype, device=cuda)
+                      for x in (V, A, T, mask))
+    A0 = At.clone()
+    _reset_kernels()
+    out = twy.trailing_wy_update(At, Vt, Tt, mt)
+    torch.cuda.synchronize()
+    counts = _launches()
+    assert counts["masked_vt_a"] == 1 and counts["a_minus_vz_masked"] == 1
+    assert sum(counts.values()) == 2 + counts["masked_vt_a_simt"] \
+        + counts["a_minus_vz_masked_simt"]
+    assert torch.equal(At, A0)
+    ref = twy.trailing_wy_update(*(t.cpu() for t in (At, Vt, Tt, mt)))
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert float((out.cpu() - ref).abs().max()) \
+        <= tol * float(ref.abs().max())
+
+
+# (SPLSConfig fields, μ, right-hand sides, tol, gate on x): κ 1e3; LSQR
+# run to its stall stop (its iterates before it move 1e-8 with a last-bit
+# change), x within 100·κ·eps; PCG (normal equations) within 10·κ²·eps
+SPLS_CARD_CASES = [
+    (dict(), 0.0, None, 1e-12, 100 * 1e3 * 2.2e-16),
+    (dict(refine_precond=False), 0.0, None, 1e-12, 100 * 1e3 * 2.2e-16),
+    (dict(precond="qr"), 0.0, None, 1e-12, 100 * 1e3 * 2.2e-16),
+    (dict(solver="pcg"), 0.0, None, 1e-10, 10 * 1e6 * 2.2e-16),
+    (dict(), 1e-4, None, 1e-12, 1e-10),
+    (dict(), 1e-6, 3, 1e-10, 10 * 1e6 * 2.2e-16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,mu,b_cols,tol,gate", SPLS_CARD_CASES)
+def test_spls_on_the_card_f64_against_the_cpu(cuda, kw, mu, b_cols, tol,
+                                              gate):
+    """spls in f64 on the card and on the CPU with one SASO: the same
+    iteration count (within 1), x within the case's gate (κ 1e3), no
+    kernel launch."""
+    from randlapack_tpu_torch.comps import PCGSaddleConfig
+    from randlapack_tpu_torch.drivers import SPLSConfig, spls
+    from randlapack_tpu_torch.sketching import SparseDist, fill_sparse
+    g = torch.Generator().manual_seed(21)
+    m, n = 600, 50
+    U = torch.linalg.qr(torch.randn(m, n, generator=g,
+                                    dtype=torch.float64))[0]
+    V = torch.linalg.qr(torch.randn(n, n, generator=g,
+                                    dtype=torch.float64))[0]
+    A = (U * torch.logspace(0, -3, n, dtype=torch.float64)) @ V.T
+    shape = (n,) if b_cols is None else (n, b_cols)
+    b = A @ torch.randn(shape, generator=g, dtype=torch.float64)
+    cfg = SPLSConfig(pcg=PCGSaddleConfig(tol=tol, max_iters=200), **kw)
+    S, _ = fill_sparse(SparseDist(4 * n, m, 8), rt.RNGState(3),
+                       dtype=torch.float64, device="cpu")
+    Sg = type(S)(S.dist, S.rows.to(cuda), S.vals.to(cuda))
+    _reset_kernels()
+    xg, _, itg, _ = spls(A.to(cuda), b.to(cuda), mu, cfg, rt.RNGState(3),
+                         sketch=Sg)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in _launches().values())
+    xc, _, itc, _ = spls(A, b, mu, cfg, rt.RNGState(3), sketch=S)
+    assert xg.is_cuda and abs(itg - itc) <= 1
+    assert float(torch.linalg.norm(xg.cpu() - xc)
+                 / torch.linalg.norm(xc)) <= gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["chol", "half", "lu"])
+def test_solver_linops_on_the_card_against_the_cpu(cuda, kind):
+    """The device solves (packed triangular solves and gathers on the
+    card) against the CPU's, f64 within 1e-12 of the largest entry and
+    f32 within 1e-5; matmat and tmatmat; the host solves return on the
+    card."""
+    import scipy.sparse as sp
+    from randlapack_tpu_torch.extras import CholSolverLinOp, LUSolverLinOp
+    rng = np.random.default_rng(5)
+    n = 600
+    M = sp.random(n, n, density=0.01, random_state=rng)
+    K = (M @ M.T + sp.eye(n) * 4 if kind != "lu"
+         else M + sp.eye(n) * 3).tocoo()
+    B = rng.standard_normal((n, 8))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        def make(device, device_solves=True):
+            if kind == "lu":
+                return LUSolverLinOp(K.row, K.col, K.data, n, dtype,
+                                     device_solves=device_solves,
+                                     device=device)
+            return CholSolverLinOp(K.row, K.col, K.data, n, dtype,
+                                   half=kind == "half",
+                                   device_solves=device_solves,
+                                   device=device)
+        op_c, op_g = make("cpu"), make(cuda)
+        host_g = make(cuda, device_solves=False)
+        Bc = torch.tensor(B, dtype=dtype)
+        for f in ("matmat", "tmatmat"):
+            ref = getattr(op_c, f)(Bc)
+            for op in (op_g, host_g):
+                got = getattr(op, f)(Bc.to(cuda))
+                assert got.is_cuda and got.dtype == dtype
+                assert float((got.cpu() - ref).abs().max()) \
+                    <= tol * float(ref.abs().max())
