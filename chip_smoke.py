@@ -77,6 +77,15 @@ low-rank drivers, the operator slice and least squares:
   one K2 launch, A unchanged), a 1e7-entry Matrix Market file read by
   the native reader (built with g++ into build/native/) and by scipy,
   and a small f64 card-vs-CPU run;
+- the trailing-precision modes (trailing_precision "high", "default",
+  "bf16_3x_emul": K1/K2 as one TF32, one bf16 or three bf16 products):
+  each form of K1 and K2 against its plain version and the f64 product at
+  the main path's shapes, timed beside the library call and its bound;
+  bench.py's BQRRP and HQRRP speed modes at 8192² in each mode, in turns
+  with "highest", gated on launches, the mode's residual gate,
+  orthogonality and the trailing-norm ratios against LAPACK geqp3 in f64
+  (with two controls the gates must refuse); config 3 with the sketch
+  BQRRP's trailing products in TF32 against "highest";
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -107,12 +116,16 @@ N = 8192
 EPS32 = float(torch.finfo(torch.float32).eps)
 RES_GATE = 10 * EPS32 ** 0.75                 # tests/test_bqrrp_factored.py:95
 ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
+# the trailing-precision modes and the K1/K2 form each launches in f32
+MODES = {"high": "tf32", "default": "bf16", "bf16_3x_emul": "bf16x3"}
 NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
      "kernel_matmat_simt", "gaussian_sketch_simt",
-     "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat"), 0)
+     "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat",
+     *(f"{k}_{f}" for f in MODES.values()
+       for k in ("masked_vt_a", "a_minus_vz_masked"))), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -166,10 +179,25 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "gaussian_sketch": ("randlapack_tpu_torch/csrc/gaussian_sketch.cu",
                         "randlapack_tpu/ops/pallas_kernels.py:125", "op"),
 }
+# the residual of an f32 factorization whose trailing products run in a
+# mode: at most twice the unit roundoff u of the operands the mode rounds
+# them to (TF32 2^-11, bf16 2^-8; three bf16 products drop lo·lo, 2^-16).
+# An operand rounded to nearest errs by up to u, uniformly, so a product
+# of two rounded operands by ~0.8·u of itself, and the first trailing
+# updates leave that in R (PERF.md §2; tools/trailing_mode_residuals.py,
+# the forms' plain versions in these drivers on the CPU, reads
+# 0.35-0.82·u from 1024² to 4096²)
+MODE_U = {"high": 2.0 ** -11, "default": 2.0 ** -8,
+          "bf16_3x_emul": 2.0 ** -16}
+MODE_RES_GATE = {tp: 2 * u for tp, u in MODE_U.items()}
+# docs/pivot_quality_f32.md: every driver's trailing-norm ratio against
+# LAPACK geqp3 in f64 over the leading half, chip f32
+PIVOT_BAND = (0.79, 1.07)
 # one H100 SXM, published peaks: fp32 outside the tensor cores, dense TF32
-# on them, and HBM3
+# and bf16 on them, and HBM3
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_FP64 = 34e12          # outside the tensor cores (NVIDIA's data sheet)
 PEAK_FP64_TENSOR = 67e12   # FP64 matrix products on them (the same sheet)
 PEAK_BYTES = 3.35e12
@@ -1021,11 +1049,12 @@ def phase_old_vs_new(dev) -> None:
     for which, (fac, wall, rows) in facs.items():
         busy = sum(ms for _, ms, _ in rows)
         gate(busy > 0, "the profiler saw no device time")
-        k1 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<true>" in key
-                 or "wy_tc_kernel<(bool)1>" in key or "add_parts" in key
+        # the tensor-core kernel is wy_tc_kernel<kVtA, form>
+        k1 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<true," in key
+                 or "wy_tc_kernel<(bool)1," in key or "add_parts" in key
                  or "masked_vt_a_kernel" in key)
-        k2 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<false>" in key
-                 or "wy_tc_kernel<(bool)0>" in key
+        k2 = sum(ms for key, ms, _ in rows if "wy_tc_kernel<false," in key
+                 or "wy_tc_kernel<(bool)0," in key
                  or "a_minus_vz_masked_kernel" in key)
         gate(k1 > 0 and k2 > 0, f"K1/K2 not found in the profile: "
              f"{[key for key, _, _ in rows[:12]]}")
@@ -3476,6 +3505,447 @@ def phase_spls_small_vs_plain(dev) -> None:
     gate(counts == NO_LAUNCHES, f"spls-small-vs-plain: launches {counts}")
 
 
+# -- the trailing-precision modes: K1/K2's forms and the drivers in them ------
+
+def form_bound(flops: float, nbytes: float, form: str) -> dict:
+    """The least time of a K1/K2 form: its products at the tensor cores'
+    dense rate for the form's type (TF32 495, bf16 989 TFLOP/s; three
+    products for "bf16x3"), against its bytes at 3.35 TB/s."""
+    t_ops = {"tf32": flops / PEAK_TF32, "bf16": flops / PEAK_BF16,
+             "bf16x3": 3 * flops / PEAK_BF16}[form]
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def form_library_ms(form: str, fn32, fn_bf16, reps: int):
+    """The library call beside a form: the fp32 call with TF32 allowed
+    (set here and put back) for "tf32", the call on bf16 operands for
+    "bf16", none for "bf16x3" (no one call takes three bf16 products)."""
+    if form == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return cuda_ms(fn32, reps), "TF32 allowed"
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    if form == "bf16":
+        return cuda_ms(fn_bf16, reps), "bf16 operands"
+    return None, None
+
+
+def phase_wy_modes(dev) -> dict:
+    """K1 and K2 in each trailing-precision form at the main path's shapes
+    (V 8192x256 with A 8192x8192; K2 at k 1024): each against its plain
+    version (max|d| <= 1e-5 max|plain|: the same rounded operands, fp32
+    sums in another order), its error against the f64 product (<= 2x the
+    plain version's; also, printed, with the accumulator never restarted,
+    as against every stage, ``wy.CHUNK``), two launches bit-equal, the
+    times of
+    the kernel, the plain version and the library call by CUDA events, and
+    the bound."""
+    from randlapack_tpu_torch.ops import wy
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    out = {}
+    m, b, w, k = N, 256, N, 1024
+    V = torch.randn(m, b, generator=g, device=dev)
+    A = torch.randn(m, w, generator=g, device=dev)
+    mk = (torch.rand(w, generator=g, device=dev) < 0.5).float()
+    ref = V.double().T @ (A.double() * mk.double())
+    Vb, Ab = V.bfloat16(), A.bfloat16()
+    for form in MODES.values():
+        plain = getattr(wy, f"masked_vt_a_{form}_reference")
+        W = wy.masked_vt_a_form(V, A, mk, form)
+        Wp = plain(V, A, mk)
+        err, scale = float((W - Wp).abs().max()), float(Wp.abs().max())
+        e_k, e_p = relf(W, ref), relf(Wp, ref)
+        alt = 0                 # the accumulator never restarted
+        W0 = wy.masked_vt_a_form(V, A, mk, form, chunk=alt)
+        e_0, d_0 = relf(W0, ref), float((W0 - Wp).abs().max()) / scale
+        del W0
+        gate(err <= 1e-5 * scale, f"masked_vt_a_{form}: max|d| {err}")
+        gate(torch.equal(W, wy.masked_vt_a_form(V, A, mk, form)),
+             f"masked_vt_a_{form}: two launches differ")
+        gate(e_k <= 2 * e_p, f"masked_vt_a_{form}: error against f64 "
+             f"{e_k}, the plain version's {e_p}")
+        ms0, ms = in_turns(
+            lambda: wy.masked_vt_a_form(V, A, mk, form, chunk=alt),
+            lambda: wy.masked_vt_a_form(V, A, mk, form), 20)
+        plain_ms = cuda_ms(lambda: plain(V, A, mk), 10)
+        lib_ms, lib = form_library_ms(form, lambda: torch.mm(V.T, A),
+                                      lambda: torch.mm(Vb.T, Ab), 20)
+        out[f"masked_vt_a_{form}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **form_bound(2 * m * b * w, 4 * (m * b + m * w + w + b * w),
+                         form),
+            library_ms=lib_ms,
+            library_call=lib and f"torch.mm(V.T, A), unmasked, {lib}",
+            err_vs_f64=e_k, plain_err_vs_f64=e_p, chunk=wy.CHUNK,
+            err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
+            rel_diff_never_restarted=d_0)
+        rec = out[f"masked_vt_a_{form}"]
+        print(f"[wy-modes] masked_vt_a {form} m={m} b={b} w={w}: max|d| "
+              f"{err:.3e} (max|plain| {scale:.3e}); error against f64: "
+              f"kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
+              f"{e_0:.3e}, max|d| {d_0:.2e} of max|plain|), plain "
+              f"{e_p:.3e}; two launches bit-equal; kernel {ms:.4f} ms (never "
+              f"restarted {ms0:.4f} ms, in turns), plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms ({lib})'}"
+              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              flush=True)
+    del W, Wp, ref
+    Vk = torch.randn(m, k, generator=g, device=dev)
+    Z = torch.randn(k, w, generator=g, device=dev)
+    ref = A.double() - (Vk.double() @ Z.double()) * mk.double()
+    Vkb, Zb = Vk.bfloat16(), Z.bfloat16()
+    for form in MODES.values():
+        plain = getattr(wy, f"a_minus_vz_masked_{form}_reference")
+        Ak = wy.a_minus_vz_masked_form(A.clone(), Vk, Z, mk, form)
+        Ap = plain(A, Vk, Z, mk)
+        err, scale = float((Ak - Ap).abs().max()), float(Ap.abs().max())
+        e_k, e_p = relf(Ak, ref), relf(Ap, ref)
+        alt = 0
+        A0 = wy.a_minus_vz_masked_form(A.clone(), Vk, Z, mk, form, chunk=alt)
+        e_0, d_0 = relf(A0, ref), float((A0 - Ap).abs().max()) / scale
+        del A0
+        gate(err <= 1e-5 * scale, f"a_minus_vz_masked_{form}: max|d| {err}")
+        gate(torch.equal(Ak, wy.a_minus_vz_masked_form(A.clone(), Vk, Z, mk,
+                                                       form)),
+             f"a_minus_vz_masked_{form}: two launches differ")
+        gate(e_k <= 2 * e_p, f"a_minus_vz_masked_{form}: error against f64 "
+             f"{e_k}, the plain version's {e_p}")
+        Abf = Ak.bfloat16()
+        ms0, ms = in_turns(
+            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form,
+                                              chunk=alt),
+            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form), 10)
+        plain_ms = cuda_ms(lambda: plain(A, Vk, Z, mk), 5)
+        lib_ms, lib = form_library_ms(
+            form, lambda: Ak.addmm_(Vk, Z, alpha=-1.0),
+            lambda: Abf.addmm_(Vkb, Zb, alpha=-1.0), 10)
+        out[f"a_minus_vz_masked_{form}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **form_bound(2 * m * k * w + 2 * m * w,
+                         4 * (2 * m * w + m * k + k * w + w), form),
+            library_ms=lib_ms,
+            library_call=lib and f"A.addmm_(V, Z, alpha=-1), unmasked, {lib}",
+            err_vs_f64=e_k, plain_err_vs_f64=e_p, chunk=wy.CHUNK,
+            err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
+            rel_diff_never_restarted=d_0)
+        rec = out[f"a_minus_vz_masked_{form}"]
+        print(f"[wy-modes] a_minus_vz_masked {form} m={m} k={k} w={w}: "
+              f"max|d| {err:.3e} (max|plain| {scale:.3e}); error against "
+              f"f64: kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
+              f"{e_0:.3e}, max|d| {d_0:.2e} of max|plain|), plain {e_p:.3e}; two launches bit-equal; "
+              f"kernel {ms:.4f} ms (never restarted {ms0:.4f} ms, in turns), "
+              f"plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms ({lib})'}"
+              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              flush=True)
+    return out
+
+
+def trailing_norms(R) -> torch.Tensor:
+    """‖R[i:, i:]‖_F for every i, in f64 (benchmarks/qr_quality.py's
+    ``trailing_norms``)."""
+    n = min(R.shape)
+    sq = torch.triu(R[:n, :n].double()) ** 2
+    return torch.sqrt(torch.diagonal(
+        sq.flip(0, 1).cumsum(0).cumsum(1).flip(0, 1)))
+
+
+# the matrix, state and geqp3 yardstick [bqrrp-speed] builds and
+# [hqrrp-speed] reuses
+SPEED_INPUT = {}
+
+
+def speed_quality(A, Q, R, J, fail, tq) -> dict:
+    """Residual, orthogonality, ``fail`` and the trailing-norm ratios
+    against geqp3 over the leading half (docs/pivot_quality_f32.md)."""
+    res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+    orth = float(torch.linalg.norm(
+        Q.T @ Q - torch.eye(Q.shape[1], dtype=Q.dtype, device=Q.device)))
+    ratio = tq[:N // 2] / trailing_norms(R)[:N // 2]
+    return dict(res=res, orth=orth, fail=bool(fail),
+                finite=bool(torch.isfinite(Q).all()
+                            and torch.isfinite(R).all()),
+                rmin=float(ratio.min()), rmax=float(ratio.max()))
+
+
+def speed_refusals(tp: str, q: dict) -> list:
+    """The gates a run in mode ``tp`` fails: ``fail``, non-finite output,
+    the residual against the mode's gate (RES_GATE for "highest"),
+    orthogonality, the pivot band."""
+    res_gate = MODE_RES_GATE.get(tp, RES_GATE)
+    bad = []
+    if q["fail"]:
+        bad.append("fail")
+    if not q["finite"]:
+        bad.append("non-finite")
+    if not q["res"] <= res_gate:
+        bad.append(f"residual {q['res']:.3e} > {res_gate:.3e}")
+    if not q["orth"] <= ORTH_GATE:
+        bad.append(f"orthogonality {q['orth']:.3e}")
+    if not PIVOT_BAND[0] <= q["rmin"] <= q["rmax"] <= PIVOT_BAND[1]:
+        bad.append(f"pivot ratios [{q['rmin']:.3f}, {q['rmax']:.3f}]")
+    return bad
+
+
+def mode_turns(run_highest, run_mode, tp: str) -> tuple:
+    """Five runs each of ``run_highest()`` and ``run_mode()`` in turns
+    (H M M H H M M H H M), CUDA events: the best of each."""
+    times = {"highest": [], tp: []}
+    for who in ("highest", tp, tp, "highest") * 2 + ("highest", tp):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        (run_highest if who == "highest" else run_mode)()
+        end.record()
+        torch.cuda.synchronize()
+        times[who].append(start.elapsed_time(end) / 1e3)
+    return min(times["highest"]), min(times[tp]), times
+
+
+def busy_share(fn) -> tuple:
+    """Card-busy milliseconds and the idle share of one profiled call."""
+    _, wall, rows = device_profile(fn)
+    busy = sum(ms for _, ms, _ in rows)
+    return busy, 1.0 - busy / (wall * 1e3)
+
+
+def phase_bqrrp_speed(dev, card: str) -> dict:
+    """bench.py's BQRRP speed mode (bench.py:302-327: b 256, 2 pivot
+    candidates, 2 stages, update defer 4) on phase_main's matrix and
+    sketch, in each trailing-precision mode: launches (the mode's K1 form
+    32, its K2 form 8, K3 32, the "highest" K1/K2 none), the mode's
+    residual gate, orthogonality, ``fail`` and the trailing-norm ratios
+    against LAPACK geqp3 in f64; best of 5 in turns with "highest" by CUDA
+    events; card-busy time and idle share from one profiled call. Then the
+    controls, which the same gates must refuse: the first group's trailing
+    K2 left out, and three bf16 products with lo·hi dropped. Returns the
+    launch counts by mode."""
+    import scipy.linalg
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (BQRRPConfig, bqrrp_factored,
+                                              bqrrp_q)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops import wy
+    bq = sys.modules["randlapack_tpu_torch.drivers.bqrrp"]
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    t0 = time.perf_counter()
+    Rq = scipy.linalg.qr(A.double().cpu().numpy(), mode="r",
+                         pivoting=True)[0]
+    tq = trailing_norms(torch.from_numpy(Rq).to(dev))
+    t_qp3 = time.perf_counter() - t0
+    del Rq
+    SPEED_INPUT.update(A=A, st=st, tq=tq)
+    print(f"[bqrrp-speed] yardstick: LAPACK geqp3 (scipy {scipy.__version__}"
+          f") of the {N}x{N} matrix in f64 on the host, {t_qp3:.1f} s",
+          flush=True)
+    base = dict(block_size=256, pivot_candidates=2, stages=2, update_defer=4)
+    hi_cfg = BQRRPConfig(**base)
+
+    def quality(cfg):
+        fac, _ = bqrrp_factored(A, cfg, st)
+        return speed_quality(A, bqrrp_q(fac), fac.R, fac.J, fac.fail, tq)
+
+    busy, idle = busy_share(lambda: bqrrp_factored(A, hi_cfg, st))
+    print(f"[bqrrp-speed] highest, one profiled call: card busy {busy:.2f} "
+          f"ms, idle {100 * idle:.1f} %", flush=True)
+    counts = {}
+    for tp, form in MODES.items():
+        cfg = BQRRPConfig(**base, trailing_precision=tp)
+        bqrrp_factored(A, cfg, st)                      # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        fac, _ = bqrrp_factored(A, cfg, st)
+        torch.cuda.synchronize()
+        counts[tp] = read_counts()
+        expected = {**NO_LAUNCHES, f"masked_vt_a_{form}": 32,
+                    f"a_minus_vz_masked_{form}": 8, "getrfnp": 32}
+        gate(counts[tp] == expected,
+             f"bqrrp {tp}: launches {counts[tp]} != {expected}")
+        q = speed_quality(A, bqrrp_q(fac), fac.R, fac.J, fac.fail, tq)
+        t_hi, t_m, runs = mode_turns(lambda: bqrrp_factored(A, hi_cfg, st),
+                                     lambda: bqrrp_factored(A, cfg, st), tp)
+        busy, idle = busy_share(lambda: bqrrp_factored(A, cfg, st))
+        print(f"[bqrrp-speed] bqrrp_factored {N}x{N} f32 b256/pc2/stages2/"
+              f"defer4 trailing={tp} ({form}) on {card}: best of 5 "
+              f"{t_m:.4f} s against highest {t_hi:.4f} s in turns "
+              f"({t_hi / t_m:.3f}x; runs {[round(x, 4) for x in runs[tp]]} "
+              f"and {[round(x, 4) for x in runs['highest']]}); card busy "
+              f"{busy:.2f} ms, idle {100 * idle:.1f} %; residual "
+              f"{q['res']:.3e} (gate {MODE_RES_GATE[tp]:.3e}), orth "
+              f"{q['orth']:.3e} (gate {ORTH_GATE:.2e}), fail {q['fail']}, "
+              f"pivot ratios against geqp3 [{q['rmin']:.3f}, "
+              f"{q['rmax']:.3f}] (band {PIVOT_BAND}); launches "
+              f"{ {c: v for c, v in counts[tp].items() if v} }", flush=True)
+        refused = speed_refusals(tp, q)
+        gate(not refused, f"bqrrp {tp}: {refused}")
+    q = quality(hi_cfg)
+    print(f"[bqrrp-speed] highest beside them: residual {q['res']:.3e}, "
+          f"orth {q['orth']:.3e}, pivot ratios [{q['rmin']:.3f}, "
+          f"{q['rmax']:.3f}]", flush=True)
+    gate(not speed_refusals("highest", q), "bqrrp highest")
+
+    # -- controls: wrong answers the gates must refuse ---------------------
+    mixed = bq.a_minus_vz_masked_mixed, bq.masked_vt_a_mixed
+    calls = []
+
+    def skip_first_group(A_, V, Z, mask, tp):
+        calls.append(1)
+        return A_ if len(calls) == 1 else mixed[0](A_, V, Z, mask, tp)
+
+    def two_products(X, Y):
+        xh, xl = (t.float() for t in wy._bf16_halves(X))
+        yh, yl = (t.float() for t in wy._bf16_halves(Y))
+        return xh @ yh + xh @ yl                      # lo·hi dropped
+
+    controls = {
+        ("high", "the first group's trailing K2 left out"): dict(
+            a_minus_vz_masked_mixed=skip_first_group),
+        ("bf16_3x_emul", "three bf16 products with lo·hi dropped"): dict(
+            masked_vt_a_mixed=lambda V, A_, mask, tp: two_products(
+                V.T, A_ * mask[None, :]),
+            a_minus_vz_masked_mixed=lambda A_, V, Z, mask, tp: A_.sub_(
+                two_products(V, Z) * mask[None, :]))}
+    for (tp, what), patch in controls.items():
+        calls.clear()
+        for name, fn in patch.items():
+            setattr(bq, name, fn)
+        try:
+            q = quality(BQRRPConfig(**base, trailing_precision=tp))
+        finally:
+            bq.a_minus_vz_masked_mixed, bq.masked_vt_a_mixed = mixed
+        refused = speed_refusals(tp, q)
+        print(f"[bqrrp-speed-controls] {tp}, {what}: residual "
+              f"{q['res']:.3e}, orth {q['orth']:.3e}, fail {q['fail']}, "
+              f"pivot ratios [{q['rmin']:.3f}, {q['rmax']:.3f}]: refused by "
+              f"{refused or 'nothing'}", flush=True)
+        gate(bool(refused), f"control not refused: {tp}, {what}")
+    return counts
+
+
+def phase_hqrrp_speed(dev, card: str) -> dict:
+    """bench.py's HQRRP speed mode (bench.py:458-474: b 128, update defer
+    4) in each trailing-precision mode on [bqrrp-speed]'s matrix (its
+    geqp3 yardstick reused): launches (the mode's K1 form 64, one a block;
+    its K2 form 16, one a group of 4; K5 64, K6 64; "highest" K1/K2 none),
+    the same gates, best of 5 in turns with "highest", card-busy time.
+    Returns the launch counts by mode."""
+    from randlapack_tpu_torch.drivers import HQRRPConfig, hqrrp
+    A, st, tq = SPEED_INPUT["A"], SPEED_INPUT["st"], SPEED_INPUT["tq"]
+    hi_cfg = HQRRPConfig(block_size=128, update_defer=4)
+    hqrrp(A, hi_cfg, st)                                # warm-up
+    busy, idle = busy_share(lambda: hqrrp(A, hi_cfg, st))
+    print(f"[hqrrp-speed] highest, one profiled call: card busy {busy:.2f} "
+          f"ms, idle {100 * idle:.1f} %", flush=True)
+    counts = {}
+    for tp, form in MODES.items():
+        cfg = HQRRPConfig(block_size=128, update_defer=4,
+                          trailing_precision=tp)
+        hqrrp(A, cfg, st)                               # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        Q, R, J, _, fail, _ = hqrrp(A, cfg, st)
+        torch.cuda.synchronize()
+        counts[tp] = read_counts()
+        expected = {**NO_LAUNCHES, f"masked_vt_a_{form}": 64,
+                    f"a_minus_vz_masked_{form}": 16,
+                    "qrcp_select_pivots": 64, "qrcp_panel": 64}
+        gate(counts[tp] == expected,
+             f"hqrrp {tp}: launches {counts[tp]} != {expected}")
+        q = speed_quality(A, Q, R, J, fail, tq)
+        del Q, R
+        t_hi, t_m, runs = mode_turns(lambda: hqrrp(A, hi_cfg, st),
+                                     lambda: hqrrp(A, cfg, st), tp)
+        busy, idle = busy_share(lambda: hqrrp(A, cfg, st))
+        print(f"[hqrrp-speed] hqrrp {N}x{N} f32 b128/defer4 trailing={tp} "
+              f"({form}) on {card}: best of 5 {t_m:.4f} s against highest "
+              f"{t_hi:.4f} s in turns ({t_hi / t_m:.3f}x); card busy "
+              f"{busy:.2f} ms, idle {100 * idle:.1f} %; residual "
+              f"{q['res']:.3e} (gate {MODE_RES_GATE[tp]:.3e}), orth "
+              f"{q['orth']:.3e}, fail {q['fail']}, pivot ratios against "
+              f"geqp3 [{q['rmin']:.3f}, {q['rmax']:.3f}]", flush=True)
+        refused = speed_refusals(tp, q)
+        gate(not refused, f"hqrrp {tp}: {refused}")
+    SPEED_INPUT.clear()
+    return counts
+
+
+def phase_cqrrpt_modes(dev, card: str) -> dict:
+    """BASELINE config 3 (CQRRPT of the 131072x2048 f32 matrix, explicit
+    BQRRP b 256 on the sketch) with the sketch BQRRP's trailing products in
+    each mode (``bqrrp_trailing_precision``) beside "highest": J against
+    "highest"'s, max|dR|/max|R|, residual and orthogonality; gated on 8 K2
+    launches of the mode's form (one a block of the sketch BQRRP) and J a
+    permutation; "bf16_3x_emul" on config 3's gates (residual,
+    orthogonality, ``fail``); the one-product modes, which this
+    configuration's sketch QRCP cannot afford, on CQRRPT's contract
+    (``fail`` raised or a finite output within the residual gate).
+    Returns the launch counts by mode."""
+    import dataclasses
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import CQRRPTConfig, QRCPKind, cqrrpt
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    A, st = fast_decay_matrix(TALL_M, TALL_N, RNGState(2), decay=9.0,
+                              device=dev)
+    n = A.shape[1]
+    cfg3 = CQRRPTConfig(sketch="srht", qrcp=QRCPKind.bqrrp,
+                        bqrrp_block=256, bqrrp_pivot_candidates=2,
+                        trsm_mode="blockinv")
+    (_, Rh, Jh, _, _, _), t_hi, _, _ = timed_run(lambda: cqrrpt(A, cfg3, st),
+                                                 3)
+    counts = {}
+    for tp, form in MODES.items():
+        cfg = dataclasses.replace(cfg3, bqrrp_trailing_precision=tp)
+        (Q, R, J, rank, fail, _), times, counts[tp], peak = timed_run(
+            lambda: cqrrpt(A, cfg, st), 3)
+        k = int(rank)
+        res, orth = tall_quality(A, Q, R, J, k)
+        orth_gate = RES_GATE * math.sqrt(k)
+        same_j = torch.equal(J, Jh)
+        dR = float((R - Rh).abs().max()) / float(Rh.abs().max())
+        print(f"[cqrrpt-modes] {TALL_M}x{n} f32 config 3, "
+              f"bqrrp_trailing_precision={tp} ({form}) on {card}: best of 3 "
+              f"{min(times):.4f} s against highest {min(t_hi):.4f} s; J "
+              f"equal to highest's {same_j}, max|dR|/max|R| {dR:.3e}; "
+              f"residual {res:.3e} (gate {RES_GATE:.2e}), orth {orth:.3e} "
+              f"(config 3's gate {orth_gate:.2e}), rank {k}, fail "
+              f"{bool(fail)}, peak memory {peak:.2f} GiB, launches "
+              f"{ {c: v for c, v in counts[tp].items() if v} }", flush=True)
+        expected = {**NO_LAUNCHES, f"a_minus_vz_masked_{form}": 8}
+        gate(counts[tp] == expected,
+             f"cqrrpt {tp}: launches {counts[tp]} != {expected}")
+        gate(torch.equal(torch.sort(J).values, torch.arange(n, device=dev)),
+             f"cqrrpt {tp}: J is not a permutation")
+        finite = bool(torch.isfinite(Q).all() and torch.isfinite(R).all())
+        if tp == "bf16_3x_emul":
+            # config 3's gates. J and R are printed, not gated: the sketch
+            # BQRRP's R rows read the trailing updates, so no mode leaves
+            # them as "highest" has them at this configuration (ROADMAP
+            # §3); the JAX package's test_cqrrpt_insensitive_to_sketch_
+            # trailing holds them only through geqp3, which never reads
+            # the option
+            gate(finite and not bool(fail), f"cqrrpt {tp}: fail {fail}, "
+                 f"finite {finite}")
+            gate(res <= RES_GATE, f"cqrrpt {tp}: residual {res}")
+            gate(orth <= orth_gate, f"cqrrpt {tp}: orthogonality {orth}")
+        else:
+            # one product of TF32 or bf16 is too coarse for config 3's
+            # sketch QRCP (ROADMAP §3: its R rows read the trailing
+            # updates): held to CQRRPT's contract, ``fail`` raised or a
+            # finite output within the residual gate
+            gate(bool(fail) or (finite and res <= RES_GATE),
+                 f"cqrrpt {tp}: fail False with residual {res}, finite "
+                 f"{finite}")
+        del Q, R
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3499,12 +3969,15 @@ def main() -> int:
     smi = run(phase_env)
     run(phase_build)
     timed = run(phase_kernels, dev)
+    timed.update(run(phase_wy_modes, dev))
     counts = {"bqrrp": run(phase_main, dev, f"{smi}")}
+    speed = {"bqrrp": run(phase_bqrrp_speed, dev, f"{smi}")}
     run(phase_old_vs_new, dev)
     run(phase_k3_old_vs_new, dev)
     run(phase_remainder, dev)
     run(phase_small_vs_plain, dev)
     counts["hqrrp"] = run(phase_hqrrp, dev, f"{smi}")
+    speed["hqrrp"] = run(phase_hqrrp_speed, dev, f"{smi}")
     run(phase_hqrrp_phases, dev)
     run(phase_hqrrp_cholqr, dev)
     run(phase_hqrrp_small_vs_plain, dev)
@@ -3512,6 +3985,7 @@ def main() -> int:
     counts["op"] = run(phase_sketch, dev)
     counts["cqrrpt"] = run(phase_cqrrpt, dev, f"{smi}",
                            timed["gaussian_sketch"]["ms"])
+    speed["cqrrpt"] = run(phase_cqrrpt_modes, dev, f"{smi}")
     run(phase_rsvd, dev, f"{smi}")
     run(phase_rsvd_8192, dev, f"{smi}")
     run(phase_svd_route_turns, dev)
@@ -3547,6 +4021,18 @@ def main() -> int:
         elif k["name"] in ("masked_vt_a", "a_minus_vz_masked"):
             # and K1/K2 once each inside trailing_wy_update
             k["trailing_wy_launches"] = counts["trailing_wy"][k["name"]]
+    # K1/K2's trailing-precision forms: launches in the BQRRP speed mode,
+    # beside HQRRP's and CQRRPT's
+    for tp, form in MODES.items():
+        for base in ("masked_vt_a", "a_minus_vz_masked"):
+            src, rep, _ = KERNELS[base]
+            name = f"{base}_{form}"
+            kernels.append(dict(
+                name=name, route="cuda", source=src, replaces=rep,
+                launches=speed["bqrrp"][tp][name], **timed[name],
+                trailing_precision=tp,
+                hqrrp_launches=speed["hqrrp"][tp][name],
+                cqrrpt_launches=speed["cqrrpt"][tp][name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

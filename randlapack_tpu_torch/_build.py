@@ -41,14 +41,17 @@ _SKETCH_SIMT = [_P, _P, _I, _I, _I, _U, _U, _D, _P]
 # of its _f32 and _f64 forms, or a dict suffix -> argtypes where the two
 # differ or one is missing
 _SIGNATURES = {
-    # f32, tensor cores: (V, A, mask, W, part, m, b, w, splits, chunk, stream)
     # f64, SIMT: (V, A, mask, W, m, b, w, stream)
-    "rl_masked_vt_a": {"_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                       "_f64": _WY_SIMT},
-    # f32, tensor cores: (A, V, Z, mask, m, k, w, chunk, stream)
+    "rl_masked_vt_a": {"_f64": _WY_SIMT},
     # f64, SIMT: (A, V, Z, mask, m, k, w, stream)
-    "rl_a_minus_vz_masked": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-                             "_f64": _WY_SIMT},
+    "rl_a_minus_vz_masked": {"_f64": _WY_SIMT},
+    # f32, tensor cores, in the form `mode` (0 3xTF32, 1 TF32, 2 bf16,
+    # 3 bf16x3): (V, A, mask, W, part, m, b, w, splits, chunk, mode, stream)
+    "rl_masked_vt_a_mode": {"_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _P]},
+    # (A, V, Z, mask, m, k, w, chunk, mode, stream)
+    "rl_a_minus_vz_masked_mode": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _P]},
     # the f32 SIMT kernels, with the f64 forms' arguments
     "rl_masked_vt_a_simt": {"_f32": _WY_SIMT},
     "rl_a_minus_vz_masked_simt": {"_f32": _WY_SIMT},

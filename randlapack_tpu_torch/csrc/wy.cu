@@ -71,6 +71,22 @@
 // The mask is multiplied, not used to skip: a non-finite A entry under
 // mask 0 gives NaN, as A*mask does in JAX.
 //
+// Trailing-precision forms (the drivers' trailing_precision other than
+// "highest"; the JAX package's _tp_matmul / masked_vt_a_mixed). The same
+// kernel, its template's kMode picking the arithmetic of the products:
+//   kTf32x3  the fp32 design above ("highest");
+//   kTf32    one TF32 product, hi*hi only ("high": Precision.HIGH is
+//            TF32 on this card), 4 wgmma a stage in place of 12;
+//   kBf16    one bf16 product, operands rounded to nearest even and
+//            wgmma.m64n128k16 with fp32 accumulation ("default");
+//   kBf16x3  three bf16 products of the halves hi = bf16(x),
+//            lo = bf16(x - hi), hi*hi + hi*lo + lo*hi, lo*lo dropped
+//            (the JAX package's bf16_3x_matmul, "bf16_3x_emul").
+// The bf16 forms keep the raw fp32 ring and the conversion pass; their
+// split B tile holds 8 bf16 of k per 16 bytes (core matrices of 8
+// columns x 8 k), so a stage is two k16 products. The accumulator is
+// restarted every `chunk` stages in every form, as above.
+//
 // Guarded path. 16-byte copies need every operand 16-byte aligned with
 // row lengths that are multiples of 4 (b, w for masked_vt_a; k, w for
 // a_minus_vz_masked). The tensor-core entry points refuse anything else
@@ -80,6 +96,7 @@
 // The fp32 SIMT kernels also stay reachable on their own
 // (rl_*_simt_f32) as the yardstick of the earlier design.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -244,6 +261,86 @@ int launch_a_minus_vz_masked(void* A, const void* V, const void* Z,
 // fp32 on the tensor cores: three TF32 products behind a cp.async ring
 // ---------------------------------------------------------------------
 
+// the forms of the tensor-core kernel (its kMode; `mode` of the C entry
+// points)
+constexpr int kTf32x3 = 0, kTf32 = 1, kBf16 = 2, kBf16x3 = 3;
+
+// x rounded to TF32, to nearest, ties away (the hi half of split_tf32)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return (uint32_t)__bfloat16_as_ushort(v.x) |
+         ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
+}
+
+// a and b rounded to bf16, to nearest even, as one register: a in the low
+// half (the lower k of a fragment's pair)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  return bf16x2_bits(__floats2bfloat162_rn(a, b));
+}
+
+// hi = bf16(x), lo = bf16(x - hi) for x = a and b, packed as pack_bf16:
+// the split of the JAX package's bf16_3x_matmul. Inf gives hi = Inf and
+// lo = NaN there too.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// d (this warpgroup's 64 x 128) = a (64x16 bf16, registers: a warp's 16
+// rows in mma.m16n8k16's A layout) * b (16x128 bf16, shared, K-major) +
+// (keep ? d : 0); fp32 accumulate, asynchronous
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
+}
+
+// the bf16 forms' split B tile: core matrices of 8 columns x 8 bf16 of k
+// (128 bytes), kCoreK bytes to the next along k and BK/8 of them, 512
+// bytes, to the next along n
+constexpr int kCoreNBf16 = (BK / 8) * kCoreFloats * 4;
+
+__device__ __forceinline__ uint64_t b_descriptor_bf16(const float* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t)(kCoreK >> 4) << 16 | (uint64_t)(kCoreNBf16 >> 4) << 32;
+}
+
 constexpr int BM = 128, BN = 128;    // output tile of a block
 constexpr int kStages = 4;
 constexpr int kTcThreads = 256;      // 2 warpgroups, 64 rows of the tile each
@@ -306,14 +403,17 @@ struct TileCursor {
 // Persistent: block x works items x, x + gridDim.x, ... and its loads run
 // kStages-1 stages ahead of its wgmma across item boundaries. Per stage:
 // every thread splits its A values (its warp's 16 rows, fetched a stage
-// ahead) and the warpgroup issues the stage's 12 wgmma; while those run,
-// all threads fetch the next stage's A values and split its B tile into
-// the other B buffer.
-template <bool kVtA>
+// ahead) and the warpgroup issues the stage's wgmma (12 for kTf32x3); while
+// those run, all threads fetch the next stage's A values and split its B
+// tile into the other B buffer. kMode picks the products' arithmetic (see
+// the file's head).
+template <bool kVtA, int kMode>
 __global__ void __launch_bounds__(kTcThreads, 1)
 wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
              const float* __restrict__ mask, float* out,
              int M, int N, int K, int kper, int splits, int chunk) {
+  constexpr bool kBf = kMode == kBf16 || kMode == kBf16x3;
+  constexpr bool kLo = kMode == kTf32x3 || kMode == kBf16x3;  // lo halves
   extern __shared__ __align__(128) float smem[];
   float* split = smem + kStages * kStageFloats;   // [buffer][hi, lo]
   const int tid = threadIdx.x;
@@ -346,8 +446,9 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     load_tile_kn(sA + kStageA, Q, N, kend, k0, c.n0, tid);
   };
   // The raw B tile [k][n] of `slot`, times K1's mask, as hi and lo halves
-  // in core matrices: a thread takes one column n and 4 x 4 values of k,
-  // and 8 neighbouring threads store one core matrix's 128 bytes.
+  // in core matrices: a thread takes one column n and 4 x 4 values of k
+  // (TF32; bf16: 2 x 8), and 8 neighbouring threads store one core
+  // matrix's 128 bytes. The one-product forms store hi only.
   auto split_b = [&](const TileCursor& c, int slot, int buf) {
     const float* sB = smem + slot * kStageFloats + kStageA;
     float* bhi = split + buf * 2 * kSplitFloats;
@@ -355,21 +456,32 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     const int n = tid % BN;
     float mk = 1.f;
     if (kVtA) mk = (c.n0 + n < N) ? mask[c.n0 + n] : 0.f;
+    constexpr int kPer = kBf ? 8 : 4;     // values of k in 16 bytes
 #pragma unroll
-    for (int i = 0; i < BK / 4 / (kTcThreads / BN); ++i) {
+    for (int i = 0; i < BK / kPer / (kTcThreads / BN); ++i) {
       const int kb = tid / BN + (kTcThreads / BN) * i;
+      float x[kPer];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        x[e] = sB[(kPer * kb + e) * LDN + n];
+        if (kVtA) x[e] *= mk;
+      }
       uint32_t h[4], l[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = sB[(4 * kb + e) * LDN + n];
-        if (kVtA) x *= mk;
-        split_tf32(x, h[e], l[e]);
+        if constexpr (kMode == kTf32x3) split_tf32(x[e], h[e], l[e]);
+        else if constexpr (kMode == kTf32) h[e] = tf32_rna(x[e]);
+        else if constexpr (kMode == kBf16)
+          h[e] = pack_bf16(x[2 * e], x[2 * e + 1]);
+        else split_bf16(x[2 * e], x[2 * e + 1], h[e], l[e]);
       }
-      const int off = ((n / 8) * (BK / 4) + kb) * kCoreFloats + (n % 8) * 4;
+      const int off =
+          ((n / 8) * (BK / kPer) + kb) * kCoreFloats + (n % 8) * 4;
       *reinterpret_cast<uint4*>(bhi + off) =
           make_uint4(h[0], h[1], h[2], h[3]);
-      *reinterpret_cast<uint4*>(blo + off) =
-          make_uint4(l[0], l[1], l[2], l[3]);
+      if constexpr (kLo)
+        *reinterpret_cast<uint4*>(blo + off) =
+            make_uint4(l[0], l[1], l[2], l[3]);
     }
   };
 
@@ -396,7 +508,9 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     cp_async_commit();
   }
   // a thread's raw A values of a stage: its warp's 16 rows in wgmma's
-  // fragment layout ([q][e]: row g + 8(e&1), k 8q + t + 4(e>>1))
+  // fragment layout. TF32, [q][e]: row g + 8(e&1), k 8q + t + 4(e>>1).
+  // bf16, [q][e]: element e&1 of register r = 2(q&1) + (e>>1) of the k16
+  // product q>>1, which holds row g + 8(r&1), k 2t + 8(r>>1) and the next
   float araw[BK / 8][4];
   auto load_a = [&](int slot) {
     const float* sA = smem + slot * kStageFloats;
@@ -404,8 +518,10 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     for (int q = 0; q < BK / 8; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = wm + g + (e & 1) * 8;
-        const int col = q * 8 + t + (e >> 1) * 4;
+        const int r = 2 * (q & 1) + (e >> 1);
+        const int row = wm + g + (kBf ? (r & 1) : (e & 1)) * 8;
+        const int col = kBf ? (q >> 1) * 16 + 2 * t + (e & 1) + (r >> 1) * 8
+                            : q * 8 + t + (e >> 1) * 4;
         araw[q][e] = kVtA ? sA[col * LDN + row] : sA[row * LDK + col];
       }
   };
@@ -429,21 +545,60 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
     cp_async_commit();
     const float* bhi = split + buf * 2 * kSplitFloats;
     const float* blo = bhi + kSplitFloats;
+    // the A fragments: TF32, one k8 product's per q; bf16, one k16
+    // product's per q < BK/16 (the rest unused)
     uint32_t ah[BK / 8][4], al[BK / 8][4];
 #pragma unroll
     for (int q = 0; q < BK / 8; ++q)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(araw[q][e], ah[q][e], al[q][e]);
-    wgmma_fence();
+      for (int e = 0; e < 4; ++e) {
+        al[q][e] = 0u;
+        if constexpr (kMode == kTf32x3)
+          split_tf32(araw[q][e], ah[q][e], al[q][e]);
+        else if constexpr (kMode == kTf32) ah[q][e] = tf32_rna(araw[q][e]);
+        else ah[q][e] = 0u;
+      }
+    if constexpr (kBf) {
 #pragma unroll
-    for (int q = 0; q < BK / 8; ++q) {
-      // 8 of k are two core matrices; the small products first, and a
-      // chunk's first product starts the accumulator from zero
-      const uint64_t dh = b_descriptor(bhi + 2 * q * kCoreFloats);
-      const uint64_t dl = b_descriptor(blo + 2 * q * kCoreFloats);
-      wgmma_tf32(part, al[q], dh, q > 0 || since > 0);
-      wgmma_tf32(part, ah[q], dl, 1);
-      wgmma_tf32(part, ah[q], dh, 1);
+      for (int q = 0; q < BK / 16; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float a = araw[2 * q + (r >> 1)][2 * (r & 1)];
+          const float b = araw[2 * q + (r >> 1)][2 * (r & 1) + 1];
+          if constexpr (kMode == kBf16) ah[q][r] = pack_bf16(a, b);
+          else split_bf16(a, b, ah[q][r], al[q][r]);
+        }
+    }
+    wgmma_fence();
+    if constexpr (!kBf) {
+#pragma unroll
+      for (int q = 0; q < BK / 8; ++q) {
+        // 8 of k are two core matrices; the small products first, and a
+        // chunk's first product starts the accumulator from zero
+        const uint64_t dh = b_descriptor(bhi + 2 * q * kCoreFloats);
+        if constexpr (kLo) {
+          const uint64_t dl = b_descriptor(blo + 2 * q * kCoreFloats);
+          wgmma_tf32(part, al[q], dh, q > 0 || since > 0);
+          wgmma_tf32(part, ah[q], dl, 1);
+          wgmma_tf32(part, ah[q], dh, 1);
+        } else {
+          wgmma_tf32(part, ah[q], dh, q > 0 || since > 0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < BK / 16; ++q) {
+        // 16 of k are two core matrices, as above
+        const uint64_t dh = b_descriptor_bf16(bhi + 2 * q * kCoreFloats);
+        if constexpr (kLo) {
+          const uint64_t dl = b_descriptor_bf16(blo + 2 * q * kCoreFloats);
+          wgmma_bf16(part, al[q], dh, q > 0 || since > 0);
+          wgmma_bf16(part, ah[q], dl, 1);
+          wgmma_bf16(part, ah[q], dh, 1);
+        } else {
+          wgmma_bf16(part, ah[q], dh, q > 0 || since > 0);
+        }
+      }
     }
     wgmma_commit();
 
@@ -531,43 +686,69 @@ wy_tc_kernel(const float* __restrict__ P, const float* __restrict__ Q,
   cp_async_wait<0>();
 }
 
-template <bool kVtA>
-int launch_wy_tc(const float* P, const float* Q, const float* mask,
-                 float* out, int M, int N, int K, int kper, int splits,
-                 int chunk, cudaStream_t stream) {
+template <bool kVtA, int kMode>
+int launch_wy_tc_form(const float* P, const float* Q, const float* mask,
+                      float* out, int M, int N, int K, int kper, int splits,
+                      int chunk, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        wy_tc_kernel<kVtA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kTcSmemBytes);
+        wy_tc_kernel<kVtA, kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const long long items =
       (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM) * splits;
   if (items >= INT32_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);
-  wy_tc_kernel<kVtA><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+  wy_tc_kernel<kVtA, kMode><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
       P, Q, mask, out, M, N, K, kper, splits,
       chunk > 0 ? chunk : INT32_MAX);
   return (int)cudaGetLastError();
+}
+
+template <bool kVtA>
+int launch_wy_tc(const float* P, const float* Q, const float* mask,
+                 float* out, int M, int N, int K, int kper, int splits,
+                 int chunk, int mode, cudaStream_t stream) {
+  switch (mode) {
+    case kTf32x3:
+      return launch_wy_tc_form<kVtA, kTf32x3>(P, Q, mask, out, M, N, K,
+                                              kper, splits, chunk, stream);
+    case kTf32:
+      return launch_wy_tc_form<kVtA, kTf32>(P, Q, mask, out, M, N, K, kper,
+                                            splits, chunk, stream);
+    case kBf16:
+      return launch_wy_tc_form<kVtA, kBf16>(P, Q, mask, out, M, N, K, kper,
+                                            splits, chunk, stream);
+    case kBf16x3:
+      return launch_wy_tc_form<kVtA, kBf16x3>(P, Q, mask, out, M, N, K,
+                                              kper, splits, chunk, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// fp32 on the tensor cores. `splits` > 1 splits the reduction into that
-// many parts, written to `part` (splits, b, w) and added in index order;
-// `chunk` is the number of 32-deep stages the wgmma accumulator runs
-// before it is folded with FADD (0: never). Operands that are not 16-byte
-// aligned with b % 4 == w % 4 == 0 are refused (cudaErrorInvalidValue).
-int rl_masked_vt_a_f32(const void* V, const void* A, const void* mask,
-                       void* W, void* part, int m, int b, int w, int splits,
-                       int chunk, void* stream) {
+// fp32 operands on the tensor cores in the form `mode` (0 the three-TF32
+// fp32 design, 1 one TF32 product, 2 one bf16 product, 3 three bf16
+// products). `splits` > 1 splits the reduction into that many parts,
+// written to `part` (splits, b, w) and added in index order; `chunk` is
+// the number of 32-deep stages the wgmma accumulator runs before it is
+// folded with FADD (0: never). Operands that are not 16-byte aligned with
+// b % 4 == w % 4 == 0, and an unknown mode, are refused
+// (cudaErrorInvalidValue).
+int rl_masked_vt_a_mode_f32(const void* V, const void* A, const void* mask,
+                            void* W, void* part, int m, int b, int w,
+                            int splits, int chunk, int mode, void* stream) {
   if (b % 4 || w % 4 || splits < 1 || splits > 65535 || !aligned16(V) ||
-      !aligned16(A) || !aligned16(W) || (splits > 1 && !aligned16(part)))
+      !aligned16(A) || !aligned16(W) || (splits > 1 && !aligned16(part)) ||
+      mode < kTf32x3 || mode > kBf16x3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // each part a whole number of stages, and none of them empty
@@ -575,7 +756,8 @@ int rl_masked_vt_a_f32(const void* V, const void* A, const void* mask,
   splits = (m + kper - 1) / kper;
   const int err = launch_wy_tc<true>(
       (const float*)V, (const float*)A, (const float*)mask,
-      (float*)(splits > 1 ? part : W), b, w, m, kper, splits, chunk, s);
+      (float*)(splits > 1 ? part : W), b, w, m, kper, splits, chunk, mode,
+      s);
   if (err != 0 || splits == 1) return err;
   const size_t n4 = (size_t)b * w / 4;
   add_parts_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
@@ -583,17 +765,18 @@ int rl_masked_vt_a_f32(const void* V, const void* A, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// fp32 on the tensor cores, in place. Operands that are not 16-byte
-// aligned with k % 4 == w % 4 == 0 are refused (cudaErrorInvalidValue).
-int rl_a_minus_vz_masked_f32(void* A, const void* V, const void* Z,
-                             const void* mask, int m, int k, int w,
-                             int chunk, void* stream) {
+// in place, in the form `mode` (as above). Operands that are not 16-byte
+// aligned with k % 4 == w % 4 == 0, and an unknown mode, are refused
+// (cudaErrorInvalidValue).
+int rl_a_minus_vz_masked_mode_f32(void* A, const void* V, const void* Z,
+                                  const void* mask, int m, int k, int w,
+                                  int chunk, int mode, void* stream) {
   if (k % 4 || w % 4 || !aligned16(A) || !aligned16(V) || !aligned16(Z) ||
-      !aligned16(mask))
+      !aligned16(mask) || mode < kTf32x3 || mode > kBf16x3)
     return (int)cudaErrorInvalidValue;
   return launch_wy_tc<false>((const float*)V, (const float*)Z,
                              (const float*)mask, (float*)A, m, w, k, k, 1,
-                             chunk, (cudaStream_t)stream);
+                             chunk, mode, (cudaStream_t)stream);
 }
 
 int rl_masked_vt_a_simt_f32(const void* V, const void* A, const void* mask,

@@ -12,8 +12,10 @@ the trailing update once per g blocks as one k = g·b product.
 * ``bqrrp`` — the explicit form: Q = [Q₁ | Q₂ | …] accumulated directly
   (panels re-projected against the filled basis, BCGS2), the trailing
   update A ← A − Q_panel·(Q_panelᵀA ⊙ live) as plain products (the JAX
-  package computes it in ``jnp``, outside any Pallas kernel), and a final
-  CholQR pass on the finished Q. CQRRPT's sketch QRCP runs this form.
+  package computes it in ``jnp``, outside any Pallas kernel; a
+  ``trailing_precision`` other than "highest" sends its A −= Q·T through
+  K2's form on the card), and a final CholQR pass on the finished Q.
+  CQRRPT's sketch QRCP runs this form.
 * ``bqrrp_factored`` — the factored (block-WY, implicit-Q) form: the
   LAPACK ``orhr_col`` Householder reconstruction and the masked WY
   trailing update through the kernels K1–K3.
@@ -41,7 +43,7 @@ from ..ops.cholqr import (_cholesky, _finite_scaled, _pow2, cholqr,
 from ..ops.householder import orhr_col
 from ..ops.qr import lu_pivot_columns, qr_econ
 from ..ops.wy import (_require_highest, a_minus_vz_masked_mixed,
-                      masked_vt_a_mixed)
+                      masked_vt_a_mixed, trailing_form)
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 
@@ -73,7 +75,21 @@ class BQRRPConfig:
     sketch_r: str = "auto"        # panel preconditioner from the sketch:
                                   # "gram", "qr", "auto" = gram for b ≤ 512
     trailing_precision: str = "highest"
-                                  # only "highest" (true fp32/f64) is ported
+                                  # the trailing-update products (factored:
+                                  # W = Vᵀ·A and the group-end A −= V·Z;
+                                  # explicit: A −= Q·T only), as
+                                  # ``ops.wy.trailing_form`` maps it:
+                                  # "highest" fp32/f64; on a CUDA f32 tensor
+                                  # "high" one TF32 product, "default" one
+                                  # bf16 product, on the CPU and in f64 both
+                                  # as "highest" (XLA's CPU dot ignores the
+                                  # precision, its f64 dot is f64);
+                                  # "bf16_3x_emul" (and any other string)
+                                  # three bf16 products of bf16 hi/lo halves
+                                  # (``ops.wy.bf16_3x_matmul``) everywhere.
+                                  # Panel math, R, T and the sketch
+                                  # downdate run at the driver's precision,
+                                  # on the trailing-updated matrix
     update_defer: int = 1         # blocks per aggregated trailing update
 
 
@@ -98,7 +114,6 @@ def _check_cfg(cfg: BQRRPConfig) -> None:
     if cfg.shard_axis is not None:
         raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
                                   "ported")
-    _require_highest(cfg.trailing_precision)
 
 
 def _select_pivots(Y_m, b, cfg: BQRRPConfig):
@@ -173,11 +188,17 @@ def _safe_triu_diag(R):
     return R - torch.diag(d) + torch.diag(dsafe)
 
 
-def _tp_matmul(X, Y, trailing_precision):
-    """X·Y at the configured trailing precision: only "highest" (true
-    fp32/f64) is ported."""
-    _require_highest(trailing_precision)
-    return X @ Y
+def _tp_subtract(A, X, Y, trailing_precision):
+    """A ← A − X·Y in place (A owned by the caller) with X·Y at the
+    trailing precision — the JAX package's ``A - _tp_matmul(X, Y, ...)``:
+    "highest" (and "high"/"default" where ``trailing_form`` maps them to
+    it) as a plain product; any other form through K2's form with an
+    all-live mask (on the CPU, ``bf16_3x_matmul``)."""
+    if trailing_form(trailing_precision, A) == "highest":
+        A -= X @ Y
+        return A
+    ones = torch.ones(A.shape[1], dtype=A.dtype, device=A.device)
+    return a_minus_vz_masked_mixed(A, X, Y, ones, trailing_precision)
 
 
 def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
@@ -250,7 +271,7 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
             T = T - (Q_panel.T @ Qg) @ Tg
         T = T * live2[None, :]
         if not deferred:
-            A_work -= _tp_matmul(Q_panel, T, cfg.trailing_precision)
+            _tp_subtract(A_work, Q_panel, T, cfg.trailing_precision)
 
         # -- sketch downdate --------------------------------------------
         SQ = torch.linalg.solve_triangular(
@@ -282,7 +303,7 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
                                            Qg, Tg)
             # ONE wide k = g·b trailing update (the per-block GEMM sum,
             # reordered)
-            A_work -= _tp_matmul(Qg, Tg, cfg.trailing_precision)
+            _tp_subtract(A_work, Qg, Tg, cfg.trailing_precision)
 
     # stage-end permutation: pivots (in selection order) to the front,
     # the rest in their relative order, for the next (narrower) window

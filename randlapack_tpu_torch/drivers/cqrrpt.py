@@ -66,7 +66,20 @@ class CQRRPTConfig:
     bqrrp_stages: int = 1         # shrinking-width stages of the sketch
                                   # BQRRP
     bqrrp_pivot_candidates: int | None = None
-    bqrrp_trailing_precision: str = "highest"   # only "highest" ported
+    bqrrp_trailing_precision: str = "highest"
+                                  # the sketch BQRRP's trailing-update
+                                  # product (qrcp == bqrrp, passed to its
+                                  # ``BQRRPConfig.trailing_precision``:
+                                  # "highest"; on a CUDA f32 tensor "high"
+                                  # one TF32 and "default" one bf16 product
+                                  # through K2's form, as "highest" on the
+                                  # CPU and in f64; "bf16_3x_emul" three
+                                  # bf16 products). Its R rows are
+                                  # computed at the driver's precision but
+                                  # from the trailing-updated matrix, so
+                                  # they carry the mode's error into the
+                                  # preconditioner (a one-product mode
+                                  # breaks config 3's; ROADMAP §3)
     bqrrp_update_defer: int = 1
     eps_rank: float | None = None  # rank threshold (None → machine eps)
     orthogonalization: bool = False  # complete a rank-deficient basis to

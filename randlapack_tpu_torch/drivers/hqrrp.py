@@ -21,7 +21,10 @@ JAX ``fori_loop``s become Python loops; every per-block quantity
 (pivots, sigma, the ``fail`` flag) stays on the device, so the blocks run
 without a host round trip. The trailing GEMMs are ``torch.matmul`` /
 ``addmm`` (the JAX package computes them outside any Pallas kernel), and
-update the driver's own copy of A in place.
+update the driver's own copy of A in place. A ``trailing_precision``
+other than "highest" sends the two the JAX package computes at that
+precision — W = Vᵀ·(A ⊙ live) and the trailing update A − V·(U ⊙ live)
+— through K1's and K2's forms on the card (``ops.wy.trailing_form``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from ..ops.cholqr import cholqr2
 from ..ops.householder import apply_reflectors, orhr_col
 from ..ops.qr import wy_T
 from ..ops.qrcp import qrcp_panel_routed, qrcp_select_pivots_routed
-from ..ops.wy import _require_highest
+from ..ops.wy import (_require_highest, a_minus_vz_masked_mixed,
+                      masked_vt_a_mixed, trailing_form)
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 
@@ -69,7 +73,17 @@ class HQRRPConfig:
     pallas_panel: str = "auto"    # K6 routing: "auto" | "never" (CPU only)
     shard_axis: str | None = None  # TPU mesh sharding: only None is ported
     trailing_precision: str = "highest"
-                                  # only "highest" (true fp32/f64) is ported
+                                  # the trailing-update products W = Vᵀ·A
+                                  # and A −= V·U (``ops.wy.trailing_form``):
+                                  # "highest" fp32/f64; on a CUDA f32 tensor
+                                  # "high" one TF32 product, "default" one
+                                  # bf16 product (K1/K2's forms), on the CPU
+                                  # and in f64 both as "highest";
+                                  # "bf16_3x_emul" (and any other string)
+                                  # three bf16 products of bf16 hi/lo
+                                  # halves. Pivots, panels and the sketch
+                                  # downdate run at the driver's precision,
+                                  # on the trailing-updated matrix
     update_defer: int = 1         # blocks per aggregated trailing update
 
 
@@ -83,7 +97,6 @@ def _check_cfg(cfg: HQRRPConfig, precision, device: torch.device) -> None:
     if cfg.shard_axis is not None:
         raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
                                   "ported")
-    _require_highest(cfg.trailing_precision)
     _require_highest(precision)
 
 
@@ -179,9 +192,14 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
     with _phase("updating_A"):
         live2 = live.clone()
         live2[chosen] = 0.0
-        Wk = Vz.T @ (st.A * live2[None, :])
-        Upd = Vz @ (T.T @ Wk)
-        st.A.addcmul_(Upd, live2[None, :], value=-1.0)
+        tp = cfg.trailing_precision
+        if trailing_form(tp, st.A) == "highest":
+            Wk = Vz.T @ (st.A * live2[None, :])
+            Upd = Vz @ (T.T @ Wk)
+            st.A.addcmul_(Upd, live2[None, :], value=-1.0)
+        else:
+            Wk = masked_vt_a_mixed(Vz, st.A, live2, tp)
+            a_minus_vz_masked_mixed(st.A, Vz, T.T @ Wk, live2, tp)
         _sync(st.A)
     with _phase("updating_sketch_g"):
         st.G = st.G - ((st.G @ Vz) @ T) @ Vz.T
@@ -219,7 +237,10 @@ def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
     T, Vz = wy_T(V, taus)
     live2 = live.clone()
     live2[chosen] = 0.0
-    Wk = Vz.T @ (A * live2[None, :])
+    if trailing_form(cfg.trailing_precision, A) == "highest":
+        Wk = Vz.T @ (A * live2[None, :])
+    else:
+        Wk = masked_vt_a_mixed(Vz, A, live2, cfg.trailing_precision)
     if j > 0:
         Wk = Wk - (Vz.T @ Vg) @ (Ug * live2[None, :])
     U = T.T @ Wk
@@ -264,7 +285,12 @@ def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
         Vg, Ug, Hg = agg
         # retired columns hold stale values every read masks out; their
         # final packed values live in Fstk
-        st.A.addmm_(Vg, Ug * (1.0 - st.retired)[None, :], alpha=-1.0)
+        live_end = 1.0 - st.retired
+        if trailing_form(cfg.trailing_precision, st.A) == "highest":
+            st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
+        else:
+            a_minus_vz_masked_mixed(st.A, Vg, Ug * live_end[None, :],
+                                    live_end, cfg.trailing_precision)
         st.G = st.G - Hg @ Vg.T
 
 

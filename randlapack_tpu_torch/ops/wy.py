@@ -17,6 +17,33 @@ two TF32 halves and three TF32 products stand for one fp32 product
 arithmetic in plain PyTorch, for the tests). f64, and f32 operands that
 are not 16-byte aligned with row lengths in multiples of 4, take the
 SIMT kernels of the same file.
+
+The drivers' ``trailing_precision`` (the JAX package's ``_tp_matmul``
+and ``masked_vt_a_mixed``/``a_minus_vz_masked_mixed``) picks the form of
+the trailing products, ``trailing_form``:
+
+====================  ==========================  ==========================
+mode                  CPU (as XLA's CPU backend)  CUDA f32
+====================  ==========================  ==========================
+"highest"             fp32/f64 products           K1/K2 as above (3xTF32)
+"high"                as "highest" (XLA's CPU     one TF32 product (HIGH's
+                      dot ignores the precision)  alias is "tensorfloat32")
+"default"             as "highest"                one bf16 product, fp32
+                                                  accumulation (DEFAULT's
+                                                  alias is "bfloat16")
+"bf16_3x_emul", any   ``bf16_3x_matmul``          three bf16 products of the
+other string                                      same halves
+====================  ==========================  ==========================
+
+On the card in f64, "high" and "default" take the f64 kernels "highest"
+takes (XLA computes f64 dots in f64 whatever the precision), and
+"bf16_3x_emul" forms its halves from the f64 values, as the JAX function
+does, and runs the bf16 form three times on them. A CUDA f32 tensor in a
+form other than "highest" launches that form (``masked_vt_a_form``,
+``a_minus_vz_masked_form``, counted under ``LAUNCHES["…_tf32"]``,
+``["…_bf16"]``, ``["…_bf16x3"]``) or raises; the ``*_reference``
+functions of each form are its arithmetic in plain PyTorch, for the
+tests.
 """
 from __future__ import annotations
 
@@ -32,7 +59,15 @@ from ..errors import require
 # ``_simt`` ones count every launch of the f32 SIMT bodies, by their own
 # wrappers or as K1/K2's guarded path
 LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0,
-            "masked_vt_a_simt": 0, "a_minus_vz_masked_simt": 0}
+            "masked_vt_a_simt": 0, "a_minus_vz_masked_simt": 0,
+            "masked_vt_a_tf32": 0, "masked_vt_a_bf16": 0,
+            "masked_vt_a_bf16x3": 0, "a_minus_vz_masked_tf32": 0,
+            "a_minus_vz_masked_bf16": 0, "a_minus_vz_masked_bf16x3": 0}
+
+# the trailing-precision forms of the tensor-core kernel (``mode`` of the
+# ``rl_*_mode_f32`` entry points of csrc/wy.cu; 0 is the 3xTF32 form)
+FORMS = ("tf32", "bf16", "bf16x3")
+_FORM_MODES = {"tf32": 1, "bf16": 2, "bf16x3": 3}
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 _MAX_GRID_Y = 65535 * 64        # rows of 64-row tiles the grid can hold
@@ -44,6 +79,14 @@ _MIN_SPLIT_DEPTH = 512          # least reduction length of one part of K1
 # after every stage costs up to 5 % of the time and keeps the error at
 # 2-5e-7, within that of cuBLAS's fp32 product from 36 terms to 65536
 CHUNK = 1
+# The trailing-precision forms restart their accumulator every stage too.
+# Measured at the main path's shapes (K1 m 8192, K2 k 1024, NVIDIA H100):
+# never restarting would cost the one-product forms under 0.3 % of their
+# error against the f64 product (the operands' rounding, 2⁻¹¹ or 2⁻⁸,
+# dwarfs the truncation) and save 3-7 % of their time, but move them
+# 2.3e-5 of max|W| from their plain versions, where the restarted forms
+# stay within fp32 summation (1e-6); three bf16 products would err 6.4x
+# more (2.85e-5 against 4.45e-6 for K1)
 
 
 def masked_vt_a_reference(V, A, mask):
@@ -56,23 +99,27 @@ def a_minus_vz_masked_reference(A, V, Z, mask):
     return A - (V @ Z) * mask[None, :]
 
 
+def _tf32_rna(t):
+    """t (float32) rounded to TF32 (10 mantissa bits, the low 13 bits
+    zero), to nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds
+    on the card; NaN stays NaN."""
+    require(t.dtype == torch.float32, "TF32 rounding takes float32")
+    bits = t.contiguous().view(torch.int32)
+    # sign-magnitude: adding half a unit to the bit pattern rounds the
+    # magnitude, ties away; a carry into the exponent is the right power
+    # of two (or Inf)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(t), t, r)
+
+
 def _split_tf32(x):
-    """x (float32) as hi + lo, both TF32 values (10 mantissa bits, the low
-    13 bits zero): hi is x rounded to nearest, ties away from zero, lo the
-    same of x − hi, as ``cvt.rna.tf32.f32`` rounds on the card. hi + lo
-    equals x within 2⁻²¹|x|; ±Inf gives lo = NaN, NaN stays NaN."""
+    """x (float32) as hi + lo, both TF32 values: hi is x rounded to
+    nearest, ties away from zero, lo the same of x − hi (``_tf32_rna``).
+    hi + lo equals x within 2⁻²¹|x|; ±Inf gives lo = NaN, NaN stays
+    NaN."""
     require(x.dtype == torch.float32, "the TF32 split takes float32")
-
-    def rna(t):
-        bits = t.contiguous().view(torch.int32)
-        # sign-magnitude: adding half a unit to the bit pattern rounds the
-        # magnitude, ties away; a carry into the exponent is the right
-        # power of two (or Inf)
-        r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-        return torch.where(torch.isnan(t), t, r)
-
-    hi = rna(x)
-    return hi, rna(x - hi)
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
 
 
 def _three_products(P, Q):
@@ -93,6 +140,70 @@ def a_minus_vz_masked_split_reference(A, V, Z, mask):
     """K2 as the f32 tensor-core kernel computes it, in plain PyTorch
     (out of place)."""
     return A - _three_products(V, Z) * mask[None, :]
+
+
+def _bf16_halves(x):
+    """x as bf16 hi + lo: hi = x rounded to bf16 (to nearest even; from
+    f64 through f32, as XLA and PyTorch both convert), lo the same of
+    x − hi, both returned in x's type. ±Inf gives lo = NaN."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def bf16_3x_matmul(X, Y):
+    """X·Y as the JAX package's ``bf16_3x_matmul`` (``randlapack_tpu/ops/
+    pallas_wy.py:37``) computes it, on any device: bf16 hi and lo halves
+    of each operand, hi·hi + (hi·lo + lo·hi) with bf16 inputs and fp32
+    accumulation (products of bf16 values are exact in fp32, so an fp32
+    product of the halves is that arithmetic up to summation order), cast
+    back to the operands' type."""
+    xh, xl = (t.float() for t in _bf16_halves(X))
+    yh, yl = (t.float() for t in _bf16_halves(Y))
+    return (xh @ yh + (xh @ yl + xl @ yh)).to(X.dtype)
+
+
+def _round_form(x, form):
+    """x's values as the one-product form ``form`` feeds them to the
+    tensor cores: TF32 by ``cvt.rna``, or bf16 to nearest even."""
+    if form == "tf32":
+        return _tf32_rna(x)
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def masked_vt_a_tf32_reference(V, A, mask):
+    """K1's "high" form in plain PyTorch: V and A ⊙ mask rounded to TF32,
+    then their fp32 product (TF32 off)."""
+    return _round_form(V, "tf32").T @ _round_form(A * mask[None, :], "tf32")
+
+
+def masked_vt_a_bf16_reference(V, A, mask):
+    """K1's "default" form in plain PyTorch: V and A ⊙ mask rounded to
+    bf16, then their fp32 product."""
+    return _round_form(V, "bf16").T @ _round_form(A * mask[None, :], "bf16")
+
+
+def masked_vt_a_bf16x3_reference(V, A, mask):
+    """K1's "bf16_3x_emul" form in plain PyTorch: ``bf16_3x_matmul`` of
+    Vᵀ and A ⊙ mask, as ``masked_vt_a_mixed`` of the JAX package."""
+    return bf16_3x_matmul(V.T, A * mask[None, :])
+
+
+def a_minus_vz_masked_tf32_reference(A, V, Z, mask):
+    """K2's "high" form in plain PyTorch (out of place)."""
+    return A - (_round_form(V, "tf32") @ _round_form(Z, "tf32")) \
+        * mask[None, :]
+
+
+def a_minus_vz_masked_bf16_reference(A, V, Z, mask):
+    """K2's "default" form in plain PyTorch (out of place)."""
+    return A - (_round_form(V, "bf16") @ _round_form(Z, "bf16")) \
+        * mask[None, :]
+
+
+def a_minus_vz_masked_bf16x3_reference(A, V, Z, mask):
+    """K2's "bf16_3x_emul" form in plain PyTorch (out of place), as
+    ``a_minus_vz_masked_mixed`` of the JAX package."""
+    return A - bf16_3x_matmul(V, Z) * mask[None, :]
 
 
 def _check_kernel_operands(mats, mask):
@@ -171,20 +282,17 @@ def masked_vt_a(V, A, mask, chunk=None):
     ``takes_tensor_cores`` refuses, run on the SIMT kernel."""
     from .. import _build
     m, b, w = _check_vt_a(V, A, mask)
-    W = torch.empty((b, w), dtype=A.dtype, device=A.device)
     if not (m and b and w):
-        return W.zero_()
-    if takes_tensor_cores(V, A, W):
-        splits = masked_vt_a_splits(m, b, w, _sm_count(A.device.index))
-        part = torch.empty((splits if splits > 1 else 0, b, w),
-                           dtype=A.dtype, device=A.device)
-        _build.call("rl_masked_vt_a", W, V, A, mask, W, part, m, b, w,
-                    splits, CHUNK if chunk is None else chunk)
-    elif A.dtype == torch.float32:
-        _build.call("rl_masked_vt_a_simt", W, V, A, mask, W, m, b, w)
-        LAUNCHES["masked_vt_a_simt"] += 1
+        return torch.zeros((b, w), dtype=A.dtype, device=A.device)
+    if takes_tensor_cores(V, A):
+        W = _tc_masked_vt_a(V, A, mask, 0, chunk)
     else:
-        _build.call("rl_masked_vt_a", W, V, A, mask, W, m, b, w)
+        W = torch.empty((b, w), dtype=A.dtype, device=A.device)
+        if A.dtype == torch.float32:
+            _build.call("rl_masked_vt_a_simt", W, V, A, mask, W, m, b, w)
+            LAUNCHES["masked_vt_a_simt"] += 1
+        else:
+            _build.call("rl_masked_vt_a", W, V, A, mask, W, m, b, w)
     LAUNCHES["masked_vt_a"] += 1
     return W
 
@@ -204,8 +312,7 @@ def a_minus_vz_masked(A, V, Z, mask, chunk=None):
     if not (m and w and k):
         return A
     if takes_tensor_cores(A, V, Z, mask):
-        _build.call("rl_a_minus_vz_masked", A, A, V, Z, mask, m, k, w,
-                    CHUNK if chunk is None else chunk)
+        _tc_a_minus_vz_masked(A, V, Z, mask, 0, chunk)
     elif A.dtype == torch.float32:
         _build.call("rl_a_minus_vz_masked_simt", A, A, V, Z, mask, m, k, w)
         LAUNCHES["a_minus_vz_masked_simt"] += 1
@@ -240,6 +347,126 @@ def a_minus_vz_masked_simt(A, V, Z, mask):
         _build.call("rl_a_minus_vz_masked_simt", A, A, V, Z, mask, m, k, w)
         LAUNCHES["a_minus_vz_masked_simt"] += 1
     return A
+
+
+def _padded(t, cols=None):
+    """t itself where the tensor-core kernels take it (16-byte aligned,
+    ``cols`` long rows, a multiple of 4), else a zero-padded copy of it
+    with rows of ``cols`` (default: t's row length rounded up to 4)."""
+    n = t.shape[-1]
+    cols = -(-n // 4) * 4 if cols is None else cols
+    if n == cols and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((*t.shape[:-1], cols), dtype=t.dtype, device=t.device)
+    out[..., :n] = t
+    return out
+
+
+def _tc_masked_vt_a(V, A, mask, mode, chunk):
+    """K1's tensor-core kernel in the form ``mode`` (0 the 3xTF32 fp32
+    form, ``_FORM_MODES`` the others) on f32 operands, copied into
+    zero-padded aligned ones where the kernel refuses them; returns W."""
+    from .. import _build
+    m, b, w = V.shape[0], V.shape[1], A.shape[1]
+    Vp, Ap = _padded(V), _padded(A)
+    b4, w4 = Vp.shape[1], Ap.shape[1]
+    W = torch.empty((b4, w4), dtype=A.dtype, device=A.device)
+    splits = masked_vt_a_splits(m, b4, w4, _sm_count(A.device.index))
+    part = torch.empty((splits if splits > 1 else 0, b4, w4),
+                       dtype=A.dtype, device=A.device)
+    _build.call("rl_masked_vt_a_mode", W, Vp, Ap, _padded(mask, w4), W, part,
+                m, b4, w4, splits, CHUNK if chunk is None else chunk, mode)
+    return W if (b4, w4) == (b, w) else W[:b, :w].contiguous()
+
+
+def _tc_a_minus_vz_masked(A, V, Z, mask, mode, chunk):
+    """K2's tensor-core kernel in the form ``mode`` on f32 operands, in
+    place, through zero-padded aligned copies where the kernel refuses
+    them (A's copy written back); returns A."""
+    from .. import _build
+    m, k, w = A.shape[0], V.shape[1], A.shape[1]
+    Ap, Vp = _padded(A), _padded(V)
+    w4, k4 = Ap.shape[1], Vp.shape[1]
+    Zp = _padded(Z, w4)
+    if k4 != k:
+        Zp = torch.cat([Zp, Zp.new_zeros((k4 - k, w4))])
+    _build.call("rl_a_minus_vz_masked_mode", Ap, Ap, Vp, Zp,
+                _padded(mask, w4), m, k4, w4,
+                CHUNK if chunk is None else chunk, mode)
+    if Ap is not A:
+        A.copy_(Ap[:, :w])
+    return A
+
+
+def masked_vt_a_form(V, A, mask, form, chunk=None):
+    """K1 on the card in the trailing-precision form ``form`` ("tf32",
+    "bf16" or "bf16x3"; ``FORMS``), f32 only: W = Vᵀ·(A ⊙ mask) with the
+    mask multiplied into the A tile as it is loaded, each product on the
+    tensor cores as the form says (``masked_vt_a_<form>_reference`` is its
+    arithmetic), the accumulator restarted every ``chunk`` stages as in
+    ``masked_vt_a``. Operands that ``takes_tensor_cores`` refuses are
+    copied into zero-padded aligned ones first. The finite/non-finite
+    pattern of W is the plain version's."""
+    m, b, w = _check_vt_a(V, A, mask)
+    require(A.dtype == torch.float32, f"the {form!r} form takes float32")
+    if not (m and b and w):
+        return torch.zeros((b, w), dtype=A.dtype, device=A.device)
+    W = _tc_masked_vt_a(V, A, mask, _FORM_MODES[form], chunk)
+    LAUNCHES[f"masked_vt_a_{form}"] += 1
+    return W
+
+
+def a_minus_vz_masked_form(A, V, Z, mask, form, chunk=None):
+    """K2 on the card in the trailing-precision form ``form``, f32 only,
+    IN PLACE: A ← A − (V·Z) ⊙ mask (``a_minus_vz_masked_<form>_reference``
+    is its arithmetic; ``chunk`` as in ``masked_vt_a``); returns A. Any k;
+    operands that ``takes_tensor_cores`` refuses are copied into
+    zero-padded aligned ones first. The finite/non-finite pattern of A is
+    the plain version's."""
+    m, k, w = _check_a_minus_vz(A, V, Z, mask)
+    require(A.dtype == torch.float32, f"the {form!r} form takes float32")
+    if m and w and k:
+        _tc_a_minus_vz_masked(A, V, Z, mask, _FORM_MODES[form], chunk)
+        LAUNCHES[f"a_minus_vz_masked_{form}"] += 1
+    return A
+
+
+def _bf16_parts_f32(x):
+    """x's bf16 halves (``_bf16_halves``, formed from x's own values) as
+    float32 tensors, which hold them exactly."""
+    return tuple(t.float().contiguous() for t in _bf16_halves(x))
+
+
+def _masked_vt_a_bf16x3_f64(V, A, mask):
+    """"bf16_3x_emul" of K1 for f64 on the card: the halves formed from
+    the f64 values, then hi·hi + (hi·lo + lo·hi) as three launches of the
+    bf16 form (which leaves bf16 values as they are), cast back."""
+    Vh, Vl = _bf16_parts_f32(V)
+    Ah, Al = _bf16_parts_f32(A * mask[None, :])
+    ones = torch.ones(A.shape[1], dtype=torch.float32, device=A.device)
+
+    def f(X, Y):
+        return masked_vt_a_form(X, Y, ones, "bf16")
+
+    return (f(Vh, Ah) + (f(Vh, Al) + f(Vl, Ah))).to(A.dtype)
+
+
+def _a_minus_vz_masked_bf16x3_f64(A, V, Z, mask):
+    """"bf16_3x_emul" of K2 for f64 on the card, in place: −hi·hi and
+    −(hi·lo + lo·hi) by three launches of the bf16 form on zeroed fp32
+    buffers, then A ← A − (their sum) ⊙ mask in f64."""
+    Vh, Vl = _bf16_parts_f32(V)
+    Zh, Zl = _bf16_parts_f32(Z)
+    m, w = A.shape
+    ones = torch.ones(w, dtype=torch.float32, device=A.device)
+    hh = a_minus_vz_masked_form(
+        torch.zeros((m, w), dtype=torch.float32, device=A.device), Vh, Zh,
+        ones, "bf16")
+    cross = a_minus_vz_masked_form(
+        torch.zeros((m, w), dtype=torch.float32, device=A.device), Vh, Zl,
+        ones, "bf16")
+    a_minus_vz_masked_form(cross, Vl, Zh, ones, "bf16")
+    return A.sub_((-(hh + cross)).to(A.dtype) * mask[None, :])
 
 
 def _device_route(t):
@@ -287,14 +514,47 @@ def _require_highest(trailing_precision):
             "(true fp32/f64 products) is ported")
 
 
+def trailing_form(trailing_precision, t):
+    """The form a trailing product at ``trailing_precision`` takes for the
+    tensor ``t`` (the module's table): "highest" (the routed K1/K2 and
+    plain products), "tf32", "bf16" or "bf16x3"."""
+    if trailing_precision == "highest":
+        return "highest"
+    if trailing_precision in ("high", "default"):
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            return "highest"
+        return "tf32" if trailing_precision == "high" else "bf16"
+    return "bf16x3"
+
+
 def masked_vt_a_mixed(V, A, mask, trailing_precision="highest"):
-    """W = Vᵀ·(A ⊙ mask) at the configured trailing precision."""
-    _require_highest(trailing_precision)
-    return masked_vt_a_routed(V, A, mask)
+    """W = Vᵀ·(A ⊙ mask) at the trailing precision (``trailing_form``): on
+    a CUDA tensor the K1 form, on the CPU the plain product or, for
+    "bf16_3x_emul", ``bf16_3x_matmul``."""
+    form = trailing_form(trailing_precision, A)
+    if form == "highest":
+        return masked_vt_a_routed(V, A, mask)
+    if not _device_route(A):
+        return masked_vt_a_bf16x3_reference(V, A, mask)
+    if A.dtype == torch.float64:
+        return _masked_vt_a_bf16x3_f64(V, A, mask)
+    return masked_vt_a_form(V.contiguous(), A.contiguous(),
+                            mask.contiguous(), form)
 
 
 def a_minus_vz_masked_mixed(A, V, Z, mask, trailing_precision="highest"):
-    """A ← A − (V·Z) ⊙ mask (in place) at the configured trailing
-    precision."""
-    _require_highest(trailing_precision)
-    return a_minus_vz_masked_routed(A, V, Z, mask)
+    """A ← A − (V·Z) ⊙ mask IN PLACE (the caller must own A) at the
+    trailing precision (``trailing_form``): on a CUDA tensor the K2 form,
+    on the CPU the plain update or, for "bf16_3x_emul",
+    ``bf16_3x_matmul``'s."""
+    form = trailing_form(trailing_precision, A)
+    if form == "highest":
+        return a_minus_vz_masked_routed(A, V, Z, mask)
+    if not _device_route(A):
+        return A.copy_(a_minus_vz_masked_bf16x3_reference(A, V, Z, mask))
+    require(A.is_contiguous(), "A must be contiguous for the in-place "
+            "update")
+    if A.dtype == torch.float64:
+        return _a_minus_vz_masked_bf16x3_f64(A, V, Z, mask)
+    return a_minus_vz_masked_form(A, V.contiguous(), Z.contiguous(),
+                                  mask.contiguous(), form)

@@ -203,10 +203,21 @@ def test_timing_dict():
 @pytest.mark.parametrize("field,value,exc", [
     ("pallas_trailing", "never", NotImplementedError),
     ("shard_axis", "rows", NotImplementedError),
-    ("trailing_precision", "default", NotImplementedError),
+    # refused until the trailing modes were ported (the id is kept): now
+    # it runs, and on the CPU "default" is the "highest" product
+    pytest.param("trailing_precision", "default", None,
+                 id="trailing_precision-default-NotImplementedError"),
 ])
 def test_tpu_only_options_refused(field, value, exc):
     A = torch.eye(8, dtype=torch.float64)
+    if exc is None:
+        A = torch.tensor(_gen(96, 80, MatType.polynomial, cond_num=1e4))
+        runs = [bqrrp_factored(A, BQRRPConfig(block_size=16, update_defer=2,
+                                              **kw), rt.RNGState(0))[0]
+                for kw in ({field: value}, {})]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        assert not bool(runs[0].fail)
+        return
     with pytest.raises(exc):
         bqrrp_factored(A, BQRRPConfig(block_size=4, **{field: value}),
                        rt.RNGState(0))

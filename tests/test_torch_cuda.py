@@ -37,7 +37,16 @@ product, K2 on a copy): one launch of each, A unchanged, within 1e-4
 squares slice (no kernel): spls in f64 against the CPU with one SASO,
 iterations within 1, x within 100·κ·eps (LSQR to its stall stop) or
 10·κ²·eps (PCG), κ 1e3; the solver operators' device and host solves
-within 1e-12 (f64) / 1e-5 (f32) of the CPU's largest entry."""
+within 1e-12 (f64) / 1e-5 (f32) of the CPU's largest entry. The
+trailing-precision forms of K1/K2 (one TF32, one bf16, three bf16
+products): within 1e-5 of the largest entry of their plain versions
+(the same rounded operands, fp32 sums in another order), at most 2x the
+plain version's error against the f64 product, two launches bit-equal,
+the plain version's finite/non-finite pattern; "bf16_3x_emul" in f64
+(three bf16 launches on halves of the f64 values) within 1e-5 of the
+CPU's ``bf16_3x_matmul``; the drivers launch their mode's forms and no
+"highest" K1/K2, and hold the residual to the mode's gate
+(``_MODE_RES``)."""
 import numpy as np
 import pytest
 import torch
@@ -46,7 +55,8 @@ import randlapack_tpu_torch as rt
 from randlapack_tpu_torch.drivers import (BQRRPConfig, CQRRPTConfig,
                                           CQRRTConfig, HQRRPConfig, PanelQR,
                                           QRCPKind, SketchKind,
-                                          bqrrp_factored, bqrrp_q, cqrrpt,
+                                          bqrrp, bqrrp_factored, bqrrp_q,
+                                          cqrrpt,
                                           cqrrt, hqrrp)
 from randlapack_tpu_torch.ops import kernels as tk
 from randlapack_tpu_torch.ops import lu as tlu
@@ -355,7 +365,10 @@ def test_cuda_path_goes_through_the_kernels(cuda):
     # 5 blocks, update groups of 2 + 2 + 1
     assert twy.LAUNCHES == {"masked_vt_a": 5, "a_minus_vz_masked": 3,
                             "masked_vt_a_simt": 0,
-                            "a_minus_vz_masked_simt": 0}
+                            "a_minus_vz_masked_simt": 0,
+                            **{f"{k}_{f}": 0 for f in twy.FORMS
+                               for k in ("masked_vt_a",
+                                         "a_minus_vz_masked")}}
     assert tlu.LAUNCHES == {"getrfnp": 5, "getrfnp_flat": 0}
     fc, _ = bqrrp_factored(torch.tensor(A), BQRRPConfig(**kw),
                            rt.RNGState(2), sketch=S)
@@ -1405,3 +1418,149 @@ def test_solver_linops_on_the_card_against_the_cpu(cuda, kind):
                 assert got.is_cuda and got.dtype == dtype
                 assert float((got.cpu() - ref).abs().max()) \
                     <= tol * float(ref.abs().max())
+
+
+# -- the trailing-precision forms of K1/K2 ------------------------------------
+
+_FORM_REFS = {
+    "tf32": (twy.masked_vt_a_tf32_reference,
+             twy.a_minus_vz_masked_tf32_reference),
+    "bf16": (twy.masked_vt_a_bf16_reference,
+             twy.a_minus_vz_masked_bf16_reference),
+    "bf16x3": (twy.masked_vt_a_bf16x3_reference,
+               twy.a_minus_vz_masked_bf16x3_reference)}
+_MODE_OF_FORM = {"tf32": "high", "bf16": "default", "bf16x3": "bf16_3x_emul"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", twy.FORMS)
+@pytest.mark.parametrize("m,w,k", [(64, 64, 64), (3000, 1900, 200),
+                                   (1, 1, 1), (513, 1025, 1024),
+                                   (8192, 512, 256)])
+def test_wy_forms_match_plain(cuda, form, m, w, k):
+    """Each form of K1 and K2 against its plain version, through the
+    mixed functions a driver calls; (1, 1, 1) and (513, 1025, 1024) go
+    through the zero-padded copies."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(m, w, k, m + w + 1))
+    ref1, ref2 = _FORM_REFS[form]
+    tp = _MODE_OF_FORM[form]
+    n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a_mixed(V, A, mask, tp)
+    Wp = ref1(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-5 * float(Wp.abs().max())
+    assert torch.equal(W, twy.masked_vt_a_mixed(V, A, mask, tp))
+    Ap = ref2(A, V, Z, mask)
+    Ak = twy.a_minus_vz_masked_mixed(A.clone(), V, Z, mask, tp)
+    assert float((Ak - Ap).abs().max()) <= 1e-5 * float(Ap.abs().max())
+    assert torch.equal(Ak, twy.a_minus_vz_masked_mixed(A.clone(), V, Z,
+                                                       mask, tp))
+    # against the f64 products: no worse than twice the plain version
+    Vd, Ad, Zd, md = (t.double() for t in (V, A, Z, mask))
+    ref = Vd.T @ (Ad * md)
+    assert _relf(W, ref) <= 2 * max(_relf(Wp, ref), 2.0 ** -24)
+    ref = Ad - (Vd @ Zd) * md
+    assert _relf(Ak, ref) <= 2 * max(_relf(Ap, ref), 2.0 ** -24)
+    assert twy.LAUNCHES == {**n0,
+                            f"masked_vt_a_{form}":
+                            n0[f"masked_vt_a_{form}"] + 2,
+                            f"a_minus_vz_masked_{form}":
+                            n0[f"a_minus_vz_masked_{form}"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", twy.FORMS)
+def test_wy_forms_keep_the_non_finite_pattern(cuda, form):
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(256, 132, 64, 5))
+    V[3, 5] = float("inf")
+    A[7, 11] = float("nan")
+    Z[2, 40] = float("-inf")
+    ref1, ref2 = _FORM_REFS[form]
+    W = twy.masked_vt_a_form(V, A, mask, form)
+    assert torch.equal(torch.isfinite(W), torch.isfinite(ref1(V, A, mask)))
+    Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, form)
+    assert torch.equal(torch.isfinite(Ak),
+                       torch.isfinite(ref2(A, V, Z, mask)))
+
+
+@pytest.mark.cuda
+def test_wy_forms_refuse_f64_and_cpu_tensors(cuda):
+    V, A, Z, mask = (torch.tensor(x, device=cuda)
+                     for x in _wy_operands(64, 64, 8, 2))
+    with pytest.raises(rt.errors.RandLAPACKError):
+        twy.masked_vt_a_form(V, A, mask, "tf32")
+    with pytest.raises(rt.errors.RandLAPACKError):
+        twy.a_minus_vz_masked_form(A.float().cpu(), V.float().cpu(),
+                                   Z.float().cpu(), mask.float().cpu(),
+                                   "bf16")
+
+
+@pytest.mark.cuda
+def test_bf16x3_in_f64_takes_the_bf16_form_on_f64_halves(cuda):
+    V, A, Z, mask = (torch.tensor(x) for x in _wy_operands(300, 200, 64, 4))
+    n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a_mixed(V.to(cuda), A.to(cuda), mask.to(cuda),
+                              "bf16_3x_emul")
+    Wc = twy.masked_vt_a_mixed(V, A, mask, "bf16_3x_emul")
+    assert W.dtype == torch.float64
+    assert float((W.cpu() - Wc).abs().max()) <= 1e-5 * float(Wc.abs().max())
+    Ak = twy.a_minus_vz_masked_mixed(A.to(cuda), V.to(cuda), Z.to(cuda),
+                                     mask.to(cuda), "bf16_3x_emul")
+    Ac = twy.a_minus_vz_masked_mixed(A.clone(), V, Z, mask, "bf16_3x_emul")
+    assert float((Ak.cpu() - Ac).abs().max()) <= 1e-5 * float(Ac.abs().max())
+    assert twy.LAUNCHES == {**n0,
+                            "masked_vt_a_bf16": n0["masked_vt_a_bf16"] + 3,
+                            "a_minus_vz_masked_bf16":
+                            n0["a_minus_vz_masked_bf16"] + 3}
+    # "high" and "default" in f64 are the f64 kernels of "highest"
+    n0 = dict(twy.LAUNCHES)
+    for tp in ("high", "default"):
+        assert torch.equal(
+            twy.masked_vt_a_mixed(V.to(cuda), A.to(cuda), mask.to(cuda), tp),
+            twy.masked_vt_a_mixed(V.to(cuda), A.to(cuda), mask.to(cuda)))
+    assert twy.LAUNCHES == {**n0, "masked_vt_a": n0["masked_vt_a"] + 4}
+
+
+# residual gates of the f32 drivers in each mode (PERF.md §2): twice the
+# unit roundoff of the operands the mode's trailing products round to,
+# TF32 2⁻¹¹, bf16 2⁻⁸, and for three bf16 products the dropped lo·lo term,
+# 2⁻¹⁶ (an operand rounded once errs by up to u, uniformly, so a product of
+# two by about 0.8·u, which the first trailing updates leave in R)
+_MODE_RES = {"high": 2 * 2.0 ** -11, "default": 2 * 2.0 ** -8,
+             "bf16_3x_emul": 2 * 2.0 ** -16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", ["high", "default", "bf16_3x_emul"])
+def test_drivers_take_their_mode_forms(cuda, tp):
+    """bqrrp_factored, the explicit bqrrp and hqrrp in f32 launch their
+    mode's K1/K2 forms (5 K1 and 3 K2 at 5 blocks in groups of 2) and no
+    "highest" K1/K2, with ``fail`` False and the residual within the
+    mode's gate."""
+    form = {"high": "tf32", "default": "bf16"}.get(tp, "bf16x3")
+    A, st = rt.gen.fast_decay_matrix(640, 320, rt.RNGState(3), device=cuda)
+    zero = dict.fromkeys(twy.LAUNCHES, 0)
+    cfgs = (
+        (lambda: bqrrp_factored(A, BQRRPConfig(
+            block_size=64, pivot_candidates=2, update_defer=2,
+            trailing_precision=tp), st)[0], 5, 3),
+        (lambda: bqrrp(A, BQRRPConfig(
+            block_size=64, update_defer=2, trailing_precision=tp), st),
+         0, 3),
+        (lambda: hqrrp(A, HQRRPConfig(block_size=64, update_defer=2,
+                                      trailing_precision=tp), st), 5, 3),
+        (lambda: hqrrp(A, HQRRPConfig(block_size=64, update_defer=1,
+                                      trailing_precision=tp), st), 5, 5))
+    for run, k1, k2 in cfgs:
+        twy.LAUNCHES.update(zero)
+        out = run()
+        torch.cuda.synchronize()
+        assert twy.LAUNCHES == {**zero, f"masked_vt_a_{form}": k1,
+                                f"a_minus_vz_masked_{form}": k2}
+        if hasattr(out, "V"):                 # the factored form
+            Q, R, J, fail = bqrrp_q(out), out.R, out.J, out.fail
+        else:
+            Q, R, J, _, fail, _ = out
+        res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
+        assert not bool(fail) and res <= _MODE_RES[tp], res

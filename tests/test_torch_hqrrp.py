@@ -218,12 +218,25 @@ def test_float32_headline_config_gates():
 
 @pytest.mark.parametrize("field,value,exc", [
     ("shard_axis", "rows", NotImplementedError),
-    ("trailing_precision", "default", NotImplementedError),
+    # refused until the trailing modes were ported (the id is kept): now
+    # it runs, and on the CPU "default" is the "highest" product
+    pytest.param("trailing_precision", "default", None,
+                 id="trailing_precision-default-NotImplementedError"),
     ("pallas_qrcp", "always", RandLAPACKError),
     ("pallas_panel", "always", RandLAPACKError),
 ])
 def test_unported_options_refused(field, value, exc):
     A = torch.eye(16, dtype=torch.float64)
+    if exc is None:
+        A, _ = _gen(96, 80, MatType.polynomial, 4, cond_num=1e4)
+        A = torch.tensor(A)
+        for defer in (1, 2):
+            runs = [hqrrp(A, HQRRPConfig(block_size=16, update_defer=defer,
+                                         **kw), rt.RNGState(0))
+                    for kw in ({field: value}, {})]
+            assert all(torch.equal(x, y) for x, y in zip(*runs)
+                       if isinstance(x, torch.Tensor))
+        return
     with pytest.raises(exc):
         hqrrp(A, HQRRPConfig(block_size=4, **{field: value}),
               rt.RNGState(0))

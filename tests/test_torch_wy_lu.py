@@ -152,13 +152,29 @@ def test_routed_updates_in_place_on_cpu():
     assert twy.LAUNCHES == before        # the CPU path launches nothing
 
 
-@pytest.mark.parametrize("tp", ["default", "high", "bf16_3x_emul"])
+@pytest.mark.parametrize("tp", ["default", "high", "bf16_3x_emul",
+                                "no_such_mode"])
 def test_only_highest_trailing_precision(tp):
-    V, A, Z, mask = map(torch.tensor, _wy_operands(8, 8, 2, 3))
-    with pytest.raises(NotImplementedError):
-        twy.masked_vt_a_mixed(V, A, mask, tp)
-    with pytest.raises(NotImplementedError):
-        twy.a_minus_vz_masked_mixed(A, V, Z, mask, tp)
+    """The modes other than "highest" were refused before they were
+    ported; now each runs, on the CPU as the JAX package's mixed
+    functions do: "high" and "default" are the "highest" products, bit for
+    bit, and "bf16_3x_emul" (like any other string) ``bf16_3x_matmul``,
+    within fp32 accumulation (1e-6) of the JAX function."""
+    V, A, Z, mask = _wy_operands(8, 8, 2, 3)
+    Vt, At, Zt, mt = map(torch.tensor, (V, A, Z, mask))
+    W = twy.masked_vt_a_mixed(Vt, At, mt, tp)
+    Wj = jwy.masked_vt_a_mixed(*map(jnp.asarray, (V, A, mask)), tp)
+    A2 = twy.a_minus_vz_masked_mixed(At.clone(), Vt, Zt, mt, tp)
+    Aj = jwy.a_minus_vz_masked_mixed(*map(jnp.asarray, (A, V, Z, mask)), tp)
+    if tp in ("default", "high"):
+        assert torch.equal(W, twy.masked_vt_a_mixed(Vt, At, mt))
+        assert torch.equal(A2, twy.a_minus_vz_masked_mixed(At.clone(), Vt,
+                                                           Zt, mt))
+        tol = 1e-12
+    else:
+        assert torch.equal(W, twy.masked_vt_a_bf16x3_reference(Vt, At, mt))
+        tol = 1e-6
+    assert _rel(W, Wj) <= tol and _rel(A2, Aj) <= tol
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
