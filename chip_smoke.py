@@ -80,7 +80,10 @@ low-rank drivers, the operator slice and least squares:
 - the trailing-precision modes (trailing_precision "high", "default",
   "bf16_3x_emul": K1/K2 as one TF32, one bf16 or three bf16 products):
   each form of K1 and K2 against its plain version and the f64 product at
-  the main path's shapes, timed beside the library call and its bound;
+  the main path's shapes, timed beside the library call and its bound
+  (the "tf32" form, csrc/wy_tf32.cu, also in turns with the earlier TF32
+  form, gated faster, with its pre-pass held bit for bit to the plain one
+  and both again at HQRRP's shapes);
   bench.py's BQRRP and HQRRP speed modes at 8192² in each mode, in turns
   with "highest", gated on launches, the mode's residual gate,
   orthogonality and the trailing-norm ratios against LAPACK geqp3 in f64
@@ -124,8 +127,8 @@ NO_LAUNCHES = dict.fromkeys(
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
      "kernel_matmat_simt", "gaussian_sketch_simt",
      "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat",
-     *(f"{k}_{f}" for f in MODES.values()
-       for k in ("masked_vt_a", "a_minus_vz_masked"))), 0)
+     *(f"{k}_{f}" for f in (*MODES.values(), "tf32_ring")
+       for k in ("masked_vt_a", "a_minus_vz_masked")), "tf32_tiles"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -179,6 +182,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "gaussian_sketch": ("randlapack_tpu_torch/csrc/gaussian_sketch.cu",
                         "randlapack_tpu/ops/pallas_kernels.py:125", "op"),
 }
+# K1/K2's "tf32" form (trailing mode "high"): the pre-pass and ring kernels
+TF32_SOURCE = "randlapack_tpu_torch/csrc/wy_tf32.cu"
 # the residual of an f32 factorization whose trailing products run in a
 # mode: at most twice the unit roundoff u of the operands the mode rounds
 # them to (TF32 2^-11, bf16 2^-8; three bf16 products drop lo·lo, 2^-16).
@@ -3518,18 +3523,18 @@ def form_bound(flops: float, nbytes: float, form: str) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def form_library_ms(form: str, fn32, fn_bf16, reps: int):
-    """The library call beside a form: the fp32 call with TF32 allowed
-    (set here and put back) for "tf32", the call on bf16 operands for
-    "bf16", none for "bf16x3" (no one call takes three bf16 products)."""
+def form_library_ms(form: str, fn32, reps: int):
+    """The library call beside a form: for "tf32" the fp32 call with TF32
+    allowed (set here and put back), which takes the kernel's own fp32
+    operands; none for "bf16" (no one call takes fp32 A with bf16
+    products: PyTorch's reduced-precision fp32 products on the card are
+    TF32) and "bf16x3" (nor three bf16 products)."""
     if form == "tf32":
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             return cuda_ms(fn32, reps), "TF32 allowed"
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-    if form == "bf16":
-        return cuda_ms(fn_bf16, reps), "bf16 operands"
     return None, None
 
 
@@ -3540,9 +3545,14 @@ def phase_wy_modes(dev) -> dict:
     sums in another order), its error against the f64 product (<= 2x the
     plain version's; also, printed, with the accumulator never restarted,
     as against every stage, ``wy.CHUNK``), two launches bit-equal, the
-    times of
-    the kernel, the plain version and the library call by CUDA events, and
-    the bound."""
+    times of the kernel, the plain version and the library call by CUDA
+    events, and the bound. The "tf32" form (csrc/wy_tf32.cu) is timed in
+    turns with the earlier TF32 form ("tf32_ring", csrc/wy.cu) and gated
+    faster at both shapes, its pre-pass held bit for bit to
+    ``wy.tf32_tiles_reference``, and both held again at HQRRP's shapes
+    (V 8192x128; K2 k 128 and 512). The bf16 forms have no library call:
+    the bf16-operand call (half of A's bytes, a bf16 A out) is printed
+    beside them as an aside."""
     from randlapack_tpu_torch.ops import wy
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -3552,7 +3562,11 @@ def phase_wy_modes(dev) -> dict:
     A = torch.randn(m, w, generator=g, device=dev)
     mk = (torch.rand(w, generator=g, device=dev) < 0.5).float()
     ref = V.double().T @ (A.double() * mk.double())
-    Vb, Ab = V.bfloat16(), A.bfloat16()
+    T = wy.tf32_tiles(V.T)
+    gate(torch.equal(T.cpu().view(torch.int32),
+                     wy.tf32_tiles_reference(V.T.cpu()).view(torch.int32)),
+         "tf32_tiles of V^T differ from the plain pre-pass")
+    del T
     for form in MODES.values():
         plain = getattr(wy, f"masked_vt_a_{form}_reference")
         W = wy.masked_vt_a_form(V, A, mk, form)
@@ -3570,10 +3584,9 @@ def phase_wy_modes(dev) -> dict:
              f"{e_k}, the plain version's {e_p}")
         ms0, ms = in_turns(
             lambda: wy.masked_vt_a_form(V, A, mk, form, chunk=alt),
-            lambda: wy.masked_vt_a_form(V, A, mk, form), 20)
+            lambda: wy.masked_vt_a_form(V, A, mk, form), 100)
         plain_ms = cuda_ms(lambda: plain(V, A, mk), 10)
-        lib_ms, lib = form_library_ms(form, lambda: torch.mm(V.T, A),
-                                      lambda: torch.mm(Vb.T, Ab), 20)
+        lib_ms, lib = form_library_ms(form, lambda: torch.mm(V.T, A), 100)
         out[f"masked_vt_a_{form}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **form_bound(2 * m * b * w, 4 * (m * b + m * w + w + b * w),
@@ -3584,6 +3597,22 @@ def phase_wy_modes(dev) -> dict:
             err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
             rel_diff_never_restarted=d_0)
         rec = out[f"masked_vt_a_{form}"]
+        extra = ""
+        if form == "tf32":
+            ring_ms, rec["ms_turns"] = in_turns(
+                lambda: wy.masked_vt_a_form(V, A, mk, "tf32_ring"),
+                lambda: wy.masked_vt_a_form(V, A, mk, "tf32"), 100)
+            rec["earlier_form_ms"] = ring_ms
+            extra = (f"; in turns with the earlier form (tf32_ring): "
+                     f"{rec['ms_turns']:.4f} against {ring_ms:.4f} ms")
+            gate(rec["ms_turns"] < ring_ms, f"masked_vt_a_tf32 "
+                 f"{rec['ms_turns']} ms not faster than {ring_ms} ms")
+        elif form == "bf16":
+            Vb, Ab = V.bfloat16(), A.bfloat16()
+            rec["bf16_operands_ms"] = cuda_ms(lambda: torch.mm(Vb.T, Ab), 100)
+            del Vb, Ab
+            extra = (f"; aside, not the same function: torch.mm on bf16 "
+                     f"operands {rec['bf16_operands_ms']:.4f} ms")
         print(f"[wy-modes] masked_vt_a {form} m={m} b={b} w={w}: max|d| "
               f"{err:.3e} (max|plain| {scale:.3e}); error against f64: "
               f"kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
@@ -3592,13 +3621,12 @@ def phase_wy_modes(dev) -> dict:
               f"restarted {ms0:.4f} ms, in turns), plain "
               f"{plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms ({lib})'}"
-              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}){extra}",
               flush=True)
     del W, Wp, ref
     Vk = torch.randn(m, k, generator=g, device=dev)
     Z = torch.randn(k, w, generator=g, device=dev)
     ref = A.double() - (Vk.double() @ Z.double()) * mk.double()
-    Vkb, Zb = Vk.bfloat16(), Z.bfloat16()
     for form in MODES.values():
         plain = getattr(wy, f"a_minus_vz_masked_{form}_reference")
         Ak = wy.a_minus_vz_masked_form(A.clone(), Vk, Z, mk, form)
@@ -3615,15 +3643,13 @@ def phase_wy_modes(dev) -> dict:
              f"a_minus_vz_masked_{form}: two launches differ")
         gate(e_k <= 2 * e_p, f"a_minus_vz_masked_{form}: error against f64 "
              f"{e_k}, the plain version's {e_p}")
-        Abf = Ak.bfloat16()
         ms0, ms = in_turns(
             lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form,
                                               chunk=alt),
-            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form), 10)
+            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form), 20)
         plain_ms = cuda_ms(lambda: plain(A, Vk, Z, mk), 5)
         lib_ms, lib = form_library_ms(
-            form, lambda: Ak.addmm_(Vk, Z, alpha=-1.0),
-            lambda: Abf.addmm_(Vkb, Zb, alpha=-1.0), 10)
+            form, lambda: Ak.addmm_(Vk, Z, alpha=-1.0), 20)
         out[f"a_minus_vz_masked_{form}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **form_bound(2 * m * k * w + 2 * m * w,
@@ -3634,6 +3660,24 @@ def phase_wy_modes(dev) -> dict:
             err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
             rel_diff_never_restarted=d_0)
         rec = out[f"a_minus_vz_masked_{form}"]
+        extra = ""
+        if form == "tf32":
+            ring_ms, rec["ms_turns"] = in_turns(
+                lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk,
+                                                  "tf32_ring"),
+                lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, "tf32"), 20)
+            rec["earlier_form_ms"] = ring_ms
+            extra = (f"; in turns with the earlier form (tf32_ring): "
+                     f"{rec['ms_turns']:.4f} against {ring_ms:.4f} ms")
+            gate(rec["ms_turns"] < ring_ms, f"a_minus_vz_masked_tf32 "
+                 f"{rec['ms_turns']} ms not faster than {ring_ms} ms")
+        elif form == "bf16":
+            Abf, Vkb, Zb = Ak.bfloat16(), Vk.bfloat16(), Z.bfloat16()
+            rec["bf16_operands_ms"] = cuda_ms(
+                lambda: Abf.addmm_(Vkb, Zb, alpha=-1.0), 20)
+            del Abf, Vkb, Zb
+            extra = (f"; aside, not the same function: addmm_ on bf16 "
+                     f"operands {rec['bf16_operands_ms']:.4f} ms")
         print(f"[wy-modes] a_minus_vz_masked {form} m={m} k={k} w={w}: "
               f"max|d| {err:.3e} (max|plain| {scale:.3e}); error against "
               f"f64: kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
@@ -3642,8 +3686,36 @@ def phase_wy_modes(dev) -> dict:
               f"plain "
               f"{plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms ({lib})'}"
-              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}){extra}",
               flush=True)
+    del Ak, Ap, Vk, Z, ref
+    # HQRRP's shapes: V 8192x128 (K1), k 128 and 512 (K2), in turns
+    for kk in (128, 512):
+        Vh = torch.randn(m, kk, generator=g, device=dev)
+        Zh = torch.randn(kk, w, generator=g, device=dev)
+        if kk == 128:
+            W = wy.masked_vt_a_form(Vh, A, mk, "tf32")
+            Wp = wy.masked_vt_a_tf32_reference(Vh, A, mk)
+            err = float((W - Wp).abs().max()) / float(Wp.abs().max())
+            ring_ms, new_ms = in_turns(
+                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32_ring"),
+                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32"), 100)
+            gate(err <= 1e-5, f"masked_vt_a_tf32 b=128: max|d| {err}")
+            print(f"[wy-modes] masked_vt_a tf32 m={m} b={kk} w={w}: max|d| "
+                  f"{err:.2e} of max|plain|; {new_ms:.4f} ms against the "
+                  f"earlier form's {ring_ms:.4f} ms in turns", flush=True)
+            del W, Wp
+        Ak = wy.a_minus_vz_masked_form(A.clone(), Vh, Zh, mk, "tf32")
+        Ap = wy.a_minus_vz_masked_tf32_reference(A, Vh, Zh, mk)
+        err = float((Ak - Ap).abs().max()) / float(Ap.abs().max())
+        gate(err <= 1e-5, f"a_minus_vz_masked_tf32 k={kk}: max|d| {err}")
+        ring_ms, new_ms = in_turns(
+            lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk, "tf32_ring"),
+            lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk, "tf32"), 20)
+        print(f"[wy-modes] a_minus_vz_masked tf32 m={m} k={kk} w={w}: max|d| "
+              f"{err:.2e} of max|plain|; {new_ms:.4f} ms against the "
+              f"earlier form's {ring_ms:.4f} ms in turns", flush=True)
+        del Ak, Ap
     return out
 
 
@@ -3782,7 +3854,9 @@ def phase_bqrrp_speed(dev, card: str) -> dict:
               f"{q['orth']:.3e} (gate {ORTH_GATE:.2e}), fail {q['fail']}, "
               f"pivot ratios against geqp3 [{q['rmin']:.3f}, "
               f"{q['rmax']:.3f}] (band {PIVOT_BAND}); launches "
-              f"{ {c: v for c, v in counts[tp].items() if v} }", flush=True)
+              f"{ {c: v for c, v in counts[tp].items() if v} }, the earlier "
+              f"TF32 form's {counts[tp]['masked_vt_a_tf32_ring']} and "
+              f"{counts[tp]['a_minus_vz_masked_tf32_ring']}", flush=True)
         refused = speed_refusals(tp, q)
         gate(not refused, f"bqrrp {tp}: {refused}")
     q = quality(hi_cfg)
@@ -3869,7 +3943,10 @@ def phase_hqrrp_speed(dev, card: str) -> dict:
               f"{busy:.2f} ms, idle {100 * idle:.1f} %; residual "
               f"{q['res']:.3e} (gate {MODE_RES_GATE[tp]:.3e}), orth "
               f"{q['orth']:.3e}, fail {q['fail']}, pivot ratios against "
-              f"geqp3 [{q['rmin']:.3f}, {q['rmax']:.3f}]", flush=True)
+              f"geqp3 [{q['rmin']:.3f}, {q['rmax']:.3f}]; launches "
+              f"{ {c: v for c, v in counts[tp].items() if v} }, the earlier "
+              f"TF32 form's {counts[tp]['masked_vt_a_tf32_ring']} and "
+              f"{counts[tp]['a_minus_vz_masked_tf32_ring']}", flush=True)
         refused = speed_refusals(tp, q)
         gate(not refused, f"hqrrp {tp}: {refused}")
     SPEED_INPUT.clear()
@@ -4026,6 +4103,8 @@ def main() -> int:
     for tp, form in MODES.items():
         for base in ("masked_vt_a", "a_minus_vz_masked"):
             src, rep, _ = KERNELS[base]
+            if form == "tf32":
+                src = TF32_SOURCE
             name = f"{base}_{form}"
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=rep,

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _D, _U = ctypes.c_double, ctypes.c_uint
+_L = ctypes.c_longlong
 _WY_SIMT = [_P, _P, _P, _P, _I, _I, _I, _P]
 _KMM_SIMT = [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P]
 _SKETCH_SIMT = [_P, _P, _I, _I, _I, _U, _U, _D, _P]
@@ -52,6 +53,16 @@ _SIGNATURES = {
     # (A, V, Z, mask, m, k, w, chunk, mode, stream)
     "rl_a_minus_vz_masked_mode": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _P]},
+    # f32, the TF32 form's ring kernels (csrc/wy_tf32.cu): (V, A, mask, W,
+    # part, vt, m, b, w, splits, chunk, stream) and (A, V, Z, mask, vr, zt,
+    # m, k, w, chunk, stream), the rounded tiles' scratch from the wrapper
+    "rl_masked_vt_a_tf32": {"_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _P]},
+    "rl_a_minus_vz_masked_tf32": {"_f32": [_P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _P]},
+    # their pre-pass alone: (src, out, R, K, row stride, reduction stride,
+    # stream)
+    "rl_tf32_tiles": {"_f32": [_P, _P, _I, _I, _L, _L, _P]},
     # the f32 SIMT kernels, with the f64 forms' arguments
     "rl_masked_vt_a_simt": {"_f32": _WY_SIMT},
     "rl_a_minus_vz_masked_simt": {"_f32": _WY_SIMT},

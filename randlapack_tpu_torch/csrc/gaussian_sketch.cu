@@ -347,23 +347,6 @@ struct Walk {
   }
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// waits until the barrier has left the phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // the address of this block's shared-memory address `addr` in block `rank`
 // of the cluster
 __device__ __forceinline__ uint32_t map_to_block(uint32_t addr, int rank) {
@@ -378,13 +361,6 @@ __device__ __forceinline__ uint32_t map_to_block(uint32_t addr, int rank) {
 __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
   asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
                :: "r"(map_to_block(smem_u32(bar), rank)) : "memory");
-}
-
-// arrives at this block's `bar` and tells it to wait for `bytes` more of
-// bulk copies as well
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
 // `bytes` from this block's `src` to the same place in block `rank`, by the

@@ -1,13 +1,15 @@
 // What the tensor-core kernels of this directory share (wy.cu: K1/K2,
-// gaussian_sketch.cu: K7): the fp32 -> TF32 hi/lo split, cp.async and
-// fence wrappers, wgmma.mma_async.m64n128k8 (tf32 in, fp32 accumulate) with
-// the guard that keeps its register operand live until the wait, and
-// its shared-memory descriptor for a K-major operand in unswizzled core
-// matrices, and the pass that adds the parts of a split reduction in index
-// order. Every kernel that includes this walks its reduction in stages of
-// BK = 32 and keeps the split right operand of a stage as BK x 128 TF32
-// values in core matrices of 8 columns x 16 bytes of k (128 contiguous
-// bytes each, kCoreK bytes to the next one along k, kCoreN along n).
+// wy_tf32.cu: their TF32 form, gaussian_sketch.cu: K7): the fp32 -> TF32
+// hi/lo split, cp.async and fence wrappers, the mbarrier and bulk-copy
+// wrappers of the producer/consumer rings, wgmma.mma_async.m64n128k8 (tf32
+// in, fp32 accumulate) with the guard that keeps its register operand live
+// until the wait, and its shared-memory descriptor for a K-major operand in
+// unswizzled core matrices, and the pass that adds the parts of a split
+// reduction in index order. Every kernel that includes this walks its
+// reduction in stages of BK = 32 and keeps a K-major operand of a stage as
+// 128 x BK TF32 values in core matrices of 8 rows x 16 bytes of k (128
+// contiguous bytes each, kCoreK bytes to the next one along k, kCoreN
+// along the rows).
 
 #pragma once
 
@@ -42,9 +44,65 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// arrives at `bar` once this thread's cp.async copies so far have landed;
+// the arrival is one of the barrier's initial count
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // makes this thread's shared-memory stores visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// makes the barriers this thread initialised visible to the copy engine
+// and to the other threads (before the block's first barrier)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// waits until the barrier has left the phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// arrives at this block's `bar`
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// arrives at this block's `bar` and tells it to wait for `bytes` more of
+// bulk copies as well
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// `src` to this block's shared `dst` by the copy engine; `bar` counts them
+// as they land
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -44,6 +44,16 @@ form other than "highest" launches that form (``masked_vt_a_form``,
 ``["…_bf16"]``, ``["…_bf16x3"]``) or raises; the ``*_reference``
 functions of each form are its arithmetic in plain PyTorch, for the
 tests.
+
+The "tf32" form runs the ring kernels of ``csrc/wy_tf32.cu``: a pre-pass
+rounds the small operands to TF32 once a call into tiles laid out for
+the tensor cores (``tf32_tiles``; ``tf32_tiles_reference`` is its plain
+version), and a producer warpgroup streams them (and K1's A) through
+an mbarrier ring to two consumer warpgroups (``*_tf32_order_reference``
+follow their order of sums). The earlier TF32 form, the "highest" kernel of
+``csrc/wy.cu`` with one TF32 product, stays reachable as the form
+"tf32_ring" (``LAUNCHES["…_tf32_ring"]``), which no driver path takes.
+``FORM_KERNELS`` names the entry point of every form.
 """
 from __future__ import annotations
 
@@ -62,16 +72,29 @@ LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0,
             "masked_vt_a_simt": 0, "a_minus_vz_masked_simt": 0,
             "masked_vt_a_tf32": 0, "masked_vt_a_bf16": 0,
             "masked_vt_a_bf16x3": 0, "a_minus_vz_masked_tf32": 0,
-            "a_minus_vz_masked_bf16": 0, "a_minus_vz_masked_bf16x3": 0}
+            "a_minus_vz_masked_bf16": 0, "a_minus_vz_masked_bf16x3": 0,
+            "masked_vt_a_tf32_ring": 0, "a_minus_vz_masked_tf32_ring": 0,
+            "tf32_tiles": 0}
 
-# the trailing-precision forms of the tensor-core kernel (``mode`` of the
-# ``rl_*_mode_f32`` entry points of csrc/wy.cu; 0 is the 3xTF32 form)
+# the trailing-precision forms the drivers take
 FORMS = ("tf32", "bf16", "bf16x3")
-_FORM_MODES = {"tf32": 1, "bf16": 2, "bf16x3": 3}
+# form -> the C entry points of its K1 and K2 launches: "tf32" the ring
+# kernels of csrc/wy_tf32.cu; "tf32_ring" (the earlier TF32 form, a
+# yardstick no driver takes) and the bf16 forms the tensor-core kernel of
+# csrc/wy.cu in the ``mode`` of ``_FORM_MODES`` (0 is the 3xTF32 form)
+FORM_KERNELS = {
+    "tf32": ("rl_masked_vt_a_tf32", "rl_a_minus_vz_masked_tf32"),
+    "tf32_ring": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
+    "bf16": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
+    "bf16x3": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode")}
+_FORM_MODES = {"tf32_ring": 1, "bf16": 2, "bf16x3": 3}
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 _MAX_GRID_Y = 65535 * 64        # rows of 64-row tiles the grid can hold
 _TILE = 128                     # output tile edge of the tensor-core kernels
+                                # (and rows of a rounded tile of the TF32
+                                # form, csrc/wy_tf32.cu's kTileRows)
+_STAGE = 32                     # reduction depth of a stage (csrc/tc.cuh)
 _MIN_SPLIT_DEPTH = 512          # least reduction length of one part of K1
 # stages of 32 terms the tensor cores accumulate before the running sum is
 # folded into the fp32 registers with round-to-nearest adds. The tensor
@@ -204,6 +227,94 @@ def a_minus_vz_masked_bf16x3_reference(A, V, Z, mask):
     """K2's "bf16_3x_emul" form in plain PyTorch (out of place), as
     ``a_minus_vz_masked_mixed`` of the JAX package."""
     return A - bf16_3x_matmul(V, Z) * mask[None, :]
+
+
+def _tiles_floats(rows, depth):
+    """Floats of the rounded tiles of a rows × depth operand: whole tiles
+    of ``_TILE`` rows by ``_STAGE`` of the reduction."""
+    return -(-rows // _TILE) * _TILE * (-(-depth // _STAGE) * _STAGE)
+
+
+def tf32_tiles_reference(X):
+    """The TF32 form's pre-pass in plain PyTorch: X (R, K) float32, K the
+    reduction, rounded to TF32 (``_tf32_rna``), zero-padded to whole tiles
+    of 128 rows × 32 of the reduction, and laid out as the kernels read
+    it, flat: tile (i, s) (rows 128i.., reduction 32s..) at (i·S + s)·4096
+    (S stages in all), in it the 16-byte row (r % 8) of the core matrix
+    (r/8, q/4) (8 rows × 4 of the reduction) at ((r/8)·8 + q/4)·32 +
+    (r % 8)·4, q % 4 the last index: K-major, as the tensor cores take
+    both operands of a TF32 product."""
+    require(X.dim() == 2 and X.dtype == torch.float32,
+            "the TF32 tiles take a float32 matrix")
+    R, K = X.shape
+    Rp, Kp = -(-R // _TILE) * _TILE, -(-K // _STAGE) * _STAGE
+    P = X.new_zeros((Rp, Kp))
+    P[:R, :K] = _tf32_rna(X)
+    # (tile, row group, row, stage, quad, entry) ->
+    # (tile, stage, row group, quad, row, entry)
+    return (P.view(Rp // _TILE, _TILE // 8, 8, Kp // _STAGE, _STAGE // 4, 4)
+            .permute(0, 3, 1, 4, 2, 5).reshape(-1))
+
+
+def tf32_tiles(X):
+    """``tf32_tiles_reference`` of X (any strides): on a CUDA tensor the
+    pre-pass kernel of ``csrc/wy_tf32.cu`` on its own (the TF32 form's
+    entry points launch it themselves), on the CPU the plain version."""
+    require(X.dim() == 2 and X.dtype == torch.float32,
+            "the TF32 tiles take a float32 matrix")
+    if not _device_route(X):
+        return tf32_tiles_reference(X)
+    from .. import _build
+    out = torch.empty(_tiles_floats(*X.shape), dtype=X.dtype,
+                      device=X.device)
+    if out.numel():
+        _build.call("rl_tf32_tiles", out, X, out, X.shape[0], X.shape[1],
+                    X.stride(0), X.stride(1))
+        LAUNCHES["tf32_tiles"] += 1
+    return out
+
+
+def _chunk_sums(P, Q, k0, k1, chunk):
+    """Σ over [k0, k1) of P[:, q]·Q[q, :] as the TF32 form's consumers take
+    it: the fp32 product of each run of ``chunk`` stages of 32 (0: the
+    whole range), added in order into an fp32 sum that starts at the
+    first run's product."""
+    step = _STAGE * chunk if chunk > 0 else max(k1 - k0, 1)
+    acc = None
+    for c0 in range(k0, k1, step):
+        c1 = min(k1, c0 + step)
+        run = P[:, c0:c1] @ Q[c0:c1]
+        acc = run if acc is None else acc + run
+    return acc if acc is not None else P.new_zeros((P.shape[0], Q.shape[1]))
+
+
+def masked_vt_a_tf32_order_reference(V, A, mask, splits=1, chunk=None):
+    """K1's "tf32" kernel in plain PyTorch, in its order of sums: V and
+    A ⊙ mask rounded to TF32 once, the reduction over m cut into
+    ``splits`` parts of whole 32-row stages (the kernel's ``kper``, the
+    count of parts recomputed from it as the entry point does), each part
+    summed by ``_chunk_sums`` (``chunk`` default ``CHUNK``), the parts
+    added in index order. Only the order inside a run of ``chunk`` stages
+    (the tensor cores') is left to ``@``."""
+    chunk = CHUNK if chunk is None else chunk
+    m = V.shape[0]
+    Vr = _tf32_rna(V).T
+    Ar = _tf32_rna(A * mask[None, :])
+    kper = max(1, -(-(-(-m // splits)) // _STAGE)) * _STAGE
+    W = None
+    for k0 in range(0, max(m, 1), kper):
+        p = _chunk_sums(Vr, Ar, k0, min(m, k0 + kper), chunk)
+        W = p if W is None else W + p
+    return W
+
+
+def a_minus_vz_masked_tf32_order_reference(A, V, Z, mask, chunk=None):
+    """K2's "tf32" kernel in plain PyTorch (out of place), in its order of
+    sums: V and Z rounded to TF32 once, the reduction over k summed by
+    ``_chunk_sums``, then A − acc ⊙ mask."""
+    chunk = CHUNK if chunk is None else chunk
+    acc = _chunk_sums(_tf32_rna(V), _tf32_rna(Z), 0, V.shape[1], chunk)
+    return A - acc * mask[None, :]
 
 
 def _check_kernel_operands(mats, mask):
@@ -398,35 +509,80 @@ def _tc_a_minus_vz_masked(A, V, Z, mask, mode, chunk):
     return A
 
 
+def _tf32_masked_vt_a(V, A, mask, chunk):
+    """K1's "tf32" ring kernel on f32 operands (the pre-pass rounds V into
+    its tiles inside the launch), through a zero-padded aligned copy of A
+    where the bulk copies refuse A; returns W."""
+    from .. import _build
+    m, b, w = V.shape[0], V.shape[1], A.shape[1]
+    Ap = _padded(A)
+    w4 = Ap.shape[1]
+    W = torch.empty((b, w4), dtype=A.dtype, device=A.device)
+    splits = masked_vt_a_splits(m, b, w4, _sm_count(A.device.index))
+    part = torch.empty((splits if splits > 1 else 0, b, w4),
+                       dtype=A.dtype, device=A.device)
+    vt = torch.empty(_tiles_floats(b, m), dtype=A.dtype, device=A.device)
+    _build.call(FORM_KERNELS["tf32"][0], W, V, Ap, _padded(mask, w4), W,
+                part, vt, m, b, w4, splits, CHUNK if chunk is None else chunk)
+    return W if w4 == w else W[:, :w].contiguous()
+
+
+def _tf32_a_minus_vz_masked(A, V, Z, mask, chunk):
+    """K2's "tf32" ring kernel on f32 operands, in place (the pre-pass
+    rounds V and Zᵀ into their tiles inside the launch), through
+    zero-padded aligned copies of A, Z and the mask where the kernel
+    refuses A (A's copy written back); returns A."""
+    from .. import _build
+    m, k, w = A.shape[0], V.shape[1], A.shape[1]
+    Ap = _padded(A)
+    w4 = Ap.shape[1]
+    Zp = Z if w4 == w else _padded(Z, w4)
+    vr = torch.empty(_tiles_floats(m, k), dtype=A.dtype, device=A.device)
+    zt = torch.empty(_tiles_floats(w4, k), dtype=A.dtype, device=A.device)
+    _build.call(FORM_KERNELS["tf32"][1], Ap, Ap, V, Zp, _padded(mask, w4),
+                vr, zt, m, k, w4, CHUNK if chunk is None else chunk)
+    if Ap is not A:
+        A.copy_(Ap[:, :w])
+    return A
+
+
 def masked_vt_a_form(V, A, mask, form, chunk=None):
     """K1 on the card in the trailing-precision form ``form`` ("tf32",
-    "bf16" or "bf16x3"; ``FORMS``), f32 only: W = Vᵀ·(A ⊙ mask) with the
-    mask multiplied into the A tile as it is loaded, each product on the
-    tensor cores as the form says (``masked_vt_a_<form>_reference`` is its
-    arithmetic), the accumulator restarted every ``chunk`` stages as in
-    ``masked_vt_a``. Operands that ``takes_tensor_cores`` refuses are
-    copied into zero-padded aligned ones first. The finite/non-finite
-    pattern of W is the plain version's."""
+    "bf16" or "bf16x3"; ``FORMS``; or the yardstick "tf32_ring"), f32
+    only: W = Vᵀ·(A ⊙ mask) with the mask multiplied into A, each product
+    on the tensor cores as the form says (``masked_vt_a_<form>_reference``
+    is its arithmetic; "tf32_ring" that of "tf32"), the accumulator
+    restarted every ``chunk`` stages as in ``masked_vt_a``. Operands that
+    the form's kernel refuses are copied into zero-padded aligned ones
+    first. The finite/non-finite pattern of W is the plain version's."""
     m, b, w = _check_vt_a(V, A, mask)
     require(A.dtype == torch.float32, f"the {form!r} form takes float32")
+    require(form in FORM_KERNELS, f"unknown form {form!r}")
     if not (m and b and w):
         return torch.zeros((b, w), dtype=A.dtype, device=A.device)
-    W = _tc_masked_vt_a(V, A, mask, _FORM_MODES[form], chunk)
+    if form == "tf32":
+        W = _tf32_masked_vt_a(V, A, mask, chunk)
+    else:
+        W = _tc_masked_vt_a(V, A, mask, _FORM_MODES[form], chunk)
     LAUNCHES[f"masked_vt_a_{form}"] += 1
     return W
 
 
 def a_minus_vz_masked_form(A, V, Z, mask, form, chunk=None):
-    """K2 on the card in the trailing-precision form ``form``, f32 only,
-    IN PLACE: A ← A − (V·Z) ⊙ mask (``a_minus_vz_masked_<form>_reference``
-    is its arithmetic; ``chunk`` as in ``masked_vt_a``); returns A. Any k;
-    operands that ``takes_tensor_cores`` refuses are copied into
-    zero-padded aligned ones first. The finite/non-finite pattern of A is
-    the plain version's."""
+    """K2 on the card in the trailing-precision form ``form`` (as in
+    ``masked_vt_a_form``), f32 only, IN PLACE: A ← A − (V·Z) ⊙ mask
+    (``a_minus_vz_masked_<form>_reference`` is its arithmetic; ``chunk``
+    as in ``masked_vt_a``); returns A. Any k; operands that the form's
+    kernel refuses are copied into zero-padded aligned ones first. The
+    finite/non-finite pattern of A is the plain version's."""
     m, k, w = _check_a_minus_vz(A, V, Z, mask)
     require(A.dtype == torch.float32, f"the {form!r} form takes float32")
+    require(form in FORM_KERNELS, f"unknown form {form!r}")
     if m and w and k:
-        _tc_a_minus_vz_masked(A, V, Z, mask, _FORM_MODES[form], chunk)
+        if form == "tf32":
+            _tf32_a_minus_vz_masked(A, V, Z, mask, chunk)
+        else:
+            _tc_a_minus_vz_masked(A, V, Z, mask, _FORM_MODES[form], chunk)
         LAUNCHES[f"a_minus_vz_masked_{form}"] += 1
     return A
 

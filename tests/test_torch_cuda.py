@@ -46,7 +46,10 @@ the plain version's finite/non-finite pattern; "bf16_3x_emul" in f64
 (three bf16 launches on halves of the f64 values) within 1e-5 of the
 CPU's ``bf16_3x_matmul``; the drivers launch their mode's forms and no
 "highest" K1/K2, and hold the residual to the mode's gate
-(``_MODE_RES``)."""
+(``_MODE_RES``). The "tf32" form's ring kernels are also held to the
+plain version of their order of sums within 1e-5, their pre-pass bit for
+bit to the plain one; "high" launches them and not the earlier TF32 form
+("tf32_ring"), which stays reachable under its own count."""
 import numpy as np
 import pytest
 import torch
@@ -363,12 +366,10 @@ def test_cuda_path_goes_through_the_kernels(cuda):
                            rt.RNGState(2), sketch=S.to(cuda))
     torch.cuda.synchronize()
     # 5 blocks, update groups of 2 + 2 + 1
-    assert twy.LAUNCHES == {"masked_vt_a": 5, "a_minus_vz_masked": 3,
-                            "masked_vt_a_simt": 0,
-                            "a_minus_vz_masked_simt": 0,
-                            **{f"{k}_{f}": 0 for f in twy.FORMS
-                               for k in ("masked_vt_a",
-                                         "a_minus_vz_masked")}}
+    # every other count (SIMT bodies, the trailing-mode forms, the
+    # earlier TF32 form, the pre-pass alone) stays 0
+    assert twy.LAUNCHES == {**dict.fromkeys(twy.LAUNCHES, 0),
+                            "masked_vt_a": 5, "a_minus_vz_masked": 3}
     assert tlu.LAUNCHES == {"getrfnp": 5, "getrfnp_flat": 0}
     fc, _ = bqrrp_factored(torch.tensor(A), BQRRPConfig(**kw),
                            rt.RNGState(2), sketch=S)
@@ -1520,6 +1521,131 @@ def test_bf16x3_in_f64_takes_the_bf16_form_on_f64_halves(cuda):
             twy.masked_vt_a_mixed(V.to(cuda), A.to(cuda), mask.to(cuda), tp),
             twy.masked_vt_a_mixed(V.to(cuda), A.to(cuda), mask.to(cuda)))
     assert twy.LAUNCHES == {**n0, "masked_vt_a": n0["masked_vt_a"] + 4}
+
+
+# -- the "tf32" form's ring kernels (csrc/wy_tf32.cu) ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", [(300, 77), (128, 32), (1, 1), (8192, 128)])
+def test_tf32_tiles_kernel_is_the_plain_pre_pass(cuda, R, K):
+    """The pre-pass kernel against ``tf32_tiles_reference`` bit for bit,
+    Inf and NaN included, on a matrix and on a transposed view."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(R + K)
+    X = torch.randn(R, K, generator=g, device=cuda)
+    X.view(-1)[::7] *= 1e-39                   # subnormals
+    X.view(-1)[3::11] = float("inf")
+    X.view(-1)[5::13] = float("nan")
+    for Y in (X, X.T):
+        got = twy.tf32_tiles(Y).cpu().view(torch.int32)
+        want = twy.tf32_tiles_reference(Y.cpu()).view(torch.int32)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,k", [(513, 1028, 200), (3000, 1900, 128),
+                                   (8192, 2048, 128), (8192, 1024, 512),
+                                   (100, 36, 33)])
+def test_tf32_form_kernels_match_plain_and_their_order(cuda, m, w, k):
+    """Ragged and HQRRP shapes (b 128; k 128 and 512): the ring kernels
+    against the plain versions (1e-5 of the largest entry), against f64
+    (at most twice the plain version's error), two launches bit-equal,
+    and against the plain version of their order of sums at chunk 1, 0
+    (never restarted) and 3 (1e-5)."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(m, w, k, m + k))
+    W = twy.masked_vt_a_form(V, A, mask, "tf32")
+    Wp = twy.masked_vt_a_tf32_reference(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-5 * float(Wp.abs().max())
+    assert torch.equal(W, twy.masked_vt_a_form(V, A, mask, "tf32"))
+    Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32")
+    Ap = twy.a_minus_vz_masked_tf32_reference(A, V, Z, mask)
+    assert float((Ak - Ap).abs().max()) <= 1e-5 * float(Ap.abs().max())
+    assert torch.equal(Ak, twy.a_minus_vz_masked_form(A.clone(), V, Z, mask,
+                                                      "tf32"))
+    Vd, Ad, Zd, md = (t.double() for t in (V, A, Z, mask))
+    ref = Vd.T @ (Ad * md)
+    assert _relf(W, ref) <= 2 * max(_relf(Wp, ref), 2.0 ** -24)
+    ref = Ad - (Vd @ Zd) * md
+    assert _relf(Ak, ref) <= 2 * max(_relf(Ap, ref), 2.0 ** -24)
+    splits = twy.masked_vt_a_splits(m, k, w, twy._sm_count(cuda.index or 0))
+    for chunk in (1, 0, 3):
+        W = twy.masked_vt_a_form(V, A, mask, "tf32", chunk=chunk)
+        We = twy.masked_vt_a_tf32_order_reference(V, A, mask, splits, chunk)
+        assert float((W - We).abs().max()) <= 1e-5 * float(We.abs().max())
+        Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32",
+                                        chunk=chunk)
+        Ae = twy.a_minus_vz_masked_tf32_order_reference(A, V, Z, mask, chunk)
+        assert float((Ak - Ae).abs().max()) <= 1e-5 * float(Ae.abs().max())
+
+
+@pytest.mark.cuda
+def test_tf32_form_zero_mask_over_inf_gives_nan(cuda):
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(300, 132, 40, 9))
+    dead = int(torch.nonzero(mask == 0)[0])
+    live = int(torch.nonzero(mask == 1)[0])
+    A[7, dead] = float("inf")
+    A[9, live] = float("-inf")
+    Z[3, dead] = float("inf")
+    W = twy.masked_vt_a_form(V, A, mask, "tf32")
+    assert bool(torch.isnan(W[:, dead]).all())
+    assert torch.equal(torch.isfinite(W), torch.isfinite(
+        twy.masked_vt_a_tf32_reference(V, A, mask)))
+    Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32")
+    assert bool(torch.isnan(Ak[:, dead]).all())
+    assert torch.equal(torch.isfinite(Ak), torch.isfinite(
+        twy.a_minus_vz_masked_tf32_reference(A, V, Z, mask)))
+
+
+@pytest.mark.cuda
+def test_tf32_form_entry_points_refuse_misaligned_operands(cuda):
+    """A misaligned A, or a row length w that is not a multiple of 4, is
+    refused by the entry points (the launch raises); the wrappers hand
+    them zero-padded aligned copies instead."""
+    from randlapack_tpu_torch import _build
+    m, w, k, b = 64, 36, 16, 8
+    buf = torch.zeros(m * w + 1, device=cuda)
+    A_bad = buf[1:].view(m, w)                 # 4 bytes off alignment
+    V = torch.randn(m, k, device=cuda)
+    Z = torch.randn(k, w, device=cuda)
+    mask = torch.ones(w, device=cuda)
+    vr = torch.empty(twy._tiles_floats(m, k), device=cuda)
+    zt = torch.empty(twy._tiles_floats(w, k), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call("rl_a_minus_vz_masked_tf32", A_bad, A_bad, V, Z, mask,
+                    vr, zt, m, k, w, 1)
+    A = torch.randn(m, w - 1, device=cuda)     # w % 4 != 0
+    W = torch.empty(b, w - 1, device=cuda)
+    vt = torch.empty(twy._tiles_floats(b, m), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call("rl_masked_vt_a_tf32", W, torch.randn(m, b, device=cuda),
+                    A, mask[:w - 1], W, W, vt, m, b, w - 1, 1, 1)
+    # through the wrapper, the same operands are padded and taken
+    Wk = twy.masked_vt_a_form(torch.randn(m, b, device=cuda), A_bad,
+                              mask, "tf32")
+    assert Wk.shape == (b, w) and bool(torch.isfinite(Wk).all())
+
+
+@pytest.mark.cuda
+def test_high_mode_launches_the_ring_kernels_not_the_earlier_form(cuda):
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(512, 256, 64, 4))
+    n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a_mixed(V, A, mask, "high")
+    twy.a_minus_vz_masked_mixed(A.clone(), V, Z, mask, "high")
+    assert twy.LAUNCHES == {**n0,
+                            "masked_vt_a_tf32": n0["masked_vt_a_tf32"] + 1,
+                            "a_minus_vz_masked_tf32":
+                            n0["a_minus_vz_masked_tf32"] + 1}
+    # the earlier form stays reachable under its own name and count
+    n0 = dict(twy.LAUNCHES)
+    Wr = twy.masked_vt_a_form(V, A, mask, "tf32_ring")
+    twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32_ring")
+    assert twy.LAUNCHES == {
+        **n0, "masked_vt_a_tf32_ring": n0["masked_vt_a_tf32_ring"] + 1,
+        "a_minus_vz_masked_tf32_ring": n0["a_minus_vz_masked_tf32_ring"] + 1}
+    assert float((W - Wr).abs().max()) <= 1e-5 * float(Wr.abs().max())
 
 
 # residual gates of the f32 drivers in each mode (PERF.md §2): twice the

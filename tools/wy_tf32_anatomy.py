@@ -1,0 +1,281 @@
+"""Where the time of K1/K2's "tf32" ring kernels goes, on the card.
+
+    python3 tools/wy_tf32_anatomy.py
+
+Builds copies of randlapack_tpu_torch/csrc/wy_tf32.cu (with nvcc, into
+build/anatomy/) whose kernel takes a flag that leaves out a part of the
+work: the wgmma (the ring and the epilogue run, the tensor cores do not),
+the loads (the producer arrives on each stage without copying it; the
+products run on whatever the ring holds), the epilogue, and with the
+loads also the fold of the accumulator or (K1) the fragment loads from
+shared memory. Times each
+copy at the main shapes (K1: V 8192x256, A 8192x8192; K2: k 1024,
+8192x8192) by CUDA events, beside the kernel itself, the earlier TF32
+form ("tf32_ring") in turns and the pre-pass alone. Then a probe of the
+card's copy rates into shared memory: cp.async.bulk of 16 KB and of 512
+bytes, and 16-byte cp.async, from a window that stays in L2 (24 MB) and
+from one that does not (1 GiB). Prints one line per measurement, with
+the card's name and power limit first. Results change nothing; the
+numbers are for PERF.md.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from randlapack_tpu_torch import _build  # noqa: E402
+from randlapack_tpu_torch.ops import wy  # noqa: E402
+
+OUT = ROOT / "build" / "anatomy"
+FLAGS = {"full": 0, "no wgmma": 1, "no loads": 2, "no epilogue": 4,
+         "no loads, no fold": 2 | 8,
+         "no loads, no fragment loads (K1)": 2 | 16,
+         "no loads, no fold, no fragment loads (K1)": 2 | 8 | 16}
+
+PROBE = r"""
+#include "tc.cuh"
+constexpr int kSt = 6, kStageBytes = 32768;
+__device__ __forceinline__ long long stage_offset(int it, long long window) {
+  return ((long long)(blockIdx.x + (long long)it * gridDim.x) * kStageBytes) %
+         window;
+}
+// a ring of 32 KB stages filled by `chunk`-byte bulk copies (warp 0: lane 0
+// posts the byte count, the 32 lanes copy) and emptied by warp 1
+__global__ void __launch_bounds__(64, 1)
+probe_bulk(const float* src, long long window, int chunk, int iters) {
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSt * kStageBytes / 4);
+  uint64_t* empty = full + kSt;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  int slot = 0;
+  uint32_t par = 0;
+  for (int it = 0; it < iters; ++it) {
+    float* st = smem + slot * kStageBytes / 4;
+    if (tid < 32) {
+      mbar_wait(empty + slot, par ^ 1);
+      const long long off = stage_offset(it, window);
+      if (lane == 0) mbar_arrive_expect(full + slot, kStageBytes);
+      __syncwarp();
+      for (int c = lane; c < kStageBytes / chunk; c += 32)
+        bulk_load(st + c * chunk / 4, src + (off + c * chunk) / 4, chunk,
+                  full + slot);
+    } else {
+      mbar_wait(full + slot, par);
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+    if (++slot == kSt) { slot = 0; par ^= 1; }
+  }
+}
+// the same ring filled by 16-byte cp.async of all 256 threads, kSt - 1
+// stages ahead, a block barrier a stage
+__global__ void __launch_bounds__(256, 1)
+probe_cp_async(const float* src, long long window, int iters) {
+  extern __shared__ __align__(128) float smem[];
+  auto load = [&](int it) {
+    const long long off = stage_offset(it, window);
+    float* st = smem + (it % kSt) * kStageBytes / 4;
+    for (int c = threadIdx.x; c < kStageBytes / 16; c += 256)
+      cp_async16(st + c * 4, src + off / 4 + c * 4, 16);
+    cp_async_commit();
+  };
+  for (int s = 0; s < kSt - 1; ++s) load(s);
+  for (int it = 0; it < iters; ++it) {
+    if (it + kSt - 1 < iters) load(it + kSt - 1); else cp_async_commit();
+    cp_async_wait<kSt - 1>();
+    __syncthreads();
+  }
+}
+extern "C" int run_probe(const void* src, long long window, int chunk,
+                         int iters, int grid, void* stream) {
+  const int bytes = kSt * kStageBytes + 2 * kSt * 8;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (chunk) {
+    cudaFuncSetAttribute(probe_bulk,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    probe_bulk<<<grid, 64, bytes, s>>>((const float*)src, window, chunk,
+                                       iters);
+  } else {
+    cudaFuncSetAttribute(probe_cp_async,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    probe_cp_async<<<grid, 256, bytes, s>>>((const float*)src, window,
+                                            iters);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def patch(s: str, old: str, new: str) -> str:
+    if old not in s:
+        raise RuntimeError(f"wy_tf32.cu no longer holds {old!r}")
+    return s.replace(old, new)
+
+
+def flagged_source() -> str:
+    """wy_tf32.cu with a `flags` kernel argument (set by rl_set_flags)."""
+    s = (ROOT / "randlapack_tpu_torch" / "csrc" / "wy_tf32.cu").read_text()
+    s = patch(s, "namespace {\n", "namespace {\nint g_flags = 0;\n")
+    s = patch(s, "int K, int kper, int splits, int chunk) {",
+              "int K, int kper, int splits, int chunk, int flags) {")
+    s = patch(s, "chunk > 0 ? chunk : INT32_MAX);",
+              "chunk > 0 ? chunk : INT32_MAX, g_flags);")
+    s = patch(s, "        mbar_wait(empty + slot, parity);\n",
+              "        mbar_wait(empty + slot, parity);\n"
+              "        if (flags & 2) {\n"
+              "          if (kVtA || tid == 0) mbar_arrive(full + slot);\n"
+              "          if (kVtA && tid == 0) mbar_arrive(full + slot);\n"
+              "          if (++slot == kStages) { slot = 0; parity ^= 1; }\n"
+              "          continue;\n"
+              "        }\n")
+    s = patch(s, "      wgmma_fence();\n#pragma unroll\n"
+                 "      for (int q = 0; q < BK / 8; ++q) {",
+              "      if (!(flags & 1)) {\n      wgmma_fence();\n#pragma unroll\n"
+              "      for (int q = 0; q < BK / 8; ++q) {")
+    s = patch(s, "      wgmma_commit();\n      if (kVtA && kt + 1 < c.nk) {",
+              "      wgmma_commit();\n      }\n      if (kVtA && kt + 1 < c.nk) {")
+    s = patch(s, "if (!kVtA && kt == max(0, c.nk - kLead)) {",
+              "if (!kVtA && !(flags & 4) && kt == max(0, c.nk - kLead)) {")
+    s = patch(s, "    if constexpr (kVtA) {\n      // W (or its part)",
+              "    if (flags & 4) {\n    } else if constexpr (kVtA) {\n"
+              "      // W (or its part)")
+    s = patch(s, "        for (int e = 0; e < 4 * NT; ++e) acc[e] += part[e];",
+              "        for (int e = 0; e < 4 * NT; ++e)\n"
+              "          if (!(flags & 8)) acc[e] += part[e];")
+    s = patch(s, "          araw[q][e] = sa[(q * 8 + t + (e >> 1) * 4) * LDA",
+              "          araw[q][e] = (flags & 16) ? 1.f : "
+              "sa[(q * 8 + t + (e >> 1) * 4) * LDA")
+    return patch(s, 'extern "C" {\n',
+                 'extern "C" {\nvoid rl_set_flags(int f) { g_flags = f; }\n')
+
+
+def build() -> tuple:
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "tc.cuh").write_text(
+        (ROOT / "randlapack_tpu_torch" / "csrc" / "tc.cuh").read_text())
+    (OUT / "wy_tf32_flags.cu").write_text(flagged_source())
+    (OUT / "probe.cu").write_text(PROBE)
+    nvcc = _build._nvcc()
+    jobs = [(name, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"),
+         str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for name in ("wy_tf32_flags", "probe")]
+    for name, job in jobs:
+        log = job.communicate()[0]
+        if job.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = ctypes.CDLL(str(OUT / "libwy_tf32_flags.so"))
+    lib.rl_masked_vt_a_tf32_f32.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.rl_a_minus_vz_masked_tf32_f32.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.rl_set_flags.argtypes = [I]
+    probe = ctypes.CDLL(str(OUT / "libprobe.so"))
+    probe.run_probe.argtypes = [P, L, I, I, I, P]
+    return lib, probe
+
+
+def cuda_ms(fn, reps: int) -> float:
+    for _ in range(2):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("wy_tf32_anatomy: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    lib, probe = build()
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    m = w = 8192
+    b, k = 256, 1024
+    V = torch.randn(m, b, generator=g, device=dev)
+    A = torch.randn(m, w, generator=g, device=dev)
+    mk = (torch.rand(w, generator=g, device=dev) < 0.5).float()
+    Vk = torch.randn(m, k, generator=g, device=dev)
+    Z = torch.randn(k, w, generator=g, device=dev)
+    W = torch.empty(b, w, device=dev)
+    vt = torch.empty(wy._tiles_floats(b, m), device=dev)
+    vr = torch.empty(wy._tiles_floats(m, k), device=dev)
+    zt = torch.empty(wy._tiles_floats(w, k), device=dev)
+    none = torch.empty(0, device=dev)
+
+    def k1():
+        err = lib.rl_masked_vt_a_tf32_f32(
+            V.data_ptr(), A.data_ptr(), mk.data_ptr(), W.data_ptr(),
+            none.data_ptr(), vt.data_ptr(), m, b, w, 1, wy.CHUNK, stream)
+        assert err == 0, err
+
+    def k2():
+        err = lib.rl_a_minus_vz_masked_tf32_f32(
+            A.data_ptr(), Vk.data_ptr(), Z.data_ptr(), mk.data_ptr(),
+            vr.data_ptr(), zt.data_ptr(), m, k, w, wy.CHUNK, stream)
+        assert err == 0, err
+
+    for name, fn, reps in (("masked_vt_a tf32 m=8192 b=256 w=8192", k1, 100),
+                           ("a_minus_vz_masked tf32 m=8192 k=1024 w=8192",
+                            k2, 20)):
+        times = {}
+        for what, flag in FLAGS.items():
+            lib.rl_set_flags(flag)
+            times[what] = cuda_ms(fn, reps)
+        lib.rl_set_flags(0)
+        print(f"[anatomy] {name}: " + ", ".join(
+            f"{what} {t:.4f} ms" for what, t in times.items()), flush=True)
+    pre = {"V^T 256x8192": V.T, "V 8192x1024": Vk, "Z^T 8192x1024": Z.T}
+    print("[anatomy] pre-pass alone (wrapper, host included): " + ", ".join(
+        f"{name} {cuda_ms(lambda: wy.tf32_tiles(X), 50):.4f} ms"
+        for name, X in pre.items()), flush=True)
+    ring = [cuda_ms(fn, 20) for fn in (
+        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32_ring"),
+        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32"),
+        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32"),
+        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32_ring"))]
+    print(f"[anatomy] a_minus_vz_masked in turns: tf32 "
+          f"{(ring[1] + ring[2]) / 2:.4f} ms, tf32_ring "
+          f"{(ring[0] + ring[3]) / 2:.4f} ms", flush=True)
+    del V, A, Vk, Z, vr, zt
+    src = torch.zeros(1 << 28, device=dev)       # 1 GiB
+    iters = 2048
+    for window in (24 << 20, 1 << 30):
+        rates = []
+        for chunk, what in ((16384, "bulk 16 KB"), (512, "bulk 512 B"),
+                            (0, "cp.async 16 B")):
+            t = cuda_ms(lambda: probe.run_probe(src.data_ptr(), window, chunk,
+                                                iters, 132, stream), 3)
+            rates.append(f"{what} {132 * iters * 32768 / (t * 1e9):.2f} "
+                         f"TB/s")
+        print(f"[anatomy] into shared memory from a {window >> 20} MB "
+              f"window, 132 blocks: " + ", ".join(rates), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
