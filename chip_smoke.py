@@ -81,9 +81,10 @@ low-rank drivers, the operator slice and least squares:
   "bf16_3x_emul": K1/K2 as one TF32, one bf16 or three bf16 products):
   each form of K1 and K2 against its plain version and the f64 product at
   the main path's shapes, timed beside the library call and its bound
-  (the "tf32" form, csrc/wy_tf32.cu, also in turns with the earlier TF32
-  form, gated faster, with its pre-pass held bit for bit to the plain one
-  and both again at HQRRP's shapes);
+  (the ring forms of csrc/wy_ring.cu, "tf32" and K2's "bf16" and
+  "bf16x3", also in turns with the earlier forms, gated faster, with
+  their pre-passes held bit for bit to the plain ones and again at
+  HQRRP's shapes);
   bench.py's BQRRP and HQRRP speed modes at 8192² in each mode, in turns
   with "highest", gated on launches, the mode's residual gate,
   orthogonality and the trailing-norm ratios against LAPACK geqp3 in f64
@@ -121,14 +122,20 @@ RES_GATE = 10 * EPS32 ** 0.75                 # tests/test_bqrrp_factored.py:95
 ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
 # the trailing-precision modes and the K1/K2 form each launches in f32
 MODES = {"high": "tf32", "default": "bf16", "bf16_3x_emul": "bf16x3"}
+# the launch counts of the earlier K1/K2 forms (csrc/wy.cu), yardsticks of
+# the ring forms that no driver path takes: "tf32_wy" of both kernels, the
+# bf16 ones of K2 only (K1's bf16 forms still run wy.cu)
+YARDSTICKS = ("masked_vt_a_tf32_wy", "a_minus_vz_masked_tf32_wy",
+              "a_minus_vz_masked_bf16_wy", "a_minus_vz_masked_bf16x3_wy")
 NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
      "kernel_matmat_simt", "gaussian_sketch_simt",
      "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat",
-     *(f"{k}_{f}" for f in (*MODES.values(), "tf32_ring")
-       for k in ("masked_vt_a", "a_minus_vz_masked")), "tf32_tiles"), 0)
+     *(f"{k}_{f}" for f in MODES.values()
+       for k in ("masked_vt_a", "a_minus_vz_masked")), *YARDSTICKS,
+     "tf32_tiles", "bf16_tiles"), 0)
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32,
                      "a_minus_vz_masked": 8, "getrfnp": 32}
 # HQRRP at 8192², b 128: 64 blocks, one K5 and one K6 launch each
@@ -182,8 +189,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces, path it runs on)
     "gaussian_sketch": ("randlapack_tpu_torch/csrc/gaussian_sketch.cu",
                         "randlapack_tpu/ops/pallas_kernels.py:125", "op"),
 }
-# K1/K2's "tf32" form (trailing mode "high"): the pre-pass and ring kernels
-TF32_SOURCE = "randlapack_tpu_torch/csrc/wy_tf32.cu"
+# the pre-passes and ring kernels of K1/K2's ring forms: those whose entry
+# point in wy.FORM_KERNELS is not one of csrc/wy.cu's "rl_*_mode" ones
+RING_SOURCE = "randlapack_tpu_torch/csrc/wy_ring.cu"
 # the residual of an f32 factorization whose trailing products run in a
 # mode: at most twice the unit roundoff u of the operands the mode rounds
 # them to (TF32 2^-11, bf16 2^-8; three bf16 products drop lo·lo, 2^-16).
@@ -3526,9 +3534,10 @@ def form_bound(flops: float, nbytes: float, form: str) -> dict:
 def form_library_ms(form: str, fn32, reps: int):
     """The library call beside a form: for "tf32" the fp32 call with TF32
     allowed (set here and put back), which takes the kernel's own fp32
-    operands; none for "bf16" (no one call takes fp32 A with bf16
-    products: PyTorch's reduced-precision fp32 products on the card are
-    TF32) and "bf16x3" (nor three bf16 products)."""
+    operands; none for K1's "bf16" (its big operand A is fp32, and no one
+    call rounds it to bf16 inside the product: PyTorch's reduced-precision
+    fp32 products on the card are TF32) and "bf16x3" (no one call takes
+    three bf16 products). K2's "bf16" call is ``addmm_bf16_library``."""
     if form == "tf32":
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -3536,6 +3545,36 @@ def form_library_ms(form: str, fn32, reps: int):
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
     return None, None
+
+
+def addmm_bf16_library(A, V, Z, reps: int) -> dict:
+    """K2·bf16's library call: ``torch.addmm(A, Vb, Zb,
+    out_dtype=torch.float32, alpha=-1)``, V and Z rounded to bf16 first
+    (the two ``.bfloat16()`` passes timed apart), the fp32 A updated in
+    place through ``out=A`` where the card takes it, else out of place;
+    unmasked, fp32 accumulation. Returns its times and how it ran, or
+    None with the card's words where it refuses both."""
+    Vb, Zb = V.bfloat16(), Z.bfloat16()
+    refused = []
+    for how, out in (("in place, out=A", dict(out=A)), ("out of place", {})):
+        def call():
+            return torch.addmm(A, Vb, Zb, out_dtype=torch.float32,
+                               alpha=-1.0, **out)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as e:      # the card's words
+            refused.append(f"{how}: {type(e).__name__}: {e}")
+            continue
+        return dict(ms=cuda_ms(call, reps), how=how, refused=refused,
+                    rounding_ms=cuda_ms(lambda: (V.bfloat16(), Z.bfloat16()),
+                                        reps))
+    return dict(ms=None, how=None, refused=refused, rounding_ms=None)
+
+
+def yardstick_launches(counts: dict) -> dict:
+    """The launches of the earlier K1/K2 forms (``YARDSTICKS``)."""
+    return {k: counts[k] for k in YARDSTICKS}
 
 
 def phase_wy_modes(dev) -> dict:
@@ -3546,13 +3585,15 @@ def phase_wy_modes(dev) -> dict:
     plain version's; also, printed, with the accumulator never restarted,
     as against every stage, ``wy.CHUNK``), two launches bit-equal, the
     times of the kernel, the plain version and the library call by CUDA
-    events, and the bound. The "tf32" form (csrc/wy_tf32.cu) is timed in
-    turns with the earlier TF32 form ("tf32_ring", csrc/wy.cu) and gated
-    faster at both shapes, its pre-pass held bit for bit to
-    ``wy.tf32_tiles_reference``, and both held again at HQRRP's shapes
-    (V 8192x128; K2 k 128 and 512). The bf16 forms have no library call:
-    the bf16-operand call (half of A's bytes, a bf16 A out) is printed
-    beside them as an aside."""
+    events, and the bound. The ring forms (csrc/wy_ring.cu: "tf32", K2's
+    "bf16" and "bf16x3") are timed in turns with the earlier forms of
+    csrc/wy.cu ("tf32_wy", "bf16_wy", "bf16x3_wy") and gated faster
+    at the main shapes and at HQRRP's (V 8192x128; K2 k 128 and 512, where
+    they are held to their plain versions again), their pre-passes held bit
+    for bit to ``wy.tf32_tiles_reference`` / ``wy.bf16_tiles_reference``.
+    K2·bf16's library call is ``addmm_bf16_library``; K1's bf16 forms have
+    none, and K1·bf16's bf16-operand call (half of A's bytes) is printed
+    beside it as an aside."""
     from randlapack_tpu_torch.ops import wy
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -3599,14 +3640,14 @@ def phase_wy_modes(dev) -> dict:
         rec = out[f"masked_vt_a_{form}"]
         extra = ""
         if form == "tf32":
-            ring_ms, rec["ms_turns"] = in_turns(
-                lambda: wy.masked_vt_a_form(V, A, mk, "tf32_ring"),
+            wy_ms, rec["ms_turns"] = in_turns(
+                lambda: wy.masked_vt_a_form(V, A, mk, "tf32_wy"),
                 lambda: wy.masked_vt_a_form(V, A, mk, "tf32"), 100)
-            rec["earlier_form_ms"] = ring_ms
-            extra = (f"; in turns with the earlier form (tf32_ring): "
-                     f"{rec['ms_turns']:.4f} against {ring_ms:.4f} ms")
-            gate(rec["ms_turns"] < ring_ms, f"masked_vt_a_tf32 "
-                 f"{rec['ms_turns']} ms not faster than {ring_ms} ms")
+            rec["earlier_form_ms"] = wy_ms
+            extra = (f"; in turns with the earlier form (tf32_wy): "
+                     f"{rec['ms_turns']:.4f} against {wy_ms:.4f} ms")
+            gate(rec["ms_turns"] < wy_ms, f"masked_vt_a_tf32 "
+                 f"{rec['ms_turns']} ms not faster than {wy_ms} ms")
         elif form == "bf16":
             Vb, Ab = V.bfloat16(), A.bfloat16()
             rec["bf16_operands_ms"] = cuda_ms(lambda: torch.mm(Vb.T, Ab), 100)
@@ -3626,6 +3667,18 @@ def phase_wy_modes(dev) -> dict:
     del W, Wp, ref
     Vk = torch.randn(m, k, generator=g, device=dev)
     Z = torch.randn(k, w, generator=g, device=dev)
+    for X, what in ((Vk, "V"), (Z.T, "Z^T")):
+        for split in (False, True):
+            T = wy.bf16_tiles(X, split)
+            gate(torch.equal(
+                T.cpu().view(torch.int16),
+                wy.bf16_tiles_reference(X.cpu(), split).view(torch.int16)),
+                f"bf16_tiles of {what} (split {split}) differ from the "
+                f"plain pre-pass")
+    del T
+    print(f"[wy-modes] bf16 pre-pass of V {m}x{k} and Z^T {w}x{k}, with "
+          f"and without the lo halves: bit-equal to the plain version",
+          flush=True)
     ref = A.double() - (Vk.double() @ Z.double()) * mk.double()
     for form in MODES.values():
         plain = getattr(wy, f"a_minus_vz_masked_{form}_reference")
@@ -3648,36 +3701,41 @@ def phase_wy_modes(dev) -> dict:
                                               chunk=alt),
             lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form), 20)
         plain_ms = cuda_ms(lambda: plain(A, Vk, Z, mk), 5)
-        lib_ms, lib = form_library_ms(
-            form, lambda: Ak.addmm_(Vk, Z, alpha=-1.0), 20)
+        more = {}
+        if form == "bf16":
+            info = addmm_bf16_library(Ak, Vk, Z, 20)
+            lib_ms = info["ms"]
+            lib = lib_call = info["how"] and (
+                f"torch.addmm(A, V.bfloat16(), Z.bfloat16(), out_dtype="
+                f"torch.float32, alpha=-1), {info['how']}, unmasked, V and Z "
+                f"rounded beforehand (the two .bfloat16() passes "
+                f"{info['rounding_ms']:.4f} ms)")
+            more = dict(library_rounding_ms=info["rounding_ms"],
+                        library_refused=info["refused"])
+            for words in info["refused"]:
+                print(f"[wy-modes] addmm(..., out_dtype=torch.float32) "
+                      f"refused, {words}", flush=True)
+        else:
+            lib_ms, lib = form_library_ms(
+                form, lambda: Ak.addmm_(Vk, Z, alpha=-1.0), 20)
+            lib_call = lib and f"A.addmm_(V, Z, alpha=-1), unmasked, {lib}"
         out[f"a_minus_vz_masked_{form}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **form_bound(2 * m * k * w + 2 * m * w,
                          4 * (2 * m * w + m * k + k * w + w), form),
-            library_ms=lib_ms,
-            library_call=lib and f"A.addmm_(V, Z, alpha=-1), unmasked, {lib}",
+            library_ms=lib_ms, library_call=lib_call, **more,
             err_vs_f64=e_k, plain_err_vs_f64=e_p, chunk=wy.CHUNK,
             err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
             rel_diff_never_restarted=d_0)
         rec = out[f"a_minus_vz_masked_{form}"]
-        extra = ""
-        if form == "tf32":
-            ring_ms, rec["ms_turns"] = in_turns(
-                lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk,
-                                                  "tf32_ring"),
-                lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, "tf32"), 20)
-            rec["earlier_form_ms"] = ring_ms
-            extra = (f"; in turns with the earlier form (tf32_ring): "
-                     f"{rec['ms_turns']:.4f} against {ring_ms:.4f} ms")
-            gate(rec["ms_turns"] < ring_ms, f"a_minus_vz_masked_tf32 "
-                 f"{rec['ms_turns']} ms not faster than {ring_ms} ms")
-        elif form == "bf16":
-            Abf, Vkb, Zb = Ak.bfloat16(), Vk.bfloat16(), Z.bfloat16()
-            rec["bf16_operands_ms"] = cuda_ms(
-                lambda: Abf.addmm_(Vkb, Zb, alpha=-1.0), 20)
-            del Abf, Vkb, Zb
-            extra = (f"; aside, not the same function: addmm_ on bf16 "
-                     f"operands {rec['bf16_operands_ms']:.4f} ms")
+        wy_ms, rec["ms_turns"] = in_turns(
+            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, f"{form}_wy"),
+            lambda: wy.a_minus_vz_masked_form(Ak, Vk, Z, mk, form), 20)
+        rec["earlier_form_ms"] = wy_ms
+        extra = (f"; in turns with the earlier form ({form}_wy): "
+                 f"{rec['ms_turns']:.4f} against {wy_ms:.4f} ms")
+        gate(rec["ms_turns"] < wy_ms, f"a_minus_vz_masked_{form} "
+             f"{rec['ms_turns']} ms not faster than {wy_ms} ms")
         print(f"[wy-modes] a_minus_vz_masked {form} m={m} k={k} w={w}: "
               f"max|d| {err:.3e} (max|plain| {scale:.3e}); error against "
               f"f64: kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
@@ -3690,6 +3748,7 @@ def phase_wy_modes(dev) -> dict:
               flush=True)
     del Ak, Ap, Vk, Z, ref
     # HQRRP's shapes: V 8192x128 (K1), k 128 and 512 (K2), in turns
+    turns = {}
     for kk in (128, 512):
         Vh = torch.randn(m, kk, generator=g, device=dev)
         Zh = torch.randn(kk, w, generator=g, device=dev)
@@ -3697,25 +3756,36 @@ def phase_wy_modes(dev) -> dict:
             W = wy.masked_vt_a_form(Vh, A, mk, "tf32")
             Wp = wy.masked_vt_a_tf32_reference(Vh, A, mk)
             err = float((W - Wp).abs().max()) / float(Wp.abs().max())
-            ring_ms, new_ms = in_turns(
-                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32_ring"),
+            wy_ms, new_ms = in_turns(
+                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32_wy"),
                 lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32"), 100)
             gate(err <= 1e-5, f"masked_vt_a_tf32 b=128: max|d| {err}")
             print(f"[wy-modes] masked_vt_a tf32 m={m} b={kk} w={w}: max|d| "
                   f"{err:.2e} of max|plain|; {new_ms:.4f} ms against the "
-                  f"earlier form's {ring_ms:.4f} ms in turns", flush=True)
+                  f"earlier form's {wy_ms:.4f} ms in turns", flush=True)
             del W, Wp
-        Ak = wy.a_minus_vz_masked_form(A.clone(), Vh, Zh, mk, "tf32")
-        Ap = wy.a_minus_vz_masked_tf32_reference(A, Vh, Zh, mk)
-        err = float((Ak - Ap).abs().max()) / float(Ap.abs().max())
-        gate(err <= 1e-5, f"a_minus_vz_masked_tf32 k={kk}: max|d| {err}")
-        ring_ms, new_ms = in_turns(
-            lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk, "tf32_ring"),
-            lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk, "tf32"), 20)
-        print(f"[wy-modes] a_minus_vz_masked tf32 m={m} k={kk} w={w}: max|d| "
-              f"{err:.2e} of max|plain|; {new_ms:.4f} ms against the "
-              f"earlier form's {ring_ms:.4f} ms in turns", flush=True)
-        del Ak, Ap
+        for form in MODES.values():
+            Ak = wy.a_minus_vz_masked_form(A.clone(), Vh, Zh, mk, form)
+            Ap = getattr(wy, f"a_minus_vz_masked_{form}_reference")(
+                A, Vh, Zh, mk)
+            err = float((Ak - Ap).abs().max()) / float(Ap.abs().max())
+            gate(err <= 1e-5,
+                 f"a_minus_vz_masked_{form} k={kk}: max|d| {err}")
+            wy_ms, new_ms = in_turns(
+                lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk,
+                                                  f"{form}_wy"),
+                lambda: wy.a_minus_vz_masked_form(Ak, Vh, Zh, mk, form), 20)
+            gate(new_ms < wy_ms, f"a_minus_vz_masked_{form} k={kk}: "
+                 f"{new_ms} ms not faster than {wy_ms} ms")
+            turns[form, kk] = dict(ms=new_ms, earlier_form_ms=wy_ms,
+                                   max_rel_diff=err)
+            print(f"[wy-modes] a_minus_vz_masked {form} m={m} k={kk} w={w}: "
+                  f"max|d| {err:.2e} of max|plain|; {new_ms:.4f} ms against "
+                  f"the earlier form's {wy_ms:.4f} ms in turns",
+                  flush=True)
+            del Ak, Ap
+    for (form, kk), t in turns.items():
+        out[f"a_minus_vz_masked_{form}"][f"k{kk}"] = t
     return out
 
 
@@ -3855,8 +3925,7 @@ def phase_bqrrp_speed(dev, card: str) -> dict:
               f"pivot ratios against geqp3 [{q['rmin']:.3f}, "
               f"{q['rmax']:.3f}] (band {PIVOT_BAND}); launches "
               f"{ {c: v for c, v in counts[tp].items() if v} }, the earlier "
-              f"TF32 form's {counts[tp]['masked_vt_a_tf32_ring']} and "
-              f"{counts[tp]['a_minus_vz_masked_tf32_ring']}", flush=True)
+              f"forms' {yardstick_launches(counts[tp])}", flush=True)
         refused = speed_refusals(tp, q)
         gate(not refused, f"bqrrp {tp}: {refused}")
     q = quality(hi_cfg)
@@ -3945,8 +4014,7 @@ def phase_hqrrp_speed(dev, card: str) -> dict:
               f"{q['orth']:.3e}, fail {q['fail']}, pivot ratios against "
               f"geqp3 [{q['rmin']:.3f}, {q['rmax']:.3f}]; launches "
               f"{ {c: v for c, v in counts[tp].items() if v} }, the earlier "
-              f"TF32 form's {counts[tp]['masked_vt_a_tf32_ring']} and "
-              f"{counts[tp]['a_minus_vz_masked_tf32_ring']}", flush=True)
+              f"forms' {yardstick_launches(counts[tp])}", flush=True)
         refused = speed_refusals(tp, q)
         gate(not refused, f"hqrrp {tp}: {refused}")
     SPEED_INPUT.clear()
@@ -4028,6 +4096,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import randlapack_tpu_torch  # noqa: F401  (fails outside the repo)
+    from randlapack_tpu_torch.ops import wy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4103,8 +4172,9 @@ def main() -> int:
     for tp, form in MODES.items():
         for base in ("masked_vt_a", "a_minus_vz_masked"):
             src, rep, _ = KERNELS[base]
-            if form == "tf32":
-                src = TF32_SOURCE
+            entry = wy.FORM_KERNELS[form][base == "a_minus_vz_masked"]
+            if not entry.endswith("_mode"):
+                src = RING_SOURCE
             name = f"{base}_{form}"
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=rep,

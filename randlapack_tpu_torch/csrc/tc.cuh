@@ -1,5 +1,5 @@
 // What the tensor-core kernels of this directory share (wy.cu: K1/K2,
-// wy_tf32.cu: their TF32 form, gaussian_sketch.cu: K7): the fp32 -> TF32
+// wy_ring.cu: their ring forms, gaussian_sketch.cu: K7): the fp32 -> TF32
 // hi/lo split, cp.async and fence wrappers, the mbarrier and bulk-copy
 // wrappers of the producer/consumer rings, wgmma.mma_async.m64n128k8 (tf32
 // in, fp32 accumulate) with the guard that keeps its register operand live

@@ -45,15 +45,19 @@ form other than "highest" launches that form (``masked_vt_a_form``,
 functions of each form are its arithmetic in plain PyTorch, for the
 tests.
 
-The "tf32" form runs the ring kernels of ``csrc/wy_tf32.cu``: a pre-pass
-rounds the small operands to TF32 once a call into tiles laid out for
-the tensor cores (``tf32_tiles``; ``tf32_tiles_reference`` is its plain
-version), and a producer warpgroup streams them (and K1's A) through
-an mbarrier ring to two consumer warpgroups (``*_tf32_order_reference``
-follow their order of sums). The earlier TF32 form, the "highest" kernel of
-``csrc/wy.cu`` with one TF32 product, stays reachable as the form
-"tf32_ring" (``LAUNCHES["…_tf32_ring"]``), which no driver path takes.
-``FORM_KERNELS`` names the entry point of every form.
+The "tf32" form and K2's "bf16" and "bf16x3" forms run the ring kernels
+of ``csrc/wy_ring.cu``: a pre-pass rounds the small operands once a call
+into tiles laid out for the tensor cores (``tf32_tiles``, ``bf16_tiles``;
+``tf32_tiles_reference``, ``bf16_tiles_reference`` are their plain
+versions), and a producer warpgroup streams them (and K1's A) through an
+mbarrier ring to two consumer warpgroups (``*_order_reference`` follow
+their order of sums). K1's bf16 forms run the "highest" kernel of
+``csrc/wy.cu`` with bf16 products. The earlier forms, that kernel with
+one TF32, one bf16 or three bf16 products, stay reachable as the forms
+"tf32_wy" (K1 and K2), "bf16_wy" and "bf16x3_wy" (K2 only; K1's bf16
+forms are still that kernel) under ``LAUNCHES["…_tf32_wy"]`` etc., which
+no driver path takes. ``FORM_KERNELS`` names the entry points of every
+form.
 """
 from __future__ import annotations
 
@@ -73,27 +77,36 @@ LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0,
             "masked_vt_a_tf32": 0, "masked_vt_a_bf16": 0,
             "masked_vt_a_bf16x3": 0, "a_minus_vz_masked_tf32": 0,
             "a_minus_vz_masked_bf16": 0, "a_minus_vz_masked_bf16x3": 0,
-            "masked_vt_a_tf32_ring": 0, "a_minus_vz_masked_tf32_ring": 0,
-            "tf32_tiles": 0}
+            "masked_vt_a_tf32_wy": 0, "a_minus_vz_masked_tf32_wy": 0,
+            "a_minus_vz_masked_bf16_wy": 0, "a_minus_vz_masked_bf16x3_wy": 0,
+            "tf32_tiles": 0, "bf16_tiles": 0}
 
 # the trailing-precision forms the drivers take
 FORMS = ("tf32", "bf16", "bf16x3")
-# form -> the C entry points of its K1 and K2 launches: "tf32" the ring
-# kernels of csrc/wy_tf32.cu; "tf32_ring" (the earlier TF32 form, a
-# yardstick no driver takes) and the bf16 forms the tensor-core kernel of
-# csrc/wy.cu in the ``mode`` of ``_FORM_MODES`` (0 is the 3xTF32 form)
+# form -> the C entry points of its K1 and K2 launches: the ring kernels of
+# csrc/wy_ring.cu, or the tensor-core kernel of csrc/wy.cu in the ``mode``
+# of ``_FORM_MODES`` (0 is the 3xTF32 form): "tf32" and K2's bf16 forms the
+# ring kernels, K1's bf16 forms wy.cu; the "_wy" forms (the earlier
+# forms, yardsticks no driver takes) wy.cu, K2 only for the bf16 ones
+# (None: the form has no K1)
 FORM_KERNELS = {
     "tf32": ("rl_masked_vt_a_tf32", "rl_a_minus_vz_masked_tf32"),
-    "tf32_ring": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
-    "bf16": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
-    "bf16x3": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode")}
-_FORM_MODES = {"tf32_ring": 1, "bf16": 2, "bf16x3": 3}
+    "bf16": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_bf16"),
+    "bf16x3": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_bf16x3"),
+    "tf32_wy": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
+    "bf16_wy": (None, "rl_a_minus_vz_masked_mode"),
+    "bf16x3_wy": (None, "rl_a_minus_vz_masked_mode")}
+_FORM_MODES = {"bf16": 2, "bf16x3": 3, "tf32_wy": 1, "bf16_wy": 2,
+               "bf16x3_wy": 3}
+# the forms whose K2 runs the ring kernels, and their sets of rounded tiles
+# a (row tile, stage): bf16x3's hi and lo
+_RING_SETS = {"tf32": 1, "bf16": 1, "bf16x3": 2}
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 _MAX_GRID_Y = 65535 * 64        # rows of 64-row tiles the grid can hold
 _TILE = 128                     # output tile edge of the tensor-core kernels
-                                # (and rows of a rounded tile of the TF32
-                                # form, csrc/wy_tf32.cu's kTileRows)
+                                # (and rows of a rounded tile of the ring
+                                # forms, csrc/wy_ring.cu's kTileRows)
 _STAGE = 32                     # reduction depth of a stage (csrc/tc.cuh)
 _MIN_SPLIT_DEPTH = 512          # least reduction length of one part of K1
 # stages of 32 terms the tensor cores accumulate before the running sum is
@@ -193,6 +206,23 @@ def _round_form(x, form):
     return x.to(torch.bfloat16).to(x.dtype)
 
 
+def _bf16_bits(t):
+    """t (float32) rounded to bf16, to nearest even, as int16 bit patterns,
+    as the ring kernels' pre-pass rounds: the rounding's carry added to the
+    sign-magnitude bit pattern (a carry into the exponent is the right
+    power of two or Inf), every NaN written as 0x7FC0 (PyTorch's CPU
+    conversion does the same; its CUDA one writes 0x7FFF)."""
+    require(t.dtype == torch.float32, "bf16 rounding takes float32")
+    b = t.contiguous().view(torch.int32).to(torch.int64)
+    r = (b + 0x7FFF + ((b >> 16) & 1)) >> 16
+    return torch.where(torch.isnan(t), 0x7FC0, r).to(torch.int16)
+
+
+def _bf16_value(bits):
+    """The float32 value of int16 bf16 bit patterns."""
+    return (bits.to(torch.int32) << 16).view(torch.float32)
+
+
 def masked_vt_a_tf32_reference(V, A, mask):
     """K1's "high" form in plain PyTorch: V and A ⊙ mask rounded to TF32,
     then their fp32 product (TF32 off)."""
@@ -230,8 +260,9 @@ def a_minus_vz_masked_bf16x3_reference(A, V, Z, mask):
 
 
 def _tiles_floats(rows, depth):
-    """Floats of the rounded tiles of a rows × depth operand: whole tiles
-    of ``_TILE`` rows by ``_STAGE`` of the reduction."""
+    """Values of the rounded tiles of a rows × depth operand (one tile set:
+    TF32 floats or bf16 values): whole tiles of ``_TILE`` rows by
+    ``_STAGE`` of the reduction."""
     return -(-rows // _TILE) * _TILE * (-(-depth // _STAGE) * _STAGE)
 
 
@@ -256,9 +287,35 @@ def tf32_tiles_reference(X):
             .permute(0, 3, 1, 4, 2, 5).reshape(-1))
 
 
+def bf16_tiles_reference(X, split=False):
+    """The bf16 forms' pre-pass in plain PyTorch: X (R, K) float32, K the
+    reduction, rounded to bf16 (``_bf16_bits``), zero-padded to whole
+    tiles of 128 rows × 32 of the reduction, and laid out as the ring
+    kernel reads it, flat, as bfloat16: tile (i, s) at (i·S + s)·4096·n
+    (n tile sets: 1, or with ``split`` 2, the lo halves bf16(x − hi)
+    4096 values after the hi values), in it the 16-byte row (r % 8) of the
+    core matrix (r/8, q/8) (8 rows × 8 of the reduction) at ((r/8)·4 +
+    q/8)·64 + (r % 8)·8, q % 8 the last index: K-major, as
+    ``tf32_tiles_reference``."""
+    require(X.dim() == 2 and X.dtype == torch.float32,
+            "the bf16 tiles take a float32 matrix")
+    R, K = X.shape
+    Rp, Kp = -(-R // _TILE) * _TILE, -(-K // _STAGE) * _STAGE
+    P = X.new_zeros((Rp, Kp))
+    P[:R, :K] = X
+    sets = [_bf16_bits(P)]
+    if split:
+        sets.append(_bf16_bits(P - _bf16_value(sets[0])))
+    # (tile, row group, row, stage, octet, entry) ->
+    # (tile, stage, set, row group, octet, row, entry)
+    T = torch.stack([h.view(Rp // _TILE, _TILE // 8, 8, Kp // _STAGE,
+                            _STAGE // 8, 8) for h in sets])
+    return T.permute(1, 4, 0, 2, 5, 3, 6).reshape(-1).view(torch.bfloat16)
+
+
 def tf32_tiles(X):
     """``tf32_tiles_reference`` of X (any strides): on a CUDA tensor the
-    pre-pass kernel of ``csrc/wy_tf32.cu`` on its own (the TF32 form's
+    pre-pass kernel of ``csrc/wy_ring.cu`` on its own (the TF32 form's
     entry points launch it themselves), on the CPU the plain version."""
     require(X.dim() == 2 and X.dtype == torch.float32,
             "the TF32 tiles take a float32 matrix")
@@ -274,18 +331,42 @@ def tf32_tiles(X):
     return out
 
 
+def bf16_tiles(X, split=False):
+    """``bf16_tiles_reference`` of X (any strides): on a CUDA tensor the
+    bf16 pre-pass kernel of ``csrc/wy_ring.cu`` on its own (K2's bf16 forms
+    launch it themselves), on the CPU the plain version."""
+    require(X.dim() == 2 and X.dtype == torch.float32,
+            "the bf16 tiles take a float32 matrix")
+    if not _device_route(X):
+        return bf16_tiles_reference(X, split)
+    from .. import _build
+    out = torch.empty(_tiles_floats(*X.shape) * (2 if split else 1),
+                      dtype=torch.bfloat16, device=X.device)
+    if out.numel():
+        _build.call("rl_bf16_tiles", X, X, out, X.shape[0], X.shape[1],
+                    X.stride(0), X.stride(1), int(split))
+        LAUNCHES["bf16_tiles"] += 1
+    return out
+
+
 def _chunk_sums(P, Q, k0, k1, chunk):
-    """Σ over [k0, k1) of P[:, q]·Q[q, :] as the TF32 form's consumers take
-    it: the fp32 product of each run of ``chunk`` stages of 32 (0: the
-    whole range), added in order into an fp32 sum that starts at the
-    first run's product."""
+    """Σ over [k0, k1) of P[:, q]·Q[q, :] as the ring kernels' consumers
+    take it: the fp32 product of each run of ``chunk`` stages of 32 (0:
+    the whole range), added in order into an fp32 sum that starts at the
+    first run's product. P and Q may be tuples of equal length: a run is
+    then the sum of their products in that order (bf16x3's lo·hi, hi·lo,
+    hi·hi)."""
+    Ps, Qs = (P, Q) if isinstance(P, tuple) else ((P,), (Q,))
     step = _STAGE * chunk if chunk > 0 else max(k1 - k0, 1)
     acc = None
     for c0 in range(k0, k1, step):
         c1 = min(k1, c0 + step)
-        run = P[:, c0:c1] @ Q[c0:c1]
+        run = Ps[0][:, c0:c1] @ Qs[0][c0:c1]
+        for p, q in zip(Ps[1:], Qs[1:]):
+            run = run + p[:, c0:c1] @ q[c0:c1]
         acc = run if acc is None else acc + run
-    return acc if acc is not None else P.new_zeros((P.shape[0], Q.shape[1]))
+    return acc if acc is not None else Ps[0].new_zeros(
+        (Ps[0].shape[0], Qs[0].shape[1]))
 
 
 def masked_vt_a_tf32_order_reference(V, A, mask, splits=1, chunk=None):
@@ -314,6 +395,27 @@ def a_minus_vz_masked_tf32_order_reference(A, V, Z, mask, chunk=None):
     ``_chunk_sums``, then A − acc ⊙ mask."""
     chunk = CHUNK if chunk is None else chunk
     acc = _chunk_sums(_tf32_rna(V), _tf32_rna(Z), 0, V.shape[1], chunk)
+    return A - acc * mask[None, :]
+
+
+def a_minus_vz_masked_bf16_order_reference(A, V, Z, mask, chunk=None):
+    """K2's "bf16" ring kernel in plain PyTorch (out of place), in its
+    order of sums: V and Z rounded to bf16 once, the reduction summed by
+    ``_chunk_sums``, then A − acc ⊙ mask."""
+    chunk = CHUNK if chunk is None else chunk
+    acc = _chunk_sums(_round_form(V, "bf16"), _round_form(Z, "bf16"), 0,
+                      V.shape[1], chunk)
+    return A - acc * mask[None, :]
+
+
+def a_minus_vz_masked_bf16x3_order_reference(A, V, Z, mask, chunk=None):
+    """K2's "bf16x3" ring kernel in plain PyTorch (out of place), in its
+    order of sums: the bf16 halves of V and Z formed once, each run of
+    ``chunk`` stages lo·hi + hi·lo + hi·hi (``_chunk_sums``), then
+    A − acc ⊙ mask."""
+    chunk = CHUNK if chunk is None else chunk
+    (Vh, Vl), (Zh, Zl) = _bf16_halves(V), _bf16_halves(Z)
+    acc = _chunk_sums((Vl, Vh, Vh), (Zh, Zl, Zh), 0, V.shape[1], chunk)
     return A - acc * mask[None, :]
 
 
@@ -527,19 +629,22 @@ def _tf32_masked_vt_a(V, A, mask, chunk):
     return W if w4 == w else W[:, :w].contiguous()
 
 
-def _tf32_a_minus_vz_masked(A, V, Z, mask, chunk):
-    """K2's "tf32" ring kernel on f32 operands, in place (the pre-pass
-    rounds V and Zᵀ into their tiles inside the launch), through
-    zero-padded aligned copies of A, Z and the mask where the kernel
-    refuses A (A's copy written back); returns A."""
+def _ring_a_minus_vz_masked(A, V, Z, mask, form, chunk):
+    """K2's ring kernel in the form ``form`` ("tf32", "bf16", "bf16x3") on
+    f32 operands, in place (the pre-pass rounds V and Zᵀ into their tiles,
+    scratch allocated here, inside the launch), through zero-padded
+    aligned copies of A, Z and the mask where the kernel refuses A (A's
+    copy written back); returns A."""
     from .. import _build
     m, k, w = A.shape[0], V.shape[1], A.shape[1]
     Ap = _padded(A)
     w4 = Ap.shape[1]
     Zp = Z if w4 == w else _padded(Z, w4)
-    vr = torch.empty(_tiles_floats(m, k), dtype=A.dtype, device=A.device)
-    zt = torch.empty(_tiles_floats(w4, k), dtype=A.dtype, device=A.device)
-    _build.call(FORM_KERNELS["tf32"][1], Ap, Ap, V, Zp, _padded(mask, w4),
+    dt = torch.float32 if form == "tf32" else torch.bfloat16
+    sets = _RING_SETS[form]
+    vr = torch.empty(_tiles_floats(m, k) * sets, dtype=dt, device=A.device)
+    zt = torch.empty(_tiles_floats(w4, k) * sets, dtype=dt, device=A.device)
+    _build.call(FORM_KERNELS[form][1], Ap, Ap, V, Zp, _padded(mask, w4),
                 vr, zt, m, k, w4, CHUNK if chunk is None else chunk)
     if Ap is not A:
         A.copy_(Ap[:, :w])
@@ -548,16 +653,18 @@ def _tf32_a_minus_vz_masked(A, V, Z, mask, chunk):
 
 def masked_vt_a_form(V, A, mask, form, chunk=None):
     """K1 on the card in the trailing-precision form ``form`` ("tf32",
-    "bf16" or "bf16x3"; ``FORMS``; or the yardstick "tf32_ring"), f32
-    only: W = Vᵀ·(A ⊙ mask) with the mask multiplied into A, each product
-    on the tensor cores as the form says (``masked_vt_a_<form>_reference``
-    is its arithmetic; "tf32_ring" that of "tf32"), the accumulator
+    "bf16" or "bf16x3"; ``FORMS``; or the yardstick "tf32_wy"), f32
+    only: W = Vᵀ·(A ⊙ mask) with the mask
+    multiplied into A, each product on the tensor cores as the form says
+    (``masked_vt_a_<form>_reference`` is its arithmetic; "tf32_wy"
+    that of "tf32"), the accumulator
     restarted every ``chunk`` stages as in ``masked_vt_a``. Operands that
     the form's kernel refuses are copied into zero-padded aligned ones
     first. The finite/non-finite pattern of W is the plain version's."""
+    require(FORM_KERNELS.get(form, (None,))[0] is not None,
+            f"K1 has no form {form!r}")
     m, b, w = _check_vt_a(V, A, mask)
     require(A.dtype == torch.float32, f"the {form!r} form takes float32")
-    require(form in FORM_KERNELS, f"unknown form {form!r}")
     if not (m and b and w):
         return torch.zeros((b, w), dtype=A.dtype, device=A.device)
     if form == "tf32":
@@ -570,7 +677,8 @@ def masked_vt_a_form(V, A, mask, form, chunk=None):
 
 def a_minus_vz_masked_form(A, V, Z, mask, form, chunk=None):
     """K2 on the card in the trailing-precision form ``form`` (as in
-    ``masked_vt_a_form``), f32 only, IN PLACE: A ← A − (V·Z) ⊙ mask
+    ``masked_vt_a_form``, and the yardsticks "bf16_wy", "bf16x3_wy"), f32
+    only, IN PLACE: A ← A − (V·Z) ⊙ mask
     (``a_minus_vz_masked_<form>_reference`` is its arithmetic; ``chunk``
     as in ``masked_vt_a``); returns A. Any k; operands that the form's
     kernel refuses are copied into zero-padded aligned ones first. The
@@ -579,8 +687,8 @@ def a_minus_vz_masked_form(A, V, Z, mask, form, chunk=None):
     require(A.dtype == torch.float32, f"the {form!r} form takes float32")
     require(form in FORM_KERNELS, f"unknown form {form!r}")
     if m and w and k:
-        if form == "tf32":
-            _tf32_a_minus_vz_masked(A, V, Z, mask, chunk)
+        if form in _RING_SETS:
+            _ring_a_minus_vz_masked(A, V, Z, mask, form, chunk)
         else:
             _tc_a_minus_vz_masked(A, V, Z, mask, _FORM_MODES[form], chunk)
         LAUNCHES[f"a_minus_vz_masked_{form}"] += 1

@@ -49,7 +49,12 @@ CPU's ``bf16_3x_matmul``; the drivers launch their mode's forms and no
 (``_MODE_RES``). The "tf32" form's ring kernels are also held to the
 plain version of their order of sums within 1e-5, their pre-pass bit for
 bit to the plain one; "high" launches them and not the earlier TF32 form
-("tf32_ring"), which stays reachable under its own count."""
+("tf32_wy"), which stays reachable under its own count. K2's "bf16" and
+"bf16x3" forms run the same ring kernel on bf16 tiles and are held the
+same way (pre-pass bit for bit, Inf/NaN included; plain version and order
+of sums within 1e-5); "default" and "bf16_3x_emul" launch them and not the
+earlier forms ("bf16_wy", "bf16x3_wy"), also in the 8192² BQRRP and
+HQRRP speed modes."""
 import numpy as np
 import pytest
 import torch
@@ -1523,7 +1528,7 @@ def test_bf16x3_in_f64_takes_the_bf16_form_on_f64_halves(cuda):
     assert twy.LAUNCHES == {**n0, "masked_vt_a": n0["masked_vt_a"] + 4}
 
 
-# -- the "tf32" form's ring kernels (csrc/wy_tf32.cu) ------------------------
+# -- the "tf32" form's ring kernels (csrc/wy_ring.cu) ------------------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,K", [(300, 77), (128, 32), (1, 1), (8192, 128)])
@@ -1640,11 +1645,11 @@ def test_high_mode_launches_the_ring_kernels_not_the_earlier_form(cuda):
                             n0["a_minus_vz_masked_tf32"] + 1}
     # the earlier form stays reachable under its own name and count
     n0 = dict(twy.LAUNCHES)
-    Wr = twy.masked_vt_a_form(V, A, mask, "tf32_ring")
-    twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32_ring")
+    Wr = twy.masked_vt_a_form(V, A, mask, "tf32_wy")
+    twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32_wy")
     assert twy.LAUNCHES == {
-        **n0, "masked_vt_a_tf32_ring": n0["masked_vt_a_tf32_ring"] + 1,
-        "a_minus_vz_masked_tf32_ring": n0["a_minus_vz_masked_tf32_ring"] + 1}
+        **n0, "masked_vt_a_tf32_wy": n0["masked_vt_a_tf32_wy"] + 1,
+        "a_minus_vz_masked_tf32_wy": n0["a_minus_vz_masked_tf32_wy"] + 1}
     assert float((W - Wr).abs().max()) <= 1e-5 * float(Wr.abs().max())
 
 
@@ -1690,3 +1695,163 @@ def test_drivers_take_their_mode_forms(cuda, tp):
             Q, R, J, _, fail, _ = out
         res = float(torch.linalg.norm(Q @ R - A[:, J]) / torch.linalg.norm(A))
         assert not bool(fail) and res <= _MODE_RES[tp], res
+
+
+# -- K2's bf16 forms on the ring kernel (csrc/wy_ring.cu) --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("R,K", [(300, 77), (128, 32), (1, 1), (8192, 128)])
+def test_bf16_tiles_kernel_is_the_plain_pre_pass(cuda, R, K, split):
+    """The bf16 pre-pass kernel against ``bf16_tiles_reference`` bit for
+    bit (hi tiles, and hi and lo tiles), subnormals, Inf and NaN included,
+    on a matrix and on a transposed view."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(R + K)
+    X = torch.randn(R, K, generator=g, device=cuda)
+    X.view(-1)[::7] *= 1e-39                   # subnormals
+    X.view(-1)[3::11] = float("inf")
+    X.view(-1)[5::13] = float("nan")
+    X.view(-1)[9::17] = torch.finfo(torch.float32).max   # rounds up to Inf
+    n0 = dict(twy.LAUNCHES)
+    for Y in (X, X.T):
+        got = twy.bf16_tiles(Y, split).cpu().view(torch.int16)
+        want = twy.bf16_tiles_reference(Y.cpu(), split).view(torch.int16)
+        assert torch.equal(got, want)
+    assert twy.LAUNCHES == {**n0, "bf16_tiles": n0["bf16_tiles"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("m,w,k", [(513, 1028, 1), (100, 36, 33),
+                                   (3000, 1900, 128), (8192, 1024, 512),
+                                   (640, 1025, 1024)])
+def test_bf16_ring_forms_match_plain_and_their_order(cuda, form, m, w, k):
+    """Ragged m, w, k (k 1, 33, 128, 512, 1024; w 1025 through the padded
+    copy): the ring kernel against the plain version (1e-5 of the largest
+    entry), against f64 (at most twice the plain version's error), two
+    launches bit-equal, and against the plain version of its order of sums
+    at chunk 1, 0 (never restarted) and 3 (1e-5)."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(m, w, k, m + k))
+    plain = getattr(twy, f"a_minus_vz_masked_{form}_reference")
+    order = getattr(twy, f"a_minus_vz_masked_{form}_order_reference")
+    n0 = dict(twy.LAUNCHES)
+    Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, form)
+    Ap = plain(A, V, Z, mask)
+    assert float((Ak - Ap).abs().max()) <= 1e-5 * float(Ap.abs().max())
+    assert torch.equal(Ak, twy.a_minus_vz_masked_form(A.clone(), V, Z, mask,
+                                                      form))
+    assert twy.LAUNCHES == {**n0, f"a_minus_vz_masked_{form}":
+                            n0[f"a_minus_vz_masked_{form}"] + 2}
+    Vd, Ad, Zd, md = (t.double() for t in (V, A, Z, mask))
+    ref = Ad - (Vd @ Zd) * md
+    assert _relf(Ak, ref) <= 2 * max(_relf(Ap, ref), 2.0 ** -24)
+    for chunk in (1, 0, 3):
+        Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, form,
+                                        chunk=chunk)
+        Ae = order(A, V, Z, mask, chunk)
+        assert float((Ak - Ae).abs().max()) <= 1e-5 * float(Ae.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+def test_bf16_ring_forms_zero_mask_over_inf_gives_nan(cuda, form):
+    """Inf and NaN in A, V and Z: the plain version's finite/non-finite
+    pattern; a mask of 0 over Inf gives NaN, as A ⊙ mask does."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(300, 132, 40, 9))
+    dead = int(torch.nonzero(mask == 0)[0])
+    live = int(torch.nonzero(mask == 1)[0])
+    A[7, dead] = float("inf")
+    A[9, live] = float("-inf")
+    A[11, 3] = float("nan")
+    Z[3, dead] = float("inf")
+    V[5, 6] = float("-inf")
+    Ak = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, form)
+    assert bool(torch.isnan(Ak[:, dead]).all())
+    assert torch.equal(torch.isfinite(Ak), torch.isfinite(
+        getattr(twy, f"a_minus_vz_masked_{form}_reference")(A, V, Z, mask)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+def test_bf16_ring_entry_points_refuse_misaligned_operands(cuda, form):
+    """A misaligned A, or w % 4, is refused by the entry point (the launch
+    raises); the wrapper hands it a zero-padded aligned copy instead."""
+    from randlapack_tpu_torch import _build
+    m, w, k = 64, 36, 16
+    sets = twy._RING_SETS[form]
+    buf = torch.zeros(m * w + 1, device=cuda)
+    A_bad = buf[1:].view(m, w)                 # 4 bytes off alignment
+    V = torch.randn(m, k, device=cuda)
+    Z = torch.randn(k, w, device=cuda)
+    mask = torch.ones(w, device=cuda)
+    vr = torch.empty(twy._tiles_floats(m, k) * sets, dtype=torch.bfloat16,
+                     device=cuda)
+    zt = torch.empty(twy._tiles_floats(w, k) * sets, dtype=torch.bfloat16,
+                     device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call(twy.FORM_KERNELS[form][1], A_bad, A_bad, V, Z, mask, vr,
+                    zt, m, k, w, 1)
+    A3 = torch.randn(m, w - 1, device=cuda)    # w % 4 != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call(twy.FORM_KERNELS[form][1], A3, A3, V, Z[:, :w - 1],
+                    mask[:w - 1], vr, zt, m, k, w - 1, 1)
+    want = getattr(twy, f"a_minus_vz_masked_{form}_reference")(
+        A_bad.clone(), V, Z, mask)
+    got = twy.a_minus_vz_masked_form(A_bad, V, Z, mask, form)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,form", [("default", "bf16"),
+                                     ("bf16_3x_emul", "bf16x3")])
+def test_bf16_modes_launch_the_ring_kernel_not_the_earlier_form(cuda, tp,
+                                                                form):
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(512, 256, 64, 4))
+    n0 = dict(twy.LAUNCHES)
+    Ak = twy.a_minus_vz_masked_mixed(A.clone(), V, Z, mask, tp)
+    assert twy.LAUNCHES == {**n0, f"a_minus_vz_masked_{form}":
+                            n0[f"a_minus_vz_masked_{form}"] + 1}
+    # the earlier form stays reachable as K2's yardstick, under its own
+    # name and count; K1 has none
+    n0 = dict(twy.LAUNCHES)
+    Ar = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, f"{form}_wy")
+    assert twy.LAUNCHES == {
+        **n0, f"a_minus_vz_masked_{form}_wy":
+        n0[f"a_minus_vz_masked_{form}_wy"] + 1}
+    assert float((Ak - Ar).abs().max()) <= 1e-5 * float(Ar.abs().max())
+    n0 = dict(twy.LAUNCHES)
+    with pytest.raises(rt.errors.RandLAPACKError, match="K1 has no form"):
+        twy.masked_vt_a_form(V, A, mask, f"{form}_wy")
+    assert twy.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,form", [("default", "bf16"),
+                                     ("bf16_3x_emul", "bf16x3")])
+def test_speed_modes_at_8192_launch_the_ring_forms(cuda, tp, form):
+    """bench.py's speed modes at 8192² f32 (BQRRP b 256, 2 candidates, 2
+    stages, defer 4; HQRRP b 128, defer 4): K2's form 8 and 16 times, K1's
+    32 and 64, no earlier ("_wy") form and no "highest" K1/K2; ``fail``
+    False and R finite."""
+    A, st = rt.gen.fast_decay_matrix(8192, 8192, rt.RNGState(0),
+                                     device=cuda)
+    zero = dict.fromkeys(twy.LAUNCHES, 0)
+    runs = (
+        (lambda: bqrrp_factored(A, BQRRPConfig(
+            block_size=256, pivot_candidates=2, stages=2, update_defer=4,
+            trailing_precision=tp), st)[0], 32, 8),
+        (lambda: hqrrp(A, HQRRPConfig(block_size=128, update_defer=4,
+                                      trailing_precision=tp), st), 64, 16))
+    for run, k1, k2 in runs:
+        twy.LAUNCHES.update(zero)
+        out = run()
+        torch.cuda.synchronize()
+        assert twy.LAUNCHES == {**zero, f"masked_vt_a_{form}": k1,
+                                f"a_minus_vz_masked_{form}": k2}
+        R, fail = (out.R, out.fail) if hasattr(out, "R") else (out[1],
+                                                               out[4])
+        assert not bool(fail) and bool(torch.isfinite(R).all())

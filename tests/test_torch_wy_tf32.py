@@ -1,4 +1,4 @@
-"""The TF32 form ("high") of the port's K1/K2 kernels (csrc/wy_tf32.cu) in
+"""The TF32 form ("high") of the port's K1/K2 kernels (csrc/wy_ring.cu) in
 its plain PyTorch form, on the CPU.
 
 On the card the form rounds its small operands to TF32 once a call, into
@@ -213,12 +213,12 @@ def test_form_table_names_the_ring_kernels_and_the_earlier_form():
     assert twy.FORMS == ("tf32", "bf16", "bf16x3")
     assert twy.FORM_KERNELS["tf32"] == ("rl_masked_vt_a_tf32",
                                         "rl_a_minus_vz_masked_tf32")
-    assert twy.FORM_KERNELS["tf32_ring"] == ("rl_masked_vt_a_mode",
+    assert twy.FORM_KERNELS["tf32_wy"] == ("rl_masked_vt_a_mode",
                                              "rl_a_minus_vz_masked_mode")
-    assert twy._FORM_MODES["tf32_ring"] == 1 and "tf32" not in twy._FORM_MODES
-    for names in twy.FORM_KERNELS.values():
-        assert all(name in _build._SIGNATURES for name in names)
-    src = (CSRC / "wy_tf32.cu").read_text()
+    assert twy._FORM_MODES["tf32_wy"] == 1 and "tf32" not in twy._FORM_MODES
+    for names in twy.FORM_KERNELS.values():   # None: a K2-only yardstick
+        assert all(name in _build._SIGNATURES for name in names if name)
+    src = (CSRC / "wy_ring.cu").read_text()
     for name in (*twy.FORM_KERNELS["tf32"], "rl_tf32_tiles"):
         assert re.search(rf"^int {name}_f32\(", src, re.M), name
     # the earlier form is csrc/wy.cu's kTf32 instance, mode 1
@@ -232,19 +232,23 @@ def test_the_tf32_route_has_no_fallback():
     plain version and not the earlier form's kernel."""
     module = inspect.getsource(twy)
     assert "try:" not in module and "except" not in module
-    for fn, ring in ((twy.masked_vt_a_form, "_tf32_masked_vt_a"),
-                     (twy.a_minus_vz_masked_form, "_tf32_a_minus_vz_masked")):
+    body = inspect.getsource(twy.masked_vt_a_form)
+    assert re.search(r'if form == "tf32":\n\s+W = _tf32_masked_vt_a\(', body)
+    # K2's ring forms, "tf32" among them, share one ring wrapper
+    assert "tf32" in twy._RING_SETS
+    body = inspect.getsource(twy.a_minus_vz_masked_form)
+    assert re.search(r"if form in _RING_SETS:\n\s+_ring_a_minus_vz_masked\(",
+                     body)
+    for fn, call in ((twy._tf32_masked_vt_a, 'FORM_KERNELS["tf32"][0]'),
+                     (twy._ring_a_minus_vz_masked, "FORM_KERNELS[form][1]")):
         body = inspect.getsource(fn)
-        assert re.search(rf'if form == "tf32":\n\s+(W = )?{ring}\(', body)
-    for fn in (twy._tf32_masked_vt_a, twy._tf32_a_minus_vz_masked):
-        body = inspect.getsource(fn)
-        assert '_build.call(FORM_KERNELS["tf32"]' in body
+        assert f"_build.call({call}" in body
         assert "_reference" not in body and "_tc_" not in body
         assert "_FORM_MODES" not in body
 
 
 def test_wrapper_tiling_constants_are_the_kernel_source():
-    src = (CSRC / "wy_tf32.cu").read_text()
+    src = (CSRC / "wy_ring.cu").read_text()
     assert re.findall(r"constexpr int kTileRows = (\d+);", src) == [
         str(twy._TILE)]
     assert re.findall(r"constexpr int BK = (\d+);",
@@ -254,13 +258,13 @@ def test_wrapper_tiling_constants_are_the_kernel_source():
 def test_forms_refuse_cpu_tensors_and_count_nothing():
     V, A, Z, mask = _operands(64, 64, 16, 2)
     before = dict(twy.LAUNCHES)
-    for form in ("tf32", "tf32_ring"):
+    for form in ("tf32", "tf32_wy"):
         with pytest.raises(RandLAPACKError):
             twy.masked_vt_a_form(V, A, mask, form)
         with pytest.raises(RandLAPACKError):
             twy.a_minus_vz_masked_form(A, V, Z, mask, form)
     assert twy.LAUNCHES == before
-    for key in ("masked_vt_a_tf32_ring", "a_minus_vz_masked_tf32_ring",
+    for key in ("masked_vt_a_tf32_wy", "a_minus_vz_masked_tf32_wy",
                 "tf32_tiles"):
         assert key in twy.LAUNCHES
 

@@ -1,22 +1,22 @@
-"""Where the time of K1/K2's "tf32" ring kernels goes, on the card.
+"""Where the time of K1/K2's ring kernels goes, on the card.
 
-    python3 tools/wy_tf32_anatomy.py
+    python3 tools/wy_ring_anatomy.py
 
-Builds copies of randlapack_tpu_torch/csrc/wy_tf32.cu (with nvcc, into
+Builds copies of randlapack_tpu_torch/csrc/wy_ring.cu (with nvcc, into
 build/anatomy/) whose kernel takes a flag that leaves out a part of the
 work: the wgmma (the ring and the epilogue run, the tensor cores do not),
 the loads (the producer arrives on each stage without copying it; the
 products run on whatever the ring holds), the epilogue, and with the
 loads also the fold of the accumulator or (K1) the fragment loads from
-shared memory. Times each
-copy at the main shapes (K1: V 8192x256, A 8192x8192; K2: k 1024,
-8192x8192) by CUDA events, beside the kernel itself, the earlier TF32
-form ("tf32_ring") in turns and the pre-pass alone. Then a probe of the
-card's copy rates into shared memory: cp.async.bulk of 16 KB and of 512
-bytes, and 16-byte cp.async, from a window that stays in L2 (24 MB) and
-from one that does not (1 GiB). Prints one line per measurement, with
-the card's name and power limit first. Results change nothing; the
-numbers are for PERF.md.
+shared memory. Times each copy at the main shapes (K1·TF32: V 8192x256,
+A 8192x8192; K2·TF32, K2·bf16, K2·bf16x3: k 1024, 8192x8192) by CUDA
+events, beside the kernel itself, each ring form in turns with its
+earlier form ("tf32_wy", "bf16_wy", "bf16x3_wy") and the
+pre-passes alone. Then a probe of the card's copy rates into shared
+memory: cp.async.bulk of 16 KB and of 512 bytes, and 16-byte cp.async,
+from a window that stays in L2 (24 MB) and from one that does not
+(1 GiB). Prints one line per measurement, with the card's name and power
+limit first. Results change nothing; the numbers are for PERF.md.
 """
 from __future__ import annotations
 
@@ -122,13 +122,13 @@ extern "C" int run_probe(const void* src, long long window, int chunk,
 
 def patch(s: str, old: str, new: str) -> str:
     if old not in s:
-        raise RuntimeError(f"wy_tf32.cu no longer holds {old!r}")
+        raise RuntimeError(f"wy_ring.cu no longer holds {old!r}")
     return s.replace(old, new)
 
 
 def flagged_source() -> str:
-    """wy_tf32.cu with a `flags` kernel argument (set by rl_set_flags)."""
-    s = (ROOT / "randlapack_tpu_torch" / "csrc" / "wy_tf32.cu").read_text()
+    """wy_ring.cu with a `flags` kernel argument (set by rl_set_flags)."""
+    s = (ROOT / "randlapack_tpu_torch" / "csrc" / "wy_ring.cu").read_text()
     s = patch(s, "namespace {\n", "namespace {\nint g_flags = 0;\n")
     s = patch(s, "int K, int kper, int splits, int chunk) {",
               "int K, int kper, int splits, int chunk, int flags) {")
@@ -142,10 +142,10 @@ def flagged_source() -> str:
               "          if (++slot == kStages) { slot = 0; parity ^= 1; }\n"
               "          continue;\n"
               "        }\n")
-    s = patch(s, "      wgmma_fence();\n#pragma unroll\n"
-                 "      for (int q = 0; q < BK / 8; ++q) {",
-              "      if (!(flags & 1)) {\n      wgmma_fence();\n#pragma unroll\n"
-              "      for (int q = 0; q < BK / 8; ++q) {")
+    s = patch(s, "      wgmma_fence();\n"
+                 "      if constexpr (kForm == kFormTf32) {",
+              "      if (!(flags & 1)) {\n      wgmma_fence();\n"
+              "      if constexpr (kForm == kFormTf32) {")
     s = patch(s, "      wgmma_commit();\n      if (kVtA && kt + 1 < c.nk) {",
               "      wgmma_commit();\n      }\n      if (kVtA && kt + 1 < c.nk) {")
     s = patch(s, "if (!kVtA && kt == max(0, c.nk - kLead)) {",
@@ -167,22 +167,24 @@ def build() -> tuple:
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "tc.cuh").write_text(
         (ROOT / "randlapack_tpu_torch" / "csrc" / "tc.cuh").read_text())
-    (OUT / "wy_tf32_flags.cu").write_text(flagged_source())
+    (OUT / "wy_ring_flags.cu").write_text(flagged_source())
     (OUT / "probe.cu").write_text(PROBE)
     nvcc = _build._nvcc()
     jobs = [(name, subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"),
          str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
-        for name in ("wy_tf32_flags", "probe")]
+        for name in ("wy_ring_flags", "probe")]
     for name, job in jobs:
         log = job.communicate()[0]
         if job.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = ctypes.CDLL(str(OUT / "libwy_tf32_flags.so"))
+    lib = ctypes.CDLL(str(OUT / "libwy_ring_flags.so"))
     lib.rl_masked_vt_a_tf32_f32.argtypes = [P] * 6 + [I] * 5 + [P]
-    lib.rl_a_minus_vz_masked_tf32_f32.argtypes = [P] * 6 + [I] * 4 + [P]
+    for form in wy._RING_SETS:
+        getattr(lib, f"rl_a_minus_vz_masked_{form}_f32").argtypes = (
+            [P] * 6 + [I] * 4 + [P])
     lib.rl_set_flags.argtypes = [I]
     probe = ctypes.CDLL(str(OUT / "libprobe.so"))
     probe.run_probe.argtypes = [P, L, I, I, I, P]
@@ -204,7 +206,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("wy_tf32_anatomy: no CUDA device", file=sys.stderr)
+        print("wy_ring_anatomy: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -223,6 +225,8 @@ def main() -> int:
     Z = torch.randn(k, w, generator=g, device=dev)
     W = torch.empty(b, w, device=dev)
     vt = torch.empty(wy._tiles_floats(b, m), device=dev)
+    # the tiles' scratch of the largest form (TF32: 4 bytes a value; bf16x3:
+    # two sets of 2 bytes), shared by K2's forms
     vr = torch.empty(wy._tiles_floats(m, k), device=dev)
     zt = torch.empty(wy._tiles_floats(w, k), device=dev)
     none = torch.empty(0, device=dev)
@@ -233,17 +237,22 @@ def main() -> int:
             none.data_ptr(), vt.data_ptr(), m, b, w, 1, wy.CHUNK, stream)
         assert err == 0, err
 
-    def k2():
-        err = lib.rl_a_minus_vz_masked_tf32_f32(
-            A.data_ptr(), Vk.data_ptr(), Z.data_ptr(), mk.data_ptr(),
-            vr.data_ptr(), zt.data_ptr(), m, k, w, wy.CHUNK, stream)
-        assert err == 0, err
+    def k2(form):
+        def run():
+            err = getattr(lib, f"rl_a_minus_vz_masked_{form}_f32")(
+                A.data_ptr(), Vk.data_ptr(), Z.data_ptr(), mk.data_ptr(),
+                vr.data_ptr(), zt.data_ptr(), m, k, w, wy.CHUNK, stream)
+            assert err == 0, err
+        return run
 
-    for name, fn, reps in (("masked_vt_a tf32 m=8192 b=256 w=8192", k1, 100),
-                           ("a_minus_vz_masked tf32 m=8192 k=1024 w=8192",
-                            k2, 20)):
+    for name, fn, reps in (
+            ("masked_vt_a tf32 m=8192 b=256 w=8192", k1, 100),
+            *((f"a_minus_vz_masked {form} m=8192 k=1024 w=8192", k2(form),
+               20) for form in wy._RING_SETS)):
         times = {}
         for what, flag in FLAGS.items():
+            if "K1" in what and "masked_vt_a" not in name.split()[0]:
+                continue
             lib.rl_set_flags(flag)
             times[what] = cuda_ms(fn, reps)
         lib.rl_set_flags(0)
@@ -251,16 +260,19 @@ def main() -> int:
             f"{what} {t:.4f} ms" for what, t in times.items()), flush=True)
     pre = {"V^T 256x8192": V.T, "V 8192x1024": Vk, "Z^T 8192x1024": Z.T}
     print("[anatomy] pre-pass alone (wrapper, host included): " + ", ".join(
-        f"{name} {cuda_ms(lambda: wy.tf32_tiles(X), 50):.4f} ms"
+        f"{name} tf32 {cuda_ms(lambda: wy.tf32_tiles(X), 50):.4f} ms, bf16 "
+        f"{cuda_ms(lambda: wy.bf16_tiles(X), 50):.4f} ms, bf16 hi and lo "
+        f"{cuda_ms(lambda: wy.bf16_tiles(X, True), 50):.4f} ms"
         for name, X in pre.items()), flush=True)
-    ring = [cuda_ms(fn, 20) for fn in (
-        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32_ring"),
-        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32"),
-        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32"),
-        lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, "tf32_ring"))]
-    print(f"[anatomy] a_minus_vz_masked in turns: tf32 "
-          f"{(ring[1] + ring[2]) / 2:.4f} ms, tf32_ring "
-          f"{(ring[0] + ring[3]) / 2:.4f} ms", flush=True)
+    for form in wy._RING_SETS:
+        turns = [cuda_ms(fn, 20) for fn in (
+            lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, f"{form}_wy"),
+            lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, form),
+            lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, form),
+            lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, f"{form}_wy"))]
+        print(f"[anatomy] a_minus_vz_masked in turns: {form} "
+              f"{(turns[1] + turns[2]) / 2:.4f} ms, {form}_wy "
+              f"{(turns[0] + turns[3]) / 2:.4f} ms", flush=True)
     del V, A, Vk, Z, vr, zt
     src = torch.zeros(1 << 28, device=dev)       # 1 GiB
     iters = 2048
