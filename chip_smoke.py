@@ -81,10 +81,9 @@ low-rank drivers, the operator slice and least squares:
   "bf16_3x_emul": K1/K2 as one TF32, one bf16 or three bf16 products):
   each form of K1 and K2 against its plain version and the f64 product at
   the main path's shapes, timed beside the library call and its bound
-  (the ring forms of csrc/wy_ring.cu, "tf32" and K2's "bf16" and
-  "bf16x3", also in turns with the earlier forms, gated faster, with
-  their pre-passes held bit for bit to the plain ones and again at
-  HQRRP's shapes);
+  (the ring forms of csrc/wy_ring.cu, all three of both kernels, also in
+  turns with the earlier forms, gated faster, with their pre-passes held
+  bit for bit to the plain ones and again at HQRRP's shapes);
   bench.py's BQRRP and HQRRP speed modes at 8192² in each mode, in turns
   with "highest", gated on launches, the mode's residual gate,
   orthogonality and the trailing-norm ratios against LAPACK geqp3 in f64
@@ -123,10 +122,10 @@ ORTH_GATE = 10 * EPS32 ** 0.75 * math.sqrt(N)  # ... :96
 # the trailing-precision modes and the K1/K2 form each launches in f32
 MODES = {"high": "tf32", "default": "bf16", "bf16_3x_emul": "bf16x3"}
 # the launch counts of the earlier K1/K2 forms (csrc/wy.cu), yardsticks of
-# the ring forms that no driver path takes: "tf32_wy" of both kernels, the
-# bf16 ones of K2 only (K1's bf16 forms still run wy.cu)
-YARDSTICKS = ("masked_vt_a_tf32_wy", "a_minus_vz_masked_tf32_wy",
-              "a_minus_vz_masked_bf16_wy", "a_minus_vz_masked_bf16x3_wy")
+# the ring forms that no driver path takes: "tf32_wy", "bf16_wy" and
+# "bf16x3_wy" of both kernels
+YARDSTICKS = tuple(f"{k}_{f}_wy" for f in MODES.values()
+                   for k in ("masked_vt_a", "a_minus_vz_masked"))
 NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
@@ -3534,10 +3533,9 @@ def form_bound(flops: float, nbytes: float, form: str) -> dict:
 def form_library_ms(form: str, fn32, reps: int):
     """The library call beside a form: for "tf32" the fp32 call with TF32
     allowed (set here and put back), which takes the kernel's own fp32
-    operands; none for K1's "bf16" (its big operand A is fp32, and no one
-    call rounds it to bf16 inside the product: PyTorch's reduced-precision
-    fp32 products on the card are TF32) and "bf16x3" (no one call takes
-    three bf16 products). K2's "bf16" call is ``addmm_bf16_library``."""
+    operands; none for "bf16x3" (no one call takes three bf16 products).
+    The "bf16" calls round their operands to bf16 first and are
+    ``mm_bf16_library`` (K1) and ``addmm_bf16_library`` (K2)."""
     if form == "tf32":
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -3572,6 +3570,27 @@ def addmm_bf16_library(A, V, Z, reps: int) -> dict:
     return dict(ms=None, how=None, refused=refused, rounding_ms=None)
 
 
+def mm_bf16_library(V, A, reps: int) -> dict:
+    """K1·bf16's library call: ``torch.mm(Vb.T, Ab,
+    out_dtype=torch.float32)``, V and A rounded to bf16 first (the two
+    ``.bfloat16()`` passes timed apart; A's is most of them), unmasked,
+    fp32 accumulation. Returns its times, or None with the card's words
+    where it refuses the call."""
+    Vb, Ab = V.bfloat16(), A.bfloat16()
+
+    def call():
+        return torch.mm(Vb.T, Ab, out_dtype=torch.float32)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:          # the card's words
+        return dict(ms=None, refused=f"{type(e).__name__}: {e}",
+                    rounding_ms=None)
+    return dict(ms=cuda_ms(call, reps), refused=None,
+                rounding_ms=cuda_ms(lambda: (V.bfloat16(), A.bfloat16()),
+                                    reps))
+
+
 def yardstick_launches(counts: dict) -> dict:
     """The launches of the earlier K1/K2 forms (``YARDSTICKS``)."""
     return {k: counts[k] for k in YARDSTICKS}
@@ -3585,15 +3604,14 @@ def phase_wy_modes(dev) -> dict:
     plain version's; also, printed, with the accumulator never restarted,
     as against every stage, ``wy.CHUNK``), two launches bit-equal, the
     times of the kernel, the plain version and the library call by CUDA
-    events, and the bound. The ring forms (csrc/wy_ring.cu: "tf32", K2's
-    "bf16" and "bf16x3") are timed in turns with the earlier forms of
-    csrc/wy.cu ("tf32_wy", "bf16_wy", "bf16x3_wy") and gated faster
-    at the main shapes and at HQRRP's (V 8192x128; K2 k 128 and 512, where
-    they are held to their plain versions again), their pre-passes held bit
-    for bit to ``wy.tf32_tiles_reference`` / ``wy.bf16_tiles_reference``.
-    K2·bf16's library call is ``addmm_bf16_library``; K1's bf16 forms have
-    none, and K1·bf16's bf16-operand call (half of A's bytes) is printed
-    beside it as an aside."""
+    events, and the bound. The ring forms (csrc/wy_ring.cu: "tf32",
+    "bf16" and "bf16x3" of both kernels) are timed in turns with the
+    earlier forms of csrc/wy.cu ("tf32_wy", "bf16_wy", "bf16x3_wy") and
+    gated faster at the main shapes and at HQRRP's (V 8192x128; K2 k 128
+    and 512, where they are held to their plain versions again), their
+    pre-passes held bit for bit to ``wy.tf32_tiles_reference`` /
+    ``wy.bf16_tiles_reference``. The bf16 library calls are
+    ``mm_bf16_library`` (K1) and ``addmm_bf16_library`` (K2)."""
     from randlapack_tpu_torch.ops import wy
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -3607,7 +3625,17 @@ def phase_wy_modes(dev) -> dict:
     gate(torch.equal(T.cpu().view(torch.int32),
                      wy.tf32_tiles_reference(V.T.cpu()).view(torch.int32)),
          "tf32_tiles of V^T differ from the plain pre-pass")
+    for split in (False, True):
+        T = wy.bf16_tiles(V.T, split)
+        gate(torch.equal(
+            T.cpu().view(torch.int16),
+            wy.bf16_tiles_reference(V.T.cpu(), split).view(torch.int16)),
+            f"bf16_tiles of V^T (split {split}) differ from the plain "
+            f"pre-pass")
     del T
+    print(f"[wy-modes] pre-passes of V^T {b}x{m} (TF32; bf16 with and "
+          f"without the lo halves): bit-equal to the plain versions",
+          flush=True)
     for form in MODES.values():
         plain = getattr(wy, f"masked_vt_a_{form}_reference")
         W = wy.masked_vt_a_form(V, A, mk, form)
@@ -3627,33 +3655,40 @@ def phase_wy_modes(dev) -> dict:
             lambda: wy.masked_vt_a_form(V, A, mk, form, chunk=alt),
             lambda: wy.masked_vt_a_form(V, A, mk, form), 100)
         plain_ms = cuda_ms(lambda: plain(V, A, mk), 10)
-        lib_ms, lib = form_library_ms(form, lambda: torch.mm(V.T, A), 100)
+        more = {}
+        if form == "bf16":
+            info = mm_bf16_library(V, A, 100)
+            lib_ms = info["ms"]
+            lib = lib_call = lib_ms is not None and (
+                f"torch.mm(V.bfloat16().T, A.bfloat16(), out_dtype="
+                f"torch.float32), unmasked, V and A rounded beforehand (the "
+                f"two .bfloat16() passes {info['rounding_ms']:.4f} ms)")
+            more = dict(library_rounding_ms=info["rounding_ms"],
+                        library_refused=info["refused"])
+            if info["refused"]:
+                print(f"[wy-modes] mm(..., out_dtype=torch.float32) "
+                      f"refused, {info['refused']}", flush=True)
+        else:
+            lib_ms, lib = form_library_ms(form, lambda: torch.mm(V.T, A),
+                                          100)
+            lib_call = lib and f"torch.mm(V.T, A), unmasked, {lib}"
         out[f"masked_vt_a_{form}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **form_bound(2 * m * b * w, 4 * (m * b + m * w + w + b * w),
                          form),
-            library_ms=lib_ms,
-            library_call=lib and f"torch.mm(V.T, A), unmasked, {lib}",
+            library_ms=lib_ms, library_call=lib_call or None, **more,
             err_vs_f64=e_k, plain_err_vs_f64=e_p, chunk=wy.CHUNK,
             err_vs_f64_never_restarted=e_0, ms_never_restarted=ms0,
             rel_diff_never_restarted=d_0)
         rec = out[f"masked_vt_a_{form}"]
-        extra = ""
-        if form == "tf32":
-            wy_ms, rec["ms_turns"] = in_turns(
-                lambda: wy.masked_vt_a_form(V, A, mk, "tf32_wy"),
-                lambda: wy.masked_vt_a_form(V, A, mk, "tf32"), 100)
-            rec["earlier_form_ms"] = wy_ms
-            extra = (f"; in turns with the earlier form (tf32_wy): "
-                     f"{rec['ms_turns']:.4f} against {wy_ms:.4f} ms")
-            gate(rec["ms_turns"] < wy_ms, f"masked_vt_a_tf32 "
-                 f"{rec['ms_turns']} ms not faster than {wy_ms} ms")
-        elif form == "bf16":
-            Vb, Ab = V.bfloat16(), A.bfloat16()
-            rec["bf16_operands_ms"] = cuda_ms(lambda: torch.mm(Vb.T, Ab), 100)
-            del Vb, Ab
-            extra = (f"; aside, not the same function: torch.mm on bf16 "
-                     f"operands {rec['bf16_operands_ms']:.4f} ms")
+        wy_ms, rec["ms_turns"] = in_turns(
+            lambda: wy.masked_vt_a_form(V, A, mk, f"{form}_wy"),
+            lambda: wy.masked_vt_a_form(V, A, mk, form), 100)
+        rec["earlier_form_ms"] = wy_ms
+        extra = (f"; in turns with the earlier form ({form}_wy): "
+                 f"{rec['ms_turns']:.4f} against {wy_ms:.4f} ms")
+        gate(rec["ms_turns"] < wy_ms, f"masked_vt_a_{form} "
+             f"{rec['ms_turns']} ms not faster than {wy_ms} ms")
         print(f"[wy-modes] masked_vt_a {form} m={m} b={b} w={w}: max|d| "
               f"{err:.3e} (max|plain| {scale:.3e}); error against f64: "
               f"kernel {e_k:.3e} (chunk {wy.CHUNK}; never restarted: "
@@ -3752,15 +3787,19 @@ def phase_wy_modes(dev) -> dict:
     for kk in (128, 512):
         Vh = torch.randn(m, kk, generator=g, device=dev)
         Zh = torch.randn(kk, w, generator=g, device=dev)
-        if kk == 128:
-            W = wy.masked_vt_a_form(Vh, A, mk, "tf32")
-            Wp = wy.masked_vt_a_tf32_reference(Vh, A, mk)
+        for form in MODES.values() if kk == 128 else ():
+            W = wy.masked_vt_a_form(Vh, A, mk, form)
+            Wp = getattr(wy, f"masked_vt_a_{form}_reference")(Vh, A, mk)
             err = float((W - Wp).abs().max()) / float(Wp.abs().max())
             wy_ms, new_ms = in_turns(
-                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32_wy"),
-                lambda: wy.masked_vt_a_form(Vh, A, mk, "tf32"), 100)
-            gate(err <= 1e-5, f"masked_vt_a_tf32 b=128: max|d| {err}")
-            print(f"[wy-modes] masked_vt_a tf32 m={m} b={kk} w={w}: max|d| "
+                lambda: wy.masked_vt_a_form(Vh, A, mk, f"{form}_wy"),
+                lambda: wy.masked_vt_a_form(Vh, A, mk, form), 100)
+            gate(err <= 1e-5, f"masked_vt_a_{form} b={kk}: max|d| {err}")
+            gate(new_ms < wy_ms, f"masked_vt_a_{form} b={kk}: {new_ms} ms "
+                 f"not faster than {wy_ms} ms")
+            out[f"masked_vt_a_{form}"][f"b{kk}"] = dict(
+                ms=new_ms, earlier_form_ms=wy_ms, max_rel_diff=err)
+            print(f"[wy-modes] masked_vt_a {form} m={m} b={kk} w={w}: max|d| "
                   f"{err:.2e} of max|plain|; {new_ms:.4f} ms against the "
                   f"earlier form's {wy_ms:.4f} ms in turns", flush=True)
             del W, Wp

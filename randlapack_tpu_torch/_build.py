@@ -38,6 +38,7 @@ _L = ctypes.c_longlong
 _WY_SIMT = [_P, _P, _P, _P, _I, _I, _I, _P]
 _KMM_SIMT = [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P]
 _SKETCH_SIMT = [_P, _P, _I, _I, _I, _U, _U, _D, _P]
+_RING_K1 = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _RING_K2 = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 # of its _f32 and _f64 forms, or a dict suffix -> argtypes where the two
@@ -54,12 +55,13 @@ _SIGNATURES = {
     # (A, V, Z, mask, m, k, w, chunk, mode, stream)
     "rl_a_minus_vz_masked_mode": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _P]},
-    # f32, the ring kernels (csrc/wy_ring.cu), TF32: (V, A, mask, W, part,
-    # vt, m, b, w, splits, chunk, stream) and (A, V, Z, mask, vr, zt, m, k,
-    # w, chunk, stream), the rounded tiles' scratch from the wrapper; K2 in
-    # one and three bf16 products with K2's arguments
-    "rl_masked_vt_a_tf32": {"_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _P]},
+    # f32, the ring kernels (csrc/wy_ring.cu) in one TF32, one bf16 and
+    # three bf16 products: (V, A, mask, W, part, vt, m, b, w, splits, chunk,
+    # stream) and (A, V, Z, mask, vr, zt, m, k, w, chunk, stream), the
+    # rounded tiles' scratch from the wrapper
+    "rl_masked_vt_a_tf32": {"_f32": _RING_K1},
+    "rl_masked_vt_a_bf16": {"_f32": _RING_K1},
+    "rl_masked_vt_a_bf16x3": {"_f32": _RING_K1},
     "rl_a_minus_vz_masked_tf32": {"_f32": _RING_K2},
     "rl_a_minus_vz_masked_bf16": {"_f32": _RING_K2},
     "rl_a_minus_vz_masked_bf16x3": {"_f32": _RING_K2},

@@ -347,46 +347,6 @@ struct Walk {
   }
 };
 
-// the address of this block's shared-memory address `addr` in block `rank`
-// of the cluster
-__device__ __forceinline__ uint32_t map_to_block(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// arrives at barrier `bar` (this block's address) of block `rank`; orders
-// nothing but the barrier itself
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
-               :: "r"(map_to_block(smem_u32(bar), rank)) : "memory");
-}
-
-// `bytes` from this block's `src` to the same place in block `rank`, by the
-// copy engine; block `rank`'s barrier `bar` counts the bytes as they land
-__device__ __forceinline__ void bulk_copy_to_block(const float* src,
-                                                   int bytes, uint64_t* bar,
-                                                   int rank) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(map_to_block(smem_u32(src), rank)), "r"(smem_u32(src)),
-         "r"(bytes), "r"(map_to_block(smem_u32(bar), rank)) : "memory");
-}
-
-// all threads of all blocks of the cluster meet
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
 // barrier `id` among the 128 threads of a warpgroup
 __device__ __forceinline__ void bar_sync128(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");

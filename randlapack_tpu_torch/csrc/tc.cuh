@@ -4,8 +4,10 @@
 // wrappers of the producer/consumer rings, wgmma.mma_async.m64n128k8 (tf32
 // in, fp32 accumulate) with the guard that keeps its register operand live
 // until the wait, and its shared-memory descriptor for a K-major operand in
-// unswizzled core matrices, and the pass that adds the parts of a split
-// reduction in index order. Every kernel that includes this walks its
+// unswizzled core matrices, the fp32 -> bf16 packing and hi/lo split, the
+// pass that adds the parts of a split reduction in index order, and the
+// cluster helpers (mapped addresses, remote arrivals, bulk copies between
+// blocks, the cluster barrier). Every kernel that includes this walks its
 // reduction in stages of BK = 32 and keeps a K-major operand of a stage as
 // 128 x BK TF32 values in core matrices of 8 rows x 16 bytes of k (128
 // contiguous bytes each, kCoreK bytes to the next one along k, kCoreN
@@ -13,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -93,6 +96,13 @@ __device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// tells this block's `bar` to wait for `bytes` more of bulk copies, without
+// arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
 // `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
 // `src` to this block's shared `dst` by the copy engine; `bar` counts them
 // as they land
@@ -103,6 +113,48 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       " [%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ---- thread-block clusters
+
+// the address of this block's shared-memory address `addr` in block `rank`
+// of the cluster
+__device__ __forceinline__ uint32_t map_to_block(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// arrives at barrier `bar` (this block's address) of block `rank`; orders
+// nothing but the barrier itself
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(map_to_block(smem_u32(bar), rank)) : "memory");
+}
+
+// `bytes` from this block's `src` to the same place in block `rank`, by the
+// copy engine; block `rank`'s barrier `bar` counts the bytes as they land
+__device__ __forceinline__ void bulk_copy_to_block(const float* src,
+                                                   int bytes, uint64_t* bar,
+                                                   int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(map_to_block(smem_u32(src), rank)), "r"(smem_u32(src)),
+         "r"(bytes), "r"(map_to_block(smem_u32(bar), rank)) : "memory");
+}
+
+// all threads of all blocks of the cluster meet
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -117,6 +169,12 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// waits until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
 // x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (13 zero low bits),
 // both rounded to nearest, ties away. hi by cvt.rna, which keeps NaN and
 // Inf. lo by the same rounding in integer arithmetic (half a unit added
@@ -127,6 +185,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return (uint32_t)__bfloat16_as_ushort(v.x) |
+         ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
+}
+
+// a and b rounded to bf16, to nearest even, as one register: a in the low
+// half (the lower k of a fragment's pair)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  return bf16x2_bits(__floats2bfloat162_rn(a, b));
+}
+
+// hi = bf16(x), lo = bf16(x - hi) for x = a and b, packed as pack_bf16:
+// the split of the JAX package's bf16_3x_matmul. Inf gives hi = Inf and
+// lo = NaN there too.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = pack_bf16(a - f.x, b - f.y);
 }
 
 // wgmma's descriptor of a K-major, unswizzled B operand at `p`: core

@@ -96,7 +96,6 @@
 // The fp32 SIMT kernels also stay reachable on their own
 // (rl_*_simt_f32) as the yardstick of the earlier design.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -270,28 +269,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return (uint32_t)__bfloat16_as_ushort(v.x) |
-         ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
-}
-
-// a and b rounded to bf16, to nearest even, as one register: a in the low
-// half (the lower k of a fragment's pair)
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  return bf16x2_bits(__floats2bfloat162_rn(a, b));
-}
-
-// hi = bf16(x), lo = bf16(x - hi) for x = a and b, packed as pack_bf16:
-// the split of the JAX package's bf16_3x_matmul. Inf gives hi = Inf and
-// lo = NaN there too.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = pack_bf16(a - f.x, b - f.y);
 }
 
 // d (this warpgroup's 64 x 128) = a (64x16 bf16, registers: a warp's 16

@@ -45,19 +45,18 @@ form other than "highest" launches that form (``masked_vt_a_form``,
 functions of each form are its arithmetic in plain PyTorch, for the
 tests.
 
-The "tf32" form and K2's "bf16" and "bf16x3" forms run the ring kernels
-of ``csrc/wy_ring.cu``: a pre-pass rounds the small operands once a call
+The three forms of both kernels run the ring kernels of
+``csrc/wy_ring.cu``: a pre-pass rounds the small operands once a call
 into tiles laid out for the tensor cores (``tf32_tiles``, ``bf16_tiles``;
 ``tf32_tiles_reference``, ``bf16_tiles_reference`` are their plain
-versions), and a producer warpgroup streams them (and K1's A) through an
-mbarrier ring to two consumer warpgroups (``*_order_reference`` follow
-their order of sums). K1's bf16 forms run the "highest" kernel of
-``csrc/wy.cu`` with bf16 products. The earlier forms, that kernel with
-one TF32, one bf16 or three bf16 products, stay reachable as the forms
-"tf32_wy" (K1 and K2), "bf16_wy" and "bf16x3_wy" (K2 only; K1's bf16
-forms are still that kernel) under ``LAUNCHES["…_tf32_wy"]`` etc., which
-no driver path takes. ``FORM_KERNELS`` names the entry points of every
-form.
+versions), and a producer warpgroup streams them (and K1's A: raw for
+the "tf32" form, masked and rounded by the producer for the bf16 forms)
+through an mbarrier ring to two consumer warpgroups (``*_order_reference``
+follow their order of sums). The earlier forms, the "highest" kernel of
+``csrc/wy.cu`` with one TF32, one bf16 or three bf16 products, stay
+reachable as the forms "tf32_wy", "bf16_wy" and "bf16x3_wy" of both
+kernels under ``LAUNCHES["…_tf32_wy"]`` etc., which no driver path takes.
+``FORM_KERNELS`` names the entry points of every form.
 """
 from __future__ import annotations
 
@@ -78,28 +77,26 @@ LAUNCHES = {"masked_vt_a": 0, "a_minus_vz_masked": 0,
             "masked_vt_a_bf16x3": 0, "a_minus_vz_masked_tf32": 0,
             "a_minus_vz_masked_bf16": 0, "a_minus_vz_masked_bf16x3": 0,
             "masked_vt_a_tf32_wy": 0, "a_minus_vz_masked_tf32_wy": 0,
-            "a_minus_vz_masked_bf16_wy": 0, "a_minus_vz_masked_bf16x3_wy": 0,
+            "masked_vt_a_bf16_wy": 0, "a_minus_vz_masked_bf16_wy": 0,
+            "masked_vt_a_bf16x3_wy": 0, "a_minus_vz_masked_bf16x3_wy": 0,
             "tf32_tiles": 0, "bf16_tiles": 0}
 
 # the trailing-precision forms the drivers take
 FORMS = ("tf32", "bf16", "bf16x3")
 # form -> the C entry points of its K1 and K2 launches: the ring kernels of
-# csrc/wy_ring.cu, or the tensor-core kernel of csrc/wy.cu in the ``mode``
-# of ``_FORM_MODES`` (0 is the 3xTF32 form): "tf32" and K2's bf16 forms the
-# ring kernels, K1's bf16 forms wy.cu; the "_wy" forms (the earlier
-# forms, yardsticks no driver takes) wy.cu, K2 only for the bf16 ones
-# (None: the form has no K1)
+# csrc/wy_ring.cu for the forms the drivers take; for the "_wy" forms (the
+# earlier forms, yardsticks no driver takes) the tensor-core kernel of
+# csrc/wy.cu in the ``mode`` of ``_FORM_MODES`` (0 is the 3xTF32 form)
 FORM_KERNELS = {
     "tf32": ("rl_masked_vt_a_tf32", "rl_a_minus_vz_masked_tf32"),
-    "bf16": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_bf16"),
-    "bf16x3": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_bf16x3"),
+    "bf16": ("rl_masked_vt_a_bf16", "rl_a_minus_vz_masked_bf16"),
+    "bf16x3": ("rl_masked_vt_a_bf16x3", "rl_a_minus_vz_masked_bf16x3"),
     "tf32_wy": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
-    "bf16_wy": (None, "rl_a_minus_vz_masked_mode"),
-    "bf16x3_wy": (None, "rl_a_minus_vz_masked_mode")}
-_FORM_MODES = {"bf16": 2, "bf16x3": 3, "tf32_wy": 1, "bf16_wy": 2,
-               "bf16x3_wy": 3}
-# the forms whose K2 runs the ring kernels, and their sets of rounded tiles
-# a (row tile, stage): bf16x3's hi and lo
+    "bf16_wy": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode"),
+    "bf16x3_wy": ("rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode")}
+_FORM_MODES = {"tf32_wy": 1, "bf16_wy": 2, "bf16x3_wy": 3}
+# the forms that run the ring kernels, and their sets of rounded tiles a
+# (row tile, stage): bf16x3's hi and lo
 _RING_SETS = {"tf32": 1, "bf16": 1, "bf16x3": 2}
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
@@ -377,16 +374,44 @@ def masked_vt_a_tf32_order_reference(V, A, mask, splits=1, chunk=None):
     summed by ``_chunk_sums`` (``chunk`` default ``CHUNK``), the parts
     added in index order. Only the order inside a run of ``chunk`` stages
     (the tensor cores') is left to ``@``."""
+    return _masked_vt_a_order(_tf32_rna(V).T, _tf32_rna(A * mask[None, :]),
+                              V.shape[0], splits, chunk)
+
+
+def _masked_vt_a_order(P, Q, m, splits, chunk):
+    """Σ over q < m of P[:, q]·Q[q, :] as K1's ring kernels sum it: the
+    reduction cut into ``splits`` parts of whole 32-row stages (the
+    kernel's ``kper``, the count of parts recomputed from it as the entry
+    point does), each part summed by ``_chunk_sums`` (P, Q may be tuples),
+    the parts added in index order."""
     chunk = CHUNK if chunk is None else chunk
-    m = V.shape[0]
-    Vr = _tf32_rna(V).T
-    Ar = _tf32_rna(A * mask[None, :])
     kper = max(1, -(-(-(-m // splits)) // _STAGE)) * _STAGE
     W = None
     for k0 in range(0, max(m, 1), kper):
-        p = _chunk_sums(Vr, Ar, k0, min(m, k0 + kper), chunk)
+        p = _chunk_sums(P, Q, k0, min(m, k0 + kper), chunk)
         W = p if W is None else W + p
     return W
+
+
+def masked_vt_a_bf16_order_reference(V, A, mask, splits=1, chunk=None):
+    """K1's "bf16" ring kernel in plain PyTorch, in its order of sums: V
+    and A ⊙ mask rounded to bf16 once, the parts and runs as in
+    ``masked_vt_a_tf32_order_reference``."""
+    return _masked_vt_a_order(_round_form(V, "bf16").T,
+                              _round_form(A * mask[None, :], "bf16"),
+                              V.shape[0], splits, chunk)
+
+
+def masked_vt_a_bf16x3_order_reference(V, A, mask, splits=1, chunk=None):
+    """K1's "bf16x3" ring kernel in plain PyTorch, in its order of sums:
+    the bf16 halves of V and A ⊙ mask formed once; the kernel computes Wᵀ
+    with the halves of A as the first operand, so each run of ``chunk``
+    stages is Aₗᵀ·Vₕ + Aₕᵀ·Vₗ + Aₕᵀ·Vₕ (lo·hi, hi·lo, hi·hi), written
+    here transposed; the parts and runs as in
+    ``masked_vt_a_tf32_order_reference``."""
+    (Vh, Vl), (Ah, Al) = _bf16_halves(V), _bf16_halves(A * mask[None, :])
+    return _masked_vt_a_order((Vh.T, Vl.T, Vh.T), (Al, Ah, Ah), V.shape[0],
+                              splits, chunk)
 
 
 def a_minus_vz_masked_tf32_order_reference(A, V, Z, mask, chunk=None):
@@ -611,10 +636,11 @@ def _tc_a_minus_vz_masked(A, V, Z, mask, mode, chunk):
     return A
 
 
-def _tf32_masked_vt_a(V, A, mask, chunk):
-    """K1's "tf32" ring kernel on f32 operands (the pre-pass rounds V into
-    its tiles inside the launch), through a zero-padded aligned copy of A
-    where the bulk copies refuse A; returns W."""
+def _ring_masked_vt_a(V, A, mask, form, chunk):
+    """K1's ring kernel in the form ``form`` ("tf32", "bf16", "bf16x3") on
+    f32 operands (the pre-pass rounds Vᵀ into its tiles, scratch allocated
+    here, inside the launch), through a zero-padded aligned copy of A and
+    the mask where the kernel refuses A; returns W."""
     from .. import _build
     m, b, w = V.shape[0], V.shape[1], A.shape[1]
     Ap = _padded(A)
@@ -623,8 +649,10 @@ def _tf32_masked_vt_a(V, A, mask, chunk):
     splits = masked_vt_a_splits(m, b, w4, _sm_count(A.device.index))
     part = torch.empty((splits if splits > 1 else 0, b, w4),
                        dtype=A.dtype, device=A.device)
-    vt = torch.empty(_tiles_floats(b, m), dtype=A.dtype, device=A.device)
-    _build.call(FORM_KERNELS["tf32"][0], W, V, Ap, _padded(mask, w4), W,
+    dt = torch.float32 if form == "tf32" else torch.bfloat16
+    vt = torch.empty(_tiles_floats(b, m) * _RING_SETS[form], dtype=dt,
+                     device=A.device)
+    _build.call(FORM_KERNELS[form][0], W, V, Ap, _padded(mask, w4), W,
                 part, vt, m, b, w4, splits, CHUNK if chunk is None else chunk)
     return W if w4 == w else W[:, :w].contiguous()
 
@@ -653,22 +681,21 @@ def _ring_a_minus_vz_masked(A, V, Z, mask, form, chunk):
 
 def masked_vt_a_form(V, A, mask, form, chunk=None):
     """K1 on the card in the trailing-precision form ``form`` ("tf32",
-    "bf16" or "bf16x3"; ``FORMS``; or the yardstick "tf32_wy"), f32
-    only: W = Vᵀ·(A ⊙ mask) with the mask
-    multiplied into A, each product on the tensor cores as the form says
-    (``masked_vt_a_<form>_reference`` is its arithmetic; "tf32_wy"
-    that of "tf32"), the accumulator
-    restarted every ``chunk`` stages as in ``masked_vt_a``. Operands that
-    the form's kernel refuses are copied into zero-padded aligned ones
-    first. The finite/non-finite pattern of W is the plain version's."""
-    require(FORM_KERNELS.get(form, (None,))[0] is not None,
-            f"K1 has no form {form!r}")
+    "bf16" or "bf16x3"; ``FORMS``; or the yardsticks "tf32_wy", "bf16_wy",
+    "bf16x3_wy"), f32 only: W = Vᵀ·(A ⊙ mask) with the mask multiplied
+    into A, each product on the tensor cores as the form says
+    (``masked_vt_a_<form>_reference`` is its arithmetic; a yardstick's
+    that of its form), the accumulator restarted every ``chunk`` stages
+    as in ``masked_vt_a``. Operands that the form's kernel refuses are
+    copied into zero-padded aligned ones first. The finite/non-finite
+    pattern of W is the plain version's."""
+    require(form in FORM_KERNELS, f"unknown form {form!r}")
     m, b, w = _check_vt_a(V, A, mask)
     require(A.dtype == torch.float32, f"the {form!r} form takes float32")
     if not (m and b and w):
         return torch.zeros((b, w), dtype=A.dtype, device=A.device)
-    if form == "tf32":
-        W = _tf32_masked_vt_a(V, A, mask, chunk)
+    if form in _RING_SETS:
+        W = _ring_masked_vt_a(V, A, mask, form, chunk)
     else:
         W = _tc_masked_vt_a(V, A, mask, _FORM_MODES[form], chunk)
     LAUNCHES[f"masked_vt_a_{form}"] += 1
@@ -677,8 +704,7 @@ def masked_vt_a_form(V, A, mask, form, chunk=None):
 
 def a_minus_vz_masked_form(A, V, Z, mask, form, chunk=None):
     """K2 on the card in the trailing-precision form ``form`` (as in
-    ``masked_vt_a_form``, and the yardsticks "bf16_wy", "bf16x3_wy"), f32
-    only, IN PLACE: A ← A − (V·Z) ⊙ mask
+    ``masked_vt_a_form``), f32 only, IN PLACE: A ← A − (V·Z) ⊙ mask
     (``a_minus_vz_masked_<form>_reference`` is its arithmetic; ``chunk``
     as in ``masked_vt_a``); returns A. Any k; operands that the form's
     kernel refuses are copied into zero-padded aligned ones first. The

@@ -49,12 +49,12 @@ CPU's ``bf16_3x_matmul``; the drivers launch their mode's forms and no
 (``_MODE_RES``). The "tf32" form's ring kernels are also held to the
 plain version of their order of sums within 1e-5, their pre-pass bit for
 bit to the plain one; "high" launches them and not the earlier TF32 form
-("tf32_wy"), which stays reachable under its own count. K2's "bf16" and
-"bf16x3" forms run the same ring kernel on bf16 tiles and are held the
-same way (pre-pass bit for bit, Inf/NaN included; plain version and order
-of sums within 1e-5); "default" and "bf16_3x_emul" launch them and not the
-earlier forms ("bf16_wy", "bf16x3_wy"), also in the 8192² BQRRP and
-HQRRP speed modes."""
+("tf32_wy"), which stays reachable under its own count. The "bf16" and
+"bf16x3" forms of both kernels run the same ring kernel on bf16 tiles and
+are held the same way (pre-pass bit for bit, Inf/NaN included; plain
+version and order of sums within 1e-5); "default" and "bf16_3x_emul"
+launch them and not the earlier forms ("bf16_wy", "bf16x3_wy"), also in
+the 8192² BQRRP and HQRRP speed modes."""
 import numpy as np
 import pytest
 import torch
@@ -1812,21 +1812,123 @@ def test_bf16_modes_launch_the_ring_kernel_not_the_earlier_form(cuda, tp,
     V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
                      for x in _wy_operands(512, 256, 64, 4))
     n0 = dict(twy.LAUNCHES)
+    W = twy.masked_vt_a_mixed(V, A, mask, tp)
     Ak = twy.a_minus_vz_masked_mixed(A.clone(), V, Z, mask, tp)
-    assert twy.LAUNCHES == {**n0, f"a_minus_vz_masked_{form}":
+    assert twy.LAUNCHES == {**n0, f"masked_vt_a_{form}":
+                            n0[f"masked_vt_a_{form}"] + 1,
+                            f"a_minus_vz_masked_{form}":
                             n0[f"a_minus_vz_masked_{form}"] + 1}
-    # the earlier form stays reachable as K2's yardstick, under its own
-    # name and count; K1 has none
+    # the earlier forms stay reachable as the yardsticks of both kernels,
+    # under their own names and counts
     n0 = dict(twy.LAUNCHES)
+    Wr = twy.masked_vt_a_form(V, A, mask, f"{form}_wy")
     Ar = twy.a_minus_vz_masked_form(A.clone(), V, Z, mask, f"{form}_wy")
     assert twy.LAUNCHES == {
-        **n0, f"a_minus_vz_masked_{form}_wy":
+        **n0, f"masked_vt_a_{form}_wy": n0[f"masked_vt_a_{form}_wy"] + 1,
+        f"a_minus_vz_masked_{form}_wy":
         n0[f"a_minus_vz_masked_{form}_wy"] + 1}
+    assert float((W - Wr).abs().max()) <= 1e-5 * float(Wr.abs().max())
     assert float((Ak - Ar).abs().max()) <= 1e-5 * float(Ar.abs().max())
+
+
+# -- K1's bf16 forms on the ring kernel (csrc/wy_ring.cu) --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("m,b", [(8192, 256), (300, 72), (8192, 128)])
+def test_k1_bf16_pre_pass_of_vt_is_the_plain_one(cuda, m, b, split):
+    """K1's operand: the bf16 pre-pass of Vᵀ (a transposed view of V, b
+    rows by m of the reduction) against ``bf16_tiles_reference`` bit for
+    bit, Inf and NaN included."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m + b)
+    V = torch.randn(m, b, generator=g, device=cuda)
+    V.view(-1)[3::101] = float("inf")
+    V.view(-1)[5::103] = float("nan")
+    got = twy.bf16_tiles(V.T, split).cpu().view(torch.int16)
+    want = twy.bf16_tiles_reference(V.T.cpu(), split).view(torch.int16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("m,w,b", [(300, 132, 72), (1000, 36, 200),
+                                   (33, 4, 5), (520, 260, 130), (1, 4, 1),
+                                   (8192, 1024, 256), (8192, 2048, 128),
+                                   (3000, 1025, 64)])
+def test_k1_bf16_ring_forms_match_plain_and_their_order(cuda, form, m, w, b):
+    """The CPU tests' shapes (ragged m, w % 4 == 0, b off 128), the main
+    path's and HQRRP's (b 256, 128; split reductions) and w 1025 through
+    the padded copy: K1's ring form against its plain version (1e-5 of
+    the largest entry), against f64 (at most twice the plain version's
+    error), two launches bit-equal, and against the plain version of its
+    order of sums at chunk 1, 0 (never restarted) and 3 (1e-5)."""
+    V, A, _, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(m, w, b, m + b))
+    plain = getattr(twy, f"masked_vt_a_{form}_reference")
+    order = getattr(twy, f"masked_vt_a_{form}_order_reference")
     n0 = dict(twy.LAUNCHES)
-    with pytest.raises(rt.errors.RandLAPACKError, match="K1 has no form"):
-        twy.masked_vt_a_form(V, A, mask, f"{form}_wy")
-    assert twy.LAUNCHES == n0
+    W = twy.masked_vt_a_form(V, A, mask, form)
+    Wp = plain(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-5 * float(Wp.abs().max())
+    assert torch.equal(W, twy.masked_vt_a_form(V, A, mask, form))
+    assert twy.LAUNCHES == {**n0, f"masked_vt_a_{form}":
+                            n0[f"masked_vt_a_{form}"] + 2}
+    ref = V.double().T @ (A.double() * mask.double())
+    assert _relf(W, ref) <= 2 * max(_relf(Wp, ref), 2.0 ** -24)
+    splits = twy.masked_vt_a_splits(m, b, -(-w // 4) * 4,
+                                    twy._sm_count(cuda.index or 0))
+    for chunk in (1, 0, 3):
+        W = twy.masked_vt_a_form(V, A, mask, form, chunk=chunk)
+        We = order(V, A, mask, splits, chunk)
+        assert float((W - We).abs().max()) <= 1e-5 * float(We.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+def test_k1_bf16_ring_forms_zero_mask_over_inf_gives_nan(cuda, form):
+    """Inf and NaN in A and V: the plain version's finite/non-finite
+    pattern; a mask of 0 over Inf gives NaN, as A ⊙ mask does."""
+    V, A, _, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(300, 132, 40, 9))
+    dead = int(torch.nonzero(mask == 0)[0])
+    live = int(torch.nonzero(mask == 1)[0])
+    A[7, dead] = float("inf")
+    A[9, live] = float("-inf")
+    A[11, 3] = float("nan")
+    V[5, 6] = float("-inf")
+    W = twy.masked_vt_a_form(V, A, mask, form)
+    assert bool(torch.isnan(W[:, dead]).all())
+    assert torch.equal(torch.isfinite(W), torch.isfinite(
+        getattr(twy, f"masked_vt_a_{form}_reference")(V, A, mask)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16x3"])
+def test_k1_bf16_ring_entry_points_refuse_misaligned_operands(cuda, form):
+    """A misaligned A, or w % 4, is refused by the entry point (the launch
+    raises); the wrapper hands it a zero-padded aligned copy instead."""
+    from randlapack_tpu_torch import _build
+    m, w, b = 64, 36, 8
+    vt = torch.empty(twy._tiles_floats(b, m) * twy._RING_SETS[form],
+                     dtype=torch.bfloat16, device=cuda)
+    buf = torch.zeros(m * w + 1, device=cuda)
+    A_bad = buf[1:].view(m, w)                 # 4 bytes off alignment
+    A_bad.copy_(torch.randn(m, w, device=cuda))
+    V = torch.randn(m, b, device=cuda)
+    mask = torch.ones(w, device=cuda)
+    W = torch.empty(b, w, device=cuda)
+    name = twy.FORM_KERNELS[form][0]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call(name, W, V, A_bad, mask, W, W, vt, m, b, w, 1, 1)
+    A3 = torch.randn(m, w - 1, device=cuda)    # w % 4 != 0
+    W3 = torch.empty(b, w - 1, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.call(name, W3, V, A3, mask[:w - 1], W3, W3, vt, m, b, w - 1,
+                    1, 1)
+    want = getattr(twy, f"masked_vt_a_{form}_reference")(V, A_bad, mask)
+    got = twy.masked_vt_a_form(V, A_bad, mask, form)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.cuda

@@ -1,24 +1,28 @@
-"""K2's bf16 forms ("default": one bf16 product; "bf16_3x_emul": three
-bf16 products of hi/lo halves) as the port's ring kernel computes them
-(csrc/wy_ring.cu), in their plain PyTorch form, on the CPU.
+"""The bf16 forms of K1 and K2 ("default": one bf16 product;
+"bf16_3x_emul": three bf16 products of hi/lo halves) as the port's ring
+kernel computes them (csrc/wy_ring.cu), in their plain PyTorch form, on
+the CPU.
 
-On the card the forms round V and Zᵀ once a call into bf16 tiles laid out
-for the tensor cores (``bf16_tiles``; for "bf16x3" a hi and a lo tile a
-block), and sum in a fixed order: runs of ``wy.CHUNK`` stages of 32 on
-the tensor cores (lo·hi, hi·lo, hi·hi in a run for "bf16x3"), folded into
-an fp32 sum in order. Here the plain pre-pass is held bit for bit to the
-bf16 rounding written out entry by entry and to JAX's split
-(``X.astype(jnp.bfloat16)``, ``(X − xh).astype(jnp.bfloat16)``) on
-finite inputs, and to its own rounding rules on ties, subnormals, ±0,
-±Inf and NaN (written 0x7FC0); the plain versions of the kernel's order
-of sums (``a_minus_vz_masked_bf16*_order_reference``) to the forms'
-plain versions within 1e-6 of their largest entry (fp32 sums of the same
-rounded products in another order); "bf16x3"'s plain version to the JAX
-package's ``a_minus_vz_masked_mixed(..., "bf16_3x_emul")`` within 1e-5
-(as ``tests/test_torch_trailing_modes.py`` holds the mixed functions in
-f32); and the routing to the form table, with no fallback. The kernels
-themselves are held to these on the card (tests/test_torch_cuda.py,
-chip_smoke.py's ``[wy-modes]``)."""
+On the card K2's forms round V and Zᵀ, K1's Vᵀ, once a call into bf16
+tiles laid out for the tensor cores (``bf16_tiles``; for "bf16x3" a hi
+and a lo tile a block; K1's A ⊙ mask is rounded as the kernel reads it),
+and sum in a fixed order: runs of ``wy.CHUNK`` stages of 32 on the tensor
+cores (lo·hi, hi·lo, hi·hi in a run for "bf16x3"), folded into an fp32
+sum in order, and K1's reduction over m in parts added in index order.
+Here the plain pre-pass is held bit for bit to the bf16 rounding written
+out entry by entry and to JAX's split (``X.astype(jnp.bfloat16)``,
+``(X − xh).astype(jnp.bfloat16)``) on finite inputs, and to its own
+rounding rules on ties, subnormals, ±0, ±Inf and NaN (written 0x7FC0);
+the plain versions of the kernel's order of sums
+(``a_minus_vz_masked_bf16*_order_reference``,
+``masked_vt_a_bf16*_order_reference``) to the forms' plain versions
+within 1e-6 of their largest entry (fp32 sums of the same rounded
+products in another order); "bf16x3"'s plain versions to the JAX
+package's ``a_minus_vz_masked_mixed`` / ``masked_vt_a_mixed(...,
+"bf16_3x_emul")`` within 1e-5 (as ``tests/test_torch_trailing_modes.py``
+holds the mixed functions in f32); and the routing to the form table,
+with no fallback. The kernels themselves are held to these on the card
+(tests/test_torch_cuda.py, chip_smoke.py's ``[wy-modes]``)."""
 import inspect
 import re
 from pathlib import Path
@@ -246,27 +250,116 @@ def test_bf16x3_reference_matches_jax():
         assert rel(U.numpy() - A.numpy(), Aj - A.numpy()) <= 1e-5
 
 
+# -- K1's order of sums ----------------------------------------------------
+
+def _k1_refs(form):
+    return (getattr(twy, f"masked_vt_a_{form}_order_reference"),
+            getattr(twy, f"masked_vt_a_{form}_reference"))
+
+
+def _k1_operands(m, w, b, seed):
+    V, A, _, mask = _operands(m, w, b, seed)
+    return V, A, mask
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("m,w,b,splits", [
+    (300, 132, 72, 2), (1000, 36, 200, 3), (33, 4, 5, 1), (520, 260, 130, 2),
+    (1, 4, 1, 1)])
+def test_k1_order_references_match_the_forms_plain_versions(form, m, w, b,
+                                                            splits):
+    """Ragged m (off the 32-row stage), w % 4 == 0 off the 128 tile, b not
+    a multiple of 128, the reduction in 1–3 parts: the same rounded
+    products, summed in the kernel's order, within 1e-6 of the plain
+    version's largest entry."""
+    V, A, mask = _k1_operands(m, w, b, m + w + b)
+    order, plain = _k1_refs(form)
+    W, Wp = order(V, A, mask, splits), plain(V, A, mask)
+    assert W.shape == Wp.shape == (b, w)
+    assert float((W - Wp).abs().max()) <= 1e-6 * float(Wp.abs().max())
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("chunk", [0, 1, 2, 5])
+def test_k1_order_references_restart_every_chunk(form, chunk):
+    """Every restart interval, never (0) included, sums the same products
+    within 1e-6; a run of `chunk` stages is one fp32 sum of its own (for
+    bf16x3 Vₕᵀ·Aₗ + Vₗᵀ·Aₕ + Vₕᵀ·Aₕ over the run: Wᵀ's lo·hi, hi·lo,
+    hi·hi)."""
+    V, A, mask = _k1_operands(700, 68, 40, chunk)
+    order, plain = _k1_refs(form)
+    W, Wp = order(V, A, mask, 2, chunk), plain(V, A, mask)
+    assert float((W - Wp).abs().max()) <= 1e-6 * float(Wp.abs().max())
+    if chunk:
+        (Vh, Vl), (Ah, Al) = (twy._bf16_halves(V),
+                              twy._bf16_halves(A * mask[None, :]))
+        n = 32 * chunk
+        if form == "bf16":
+            P, Q, run = Vh.T, Ah, Vh[:n].T @ Ah[:n]
+        else:
+            P, Q = (Vh.T, Vl.T, Vh.T), (Al, Ah, Ah)
+            run = (Vh[:n].T @ Al[:n] + Vl[:n].T @ Ah[:n]) + Vh[:n].T @ Ah[:n]
+        assert torch.equal(twy._chunk_sums(P, Q, 0, n, chunk), run)
+        # the parts: whole stages, added in index order
+        kper = 352                       # ceil(ceil(700 / 2) / 32) · 32
+        parts = [twy._chunk_sums(P, Q, k0, min(700, k0 + kper), chunk)
+                 for k0 in (0, kper)]
+        assert torch.equal(W, parts[0] + parts[1])
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_k1_order_references_keep_the_non_finite_pattern(form, bad):
+    """A mask of 0 over Inf gives NaN, as A ⊙ mask does; an Inf in V gives
+    NaN lo halves; the pattern is the plain version's."""
+    V, A, mask = _k1_operands(96, 40, 24, 5)
+    dead = int(torch.nonzero(mask == 0)[0])
+    live = int(torch.nonzero(mask == 1)[0])
+    A[3, dead] = bad
+    A[5, live] = bad
+    V[7, 2] = bad
+    order, plain = _k1_refs(form)
+    W, Wp = order(V, A, mask, 2), plain(V, A, mask)
+    assert torch.equal(torch.isfinite(W), torch.isfinite(Wp))
+    assert bool(torch.isnan(W[:, dead]).all())
+
+
+def test_k1_bf16x3_reference_matches_jax():
+    """K1's "bf16_3x_emul" plain version and its order of sums against the
+    JAX package's mixed function, in f32, within 1e-5 of the largest
+    entry (the tolerance of test_mixed_functions_match_jax)."""
+    V, A, mask = _k1_operands(300, 36, 20, 7)
+    Wj = np.asarray(jwy.masked_vt_a_mixed(
+        *map(jnp.asarray, (V.numpy(), A.numpy(), mask.numpy())),
+        "bf16_3x_emul"))
+    for W in (twy.masked_vt_a_bf16x3_reference(V, A, mask),
+              twy.masked_vt_a_bf16x3_order_reference(V, A, mask, 2)):
+        assert np.abs(W.numpy() - Wj).max() <= 1e-5 * np.abs(Wj).max()
+
+
 # -- routing: the form table, no fallback ----------------------------------
 
 def test_form_table_names_the_bf16_ring_kernels_and_the_yardsticks():
     assert twy.FORMS == ("tf32", "bf16", "bf16x3")
-    assert twy.FORM_KERNELS["bf16"] == ("rl_masked_vt_a_mode",
+    assert twy.FORM_KERNELS["bf16"] == ("rl_masked_vt_a_bf16",
                                         "rl_a_minus_vz_masked_bf16")
-    assert twy.FORM_KERNELS["bf16x3"] == ("rl_masked_vt_a_mode",
+    assert twy.FORM_KERNELS["bf16x3"] == ("rl_masked_vt_a_bf16x3",
                                           "rl_a_minus_vz_masked_bf16x3")
     # the earlier bodies: csrc/wy.cu's kBf16 (mode 2) and kBf16x3 (3), as
-    # K2 yardsticks only; K1's bf16 forms still run them and have none
+    # the yardsticks of both kernels; the ring forms take no mode
     for form, mode in (("bf16", 2), ("bf16x3", 3)):
         assert twy.FORM_KERNELS[f"{form}_wy"] == (
-            None, "rl_a_minus_vz_masked_mode")
-        assert twy._FORM_MODES[f"{form}_wy"] == twy._FORM_MODES[form] == mode
+            "rl_masked_vt_a_mode", "rl_a_minus_vz_masked_mode")
+        assert twy._FORM_MODES[f"{form}_wy"] == mode
+        assert form not in twy._FORM_MODES
         assert f"a_minus_vz_masked_{form}_wy" in twy.LAUNCHES
-        assert f"masked_vt_a_{form}_wy" not in twy.LAUNCHES
+        assert f"masked_vt_a_{form}_wy" in twy.LAUNCHES
     assert re.search(r"kTf32 = 1, kBf16 = 2, kBf16x3 = 3;",
                      (CSRC / "wy.cu").read_text())
     assert "bf16_tiles" in twy.LAUNCHES
     src = (CSRC / "wy_ring.cu").read_text()
-    for name in ("rl_a_minus_vz_masked_bf16", "rl_a_minus_vz_masked_bf16x3",
+    for name in ("rl_masked_vt_a_bf16", "rl_masked_vt_a_bf16x3",
+                 "rl_a_minus_vz_masked_bf16", "rl_a_minus_vz_masked_bf16x3",
                  "rl_bf16_tiles"):
         params = re.search(rf"^int {name}_f32\(([^)]*)\)", src, re.M)
         assert params, name
@@ -287,22 +380,64 @@ def test_bf16_forms_refuse_cpu_tensors_and_count_nothing():
     assert twy.LAUNCHES == before
 
 
-@pytest.mark.parametrize("form", ["bf16_wy", "bf16x3_wy"])
-def test_k1_has_no_bf16_yardstick(form):
-    """The bf16 yardsticks are K2's: K1 refuses them by name, before it
-    looks at the device."""
+def _record_launches(monkeypatch):
+    """Runs K1's wrappers on CPU tensors as far as the launch: the device
+    check passes, the card has 132 multiprocessors, and each
+    ``_build.call`` is recorded (name, then the arguments) instead of
+    launched. ``LAUNCHES`` is a copy for the test."""
+    calls = []
+    monkeypatch.setattr(twy, "_check_kernel_operands", lambda mats, mask: None)
+    monkeypatch.setattr(twy, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(_build, "call", lambda name, out, *a: calls.append(
+        (name, *a)))
+    monkeypatch.setattr(twy, "LAUNCHES", dict.fromkeys(twy.LAUNCHES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("form,mode", [("bf16_wy", 2), ("bf16x3_wy", 3)])
+def test_k1_has_no_bf16_yardstick(form, mode, monkeypatch):
+    """(The name is kept from before K1's bf16 forms moved to the ring
+    kernel, when they were csrc/wy.cu's bodies and had no yardstick.) K1's
+    bf16 yardsticks are those bodies: the form launches
+    ``rl_masked_vt_a_mode`` in its mode (2 one bf16 product, 3 three) and
+    counts under its own key, not under the ring form's."""
+    calls = _record_launches(monkeypatch)
     V, A, _, mask = _operands(64, 64, 16, 2)
-    before = dict(twy.LAUNCHES)
-    with pytest.raises(RandLAPACKError, match="K1 has no form"):
-        twy.masked_vt_a_form(V, A, mask, form)
-    assert twy.LAUNCHES == before
+    W = twy.masked_vt_a_form(V, A, mask, form)
+    assert W.shape == (16, 64)
+    assert [c[0] for c in calls] == ["rl_masked_vt_a_mode"]
+    assert calls[0][-1] == mode
+    assert twy.LAUNCHES == {**dict.fromkeys(twy.LAUNCHES, 0),
+                            f"masked_vt_a_{form}": 1}
+
+
+@pytest.mark.parametrize("form", twy.FORMS)
+@pytest.mark.parametrize("m,b,w", [(300, 72, 132), (64, 256, 33)])
+def test_k1_ring_wrapper_sizes_its_scratch(form, m, b, w, monkeypatch):
+    """K1's ring forms launch their entry point once with Vᵀ's tile
+    scratch in the form's type (TF32 floats, or bf16 values, bf16x3 two
+    sets a block), A and the mask zero-padded to w % 4 == 0, and count
+    under the form's key."""
+    calls = _record_launches(monkeypatch)
+    V, A, _, mask = _operands(m, w, b, 3)
+    W = twy.masked_vt_a_form(V, A, mask, form)
+    assert W.shape == (b, w)
+    (name, Vc, Ap, mp, Wc, part, vt, m_, b_, w4, splits, chunk), = calls
+    assert name == twy.FORM_KERNELS[form][0] == f"rl_masked_vt_a_{form}"
+    assert (m_, b_, w4, chunk) == (m, b, -(-w // 4) * 4, twy.CHUNK)
+    assert Ap.shape == (m, w4) and mp.shape == (w4,) and Vc is V
+    assert splits == twy.masked_vt_a_splits(m, b, w4, 132)
+    assert vt.dtype == (torch.float32 if form == "tf32" else torch.bfloat16)
+    assert vt.numel() == twy._tiles_floats(b, m) * twy._RING_SETS[form]
+    assert twy.LAUNCHES == {**dict.fromkeys(twy.LAUNCHES, 0),
+                            f"masked_vt_a_{form}": 1}
 
 
 def test_the_bf16_route_has_no_fallback():
-    """No try/except in the module; the ring branch of the K2 form wrapper
-    takes every form of ``FORMS`` and no "_wy" form; the ring wrapper
-    launches the form's entry point and calls no plain version and not
-    the earlier forms' kernel."""
+    """No try/except in the module; the ring branch of each form wrapper
+    takes every form of ``FORMS`` and no "_wy" form; the ring wrappers
+    launch the form's entry point and call no plain version and not the
+    earlier forms' kernel."""
     module = inspect.getsource(twy)
     assert "try:" not in module and "except" not in module
     assert set(twy._RING_SETS) == set(twy.FORMS)
@@ -310,10 +445,14 @@ def test_the_bf16_route_has_no_fallback():
     body = inspect.getsource(twy.a_minus_vz_masked_form)
     assert re.search(r"if form in _RING_SETS:\n\s+_ring_a_minus_vz_masked\(",
                      body)
-    body = inspect.getsource(twy._ring_a_minus_vz_masked)
-    assert "_build.call(FORM_KERNELS[form][1]" in body
-    assert "_reference" not in body and "_tc_" not in body
-    assert "_FORM_MODES" not in body
+    body = inspect.getsource(twy.masked_vt_a_form)
+    assert re.search(r"if form in _RING_SETS:\n\s+W = _ring_masked_vt_a\(",
+                     body)
+    for fn, k in ((twy._ring_masked_vt_a, 0), (twy._ring_a_minus_vz_masked, 1)):
+        body = inspect.getsource(fn)
+        assert f"_build.call(FORM_KERNELS[form][{k}]" in body
+        assert "_reference" not in body and "_tc_" not in body
+        assert "_FORM_MODES" not in body
 
 
 def test_wrapper_tiling_constants_are_the_kernel_source():

@@ -216,8 +216,8 @@ def test_form_table_names_the_ring_kernels_and_the_earlier_form():
     assert twy.FORM_KERNELS["tf32_wy"] == ("rl_masked_vt_a_mode",
                                              "rl_a_minus_vz_masked_mode")
     assert twy._FORM_MODES["tf32_wy"] == 1 and "tf32" not in twy._FORM_MODES
-    for names in twy.FORM_KERNELS.values():   # None: a K2-only yardstick
-        assert all(name in _build._SIGNATURES for name in names if name)
+    for names in twy.FORM_KERNELS.values():
+        assert all(name in _build._SIGNATURES for name in names)
     src = (CSRC / "wy_ring.cu").read_text()
     for name in (*twy.FORM_KERNELS["tf32"], "rl_tf32_tiles"):
         assert re.search(rf"^int {name}_f32\(", src, re.M), name
@@ -232,14 +232,15 @@ def test_the_tf32_route_has_no_fallback():
     plain version and not the earlier form's kernel."""
     module = inspect.getsource(twy)
     assert "try:" not in module and "except" not in module
-    body = inspect.getsource(twy.masked_vt_a_form)
-    assert re.search(r'if form == "tf32":\n\s+W = _tf32_masked_vt_a\(', body)
-    # K2's ring forms, "tf32" among them, share one ring wrapper
+    # the ring forms, "tf32" among them, share one ring wrapper for each kernel
     assert "tf32" in twy._RING_SETS
+    body = inspect.getsource(twy.masked_vt_a_form)
+    assert re.search(r"if form in _RING_SETS:\n\s+W = _ring_masked_vt_a\(",
+                     body)
     body = inspect.getsource(twy.a_minus_vz_masked_form)
     assert re.search(r"if form in _RING_SETS:\n\s+_ring_a_minus_vz_masked\(",
                      body)
-    for fn, call in ((twy._tf32_masked_vt_a, 'FORM_KERNELS["tf32"][0]'),
+    for fn, call in ((twy._ring_masked_vt_a, "FORM_KERNELS[form][0]"),
                      (twy._ring_a_minus_vz_masked, "FORM_KERNELS[form][1]")):
         body = inspect.getsource(fn)
         assert f"_build.call({call}" in body

@@ -6,16 +6,21 @@ Builds copies of randlapack_tpu_torch/csrc/wy_ring.cu (with nvcc, into
 build/anatomy/) whose kernel takes a flag that leaves out a part of the
 work: the wgmma (the ring and the epilogue run, the tensor cores do not),
 the loads (the producer arrives on each stage without copying it; the
-products run on whatever the ring holds), the epilogue, and with the
-loads also the fold of the accumulator or (K1) the fragment loads from
-shared memory. Times each copy at the main shapes (K1·TF32: V 8192x256,
-A 8192x8192; K2·TF32, K2·bf16, K2·bf16x3: k 1024, 8192x8192) by CUDA
-events, beside the kernel itself, each ring form in turns with its
-earlier form ("tf32_wy", "bf16_wy", "bf16x3_wy") and the
-pre-passes alone. Then a probe of the card's copy rates into shared
-memory: cp.async.bulk of 16 KB and of 512 bytes, and 16-byte cp.async,
-from a window that stays in L2 (24 MB) and from one that does not
-(1 GiB). Prints one line per measurement, with the card's name and power
+products run on whatever the ring holds), the epilogue, the fold of the
+accumulator, K1's fragment work (TF32: the consumers' loads of A's
+fragments from shared memory, the rounding stays; bf16 forms: the
+producers' masking, rounding and stores of the A tile), and the loads
+with the fold or the fragment work, and all of these at once (what is
+left is the hand-over of the stages); and for K1's bf16 forms at b 256
+the unpaired kernel (one block a column tile, as at other b) in place of
+the pair of blocks that shares the rounded A. Times each copy at the main shapes
+(K1 in all three forms: V 8192x256, A 8192x8192; K2 in all three: k 1024,
+8192x8192) by CUDA events, beside the kernel itself, each ring form of
+both kernels in turns with its earlier form ("tf32_wy", "bf16_wy",
+"bf16x3_wy") and the pre-passes alone. Then a probe of the card's copy
+rates into shared memory: cp.async.bulk of 16 KB and of 512 bytes, and
+16-byte cp.async, from a window that stays in L2 (24 MB) and from one that
+does not (1 GiB). Prints one line per measurement, with the card's name and power
 limit first. Results change nothing; the numbers are for PERF.md.
 """
 from __future__ import annotations
@@ -35,9 +40,13 @@ from randlapack_tpu_torch.ops import wy  # noqa: E402
 
 OUT = ROOT / "build" / "anatomy"
 FLAGS = {"full": 0, "no wgmma": 1, "no loads": 2, "no epilogue": 4,
+         "no fold": 8, "no fragment work (K1)": 16,
          "no loads, no fold": 2 | 8,
-         "no loads, no fragment loads (K1)": 2 | 16,
-         "no loads, no fold, no fragment loads (K1)": 2 | 8 | 16}
+         "no loads, no fragment work (K1)": 2 | 16,
+         "no loads, no fold, no fragment work (K1)": 2 | 8 | 16,
+         "no wgmma, no loads, no fragment work (K1)": 1 | 2 | 16,
+         "no wgmma, no loads, no fold, no fragment work (K1)": 1 | 2 | 8 | 16,
+         "unpaired (K1 bf16)": 32}
 
 PROBE = r"""
 #include "tc.cuh"
@@ -121,8 +130,9 @@ extern "C" int run_probe(const void* src, long long window, int chunk,
 
 
 def patch(s: str, old: str, new: str) -> str:
-    if old not in s:
-        raise RuntimeError(f"wy_ring.cu no longer holds {old!r}")
+    if s.count(old) != 1:
+        raise RuntimeError(f"wy_ring.cu holds {old!r} {s.count(old)} times, "
+                           f"not once")
     return s.replace(old, new)
 
 
@@ -132,10 +142,13 @@ def flagged_source() -> str:
     s = patch(s, "namespace {\n", "namespace {\nint g_flags = 0;\n")
     s = patch(s, "int K, int kper, int splits, int chunk) {",
               "int K, int kper, int splits, int chunk, int flags) {")
-    s = patch(s, "chunk > 0 ? chunk : INT32_MAX);",
-              "chunk > 0 ? chunk : INT32_MAX, g_flags);")
-    s = patch(s, "        mbar_wait(empty + slot, parity);\n",
-              "        mbar_wait(empty + slot, parity);\n"
+    s = patch(s, "kper, splits, chunk);\n    return (int)cudaGetLastError();",
+              "kper, splits, chunk, g_flags);\n    return (int)cudaGetLastError();")
+    s = patch(s, "kper, splits, chunk);\n  }\n}",
+              "kper, splits, chunk, g_flags);\n  }\n}")
+    # TF32 and K2: the producer arrives without copying
+    s = patch(s, "\n        mbar_wait(empty + slot, parity);\n",
+              "\n        mbar_wait(empty + slot, parity);\n"
               "        if (flags & 2) {\n"
               "          if (kVtA || tid == 0) mbar_arrive(full + slot);\n"
               "          if (kVtA && tid == 0) mbar_arrive(full + slot);\n"
@@ -150,15 +163,39 @@ def flagged_source() -> str:
               "      wgmma_commit();\n      }\n      if (kVtA && kt + 1 < c.nk) {")
     s = patch(s, "if (!kVtA && kt == max(0, c.nk - kLead)) {",
               "if (!kVtA && !(flags & 4) && kt == max(0, c.nk - kLead)) {")
-    s = patch(s, "    if constexpr (kVtA) {\n      // W (or its part)",
+    s = patch(s, "    if constexpr (kVtA) {\n      store_transposed(",
               "    if (flags & 4) {\n    } else if constexpr (kVtA) {\n"
-              "      // W (or its part)")
+              "      store_transposed(")
     s = patch(s, "        for (int e = 0; e < 4 * NT; ++e) acc[e] += part[e];",
               "        for (int e = 0; e < 4 * NT; ++e)\n"
               "          if (!(flags & 8)) acc[e] += part[e];")
     s = patch(s, "          araw[q][e] = sa[(q * 8 + t + (e >> 1) * 4) * LDA",
               "          araw[q][e] = (flags & 16) ? 1.f : "
               "sa[(q * 8 + t + (e >> 1) * 4) * LDA")
+    # K1's bf16 forms: the producer's copies and rounding, the consumers'
+    # products, fold and epilogue
+    s = patch(s, "          copy_raw(r);", "          if (!(flags & 2)) copy_raw(r);")
+    s = patch(s, "            copy_raw(rs == 0",
+              "            if (!(flags & 2)) copy_raw(rs == 0")
+    s = patch(s, "            mbar_expect_tx(full + slot, kOp + (kPair ? kOp / 2 : 0));\n"
+                 "            bulk_load(",
+              "            mbar_expect_tx(full + slot, ((flags & 2) ? 0 : kOp) + "
+              "(kPair ? kOp / 2 : 0));\n"
+              "            if (!(flags & 2)) bulk_load(")
+    s = patch(s, "          round_stage(st, rs);",
+              "          if (!(flags & 16)) round_stage(st, rs);")
+    s = patch(s, "      bf16_stage_mma<kForm>(d, st, wg, keep);",
+              "      if (!(flags & 1)) bf16_stage_mma<kForm>(d, st, wg, keep);")
+    s = patch(s, "      for (int e = 0; e < 4 * NT; ++e) acc[e] += d[e];",
+              "      for (int e = 0; e < 4 * NT; ++e)\n"
+              "        if (!(flags & 8)) acc[e] += d[e];")
+    s = patch(s, "g, t);\n#pragma unroll\n      for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;",
+              "g, t, flags);\n#pragma unroll\n      for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;")
+    s = patch(s, "                                                 int t) {\n",
+              "                                                 int t, int flags = 0) {\n"
+              "  if (flags & 4) return;\n")
+    s = patch(s, "    err = (b + BN - 1) / BN == 2\n",
+              "    err = (b + BN - 1) / BN == 2 && !(g_flags & 32)\n")
     return patch(s, 'extern "C" {\n',
                  'extern "C" {\nvoid rl_set_flags(int f) { g_flags = f; }\n')
 
@@ -181,8 +218,9 @@ def build() -> tuple:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(str(OUT / "libwy_ring_flags.so"))
-    lib.rl_masked_vt_a_tf32_f32.argtypes = [P] * 6 + [I] * 5 + [P]
     for form in wy._RING_SETS:
+        getattr(lib, f"rl_masked_vt_a_{form}_f32").argtypes = (
+            [P] * 6 + [I] * 5 + [P])
         getattr(lib, f"rl_a_minus_vz_masked_{form}_f32").argtypes = (
             [P] * 6 + [I] * 4 + [P])
     lib.rl_set_flags.argtypes = [I]
@@ -224,6 +262,8 @@ def main() -> int:
     Vk = torch.randn(m, k, generator=g, device=dev)
     Z = torch.randn(k, w, generator=g, device=dev)
     W = torch.empty(b, w, device=dev)
+    # V^T's tiles, the same bytes in every form (TF32: 4 bytes a value;
+    # bf16x3: two sets of 2 bytes)
     vt = torch.empty(wy._tiles_floats(b, m), device=dev)
     # the tiles' scratch of the largest form (TF32: 4 bytes a value; bf16x3:
     # two sets of 2 bytes), shared by K2's forms
@@ -231,11 +271,13 @@ def main() -> int:
     zt = torch.empty(wy._tiles_floats(w, k), device=dev)
     none = torch.empty(0, device=dev)
 
-    def k1():
-        err = lib.rl_masked_vt_a_tf32_f32(
-            V.data_ptr(), A.data_ptr(), mk.data_ptr(), W.data_ptr(),
-            none.data_ptr(), vt.data_ptr(), m, b, w, 1, wy.CHUNK, stream)
-        assert err == 0, err
+    def k1(form):
+        def run():
+            err = getattr(lib, f"rl_masked_vt_a_{form}_f32")(
+                V.data_ptr(), A.data_ptr(), mk.data_ptr(), W.data_ptr(),
+                none.data_ptr(), vt.data_ptr(), m, b, w, 1, wy.CHUNK, stream)
+            assert err == 0, err
+        return run
 
     def k2(form):
         def run():
@@ -246,12 +288,16 @@ def main() -> int:
         return run
 
     for name, fn, reps in (
-            ("masked_vt_a tf32 m=8192 b=256 w=8192", k1, 100),
+            *((f"masked_vt_a {form} m=8192 b=256 w=8192", k1(form), 100)
+              for form in wy._RING_SETS),
             *((f"a_minus_vz_masked {form} m=8192 k=1024 w=8192", k2(form),
                20) for form in wy._RING_SETS)):
         times = {}
         for what, flag in FLAGS.items():
             if "K1" in what and "masked_vt_a" not in name.split()[0]:
+                continue
+            if "bf16" in what and (" bf16" not in name
+                                   or "masked_vt_a" not in name):
                 continue
             lib.rl_set_flags(flag)
             times[what] = cuda_ms(fn, reps)
@@ -265,6 +311,14 @@ def main() -> int:
         f"{cuda_ms(lambda: wy.bf16_tiles(X, True), 50):.4f} ms"
         for name, X in pre.items()), flush=True)
     for form in wy._RING_SETS:
+        turns = [cuda_ms(fn, 100) for fn in (
+            lambda: wy.masked_vt_a_form(V, A, mk, f"{form}_wy"),
+            lambda: wy.masked_vt_a_form(V, A, mk, form),
+            lambda: wy.masked_vt_a_form(V, A, mk, form),
+            lambda: wy.masked_vt_a_form(V, A, mk, f"{form}_wy"))]
+        print(f"[anatomy] masked_vt_a in turns: {form} "
+              f"{(turns[1] + turns[2]) / 2:.4f} ms, {form}_wy "
+              f"{(turns[0] + turns[3]) / 2:.4f} ms", flush=True)
         turns = [cuda_ms(fn, 20) for fn in (
             lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, f"{form}_wy"),
             lambda: wy.a_minus_vz_masked_form(A, Vk, Z, mk, form),
