@@ -89,6 +89,14 @@ low-rank drivers, the operator slice and least squares:
   orthogonality and the trailing-norm ratios against LAPACK geqp3 in f64
   (with two controls the gates must refuse); config 3 with the sketch
   BQRRP's trailing products in TF32 against "highest";
+- the driver-level precision= ("high": one TF32 cuBLAS product, "default":
+  one bf16 product, both into fp32; the kernels keep their fp32 forms):
+  the BQRRP headline, RSVD config 1, CQRRPT config 3, ABRIK config 5,
+  KRILL at n 65536 and SPLS config 2, each in both modes beside
+  "highest", best of 3 in turns, gated on launches, on PERF.md §2's
+  readings (set from tools/precision_residuals.py's CPU emulation) and
+  on the TF32 switches, with one wrong answer per driver the gates must
+  refuse;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -1861,6 +1869,7 @@ def phase_rsvd(dev, card: str) -> None:
     t, err = min(times), float(err)
     sig = torch.linalg.svdvals(A.double())
     tail = float(torch.linalg.norm(sig[k:]) / torch.linalg.norm(sig))
+    PRECISION_INPUT["rsvd_tail"] = tail
     res, orth_u, orth_v = rsvd_checks("rsvd", A, U, S, Vt, err, k)
     print(f"[rsvd] rsvd_fixed_rank {n}x{n} f32 fast-decay (decay 80), rank "
           f"{k}, QB block {RSVD_B} on {card}: runs "
@@ -2267,6 +2276,7 @@ def phase_abrik(dev, card: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, S64, _, info64, _ = abrik(Ad, k, cfg, st, v0=v0.double())
+    PRECISION_INPUT["abrik_S64"] = S64
     torch.cuda.synchronize()
     t64 = time.perf_counter() - t0
     sgap = float((S.double() - S64).abs().max() / S64[0])
@@ -2979,6 +2989,7 @@ def phase_spls(dev, card: str) -> dict:
     R64 = torch.linalg.qr(A64, mode="r")[1]
     sv = torch.linalg.svdvals(R64)
     kappa = float(sv[0] / sv[-1])
+    PRECISION_INPUT["spls_kappa"] = kappa
     del R64
     xt64, b64 = xt.double(), A64 @ xt.double()
     runs = [("lsqr (default)", A, b, xt, 0.0, base),
@@ -3837,9 +3848,13 @@ def trailing_norms(R) -> torch.Tensor:
         sq.flip(0, 1).cumsum(0).cumsum(1).flip(0, 1)))
 
 
-# the matrix, state and geqp3 yardstick [bqrrp-speed] builds and
-# [hqrrp-speed] reuses
+# the matrix, state and geqp3 yardstick [bqrrp-speed] builds,
+# [hqrrp-speed] reuses and [precision] reuses the yardstick of
 SPEED_INPUT = {}
+# what [rsvd], [abrik] and [spls] compute in f64 on their inputs and
+# [precision] reuses on the same ones: config 1's optimal rank-256 tail,
+# config 5's σ from the f64 call, config 2's κ
+PRECISION_INPUT = {}
 
 
 def speed_quality(A, Q, R, J, fail, tq) -> dict:
@@ -4056,7 +4071,7 @@ def phase_hqrrp_speed(dev, card: str) -> dict:
               f"forms' {yardstick_launches(counts[tp])}", flush=True)
         refused = speed_refusals(tp, q)
         gate(not refused, f"hqrrp {tp}: {refused}")
-    SPEED_INPUT.clear()
+    del SPEED_INPUT["A"]              # [precision] remakes it, keeps tq
     return counts
 
 
@@ -4130,6 +4145,428 @@ def phase_cqrrpt_modes(dev, card: str) -> dict:
     return counts
 
 
+# -- the driver-level precision= ---------------------------------------------
+
+PRECISIONS = ("highest", "high", "default")
+# the drivers whose wall is paced by the host: their card-busy time is
+# read from one profiled call
+HOST_PACED = ("bqrrp", "rsvd", "cqrrpt", "abrik")
+# [precision]'s gates (PERF.md §2, set before the first card run). Each
+# reading's bound is an upper one, a pair a band. "highest" keeps each
+# driver's own gates (above). "high" and "default" come from
+# tools/precision_residuals.py, the drivers on the CPU with every
+# precision= product's operands rounded to TF32 or bf16: the reading r at
+# the larger of two emulated sizes, times its growth g ≥ 1 from the
+# smaller size to that one for each doubling d left to the card's size,
+# times 2 (4 for "high": the library's TF32 rounding, to nearest or
+# truncated, is not known off the card): 2·r·g^d. RSVD's error ratio
+# takes the factor on the mode's excess over "highest": 1.12·(1 +
+# 2·(r/r_highest − 1)). KRILL and SPLS do not converge in "high" and
+# "default" (PCG and LSQR with rounded operator products; ROADMAP §3):
+# they are held to the driver's contract, a finite output within the
+# iteration budget.
+_BAND = (PIVOT_BAND[0], PIVOT_BAND[1])
+PRECISION_GATES = {
+    "bqrrp": {
+        "highest": dict(res=RES_GATE, orth=ORTH_GATE, rmin=_BAND, rmax=_BAND),
+        "high": dict(res=2.8e-3, orth=0.0761, rmin=_BAND, rmax=_BAND),
+        "default": dict(res=1.12e-2, orth=0.302, rmin=_BAND, rmax=_BAND)},
+    "rsvd": {
+        "highest": dict(ratio=RSVD_TAIL_FACTOR, orth=RSVD_ORTH_GATE),
+        "high": dict(ratio=1.12, orth=0.0193),
+        "default": dict(ratio=1.244, orth=0.0748)},
+    "cqrrpt": {
+        "highest": dict(res=RES_GATE, orth=RES_GATE * math.sqrt(TALL_N),
+                        rank=(TALL_N, TALL_N)),
+        "high": dict(res=1.85e-3, orth=0.132, rank=(TALL_N, TALL_N)),
+        "default": dict(res=7.44e-3, orth=1.17, rank=(TALL_N, TALL_N))},
+    "abrik": {
+        "highest": dict(sgap=1e-4, orth=ABRIK_ORTH_GATE,
+                        iters=(ABRIK_Q, ABRIK_Q)),
+        "high": dict(sgap=8.51e-5, orth=5.68e-3, iters=(ABRIK_Q, ABRIK_Q)),
+        "default": dict(sgap=3.16e-4, orth=1.73e-2,
+                        iters=(ABRIK_Q, ABRIK_Q))},
+    "krill": {
+        "highest": dict(backward=1.0, iters=(0, 199)),
+        "high": dict(iters=(0, 200)),
+        "default": dict(iters=(0, 200))},
+    "spls": {
+        # rel: [spls-gates]' (1 + 2κ)·eps32, κ from the f64 R of A, set
+        # by precision_cases (the residual moves with the SASO scatter's
+        # atomics between runs)
+        "highest": dict(rel=None, ne=math.sqrt(SPLS_N) * EPS32,
+                        iters=(0, SPLS_ITERS - 1)),
+        "high": dict(iters=(0, SPLS_ITERS)),
+        "default": dict(iters=(0, SPLS_ITERS))},
+}
+# the precision each driver's [precision-controls] wrong answer runs at:
+# one where its gates hold the driver to more than its contract
+CONTROL_PRECISION = {"bqrrp": "high", "rsvd": "high", "cqrrpt": "high",
+                     "abrik": "high", "krill": "highest",
+                     "spls": "highest"}
+
+
+def _f64_res_orth(A, Q, R, J):
+    """‖QR − A[:, J]‖_F/‖A‖_F and ‖QᵀQ − I‖_F, in f64."""
+    Qd, Rd = Q.double(), R.double()
+    AJ = A.index_select(1, J).double()
+    res = float(torch.linalg.norm(Qd @ Rd - AJ) / torch.linalg.norm(AJ))
+    orth = float(torch.linalg.norm(
+        Qd.T @ Qd - torch.eye(Qd.shape[1], dtype=Qd.dtype, device=Qd.device)))
+    return res, orth
+
+
+def _finite(*ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def _setup_seconds(t0: float, dev) -> float:
+    """Seconds since ``t0``, the device's queue drained first."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def precision_cases(dev, scale: dict | None = None) -> dict:
+    """The [precision] phase's drivers at full width (``scale`` None) or
+    with each size divided by ``scale[name]`` (the CPU emulation,
+    tools/precision_residuals.py). Each case: ``run(precision)`` → the
+    driver's output, ``quality(output)`` → its readings, ``control(run,
+    precision)`` → a wrong answer's readings with what was wrong, and
+    ``expected(output)`` → the launch counts its path must show on the
+    card."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import (PCGConfig, PCGSaddleConfig,
+                                            QBConfig)
+    from randlapack_tpu_torch.drivers import (
+        ABRIKConfig, BQRRPConfig, CQRRPTConfig, KrillConfig, QRCPKind,
+        RSVDConfig, SPLSConfig, abrik, bqrrp_factored, bqrrp_q, cqrrpt,
+        krill_full_rpchol, rsvd_fixed_rank, spls)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    bq = sys.modules["randlapack_tpu_torch.drivers.bqrrp"]
+    scale = scale or {}
+    cases = {}
+
+    # -- BQRRP, the 8192² headline (bench.py:108-190) ----------------------
+    t0 = time.perf_counter()
+    s = scale.get("bqrrp", 1)
+    n = N // s
+    if s == 1 and "tq" in SPEED_INPUT:
+        # [bqrrp-speed]'s matrix (one GEMM) and its host geqp3 yardstick
+        A, st = fast_decay_matrix(n, n, RNGState(0), device=dev)
+        tq = SPEED_INPUT["tq"]
+    else:
+        import scipy.linalg
+        A, st = fast_decay_matrix(n, n, RNGState(0), device=dev)
+        tq = trailing_norms(torch.from_numpy(scipy.linalg.qr(
+            A.double().cpu().numpy(), mode="r", pivoting=True)[0]).to(dev))
+    bcfg = BQRRPConfig(block_size=256, pivot_candidates=2, stages=2,
+                       update_defer=4)
+
+    def bqrrp_quality(fac, A=A, tq=tq):
+        res, orth = _f64_res_orth(A, bqrrp_q(fac), fac.R, fac.J)
+        ratio = tq[:n // 2] / trailing_norms(fac.R)[:n // 2]
+        return dict(res=res, orth=orth, fail=bool(fac.fail),
+                    finite=_finite(fac.V, fac.R),
+                    rmin=float(ratio.min()), rmax=float(ratio.max()))
+
+    def bqrrp_control(run, p):
+        mixed, calls = bq.a_minus_vz_masked_mixed, []
+
+        def skip_first_group(A_, V, Z, mask, tp):
+            calls.append(1)
+            return A_ if len(calls) == 1 else mixed(A_, V, Z, mask, tp)
+        bq.a_minus_vz_masked_mixed = skip_first_group
+        try:
+            return "the first group's trailing K2 left out", \
+                bqrrp_quality(run(p))
+        finally:
+            bq.a_minus_vz_masked_mixed = mixed
+
+    cases["bqrrp"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"bqrrp_factored {n}x{n} f32 b256/pc2/stages2/defer4, "
+        "trailing highest",
+        run=lambda p: bqrrp_factored(A, bcfg, st, p)[0],
+        quality=bqrrp_quality, control=bqrrp_control,
+        expected=lambda _: EXPECTED_LAUNCHES)
+
+    # -- RSVD, BASELINE config 1 (bench.py:336-357) --------------------------
+    t0 = time.perf_counter()
+    s = scale.get("rsvd", 1)
+    rn, rk, rb = RSVD_N // s, RSVD_K // s, RSVD_B // s
+    Ar, str_ = fast_decay_matrix(rn, rn, RNGState(1), decay=80.0, device=dev)
+    if s == 1 and "rsvd_tail" in PRECISION_INPUT:
+        tail = PRECISION_INPUT["rsvd_tail"]
+    else:
+        sig = torch.linalg.svdvals(Ar.double())
+        tail = float(torch.linalg.norm(sig[rk:]) / torch.linalg.norm(sig))
+    rcfg = RSVDConfig(QBConfig(block_size=rb))
+
+    def rsvd_quality(out, Ar=Ar):
+        U, S, Vt = out[:3]
+        Ad = Ar.double()
+        res = float(torch.linalg.norm(Ad - (U.double() * S.double())
+                                      @ Vt.double()) / torch.linalg.norm(Ad))
+        eye = torch.eye(rk, dtype=torch.float64, device=Ar.device)
+        return dict(ratio=res / tail, err=float(out[3]),
+                    orth=max(float(torch.linalg.norm(
+                        U.double().T @ U.double() - eye)), float(
+                        torch.linalg.norm(Vt.double() @ Vt.double().T
+                                          - eye))),
+                    finite=_finite(U, S, Vt))
+
+    def rsvd_control(run, p):
+        U, S, Vt, err, st2 = run(p)
+        S = S.clone()
+        S[-rb:] = 0.0
+        return "the last QB block's triplets dropped", \
+            rsvd_quality((U, S, Vt, err, st2))
+
+    cases["rsvd"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"rsvd_fixed_rank {rn}x{rn} f32 decay 80, rank {rk}, block "
+        f"{rb} (tail {tail:.4e})",
+        run=lambda p: rsvd_fixed_rank(Ar, rk, rcfg, str_, p),
+        quality=rsvd_quality, control=rsvd_control,
+        expected=lambda _: NO_LAUNCHES)
+
+    # -- CQRRPT, BASELINE config 3 -------------------------------------------
+    t0 = time.perf_counter()
+    s = scale.get("cqrrpt", 1)
+    Ac, stc = fast_decay_matrix(TALL_M // s, TALL_N // s, RNGState(2),
+                                decay=9.0, device=dev)
+    ccfg = CQRRPTConfig(sketch="srht", qrcp=QRCPKind.bqrrp, bqrrp_block=256,
+                        bqrrp_pivot_candidates=2, trsm_mode="blockinv")
+
+    def cqrrpt_quality(out, Ac=Ac):
+        Q, R, J, rank, fail = out[:5]
+        res, orth = _f64_res_orth(Ac, Q, R, J)
+        return dict(res=res, orth=orth, fail=bool(fail), rank=int(rank),
+                    finite=_finite(Q, R))
+
+    def cqrrpt_control(run, p):
+        Q, R, J, rank, fail, st2 = run(p)
+        R = R.clone()
+        R[0] *= 1.1
+        return "R's first row scaled by 1.1", \
+            cqrrpt_quality((Q, R, J, rank, fail))
+
+    cases["cqrrpt"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"cqrrpt {Ac.shape[0]}x{Ac.shape[1]} f32 decay 9, srht, bqrrp "
+        "b256 pc2, blockinv",
+        run=lambda p: cqrrpt(Ac, ccfg, stc, p),
+        quality=cqrrpt_quality, control=cqrrpt_control,
+        expected=lambda _: NO_LAUNCHES)
+
+    # -- ABRIK, BASELINE config 5 (bench.py:482-500) -------------------------
+    t0 = time.perf_counter()
+    s = scale.get("abrik", 1)
+    am, an, ak, ab = ABRIK_M // s, ABRIK_N // s, ABRIK_K // s, ABRIK_B // s
+    Aa, sta = fast_decay_matrix(am, an, RNGState(5), decay=12.0, device=dev)
+    acfg = ABRIKConfig(block_size=ab, max_iters=ABRIK_Q)
+    if s == 1 and "abrik_S64" in PRECISION_INPUT:
+        S64 = PRECISION_INPUT["abrik_S64"]
+    else:
+        v0 = torch.randn((an, ab), generator=sta.spawn(dev)[0], device=dev)
+        S64 = abrik(Aa.double(), ak, acfg, sta, v0=v0.double())[1]
+
+    def abrik_quality(out):
+        U, S, Vt = out[:3]
+        eye = torch.eye(ak, dtype=torch.float64, device=U.device)
+        return dict(sgap=float((S.double() - S64).abs().max() / S64[0]),
+                    orth=float(torch.linalg.norm(U.double().T @ U.double()
+                                                 - eye)),
+                    iters=int(out[3]["num_krylov_iters"]),
+                    finite=_finite(U, S, Vt))
+
+    def abrik_control(run, p):
+        U, S, Vt, info, st2 = run(p)
+        return "sigma_0 scaled by 1.01", abrik_quality(
+            (U, S * torch.where(torch.arange(ak, device=S.device) == 0,
+                                1.01, 1.0), Vt, info, st2))
+
+    cases["abrik"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"abrik {am}x{an} f32 decay 12, k {ak}, block {ab}, "
+        f"{ABRIK_Q} iterations (against the f64 call's sigma)",
+        run=lambda p: abrik(Aa, ak, acfg, sta, precision=p),
+        quality=abrik_quality, control=abrik_control,
+        expected=lambda _: NO_LAUNCHES)
+
+    # -- KRILL, n 65536, k 1024, f32 -----------------------------------------
+    t0 = time.perf_counter()
+    s = scale.get("krill", 1)
+    kn, kk, mu = KRILL_N // s, KRILL_K // s, 1e-2
+    G, H = krill_problem(kn, 1, mu, dev)
+    kcfg = KrillConfig(k=kk, rpchol_block=64,
+                       pcg=PCGConfig(tol=1e-5, max_iters=200))
+    ones = torch.ones((kn, 1), dtype=H.dtype, device=H.device)
+    nrm_K = float(torch.linalg.norm(G.with_reg(False).matmat(ones))
+                  / math.sqrt(kn))
+
+    def krill_quality(out):
+        X, hist, iters = out[:3]
+        res = torch.linalg.norm(G.matmat(X) - H, dim=0)
+        back = float(((res / ((nrm_K + mu) * torch.linalg.norm(X, dim=0)))
+                      / EPS32).max())
+        return dict(backward=back, iters=int(iters),
+                    recursive=float((hist[iters] / hist[0]).max()),
+                    finite=_finite(X))
+
+    def krill_control(run, p):
+        X, hist, iters, st2 = run(p)
+        return "x halved", krill_quality((X / 2, hist, iters, st2))
+
+    cases["krill"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"krill_full_rpchol n {kn} d 8 f32, k {kk}, mu {mu:g}",
+        run=lambda p: krill_full_rpchol(G, H, mu, kcfg, RNGState(6), p),
+        quality=krill_quality, control=krill_control,
+        expected=lambda out: {**NO_LAUNCHES, "kernel_matmat": out[2] + 1})
+
+    # -- SPLS, BASELINE config 2 ---------------------------------------------
+    t0 = time.perf_counter()
+    s = scale.get("spls", 1)
+    sm, sn = SPLS_M // s, SPLS_N // s
+    As, _ = fast_decay_matrix(sm, sn, RNGState(3), decay=7.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    xt = torch.randn(sn, generator=g, device=dev)
+    bs = As @ xt
+    As64 = As.double()
+    fro2 = float(torch.linalg.norm(As64) ** 2)
+    if s == 1 and "spls_kappa" in PRECISION_INPUT:
+        kappa = PRECISION_INPUT["spls_kappa"]
+    else:
+        sv = torch.linalg.svdvals(torch.linalg.qr(As64, mode="r")[1])
+        kappa = float(sv[0] / sv[-1])
+    scfg = SPLSConfig(pcg=PCGSaddleConfig(tol=SPLS_TOL,
+                                          max_iters=SPLS_ITERS))
+
+    def spls_quality(out):
+        q = ls_quality(As64, fro2, bs, out[0], xt)
+        return dict(rel=q["rel"], ne=q["ne"], iters=int(out[2]),
+                    finite=_finite(out[0]))
+
+    def spls_control(run, p):
+        x, hist, iters, st2 = run(p)
+        return "x halved", spls_quality((x / 2, hist, iters, st2))
+
+    cases["spls"] = dict(
+        setup_s=_setup_seconds(t0, dev),
+        what=f"spls {sm}x{sn} f32 decay 7, lsqr (default), tol "
+        f"{SPLS_TOL:g}",
+        run=lambda p: spls(As, bs, 0.0, scfg, RNGState(4), p),
+        quality=spls_quality, control=spls_control,
+        expected=lambda _: NO_LAUNCHES,
+        gates={"highest": dict(rel=(1 + 2 * kappa) * EPS32)})
+    return cases
+
+
+def precision_refusals(name: str, p: str, q: dict,
+                       measured: dict | None = None) -> list:
+    """The gates of ``PRECISION_GATES[name][p]`` (with the bounds the
+    case computes from its input, ``measured``, in place of None) that the
+    readings ``q`` fail: every reading the table names at most its bound,
+    ``fail`` and non-finite output refused where the table does not
+    allow them."""
+    gates = {**PRECISION_GATES[name][p], **(measured or {}).get(p, {})}
+    bad = [] if q.get("finite", True) else ["non-finite"]
+    if q.get("fail") and not gates.get("fail_allowed"):
+        bad.append("fail")
+    for key, bound in gates.items():
+        if key == "fail_allowed":
+            continue
+        lo, hi = bound if isinstance(bound, tuple) else (None, bound)
+        v = q[key]
+        if not ((lo is None or v >= lo) and v <= hi):
+            bad.append(f"{key} {v:.4g} outside {bound}")
+    return bad
+
+
+def _fmt(q: dict) -> str:
+    return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in q.items())
+
+
+def phase_precision(dev, card: str) -> dict:
+    """Every driver of the slice at full width in "high" and "default"
+    beside "highest" (``precision=``; the kernels keep their fp32 forms,
+    as the Pallas kernels do): best of 3 each in turns by CUDA events,
+    card-busy ms of one profiled call, the readings against
+    ``PRECISION_GATES`` (PERF.md §2, from tools/precision_residuals.py),
+    the launch counts of each run ("highest"'s in every precision), and
+    the TF32 switches unchanged after every call. Then
+    [precision-controls]: one wrong answer a driver's gate must refuse.
+    Returns BQRRP's launch counts by precision."""
+    t0 = time.perf_counter()
+    cases = precision_cases(dev)
+    print(f"[precision] inputs {time.perf_counter() - t0:.1f} s", flush=True)
+    tf32_before = (torch.backends.cuda.matmul.allow_tf32,
+                   torch.get_float32_matmul_precision())
+    counts_by = {}
+    for name, case in cases.items():
+        t0 = time.perf_counter()
+        run = case["run"]
+        times = {p: [] for p in PRECISIONS}
+        for p in ("highest", "high", "default", "default", "high",
+                  "highest", "highest", "high", "default"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run(p)
+            end.record()
+            torch.cuda.synchronize()
+            times[p].append(start.elapsed_time(end) / 1e3)
+        for p in PRECISIONS:
+            torch.cuda.synchronize()
+            reset_counts()
+            out = run(p)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            busy = (busy_share(lambda: run(p)) if name in HOST_PACED
+                    else None)
+            q = case["quality"](out)
+            expected = case["expected"](out)
+            gate(counts == expected, f"precision {name} {p}: launches "
+                 f"{ {c: v for c, v in counts.items() if v} } != "
+                 f"{ {c: v for c, v in expected.items() if v} }")
+            gate((torch.backends.cuda.matmul.allow_tf32,
+                  torch.get_float32_matmul_precision()) == tf32_before,
+                 f"precision {name} {p}: a TF32 switch changed")
+            gates = {**PRECISION_GATES[name][p],
+                     **case.get("gates", {}).get(p, {})}
+            refused = precision_refusals(name, p, q, case.get("gates"))
+            print(f"[precision] {case['what']}, precision={p} on {card}: "
+                  f"best of 3 {min(times[p]):.4f} s (runs "
+                  f"{[round(x, 4) for x in times[p]]}; highest "
+                  f"{min(times['highest']):.4f} s, x"
+                  f"{min(times['highest']) / min(times[p]):.3f}); "
+                  + (f"card busy {busy[0]:.2f} ms, idle {100 * busy[1]:.1f} "
+                     "%" if busy else "card busy not profiled (not "
+                     "host-paced)") + f"; {_fmt(q)}; gates "
+                  f"{gates}; launches "
+                  f"{ {c: v for c, v in counts.items() if v} or 'none'}",
+                  flush=True)
+            gate(not refused, f"precision {name} {p}: {refused}")
+            if name == "bqrrp":
+                counts_by[p] = counts
+        print(f"[precision] {name}: {case['setup_s']:.1f} s for its input, "
+              f"{time.perf_counter() - t0:.1f} s for its runs, readings and "
+              "profiles", flush=True)
+    for name, case in cases.items():
+        p = CONTROL_PRECISION[name]
+        what, q = case["control"](case["run"], p)
+        refused = precision_refusals(name, p, q, case.get("gates"))
+        print(f"[precision-controls] {name} {p}, {what}: {_fmt(q)}: refused "
+              f"by {refused or 'nothing'}", flush=True)
+        gate(bool(refused), f"precision control not refused: {name}, {what}")
+    SPEED_INPUT.clear()
+    return counts_by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4188,6 +4625,7 @@ def main() -> int:
     counts["trailing_wy"] = run(phase_trailing_wy, dev)
     run(phase_mm_native, dev)
     run(phase_spls_small_vs_plain, dev)
+    precision_counts = run(phase_precision, dev, f"{smi}")
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
@@ -4206,6 +4644,10 @@ def main() -> int:
         elif k["name"] in ("masked_vt_a", "a_minus_vz_masked"):
             # and K1/K2 once each inside trailing_wy_update
             k["trailing_wy_launches"] = counts["trailing_wy"][k["name"]]
+        if KERNELS[k["name"]][2] == "bqrrp":
+            # the BQRRP headline's launches at the driver-level precisions
+            k["precision_launches"] = {
+                p: precision_counts[p][k["name"]] for p in PRECISIONS}
     # K1/K2's trailing-precision forms: launches in the BQRRP speed mode,
     # beside HQRRP's and CQRRPT's
     for tp, form in MODES.items():

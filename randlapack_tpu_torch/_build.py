@@ -203,8 +203,12 @@ def lib() -> dict:
 def call(name: str, out, *args) -> None:
     """Launch ``name`` for ``out``'s dtype on ``out``'s device, on
     PyTorch's current stream there, with ``args`` (tensors become device
-    pointers); raise if the launch was refused."""
+    pointers); raise if the launch was refused, and before it for a
+    batched tensor or one that autograd would differentiate through."""
     import torch
+
+    from .ops.util import require_kernel_operands
+    require_kernel_operands(name, *args)
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}[out.dtype]
     fn = lib()[name + suffix]
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a

@@ -16,17 +16,19 @@ import dataclasses
 
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
+from ..ops.util import matmul
 
 
-def _apply(op, X):
+def _apply(op, X, precision):
     if op is None:
         return X
     if hasattr(op, "matmat"):
-        return op.matmat(X)
+        return op.matmat(X, precision)
     if callable(op):
         return op(X)
-    return op @ X
+    return matmul(op, X, precision)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +72,7 @@ def _psd_solve(M, B):
 
 
 def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
-        seminorm=None):
+        precision=STABLE_PRECISION, seminorm=None):
     """Preconditioned CG for G X = H (s columns).
 
     ``G``/``N`` are linops, callables, or dense tensors; ``N=None`` means
@@ -92,9 +94,11 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
     Returns ``(X, res_hist, iters)``: res_hist (max_iters+1, s) of
     per-column residual norms (‖·‖₂; rows past ``iters`` stay zero) — or
     the (max_iters+1, 2) seminorm trace above — and iters, a Python int,
-    the iteration count actually performed.
+    the iteration count actually performed. Operator applies and block
+    products at ``precision`` (``ops.util.matmul``).
     """
     require(cfg.mode in ("lockstep", "block"), f"unknown mode {cfg.mode!r}")
+    prec = resolve_precision(precision)
     n, s = H.shape
     dtype, device = H.dtype, H.device
     lockstep = cfg.mode == "lockstep"
@@ -102,8 +106,8 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
     tol_abs = cfg.tol * torch.clamp(nrm_H, min=torch.finfo(dtype).tiny)
 
     X = X0
-    R = H - _apply(G, X0)
-    Z = _apply(N, R)
+    R = H - _apply(G, X0, prec)
+    Z = _apply(N, R, prec)
     P = Z
     res = torch.linalg.norm(R, dim=0)
     if seminorm is None:
@@ -117,7 +121,7 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
         hist[0, 1] = sn_z
     # lockstep: per-column scalars; block: s×s coupled scalars (ONE
     # operator, s right-hand sides)
-    rho = torch.sum(R * Z, dim=0) if lockstep else R.T @ Z
+    rho = torch.sum(R * Z, dim=0) if lockstep else matmul(R.T, Z, prec)
 
     it = 0
     while it < cfg.max_iters:
@@ -127,7 +131,7 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
         if not bool(unconverged.any() if seminorm is None
                     else sn_z > sn_stop):
             break
-        W = _apply(G, P)
+        W = _apply(G, P, prec)
         if lockstep:
             # with a seminorm the stop is global and no column freezes
             active = (unconverged.to(dtype) if seminorm is None
@@ -135,17 +139,17 @@ def pcg(G, H: torch.Tensor, N, X0: torch.Tensor, cfg: PCGConfig,
             alpha = _safe_div(rho, torch.sum(P * W, dim=0)) * active
             X = X + P * alpha[None, :]
             R = R - W * alpha[None, :]
-            Z = _apply(N, R)
+            Z = _apply(N, R, prec)
             rho_new = torch.sum(R * Z, dim=0)
             beta = _safe_div(rho_new, rho) * active
             P = Z + P * beta[None, :]
         else:
-            alpha = _psd_solve(P.T @ W, rho)
-            X = X + P @ alpha
-            R = R - W @ alpha
-            Z = _apply(N, R)
-            rho_new = R.T @ Z
-            P = Z + P @ _psd_solve(rho, rho_new)
+            alpha = _psd_solve(matmul(P.T, W, prec), rho)
+            X = X + matmul(P, alpha, prec)
+            R = R - matmul(W, alpha, prec)
+            Z = _apply(N, R, prec)
+            rho_new = matmul(R.T, Z, prec)
+            P = Z + matmul(P, _psd_solve(rho, rho_new), prec)
         rho = rho_new
         res = torch.linalg.norm(R, dim=0)
         if seminorm is None:
@@ -204,20 +208,24 @@ class PCGSaddleConfig:
 
 
 def pcg_saddle(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor, mu,
-               M: torch.Tensor, x0: torch.Tensor, cfg: PCGSaddleConfig):
+               M: torch.Tensor, x0: torch.Tensor, cfg: PCGSaddleConfig,
+               precision=STABLE_PRECISION):
     """PCG for the regularized normal equations (AᵀA + μI) x = Aᵀb − c with
     right preconditioner M (so N = M Mᵀ) — the sketch-and-precondition
     least-squares core (reference: rl_determiter.hh:19).
 
-    Returns ``(x, res_hist, iters)``, iters a Python int.
+    Returns ``(x, res_hist, iters)``, iters a Python int. Products at
+    ``precision`` (``ops.util.matmul``).
     """
+    prec = resolve_precision(precision)
+
     def G(x):
-        return A.T @ (A @ x) + mu * x
+        return matmul(A.T, matmul(A, x, prec), prec) + mu * x
 
     def N(r):
-        return M @ (M.T @ r)
+        return matmul(M, matmul(M.T, r, prec), prec)
 
-    rhs = A.T @ b - c
+    rhs = matmul(A.T, b, prec) - c
     tol_abs = cfg.tol * torch.clamp(torch.linalg.norm(rhs),
                                     min=torch.finfo(A.dtype).tiny)
     x = x0

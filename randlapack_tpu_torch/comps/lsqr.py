@@ -19,8 +19,8 @@ import dataclasses
 
 import torch
 
-from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
+from ..ops.util import matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,16 +43,17 @@ def lsqr(A: torch.Tensor, b: torch.Tensor, M: torch.Tensor | None,
     Returns ``(x, res_hist, iters)``: res_hist (max_iters+1,) holds φ̄, the
     estimate of ‖Ax − b‖, per iteration (rows past ``iters`` stay zero);
     iters is a Python int."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     dtype, dev = A.dtype, A.device
     b = b if b.ndim == 1 else b[:, 0]
 
     def op(v):       # A M v
-        return A @ (v if M is None else M @ v)
+        return matmul(A, v if M is None else matmul(M, v, precision),
+                      precision)
 
     def op_t(u):     # (A M)ᵀ u
-        w = A.T @ u
-        return w if M is None else M.T @ w
+        w = matmul(A.T, u, precision)
+        return w if M is None else matmul(M.T, w, precision)
 
     tiny = torch.finfo(dtype).tiny
 
@@ -100,5 +101,5 @@ def lsqr(A: torch.Tensor, b: torch.Tensor, M: torch.Tensor | None,
         stall = torch.where(phibar > stall_thresh * phibar_prev, stall + 1,
                             torch.zeros_like(stall))
         it += 1
-    x = y if M is None else M @ y
+    x = y if M is None else matmul(M, y, precision)
     return x, hist, it

@@ -6,7 +6,9 @@ PLU stabilization keeps the JAX package's non-finite flag and its
 δ = 2^(e_max−40) cyclic pad verbatim: the pad moves LU pivots at ties.
 The LU is ``ops.qr.lu_factor`` (cuSOLVER on the card). The row
 permutation is built on the host from LAPACK's swap sequence (one host
-read a call), so no m×m permutation matrix is ever formed.
+read a call), so no m×m permutation matrix is ever formed; under
+``torch.func.vmap`` it comes from ``torch.lu_unpack`` on the device, and
+the Householder fallback runs beside the CholQR and is selected there.
 """
 from __future__ import annotations
 
@@ -14,11 +16,11 @@ import enum
 
 import torch
 
-from ..config import STABLE_PRECISION
+from ..config import STABLE_PRECISION, resolve_precision
 from ..ops.cholqr import (_pow2, cholqr, cholqr2, cholqr_auto,
                           shifted_cholqr3)
 from ..ops.qr import lu_factor, qr_econ
-from ..ops.wy import _require_highest
+from ..ops.util import is_batched
 
 
 class Stab(enum.Enum):
@@ -36,15 +38,15 @@ def orth(A: torch.Tensor, method: Stab = Stab.cholqr2,
     """Orthonormalize the columns of A. Returns ``(Q, fail)``, ``fail`` a
     bool tensor on A's device (the reference's ``chol_fail``; callers
     fall back to ``hqr``)."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     if method == Stab.auto:
-        Q, _, fail = cholqr_auto(A)
+        Q, _, fail = cholqr_auto(A, precision)
     elif method == Stab.cholqr:
-        Q, _, fail = cholqr(A)
+        Q, _, fail = cholqr(A, precision)
     elif method == Stab.cholqr2:
-        Q, _, fail = cholqr2(A)
+        Q, _, fail = cholqr2(A, precision)
     elif method == Stab.scholqr3:
-        Q, _, fail = shifted_cholqr3(A)
+        Q, _, fail = shifted_cholqr3(A, precision)
     elif method == Stab.hqr:
         Q, _ = qr_econ(A)
         fail = torch.zeros((), dtype=torch.bool, device=A.device)
@@ -56,9 +58,14 @@ def orth(A: torch.Tensor, method: Stab = Stab.cholqr2,
 def _orth_or_hqr(Y: torch.Tensor, method: Stab, precision) -> torch.Tensor:
     """orth(Y) with the Householder fallback on a CholQR failure: one
     host read of the flag (``lax.cond`` in the JAX package); the
-    Householder QR runs only when the flag is set."""
+    Householder QR runs only when the flag is set (under vmap it runs
+    and is selected on the device)."""
     Q, fail = orth(Y, method, precision)
-    if method != Stab.hqr and bool(fail):
+    if method == Stab.hqr:
+        return Q
+    if is_batched(fail):
+        return torch.where(fail, orth(Y, Stab.hqr, precision)[0], Q)
+    if bool(fail):
         Q, _ = orth(Y, Stab.hqr, precision)
     return Q
 
@@ -78,7 +85,7 @@ def stabilize(A: torch.Tensor, method: Stab = Stab.plu,
     where orthonormality is not needed (reference PLUL, rl_orth.hh:
     212-230: getrf → unit-lower L, rows un-permuted). Returns
     ``(B, fail)``."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     if method != Stab.plu:
         return orth(A, method, precision)
     finite = torch.isfinite(A)
@@ -95,6 +102,10 @@ def stabilize(A: torch.Tensor, method: Stab = Stab.plu,
     L = torch.tril(LU[:, :n], -1) + torch.eye(m, n, dtype=A.dtype,
                                               device=A.device)
     # A + pad = P·L·U with L's row i belonging to row perm[i]: un-permute
+    if is_batched(piv):
+        # P·L with P from the swaps, as a gather: (P·L)[P's row of i] = L[i]
+        P, _, _ = torch.lu_unpack(LU, piv, unpack_data=False)
+        return L.index_select(0, torch.argsort(P.argmax(0))), bad
     out = torch.empty_like(L)
     out[_swaps_to_permutation(piv, m)] = L
     return out, bad

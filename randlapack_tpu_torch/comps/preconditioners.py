@@ -13,10 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from ..config import STABLE_PRECISION
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
 from ..ops.svd import svd_econ
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..sketching import SparseDist, SparseSkOp, fill_sparse, saso_left_apply
 from .rpchol import RPCholConfig, rp_cholesky
@@ -57,9 +57,8 @@ def rpc_data_svd_saso(A: torch.Tensor, d: int, state: RNGState,
 
     Returns ``(V_sk, sigma_sk, next_state)``: right singular vectors (n, n)
     and singular values (n,) of the sketch."""
-    _require_highest(precision)
     A_sk, state = _sketch_or_self(A, d, vec_nnz, state, sketch)
-    _, sigma, Vt = svd_econ(A_sk, svd_method)
+    _, sigma, Vt = svd_econ(A_sk, svd_method, precision)
     return Vt.T, sigma, state
 
 
@@ -94,26 +93,28 @@ def right_precond_saso(A: torch.Tensor, d: int, mu, state: RNGState,
     the card the SVD is a QR and ``gesvd``, so the pass changes M by
     rounding there, but it is kept, as it changes M.
 
-    Returns ``(M, rank, fail, next_state)``; ``fail`` a bool tensor."""
-    _require_highest(precision)
+    Returns ``(M, rank, fail, next_state)``; ``fail`` a bool tensor.
+    Products at ``precision`` (``ops.util.matmul``)."""
+    precision = resolve_precision(precision)
     A_sk, state = _sketch_or_self(A, d, vec_nnz, state, sketch)
-    _, sigma, Vt = svd_econ(A_sk, svd_method)
+    _, sigma, Vt = svd_econ(A_sk, svd_method, precision)
     M, rank = make_right_orthogonalizer(Vt.T, sigma, mu)
     if not refine:
         return M, rank, torch.zeros((), dtype=torch.bool,
                                     device=A.device), state
-    M, fail = refine_right_precond(A_sk, M, mu)
+    M, fail = refine_right_precond(A_sk, M, mu, precision)
     return M, rank, fail, state
 
 
-def refine_right_precond(A_sk: torch.Tensor, M: torch.Tensor, mu):
+def refine_right_precond(A_sk: torch.Tensor, M: torch.Tensor, mu,
+                         precision=STABLE_PRECISION):
     """``right_precond_saso``'s refinement: M·L⁻ᵀ for the Cholesky factor
     L of Ĝ = Mᵀ(A_skᵀA_sk + μI)M (unit diagonal where diag(Ĝ) = 0).
     Returns ``(M, fail)``; on a failed (or NaN) Cholesky, M unchanged and
     ``fail`` True, with no host sync."""
     n = M.shape[1]
-    AskM = A_sk @ M
-    G = AskM.T @ AskM + mu * (M.T @ M)
+    AskM = matmul(A_sk, M, precision)
+    G = matmul(AskM.T, AskM, precision) + mu * matmul(M.T, M, precision)
     dg = torch.diagonal(G)
     G = G + torch.diag(torch.where(dg > 0, torch.zeros_like(dg),
                                    torch.ones_like(dg)))
@@ -140,7 +141,8 @@ def nystrom_pc_data(A, k: int, state: RNGState, mus, tol: float = 1e-6,
 
 
 def rpchol_pc_data(A, k: int, state: RNGState, block_size: int = 64,
-                   svd_method: str = "auto", noise=None):
+                   svd_method: str = "auto", precision=STABLE_PRECISION,
+                   noise=None):
     """RPCholesky-based preconditioner data (reference :348): rank-k
     pivoted-Cholesky factor F, then thin SVD so A ≈ V diag(λ) Vᵀ with
     λ = σ(F)².
@@ -152,6 +154,6 @@ def rpchol_pc_data(A, k: int, state: RNGState, block_size: int = 64,
     goes to :func:`rp_cholesky`.
     """
     F, piv, state = rp_cholesky(A, k, RPCholConfig(block_size=block_size),
-                                state, noise=noise)
-    V, sig, _ = svd_econ(F, svd_method)
+                                state, precision, noise=noise)
+    V, sig, _ = svd_econ(F, svd_method, precision)
     return V, sig * sig, piv, state

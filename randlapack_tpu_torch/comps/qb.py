@@ -3,7 +3,9 @@ reference: RandLAPACK/comps/rl_qb.hh: QBalg :18, QB::call :134 — grow Q, B
 by b columns a block, re-orthogonalize against the earlier blocks, track
 the Frobenius error, stop early).
 
-Q and B are allocated at rank k and filled block by block. The in-loop
+Q, B and the error history are gathered block by block and joined at the
+end (out of place, so autograd and ``torch.func.vmap`` go through). The
+in-loop
 stop (error growth or loss of orthogonality) freezes the loop on the
 device, as the JAX package's ``fori_loop`` does: later blocks are zeroed
 and their errors hold ``min(prev_err, 1)``. The only host reads are the
@@ -17,9 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import STABLE_PRECISION
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from .orth import Stab, _orth_or_hqr
 from .rf import RFConfig, rf
@@ -40,8 +42,9 @@ def qb_blocked(A: torch.Tensor, k: int, cfg: QBConfig, state: RNGState,
     ‖A − Q_{:(i+1)b} B_{:(i+1)b}‖_F / ‖A‖_F after block i. Block i draws
     from ``state.branch(i)``; ``omegas[i]``, when given, injects its RS
     start instead (see ``rs``). The returned state is ``state.advance()``,
-    apart from every block's stream."""
-    _require_highest(precision)
+    apart from every block's stream. Products at ``precision``
+    (``ops.util.matmul``)."""
+    precision = resolve_precision(precision)
     m, n = A.shape
     b = cfg.block_size
     require(k % b == 0, "k must be a multiple of block_size")
@@ -53,9 +56,7 @@ def qb_blocked(A: torch.Tensor, k: int, cfg: QBConfig, state: RNGState,
     tol_orth = 100.0 * eps ** 0.5 * b ** 0.5
     eye = torch.eye(b, dtype=dtype, device=dev)
     norm_A = torch.linalg.norm(A)
-    Q = torch.zeros((m, k), dtype=dtype, device=dev)
-    B = torch.zeros((k, n), dtype=dtype, device=dev)
-    errs = torch.empty((nblocks,), dtype=dtype, device=dev)
+    Qs, Bs, errs = [], [], []
     # block 0 compares with 2.0, above any relative error
     prev_err = torch.full((), 2.0, dtype=dtype, device=dev)
     stopped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -64,25 +65,29 @@ def qb_blocked(A: torch.Tensor, k: int, cfg: QBConfig, state: RNGState,
         Qi, _ = rf(A_work, b, cfg.rf, state.branch(i), precision,
                    None if omegas is None else omegas[i])
         # re-orthogonalize against the blocks already in Q
-        Qf = Q[:, :i * b]
-        Qi = _orth_or_hqr(Qi - Qf @ (Qf.T @ Qi), cfg.orth, precision)
-        Bi = Qi.T @ A_work
-        A_next = A_work - Qi @ Bi
+        Qf = (torch.cat(Qs, 1) if Qs
+              else torch.zeros((m, 0), dtype=dtype, device=dev))
+        Qi = _orth_or_hqr(
+            Qi - matmul(Qf, matmul(Qf.T, Qi, precision), precision),
+            cfg.orth, precision)
+        Bi = matmul(Qi.T, A_work, precision)
+        A_next = A_work - matmul(Qi, Bi, precision)
         new_err = torch.linalg.norm(A_next) / norm_A
         # the in-loop stop (rl_qb.hh:228, codes 3-4): error growth or
         # orthogonality loss freezes the loop, this block and every later
         # one discarded
         grew = new_err > prev_err * (1.0 + 100.0 * eps)
-        lost = torch.linalg.norm(Qi.T @ Qi - eye) > tol_orth
+        lost = torch.linalg.norm(matmul(Qi.T, Qi, precision) - eye) > tol_orth
         stopped = stopped | grew | lost
         keep = (~stopped).to(dtype)
         A_work = torch.where(stopped, A_work, A_next)
-        Q[:, i * b:(i + 1) * b] = Qi * keep
-        B[i * b:(i + 1) * b] = Bi * keep
-        errs[i] = torch.where(stopped, torch.clamp(prev_err, max=1.0),
-                              new_err)
-        prev_err = errs[i]
-    return Q, B, errs, state.advance()
+        Qs.append(Qi * keep)
+        Bs.append(Bi * keep)
+        prev_err = torch.where(stopped, torch.clamp(prev_err, max=1.0),
+                               new_err)
+        errs.append(prev_err)
+    return (torch.cat(Qs, 1), torch.cat(Bs, 0), torch.stack(errs),
+            state.advance())
 
 
 # Status codes of the reference QB's return codes 0–6 (rl_qb.hh:193-256)

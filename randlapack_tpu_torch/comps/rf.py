@@ -7,8 +7,8 @@ import dataclasses
 
 import torch
 
-from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
+from ..ops.util import matmul
 from ..rng import RNGState
 from .orth import Stab, _orth_or_hqr
 from .rs import RSConfig, _cond_est, rs
@@ -29,8 +29,9 @@ def rf(A: torch.Tensor, k: int, cfg: RFConfig, state: RNGState,
     Returns ``(Q, next_state)`` with Q (m, k), plus a ``cond_nums``
     vector (RS's stabilization conds, then cond(Y), rl_rf.hh:102) when
     ``cfg.cond_check``. A CholQR failure falls back to Householder QR.
-    ``omega`` injects RS's Gaussian start (see ``rs``)."""
-    _require_highest(precision)
+    ``omega`` injects RS's Gaussian start (see ``rs``). Products at
+    ``precision`` (``ops.util.matmul``)."""
+    precision = resolve_precision(precision)
     rs_cfg = cfg.rs
     if cfg.cond_check and not rs_cfg.cond_check:
         rs_cfg = dataclasses.replace(rs_cfg, cond_check=True)
@@ -40,9 +41,9 @@ def rf(A: torch.Tensor, k: int, cfg: RFConfig, state: RNGState,
         omega, state, conds = rs(A, k, rs_cfg, state, precision, omega)
     else:
         omega, state = rs(A, k, rs_cfg, state, precision, omega)
-    y = A @ omega
+    y = matmul(A, omega, precision)
     if cfg.cond_check:
-        conds = torch.cat([conds, _cond_est(y)[None].to(A.dtype)])
+        conds = torch.cat([conds, _cond_est(y, precision)[None].to(A.dtype)])
     q = _orth_or_hqr(y, cfg.orth, precision)
     if cfg.cond_check:
         return q, state, conds

@@ -22,7 +22,9 @@ import dataclasses
 
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..sketching.sampling import cdf_to_indices, weights_to_cdf
 
@@ -50,7 +52,8 @@ def _draw_noise(cfg: RPCholConfig, n: int, state: RNGState, dtype, device):
                       device=device)
 
 
-def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState, noise=None):
+def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState,
+                precision=STABLE_PRECISION, noise=None):
     """Rank-k approximation A ≈ F Fᵀ with randomly pivoted column selection.
 
     ``A`` is any object with ``dim``, ``diagonal()`` and ``columns(idx)``
@@ -62,8 +65,10 @@ def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState, noise=None):
     operator's device.
 
     Returns ``(F, pivots, next_state)``: F (n, k), pivots (k,) int64 (the
-    selected columns; repeated draws yield zero columns in F).
+    selected columns; repeated draws yield zero columns in F). The two
+    block products run at ``precision`` (``ops.util.matmul``).
     """
+    precision = resolve_precision(precision)
     require(cfg.sampling in ("gumbel", "iid"),
             f"unknown sampling {cfg.sampling!r}")
     n = A.dim
@@ -106,7 +111,8 @@ def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState, noise=None):
                              ).scatter_reduce(0, idx, slots, "amax")
         keep = (winner[idx] == slots).to(dtype)
         # 3. residual columns: G = A[:, idx] − F F[idx,:]ᵀ
-        G = (A.columns(idx) - F @ F[idx, :].T) * keep[None, :]
+        G = (A.columns(idx) - matmul(F, F[idx, :].T, precision)
+             ) * keep[None, :]
         # 4. block factor via pinv-sqrt of the (possibly singular) pivot
         #    Gram — replaces potrf/trsm, robust to duplicates/deficiency.
         #    Rows AND columns of the pivot Gram are masked: duplicate
@@ -118,7 +124,7 @@ def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState, noise=None):
         good = w > tol
         inv_sqrt = torch.where(good, 1.0 / torch.sqrt(torch.where(
             good, w, torch.ones_like(w))), torch.zeros_like(w))
-        Fb = G @ (U * inv_sqrt[None, :])
+        Fb = matmul(G, U * inv_sqrt[None, :], precision)
         # 5. commit block, downdate the diagonal
         F[:, i * b:(i + 1) * b] = Fb
         piv[i * b:(i + 1) * b] = idx

@@ -8,9 +8,9 @@ import dataclasses
 
 import torch
 
-from ..config import STABLE_PRECISION
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from .orth import Stab, stabilize
 
@@ -24,9 +24,9 @@ class RSConfig:
                                   # in a returned vector (rl_rs.hh:112)
 
 
-def _cond_est(M: torch.Tensor) -> torch.Tensor:
+def _cond_est(M: torch.Tensor, precision) -> torch.Tensor:
     """cond₂ from the Gram spectrum (rl_util.hh:403), for a skinny M."""
-    G = M.T @ M
+    G = matmul(M.T, M, precision)
     lam = torch.clamp(torch.linalg.eigvalsh(0.5 * (G + G.T)), min=0.0)
     lo = torch.sqrt(torch.clamp(lam[0], min=torch.finfo(M.dtype).tiny))
     return torch.sqrt(lam[-1]) / lo
@@ -51,8 +51,9 @@ def rs(A: torch.Tensor, k: int, cfg: RSConfig, state: RNGState,
     ``(Omega, next_state, cond_nums)`` with ``cfg.cond_check``.
 
     ``omega`` injects the Gaussian start: n×k for an even
-    ``passes_over_data``, m×k for an odd one."""
-    _require_highest(precision)
+    ``passes_over_data``, m×k for an odd one. Products at ``precision``
+    (``ops.util.matmul``)."""
+    precision = resolve_precision(precision)
     m, n = A.shape
     p = cfg.passes_over_data
     conds = []
@@ -60,7 +61,7 @@ def rs(A: torch.Tensor, k: int, cfg: RSConfig, state: RNGState,
     def _stab(M):
         out, _ = stabilize(M, cfg.stab, precision)
         if cfg.cond_check:
-            conds.append(_cond_est(out))
+            conds.append(_cond_est(out, precision))
         return out
 
     if p % 2 == 0:
@@ -70,16 +71,16 @@ def rs(A: torch.Tensor, k: int, cfg: RSConfig, state: RNGState,
     else:
         omega_m, state = _gaussian_start((m, k), A.dtype, A.device, state,
                                          omega)
-        omega = A.T @ omega_m
+        omega = matmul(A.T, omega_m, precision)
         passes_done = 1
         if cfg.passes_per_stab == 1:
             omega = _stab(omega)
     while passes_done < p:
-        y = A @ omega
+        y = matmul(A, omega, precision)
         passes_done += 1
         if passes_done % cfg.passes_per_stab == 0:
             y = _stab(y)
-        omega = A.T @ y
+        omega = matmul(A.T, y, precision)
         passes_done += 1
         if passes_done % cfg.passes_per_stab == 0:
             omega = _stab(omega)

@@ -10,19 +10,18 @@ import dataclasses
 
 import torch
 
-from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
+from ..ops.util import matmul
 from ..rng import RNGState
 from .orth import Stab, stabilize
 from .rs import _gaussian_start
 
 
-def _apply_sym(A, X):
-    """A·X for a dense tensor or a linop (whose ``matmat`` takes no
-    precision here: every product is fp32 or f64)."""
+def _apply_sym(A, X, precision):
+    """A·X at ``precision`` for a dense tensor or a linop."""
     if isinstance(A, torch.Tensor):
-        return A @ X
-    return A.matmat(X)
+        return matmul(A, X, precision)
+    return A.matmat(X, precision)
 
 
 def _sym_dim(A) -> int:
@@ -43,11 +42,11 @@ def syps(A, k: int, cfg: SYPSConfig, state: RNGState,
     """n×k power-iterated sketch of a symmetric operator. ``omega``
     injects the n×k Gaussian start (``state`` still advances). Returns
     ``(Omega, next_state)``."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     n = _sym_dim(A)
     omega, state = _gaussian_start((n, k), A.dtype, A.device, state, omega)
     for p in range(cfg.passes_over_data):
-        omega = _apply_sym(A, omega)
+        omega = _apply_sym(A, omega, precision)
         if (p + 1) % cfg.passes_per_stab == 0:
             omega, _ = stabilize(omega, cfg.stab, precision)
     return omega, state

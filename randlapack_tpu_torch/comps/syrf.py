@@ -23,4 +23,5 @@ def syrf(A, k: int, cfg: SYRFConfig, state: RNGState,
     symmetric operator; a CholQR failure falls back to Householder QR.
     ``omega`` goes to ``syps``. Returns ``(Q, next_state)``."""
     omega, state = syps(A, k, cfg.syps, state, precision, omega)
-    return _orth_or_hqr(_apply_sym(A, omega), cfg.orth, precision), state
+    return (_orth_or_hqr(_apply_sym(A, omega, precision), cfg.orth,
+                         precision), state)

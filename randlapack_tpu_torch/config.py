@@ -1,11 +1,13 @@
 """Global numerics configuration for randlapack_tpu_torch
 (counterpart of ``randlapack_tpu/config.py``).
 
-One policy: every matmul on the factorization path runs in true fp32
-(or f64), never TF32. ``STABLE_PRECISION`` names that policy, and the
-drivers refuse to run when PyTorch is set to round fp32 matmul inputs
-to TF32, because CholeskyQR and the WY updates are precision-critical
-(the JAX package runs the same products at ``Precision.HIGHEST``).
+Two rules. PyTorch's process-wide switches stay at true fp32 (no TF32
+anywhere): the drivers refuse to run otherwise, because CholeskyQR and
+the WY updates are precision-critical. A driver's ``precision`` (default
+``STABLE_PRECISION``, "highest") then sets, call by call, the products
+the JAX package writes as ``jnp.matmul(..., precision=precision)``:
+``resolve_precision`` maps JAX's names, ``ops.util.matmul`` computes them.
+The hand-written kernels ignore it, as the Pallas kernels do.
 """
 from __future__ import annotations
 
@@ -21,9 +23,15 @@ STABLE_PRECISION = "highest"
 # and sets it to HIGHEST too, so here it is the same single rule.
 SKETCH_PRECISION = STABLE_PRECISION
 
-# the JAX precision names (``jax.lax.Precision`` members and their string
-# forms) that mean full fp32 products: the only ones the port runs
-_FP32_NAMES = ("highest", "float32")
+# every name JAX takes for a precision (``jax.lax.Precision`` members and
+# their string forms), by the port's three names: "highest" (true fp32
+# products), "high" (TF32 inputs, fp32 accumulate) and "default" (bf16
+# inputs, fp32 accumulate)
+_PRECISION_NAMES = {
+    "highest": "highest", "float32": "highest",
+    "high": "high", "tensorfloat32": "high",
+    "default": "default", "bfloat16": "default", "fastest": "default",
+}
 
 
 def require_fp32_matmul() -> None:
@@ -45,17 +53,19 @@ def eps(dtype) -> float:
 
 
 def resolve_precision(precision):
-    """None → ``STABLE_PRECISION``. A JAX precision name (or a
-    ``jax.lax.Precision`` member, by its name) that means full fp32
-    products → ``STABLE_PRECISION``; any other (``default``, ``high``,
-    ``bfloat16``, ``tensorfloat32``) raises ``NotImplementedError``: the
-    port has one rule, true fp32/f64 products, which the drivers enforce
-    with ``require_fp32_matmul``."""
+    """The port's name for a JAX precision: None, "highest" and
+    "float32" → "highest"; "high" and "tensorfloat32" → "high";
+    "default", "bfloat16" and "fastest" → "default". A
+    ``jax.lax.Precision`` member counts by its name (``Precision.HIGH``
+    → "high"). Anything else raises ``ValueError``, as
+    ``jax.lax.Precision`` does. ``ops.util.matmul`` says what each name
+    computes: on the CPU and in f64 every name is the plain product."""
     if precision is None:
         return STABLE_PRECISION
-    name = str(getattr(precision, "name", precision)).lower()
-    if name not in _FP32_NAMES:
-        raise NotImplementedError(
-            f"precision {precision!r}: only full fp32 products "
-            f"({STABLE_PRECISION!r}) are ported")
-    return STABLE_PRECISION
+    name = getattr(precision, "name", precision)
+    resolved = (_PRECISION_NAMES.get(name.lower())
+                if isinstance(name, str) else None)
+    if resolved is None:
+        raise ValueError(f"Unknown precision: {precision!r}; expected one "
+                         f"of {sorted(_PRECISION_NAMES)}")
+    return resolved

@@ -22,12 +22,13 @@ import time
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops.cholqr import preconditioned_cholqr
 from ..ops.qr import qr_econ
 from ..ops.svd import svd_econ
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 from .cholqr_linops import _floor_diag
@@ -36,13 +37,13 @@ from .cholqr_linops import _floor_diag
 def _matmat(A, X, precision):
     if hasattr(A, "matmat"):
         return A.matmat(X, precision)
-    return A @ X
+    return matmul(A, X, precision)
 
 
 def _tmatmat(A, X, precision):
     if hasattr(A, "tmatmat"):
         return A.tmatmat(X, precision)
-    return A.T @ X
+    return matmul(A.T, X, precision)
 
 
 def _shape(A):
@@ -122,8 +123,9 @@ def _qr_explicit(W, S, cfg: ABRIKConfig, precision):
     a deficient or frozen block."""
     if cfg.qr_explicit == "geqrf":
         return qr_econ(W)
-    R_sk = _floor_diag(torch.linalg.qr(S @ W, mode="r")[1])
-    Q, R, failq = preconditioned_cholqr(W, R_sk)
+    R_sk = _floor_diag(torch.linalg.qr(matmul(S, W, precision),
+                                       mode="r")[1])
+    Q, R, failq = preconditioned_cholqr(W, R_sk, precision)
     if bool(failq):
         return qr_econ(W)
     return Q, R
@@ -131,14 +133,14 @@ def _qr_explicit(W, S, cfg: ABRIKConfig, precision):
 
 def _require_ported(cfg: ABRIKConfig, precision):
     require_fp32_matmul()
-    _require_highest(precision)
+    resolve_precision(precision)
     require(cfg.shard_axis is None,
             "shard_axis: the distributed ABRIK is not ported")
 
 
-def _reorth(W, Basis, passes: int):
+def _reorth(W, Basis, passes: int, precision):
     for _ in range(passes):
-        W = W - Basis @ (Basis.T @ W)
+        W = W - matmul(Basis, matmul(Basis.T, W, precision), precision)
     return W
 
 
@@ -199,13 +201,13 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
         Vj = V[:, c - b:c]
         Rj = B[c - b:c, c - b:c]
         # odd half-step: W = AᵀU_j − V_j R_jᵀ, reorth, QR → V_{j+1}, L
-        W = _tmatmat(A, Uj, precision) - Vj @ Rj.T
-        W = _reorth(W, V, cfg.reorth_passes)
+        W = _tmatmat(A, Uj, precision) - matmul(Vj, Rj.T, precision)
+        W = _reorth(W, V, cfg.reorth_passes, precision)
         stopped = stopped | (torch.linalg.norm(W) < tol_bd)
         Vn, L = _qr_explicit(W, dr.sketch(2 * j, n), cfg, precision)
         # even half-step: Z = A V_{j+1} − U_j Lᵀ, reorth, QR → U_{j+1}, R
-        Z = _matmat(A, Vn, precision) - Uj @ L.T
-        Z = _reorth(Z, U, cfg.reorth_passes)
+        Z = _matmat(A, Vn, precision) - matmul(Uj, L.T, precision)
+        Z = _reorth(Z, U, cfg.reorth_passes, precision)
         stopped = stopped | (torch.linalg.norm(Z) < tol_bd)
         Un, Rn = _qr_explicit(Z, dr.sketch(2 * j + 1, m), cfg, precision)
 
@@ -269,20 +271,20 @@ def _abrik_factor_timed(A, state, cfg, precision, timer, v0=None,
         Uj, Vj = U[:, c - b:c], V[:, c - b:c]
         Rj = B[c - b:c, c - b:c]
         with timer.phase("gemm_A"):
-            W = _tmatmat(A, Uj, precision) - Vj @ Rj.T
+            W = _tmatmat(A, Uj, precision) - matmul(Vj, Rj.T, precision)
             device_sync(W)
         with timer.phase("reorth"):
-            W = _reorth(W, V, cfg.reorth_passes)
+            W = _reorth(W, V, cfg.reorth_passes, precision)
             device_sync(W)
         with timer.phase("qr"):
             stopped = stopped | (torch.linalg.norm(W) < tol_bd)
             Vn, L = _qr_explicit(W, dr.sketch(2 * j, n), cfg, precision)
             device_sync(Vn)
         with timer.phase("gemm_A"):
-            Z = _matmat(A, Vn, precision) - Uj @ L.T
+            Z = _matmat(A, Vn, precision) - matmul(Uj, L.T, precision)
             device_sync(Z)
         with timer.phase("reorth"):
-            Z = _reorth(Z, U, cfg.reorth_passes)
+            Z = _reorth(Z, U, cfg.reorth_passes, precision)
             device_sync(Z)
         with timer.phase("qr"):
             stopped = stopped | (torch.linalg.norm(Z) < tol_bd)
@@ -328,9 +330,9 @@ def abrik(A, k: int, cfg: ABRIKConfig, state: RNGState, tol: float = 0.0,
         Ub, Vb, B, capture, state = _abrik_factor_timed(
             A, state, cfg, precision, timer, v0, qr_sketches)
         with timer.phase("get_factors"):
-            Us, S, Vst = svd_econ(B, cfg.svd_method)
-            U = Ub @ Us[:, :k]
-            V = Vb @ Vst.T[:, :k]
+            Us, S, Vst = svd_econ(B, cfg.svd_method, precision)
+            U = matmul(Ub, Us[:, :k], precision)
+            V = matmul(Vb, Vst.T[:, :k], precision)
             device_sync(U)
         timer.times["total"] = time.perf_counter() - t0
         info = {"num_krylov_iters": q, "capture": capture}
@@ -338,8 +340,8 @@ def abrik(A, k: int, cfg: ABRIKConfig, state: RNGState, tol: float = 0.0,
     Ub, Vb, B, capture, iters, state = abrik_factor(
         A, state, cfg, precision, tol, v0, qr_sketches)
     # small dense SVD of the band factor (rl_abrik.hh:690-701)
-    Us, S, Vst = svd_econ(B, cfg.svd_method)
-    U = Ub @ Us[:, :k]
-    V = Vb @ Vst.T[:, :k]
+    Us, S, Vst = svd_econ(B, cfg.svd_method, precision)
+    U = matmul(Ub, Us[:, :k], precision)
+    V = matmul(Vb, Vst.T[:, :k], precision)
     info = {"num_krylov_iters": iters, "capture": capture}
     return U, S[:k], V.T, info, state

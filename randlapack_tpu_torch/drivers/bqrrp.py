@@ -35,15 +35,17 @@ import typing
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops import util
 from ..ops.cholqr import (_cholesky, _finite_scaled, _pow2, cholqr,
                           preconditioned_cholqr, shifted_cholqr3)
 from ..ops.householder import orhr_col
 from ..ops.qr import lu_pivot_columns, qr_econ
-from ..ops.wy import (_require_highest, a_minus_vz_masked_mixed,
-                      masked_vt_a_mixed, trailing_form)
+from ..ops.util import matmul
+from ..ops.wy import (a_minus_vz_masked_mixed, masked_vt_a_mixed,
+                      trailing_form)
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 
@@ -150,8 +152,8 @@ def _fix_pivots(chosen, retired):
     first_pos = torch.full((n,), b, device=dev).scatter_reduce(
         0, chosen, slots, "amin")
     valid = live_mask[chosen] & (first_pos[chosen] == slots)
-    taken = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    taken[torch.where(valid, chosen, n)] = True
+    taken = torch.zeros(n + 1, dtype=torch.bool, device=dev).index_fill(
+        0, torch.where(valid, chosen, n), True)
     avail = live_mask & ~taken[:n]
     cols = torch.arange(n, device=dev)
     ord_ = torch.argsort(torch.where(avail, cols, n + cols), stable=True)
@@ -188,21 +190,22 @@ def _safe_triu_diag(R):
     return R - torch.diag(d) + torch.diag(dsafe)
 
 
-def _tp_subtract(A, X, Y, trailing_precision):
+def _tp_subtract(A, X, Y, trailing_precision, precision):
     """A ← A − X·Y in place (A owned by the caller) with X·Y at the
     trailing precision — the JAX package's ``A - _tp_matmul(X, Y, ...)``:
     "highest" (and "high"/"default" where ``trailing_form`` maps them to
-    it) as a plain product; any other form through K2's form with an
-    all-live mask (on the CPU, ``bf16_3x_matmul``)."""
+    it) as a product at the driver's ``precision``; any other form
+    through K2's form with an all-live mask (on the CPU,
+    ``bf16_3x_matmul``)."""
     if trailing_form(trailing_precision, A) == "highest":
-        A -= X @ Y
+        A -= matmul(X, Y, precision)
         return A
     ones = torch.ones(A.shape[1], dtype=A.dtype, device=A.device)
     return a_minus_vz_masked_mixed(A, X, Y, ones, trailing_precision)
 
 
 def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
-           g0: int, q_hi: int, nblocks: int):
+           g0: int, q_hi: int, nblocks: int, precision):
     """Explicit-form stage: ``nblocks`` panel blocks inside the column
     window starting at global column ``g0``. ``A_loc`` (owned, updated in
     place), ``A_sk_loc``, ``R_loc`` (K rows × window columns, written in
@@ -239,20 +242,21 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         A_sk_panel = A_sk.index_select(1, chosen)
         panel = A_work.index_select(1, chosen)
         if deferred and j > 0:
-            panel = panel - Qg @ Tg.index_select(1, chosen)
+            panel = panel - matmul(Qg, Tg.index_select(1, chosen), precision)
         patch = torch.zeros((K, b), dtype=dt, device=dev)
         if cfg.block_reorth:
             # BCGS2 against the filled basis prefix; the correction goes
             # into R's earlier rows at the chosen columns
-            proj = Qp.T @ panel
-            panel = panel - Qp @ proj
+            proj = matmul(Qp.T, panel, precision)
+            panel = panel - matmul(Qp, proj, precision)
             patch[:q_hi] = proj
         if cfg.qr_tall == QRTall.cholqr:
             R_sk = _safe_triu_diag(qr_econ(A_sk_panel)[1])
-            Q_panel, R11, failp = preconditioned_cholqr(panel, R_sk)
+            Q_panel, R11, failp = preconditioned_cholqr(panel, R_sk,
+                                                        precision)
             if cfg.panel_reorth:
-                Q_panel, R2, f2 = cholqr(Q_panel)
-                R11 = R2 @ R11
+                Q_panel, R2, f2 = cholqr(Q_panel, precision)
+                R11 = matmul(R2, R11, precision)
                 failp = failp | f2
             if bool(failp):
                 Q_panel, R11 = qr_econ(panel)
@@ -265,18 +269,19 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         # -- trailing update over the (masked) window -------------------
         retired[chosen] = 1.0
         live2 = 1.0 - retired
-        T = Q_panel.T @ A_work
+        T = matmul(Q_panel.T, A_work, precision)
         if deferred and j > 0:
             # T must read the TRUE trailing matrix
-            T = T - (Q_panel.T @ Qg) @ Tg
+            T = T - matmul(matmul(Q_panel.T, Qg, precision), Tg, precision)
         T = T * live2[None, :]
         if not deferred:
-            _tp_subtract(A_work, Q_panel, T, cfg.trailing_precision)
+            _tp_subtract(A_work, Q_panel, T, cfg.trailing_precision,
+                         precision)
 
         # -- sketch downdate --------------------------------------------
         SQ = torch.linalg.solve_triangular(
             _safe_triu_diag(R11), A_sk_panel, upper=True, left=False)
-        A_sk, fail = _sanitize_sketch(A_sk - SQ @ T, fail)
+        A_sk, fail = _sanitize_sketch(A_sk - matmul(SQ, T, precision), fail)
 
         # -- commit -----------------------------------------------------
         Qp[:, g0 + c:g0 + c + b] = Q_panel
@@ -303,7 +308,7 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
                                            Qg, Tg)
             # ONE wide k = g·b trailing update (the per-block GEMM sum,
             # reordered)
-            _tp_subtract(A_work, Qg, Tg, cfg.trailing_precision)
+            _tp_subtract(A_work, Qg, Tg, cfg.trailing_precision, precision)
 
     # stage-end permutation: pivots (in selection order) to the front,
     # the rest in their relative order, for the next (narrower) window
@@ -331,10 +336,12 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     (``sketch``, ``stage_<s>``, ``final_orth``). ``sketch`` injects the
     (d, m) Gaussian sketch S (d = int(d_factor·b)); when it is None, S is
     drawn from ``state`` on A's device. ``A`` is not modified.
+    ``precision`` sets every product the JAX package runs at the driver's
+    precision (``ops.util.matmul``).
     """
     require_fp32_matmul()
     _check_cfg(cfg)
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
     timer = PhaseTimer()
 
@@ -355,7 +362,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     chunk = K_full // S if K_full else 0
 
     with _phase("sketch"):
-        A_sk = _sketch_product(A, d, state, sketch)
+        A_sk = _sketch_product(A, d, state, sketch, precision)
         state = state.advance()
         if timing:
             device_sync(A_sk)
@@ -383,7 +390,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
         with _phase(f"stage_{s}"):
             A_loc, A_sk_loc, R_loc, J_loc, fail = _stage(
                 A_loc, A_sk[:, g0:], Q, R[:, g0:], J[g0:], fail, scfg, g0,
-                q_hi, nblocks)
+                q_hi, nblocks, precision)
             if timing:
                 device_sync(Q)
         if g0 == 0:
@@ -400,7 +407,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
             # one CholQR pass on the finished Q; a degenerate Q (colliding
             # fallback panels) breaks the unshifted Cholesky, and the
             # shifted factor keeps the outputs finite with `fail` raised
-            G = Q.T @ Q
+            G = matmul(Q.T, Q, precision)
             L = _cholesky(G)
             bad = torch.isnan(L).any() | (torch.diagonal(L) <= 0).any()
             if bool(bad):
@@ -408,7 +415,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
                 L = _cholesky(G + s2 * torch.eye(K, dtype=dt, device=dev))
             Q = torch.linalg.solve_triangular(L.T, Q, upper=True,
                                               left=False)
-            R = L.T @ R
+            R = matmul(L.T, R, precision)
             fail = fail | bad
         if timing:
             device_sync(Q)
@@ -421,7 +428,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     return Q, R, J, rank, fail, state
 
 
-def _sketch_product(A, d, state: RNGState, sketch):
+def _sketch_product(A, d, state: RNGState, sketch, precision):
     """S·A for the dense (d, m) Gaussian sketch S, N(0, 1/d) entries: the
     injected ``sketch``, or drawn from ``state`` on A's device (the caller
     advances ``state``)."""
@@ -433,10 +440,10 @@ def _sketch_product(A, d, state: RNGState, sketch):
     require(isinstance(sketch, torch.Tensor)
             and tuple(sketch.shape) == (d, m),
             f"sketch must be a {(d, m)} tensor")
-    return sketch.to(device=A.device, dtype=A.dtype) @ A
+    return matmul(sketch.to(device=A.device, dtype=A.dtype), A, precision)
 
 
-def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig):
+def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig, precision):
     """Panel QR at its row offset, with the JAX package's rescue ladder.
     Returns ``(Q_panel, R11, failp, fail_all)``: ``failp`` that the first
     attempt broke down, ``fail_all`` that every rescue did too."""
@@ -456,53 +463,65 @@ def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig):
             # pow2 band-normalize before the Gram (a uniformly tiny sketch
             # underflows G_sk and destroys the preconditioner)
             Ysk_n, s_y, _ = _finite_scaled(Ysk_p)
-            L_sk = _cholesky(Ysk_n.T @ Ysk_n)
+            L_sk = _cholesky(matmul(Ysk_n.T, Ysk_n, precision))
             badsk = torch.isnan(L_sk).any()
             R_sk = _safe_triu_diag(torch.where(
                 badsk, torch.eye(b, dtype=dt, device=dev), L_sk.T * s_y))
-        Q_panel, R11, failp = preconditioned_cholqr(panel_m, R_sk)
+        Q_panel, R11, failp = preconditioned_cholqr(panel_m, R_sk, precision)
     if cfg.panel_reorth:
-        Q_panel, R2, f2 = cholqr(Q_panel)
-        R11 = R2 @ R11
+        Q_panel, R2, f2 = cholqr(Q_panel, precision)
+        R11 = matmul(R2, R11, precision)
         failp = failp | f2
     fail_all = torch.zeros((), dtype=torch.bool, device=dev)
     # rescue 1: shifted CholQR3; rescue 1.5: Householder-R preconditioned
     # CholQR (backward-stable R is the perfect preconditioner). One host
-    # sync per block decides whether the ladder runs at all.
+    # sync per block decides whether the ladder runs at all; a batched
+    # call (torch.func.vmap) runs both rungs and selects on the device.
+    if util.is_batched(failp):
+        Q_r, R_r, f_r = shifted_cholqr3(panel_m, precision)
+        R_h = _safe_triu_diag(torch.linalg.qr(panel_m, mode="r").R[:b, :])
+        Q_h, R_hh, f_h = preconditioned_cholqr(panel_m, R_h, precision)
+        f_h = f_h | (~torch.isfinite(Q_h)).any()
+        Q_r, R_r = torch.where(f_r, Q_h, Q_r), torch.where(f_r, R_hh, R_r)
+        return (torch.where(failp, Q_r, Q_panel),
+                torch.where(failp, R_r, R11), failp,
+                failp & f_r & f_h)
     if bool(failp):
-        Q_panel, R11, f_r = shifted_cholqr3(panel_m)
+        Q_panel, R11, f_r = shifted_cholqr3(panel_m, precision)
         if bool(f_r):
             R_h = _safe_triu_diag(
                 torch.linalg.qr(panel_m, mode="r").R[:b, :])
-            Q_panel, R11, f_h = preconditioned_cholqr(panel_m, R_h)
+            Q_panel, R11, f_h = preconditioned_cholqr(panel_m, R_h,
+                                                      precision)
             fail_all = f_h | (~torch.isfinite(Q_panel)).any()
     return Q_panel, R11, failp, fail_all
 
 
-def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
-              c0: int, tidx0: int, nblocks: int, bsz: int):
+def _wy_stage(A, Y, Vs, Ts, bT: int, J_loc, fail, cfg: BQRRPConfig,
+              c0: int, nblocks: int, bsz: int, precision):
     """Factored-form stage over a column WINDOW (columns [g0:n) of the
     global problem): in-place Householder coordinates (live columns carry
     QᵀA), mask-based retirement, exact trsm sketch downdate, then ONE
     stage-end permutation moving the pivots to the window front.
 
-    ``A`` is owned by the stage and updated in place; ``Vall``/``Ts`` are
-    written at global row offset ``c0`` / T-slot base ``tidx0``; ``bsz``
-    is the block width (the remainder stage passes r < b). Blocks run in
-    groups of ``update_defer``: inside a group each block reads the stale
-    A plus an exact low-rank correction through the group aggregates
-    (Vg, Ug), and the group ends with ONE k = g·b masked update.
-    Returns the permuted ``(A, Y, Vall, Ts, J_loc, fail)``.
+    ``A`` is owned by the stage and updated in place; each block's V
+    (zero-padded to the T-slot width ``bT``) and T (identity-padded) are
+    appended to ``Vs`` / ``Ts``, the chosen columns' final values, pivot
+    order and retired mask are gathered out of place (so
+    ``torch.func.vmap`` batches a CPU call); ``bsz`` is the block width
+    (the remainder stage passes r < b). Blocks run in groups of
+    ``update_defer``: inside a group each block reads the stale A plus an
+    exact low-rank correction through the group aggregates (Vg, Ug), and
+    the group ends with ONE k = g·b masked update. Returns the permuted
+    ``(A, Y, J_loc, fail)``.
     """
     m, n = A.shape
     b = bsz
     dt, dev = A.dtype, A.device
-    order = torch.zeros(nblocks * b, dtype=torch.int64, device=dev)
+    order, Fstk = [], []
     retired = torch.zeros(n, dtype=dt, device=dev)
-    Fstk = torch.zeros((m, nblocks * b), dtype=dt, device=dev)
-    bT = Ts.shape[1]
 
-    def subblock(i, j, Vg, Ug, Y, fail):
+    def subblock(i, j, Vg, Ug, Y, fail, retired):
         c = c0 + i * b
         live = 1.0 - retired
 
@@ -513,11 +532,12 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
         # -- panel QR at row offset c (lazily-corrected true panel) ------
         panel = A.index_select(1, chosen)
         if j > 0:
-            panel = panel - Vg @ Ug.index_select(1, chosen)
+            panel = panel - matmul(Vg, Ug.index_select(1, chosen), precision)
         panel_m = panel.clone()
         panel_m[:c] = 0.0
         Ysk_p = Y.index_select(1, chosen)
-        Q_panel, R11, failp, fail_all = _panel_qr(panel_m, Ysk_p, b, cfg)
+        Q_panel, R11, failp, fail_all = _panel_qr(panel_m, Ysk_p, b, cfg,
+                                                  precision)
         fail = fail | (failp & fail_all)
         # rescue 2: degenerate panels NaN even the rescues; substitute
         # identity columns so outputs stay finite with `fail` raised
@@ -530,55 +550,53 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
         fail = fail | nanp
 
         # -- Householder reconstruction (adaptive-sign orhr_col) ----------
-        V, T, s = orhr_col(Q_panel, c)
+        V, T, s = orhr_col(Q_panel, c, precision)
 
         # -- the chosen columns' final values: R12 rows (< c) kept and the
         # signed R11, stacked in selection order (merged at stage end)
-        blk = Fstk[:, i * b:(i + 1) * b]
-        blk[:c] = panel[:c]
-        blk[c:c + b] = s[:, None] * R11
-        live2 = live.clone()
-        live2[chosen] = 0.0
+        Fstk.append(torch.cat([panel[:c], s[:, None] * R11,
+                               panel.new_zeros((m - c - b, b))], 0))
+        live2 = live.index_fill(0, chosen, 0.0)
 
         # -- W = Vᵀ·(A_true ⊙ live2); U = Tᵀ·W (update stays deferred) --
         W = masked_vt_a_mixed(V, A, live2, cfg.trailing_precision)
         if j > 0:
-            W = W - (V.T @ Vg) @ (Ug * live2[None, :])
-        U = T.T @ W
+            W = W - matmul(matmul(V.T, Vg, precision), Ug * live2[None, :],
+                           precision)
+        U = matmul(T.T, W, precision)
 
         # -- R12 = rows c:c+b of the true post-update A, on live cols ---
         R12 = A[c:c + b, :]
         if j > 0:
-            R12 = R12 - Vg[c:c + b, :] @ Ug
-        R12 = (R12 - V[c:c + b, :] @ U) * live2[None, :]
+            R12 = R12 - matmul(Vg[c:c + b, :], Ug, precision)
+        R12 = (R12 - matmul(V[c:c + b, :], U, precision)) * live2[None, :]
 
         # -- exact sketch downdate: B = Y_panel·R11⁻¹·S -----------------
         B = torch.linalg.solve_triangular(
             _safe_triu_diag(R11), Ysk_p, upper=True, left=False) \
             * s[None, :]
-        Y = Y - (B @ R12) * live2[None, :]
+        Y = Y - matmul(B, R12, precision) * live2[None, :]
         Y, fail = _sanitize_sketch(Y, fail)
 
         # -- commit ------------------------------------------------------
         # remainder blocks (b < T-slot width) pad T with identity; the
         # matching V columns are zero, so H is unaffected
-        Vall[:, c:c + b] = V
-        if b == bT:
-            Ts[tidx0 + i] = T
-        else:
-            Ts[tidx0 + i] = torch.eye(bT, dtype=dt, device=dev)
-            Ts[tidx0 + i, :b, :b] = T
-        order[i * b:(i + 1) * b] = chosen
-        retired[chosen] = 1.0
+        Vs.append(V if b == bT else torch.cat(
+            [V, V.new_zeros((m, bT - b))], 1))
+        Ts.append(T if b == bT else torch.block_diag(
+            T, torch.eye(bT - b, dtype=dt, device=dev)))
+        order.append(chosen)
+        retired = retired.index_fill(0, chosen, 1.0)
         Vg = V if j == 0 else torch.cat([Vg, V], 1)
         Ug = U if j == 0 else torch.cat([Ug, U], 0)
-        return Vg, Ug, Y, fail
+        return Vg, Ug, Y, fail, retired
 
     g = max(1, min(int(cfg.update_defer), nblocks))
     for i0 in range(0, nblocks, g):
         Vg = Ug = None
         for j in range(min(g, nblocks - i0)):
-            Vg, Ug, Y, fail = subblock(i0 + j, j, Vg, Ug, Y, fail)
+            Vg, Ug, Y, fail, retired = subblock(i0 + j, j, Vg, Ug, Y, fail,
+                                                retired)
         A = a_minus_vz_masked_mixed(A, Vg, Ug, 1.0 - retired,
                                     cfg.trailing_precision)
 
@@ -586,19 +604,19 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
     # order; the rest keep relative order for the next (narrower) stage
     k_sel = nblocks * b
     cols = torch.arange(n, device=dev)
-    pos = torch.zeros(n, dtype=torch.int64, device=dev)
-    pos[order] = torch.arange(k_sel, device=dev)
+    pos = torch.zeros(n, dtype=torch.int64, device=dev).index_put(
+        (torch.cat(order),), torch.arange(k_sel, device=dev))
     perm = torch.argsort(torch.where(retired > 0, pos, k_sel + cols),
                          stable=True)
-    A = A.index_select(1, perm)
-    A[:, :k_sel] = Fstk
+    A = torch.cat([torch.cat(Fstk, 1), A.index_select(1, perm[k_sel:])], 1)
     Y = Y.index_select(1, perm)
     J_loc = J_loc.index_select(0, perm)
-    return A, Y, Vall, Ts, J_loc, fail
+    return A, Y, J_loc, fail
 
 
 def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
-                   timing: bool = False, sketch: torch.Tensor | None = None):
+                   precision=STABLE_PRECISION, timing: bool = False,
+                   sketch: torch.Tensor | None = None):
     """Blocked randomized QRCP in the reference's native *factored* form:
     A[:, J] = Q·R with Q implicit (block-WY reflectors). Materialize Q
     with :func:`bqrrp_q`, or apply Qᵀ with :func:`bqrrp_apply_qt`.
@@ -608,11 +626,17 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     injects the (d, m) Gaussian sketch S (d = int(d_factor·b)); when it
     is None, S is drawn from ``state`` on A's device. ``A`` is not
     modified. Returns ``(BQRRPFactors, next_state)`` (+ phase dict when
-    ``timing=True``).
+    ``timing=True``). ``precision`` sets the products the JAX package
+    runs in ``jnp`` at the driver's precision (``ops.util.matmul``); the
+    kernels K1–K3 ignore it, as the Pallas kernels do.
     """
     require_fp32_matmul()
     _check_cfg(cfg)
+    precision = resolve_precision(precision)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
+    if A.device.type == "cuda":
+        # K1–K3 run on every call: refuse vmap and autograd up front
+        util.require_kernel_operands("bqrrp_factored", A)
     timer = PhaseTimer()
 
     def _phase(name):
@@ -630,34 +654,33 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     d = int(cfg.d_factor * b)
 
     with _phase("sketch"):
-        Y = _sketch_product(A, d, state, sketch)
+        Y = _sketch_product(A, d, state, sketch, precision)
         state = state.advance()
         if timing:
             device_sync(Y)
 
-    Vall = torch.zeros((m, nblocks * b), dtype=dt, device=dev)
-    Ts = torch.zeros((nblocks, b, b), dtype=dt, device=dev)
+    Vs, Ts = [], []
     fail = torch.zeros((), dtype=torch.bool, device=dev)
     J = torch.arange(n, device=dev)
     A_work = A
 
     # shrinking-width stage plan: S windows over the full blocks + an
-    # optional remainder stage (g0, T-slot base, blocks, block width)
+    # optional remainder stage (g0, blocks, block width)
     S = cfg.stages if (cfg.stages > 1 and nb_full > 0
                        and nb_full % cfg.stages == 0) else 1
     chunk = nb_full // S if nb_full else 0
-    plan = [(s * chunk * b, s * chunk, chunk, b) for s in range(S) if chunk]
+    plan = [(s * chunk * b, chunk, b) for s in range(S) if chunk]
     if rrem:
-        plan.append((K_full, nb_full, 1, rrem))
+        plan.append((K_full, 1, rrem))
 
-    for si, (g0, tidx0, nbl, bsz) in enumerate(plan):
+    for si, (g0, nbl, bsz) in enumerate(plan):
         # the stage owns a contiguous copy of its window (the first copy
         # also keeps the caller's A intact under the in-place updates)
         A_loc = A_work[:, g0:].clone(memory_format=torch.contiguous_format)
         with _phase(f"stage_{si}"):
-            A_loc, Y_loc, Vall, Ts, J_loc, fail = _wy_stage(
-                A_loc, Y[:, g0:], Vall, Ts, J[g0:], fail, cfg, g0, tidx0,
-                nbl, bsz)
+            A_loc, Y_loc, J_loc, fail = _wy_stage(
+                A_loc, Y[:, g0:], Vs, Ts, b, J[g0:], fail, cfg, g0, nbl, bsz,
+                precision)
             if timing:
                 device_sync(A_loc)
         if g0 == 0:
@@ -675,13 +698,16 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     diag = torch.diagonal(R[:, :K])
     tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
     rank = util.naive_rank_est(diag, tol)
-    fac = BQRRPFactors(V=Vall, T=Ts, R=R, J=J, rank=rank, fail=fail)
+    fac = BQRRPFactors(
+        V=torch.cat(Vs, 1) if Vs else A.new_zeros((m, 0)),
+        T=torch.stack(Ts) if Ts else A.new_zeros((0, b, b)), R=R, J=J,
+        rank=rank, fail=fail)
     if timing:
         return fac, state, timer.report()
     return fac, state
 
 
-def _wy_tree_merge(fac: BQRRPFactors):
+def _wy_tree_merge(fac: BQRRPFactors, precision):
     """Merge the per-block WY factors into ONE (V, T) pair by pairwise
     combination: H₁H₂ = I − [V₁ V₂]·[[T₁, −T₁(V₁ᵀV₂)T₂],[0, T₂]]·[V₁ V₂]ᵀ."""
     nb, b, _ = fac.T.shape
@@ -692,7 +718,8 @@ def _wy_tree_merge(fac: BQRRPFactors):
         for i in range(0, len(Vs) - 1, 2):
             V1, T1 = Vs[i], Ts[i]
             V2, T2 = Vs[i + 1], Ts[i + 1]
-            cross = -(T1 @ ((V1.T @ V2) @ T2))
+            cross = -matmul(T1, matmul(matmul(V1.T, V2, precision), T2,
+                                       precision), precision)
             zeros = torch.zeros((T2.shape[0], T1.shape[0]), dtype=T1.dtype,
                                 device=T1.device)
             nTs.append(torch.cat([torch.cat([T1, cross], 1),
@@ -706,32 +733,37 @@ def _wy_tree_merge(fac: BQRRPFactors):
 
 
 def bqrrp_q(fac: BQRRPFactors, k: int | None = None,
-            method: str = "sequential"):
+            method: str = "sequential", precision=STABLE_PRECISION):
     """Materialize the leading ``k`` (default all K = min(m,n)) columns of
     Q from the factored form — the orgqr/ungqr analogue. ``"sequential"``
     applies the nb blocks one by one; ``"tree"`` merges them pairwise
-    into one reflector block first."""
+    into one reflector block first. Products at ``precision``."""
+    precision = resolve_precision(precision)
     m = fac.V.shape[0]
     nb, b, _ = fac.T.shape
     k = fac.R.shape[0] if k is None else k
     if method == "tree":
-        V, T = _wy_tree_merge(fac)
-        Q = -(V @ (T @ V[:k, :].T))
+        V, T = _wy_tree_merge(fac, precision)
+        Q = -matmul(V, matmul(T, V[:k, :].T, precision), precision)
         Q.diagonal().add_(1.0)
         return Q
     require(method == "sequential", f"unknown method {method!r}")
     Q = torch.eye(m, k, dtype=fac.V.dtype, device=fac.V.device)
     for i in reversed(range(nb)):
         Vi = fac.V[:, i * b:(i + 1) * b]
-        Q = Q - Vi @ (fac.T[i] @ (Vi.T @ Q))
+        Q = Q - matmul(Vi, matmul(fac.T[i], matmul(Vi.T, Q, precision),
+                                  precision), precision)
     return Q
 
 
-def bqrrp_apply_qt(fac: BQRRPFactors, X: torch.Tensor):
+def bqrrp_apply_qt(fac: BQRRPFactors, X: torch.Tensor,
+                   precision=STABLE_PRECISION):
     """Qᵀ·X from the factored form — the ormqr/gemqrt analogue
-    (rl_bqrrp.hh:535-547)."""
+    (rl_bqrrp.hh:535-547); products at ``precision``."""
+    precision = resolve_precision(precision)
     nb, b, _ = fac.T.shape
     for i in range(nb):
         Vi = fac.V[:, i * b:(i + 1) * b]
-        X = X - Vi @ (fac.T[i].T @ (Vi.T @ X))
+        X = X - matmul(Vi, matmul(fac.T[i].T, matmul(Vi.T, X, precision),
+                                  precision), precision)
     return X

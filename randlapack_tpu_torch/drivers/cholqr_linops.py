@@ -24,10 +24,11 @@ import math
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..linops.base import materialize
 from ..ops.cholqr import _cholesky, shifted_cholqr3
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 
@@ -43,15 +44,16 @@ def _finite_gram(G):
         ~finite.all()
 
 
-def _gram_blocks(n: int, block: int | None, cols_of):
-    """G = YᵀY for the n columns that ``cols_of(start, size)`` makes, in
+def _gram_blocks(n: int, block: int | None, cols_of, precision):
+    """G = YᵀY at ``precision`` (``ops.util.matmul``) for the n columns
+    that ``cols_of(start, size)`` makes, in
     column blocks of ``block`` (None → one shot), in the JAX package's
     order: for each block j, the blocks i < j again (recomputed, so the
     peak stays at two blocks), then the diagonal block; a remainder block
     last."""
     if block is None or block >= n:
         Y = cols_of(0, n)
-        return Y.T @ Y
+        return matmul(Y.T, Y, precision)
     b = block
     nb, rem = divmod(n, b)
     G = None
@@ -60,19 +62,19 @@ def _gram_blocks(n: int, block: int | None, cols_of):
         if G is None:
             G = torch.zeros((n, n), dtype=Yj.dtype, device=Yj.device)
         for i in range(j):
-            Gij = cols_of(i * b, b).T @ Yj
+            Gij = matmul(cols_of(i * b, b).T, Yj, precision)
             G[i * b:(i + 1) * b, j * b:(j + 1) * b] = Gij
             G[j * b:(j + 1) * b, i * b:(i + 1) * b] = Gij.T
-        G[j * b:(j + 1) * b, j * b:(j + 1) * b] = Yj.T @ Yj
+        G[j * b:(j + 1) * b, j * b:(j + 1) * b] = matmul(Yj.T, Yj, precision)
     if rem:
         Yr = cols_of(nb * b, rem)
         if G is None:
             G = torch.zeros((n, n), dtype=Yr.dtype, device=Yr.device)
         for i in range(nb):
-            Gir = cols_of(i * b, b).T @ Yr
+            Gir = matmul(cols_of(i * b, b).T, Yr, precision)
             G[i * b:(i + 1) * b, nb * b:] = Gir
             G[nb * b:, i * b:(i + 1) * b] = Gir.T
-        G[nb * b:, nb * b:] = Yr.T @ Yr
+        G[nb * b:, nb * b:] = matmul(Yr.T, Yr, precision)
     return G
 
 
@@ -80,12 +82,13 @@ def blocked_gram(A, block: int | None = None, precision=STABLE_PRECISION):
     """G = AᵀA with peak memory O(m·block) (None → one shot), the columns
     from ``A.cols``; an operator without ``cols`` is materialized (one
     shot)."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     if not hasattr(A, "cols"):
         M = materialize(A)
-        return M.T @ M
+        return matmul(M.T, M, precision)
     return _gram_blocks(A.n_cols, block,
-                        lambda start, size: A.cols(start, size, precision))
+                        lambda start, size: A.cols(start, size, precision),
+                        precision)
 
 
 def blocked_gram_precond(A, R_chain, block: int | None = None,
@@ -98,7 +101,7 @@ def blocked_gram_precond(A, R_chain, block: int | None = None,
     product would bring back A's full conditioning and cap the accuracy
     at eps·κ (the reference's accumulated right factor M = R1⁻¹R2⁻¹…,
     rl_scholqr3_linops.hh:36-42, is the same structure)."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     n = A.n_cols
     if not isinstance(R_chain, (tuple, list)):
         R_chain = (R_chain,)
@@ -110,7 +113,7 @@ def blocked_gram_precond(A, R_chain, block: int | None = None,
             X = torch.linalg.solve_triangular(Rk, X, upper=True)
         return A.matmat(X, precision)
 
-    return _gram_blocks(n, block, pre_cols)
+    return _gram_blocks(n, block, pre_cols, precision)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +169,7 @@ def cholqr_linops(A, cfg: CholQRLinopsConfig = CholQRLinopsConfig(),
             _sync(L2, timing)
         fail = fail | torch.isnan(L2).any() | nf2
         chain = chain + (L2.T,)
-        R = L2.T @ R
+        R = matmul(L2.T, R, precision)
     if timing:
         return R, fail, chain, timer.report()
     return R, fail, chain
@@ -204,7 +207,7 @@ def scholqr3_linops(A, cfg: CholQRLinopsConfig = CholQRLinopsConfig(),
         L2 = torch.where(bad, L2s, L2u)
         fail = fail | bad
         chain = chain + (L2.T,)
-        R = L2.T @ R
+        R = matmul(L2.T, R, precision)
     return R, fail, chain
 
 
@@ -239,7 +242,7 @@ def cqrrt_linops(A, cfg: CQRRTLinopsConfig, state: RNGState,
     instead of drawing it from ``state`` (scaled by 1/√d as a drawn one
     is); the state advances either way."""
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     timer, phase = _phases(timing)
     m, n = A.n_rows, A.n_cols
     d = int(cfg.d_factor * n)
@@ -265,7 +268,7 @@ def cqrrt_linops(A, cfg: CQRRTLinopsConfig, state: RNGState,
     fail = torch.isnan(L).any()
     chain = (R_sk, L.T)
     with phase("recombine"):
-        R = L.T @ R_sk
+        R = matmul(L.T, R_sk, precision)
         _sync(R, timing)
     if timing:
         return R, fail, chain, state, timer.report()
@@ -278,8 +281,7 @@ def scholqr3_linops_basic(A, precision=STABLE_PRECISION):
     but eps-grade orthogonality at any cond(A): the Q-less blocked
     variant is limited to ~eps·κ(R₁). Returns ``(Q, R, fail)``."""
     require_fp32_matmul()
-    _require_highest(precision)
-    return shifted_cholqr3(materialize(A))
+    return shifted_cholqr3(materialize(A), precision)
 
 
 def materialize_q(A, R_or_chain, precision=STABLE_PRECISION):
@@ -287,7 +289,7 @@ def materialize_q(A, R_or_chain, precision=STABLE_PRECISION):
     the per-pass chain the drivers return: one solve against the
     accumulated R has κ(A) conditioning and caps Q's orthogonality at
     eps·κ."""
-    _require_highest(precision)
+    resolve_precision(precision)
     M = materialize(A)
     chain = (R_or_chain if isinstance(R_or_chain, (tuple, list))
              else (R_or_chain,))

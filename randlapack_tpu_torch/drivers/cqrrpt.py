@@ -31,13 +31,14 @@ import enum
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops import util
 from ..ops.cholqr import _cholesky, _finite_scaled, cholqr2, gram_syrk
 from ..ops.qr import geqp3
 from ..ops.trsm import trsm_right_upper_blockinv
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..sketching import (SparseDist, SparseSkOp, SRHTSkOp, fill_sparse,
                          saso_left_apply, srht_left_apply, srht_skop)
@@ -95,7 +96,8 @@ class CQRRPTConfig:
     trsm_block: int = 256         # diagonal-block size for blockinv
 
 
-def _sketch_phase(A, cfg: CQRRPTConfig, state: RNGState, sketch=None):
+def _sketch_phase(A, cfg: CQRRPTConfig, state: RNGState, precision,
+                  sketch=None):
     m, n = A.shape
     d = int(cfg.d_factor * n)
     if d >= m:
@@ -118,16 +120,16 @@ def _sketch_phase(A, cfg: CQRRPTConfig, state: RNGState, sketch=None):
             require(isinstance(sketch, SRHTSkOp),
                     "sketch='srht' takes an SRHTSkOp")
             state = state.advance().advance()
-        return srht_left_apply(sketch, A), state
+        return srht_left_apply(sketch, A, precision=precision), state
     require(cfg.sketch == "gaussian", f"unknown sketch {cfg.sketch!r}")
-    return _sketch_product(A, d, state, sketch), state.advance()
+    return _sketch_product(A, d, state, sketch, precision), state.advance()
 
 
 def _qrcp_phase(A_sk, cfg: CQRRPTConfig, state: RNGState, precision,
                 qrcp_sketch=None):
     n = A_sk.shape[1]
     if cfg.qrcp == QRCPKind.geqp3:
-        _, R_sk, J = geqp3(A_sk, want_q=False)
+        _, R_sk, J = geqp3(A_sk, want_q=False, precision=precision)
     elif cfg.qrcp == QRCPKind.hqrrp:
         _, _, R_sk, J, state = hqrrp_lapack_format(
             A_sk, HQRRPConfig(block_size=cfg.bqrrp_block), state, precision,
@@ -188,11 +190,11 @@ def _cholqr_gram(A_pre, keep, precision, gram_block=0):
     # clamped R_sk diagonal can leave huge/Inf columns on deficient input
     A_pre, s, nonfin = _finite_scaled(A_pre)
     G = (gram_syrk(A_pre, precision, gram_block) if gram_block > 0
-         else A_pre.T @ A_pre) + torch.diag(1.0 - keep)
+         else matmul(A_pre.T, A_pre, precision)) + torch.diag(1.0 - keep)
     return A_pre, G, s, nonfin
 
 
-def _cholqr_qform(A_pre, L, q_form):
+def _cholqr_qform(A_pre, L, q_form, precision):
     if q_form == "inverse":
         # L factors the PRECONDITIONED Gram: κ(L) is the sketch's
         # distortion, O(1), so the explicit n×n inverse loses nothing and
@@ -201,7 +203,7 @@ def _cholqr_qform(A_pre, L, q_form):
         Linv_t = torch.linalg.solve_triangular(
             L.T, torch.eye(n, dtype=A_pre.dtype, device=A_pre.device),
             upper=True)
-        return A_pre @ Linv_t
+        return matmul(A_pre, Linv_t, precision)
     return torch.linalg.solve_triangular(L.T, A_pre, upper=True, left=False)
 
 
@@ -209,12 +211,12 @@ def _cholqr_phase(A_pre, keep, R_sk_safe, q_form, precision, gram_block=0):
     A_pre, G, s, nonfin = _cholqr_gram(A_pre, keep, precision, gram_block)
     L = _cholesky(G)
     fail = torch.isnan(L).any() | nonfin
-    Q = _cholqr_qform(A_pre, L, q_form)
-    R = (L.T * s) @ R_sk_safe
+    Q = _cholqr_qform(A_pre, L, q_form, precision)
+    R = matmul(L.T * s, R_sk_safe, precision)
     return Q, R, fail
 
 
-def _orth_phase(Q, keep, state: RNGState, fail, noise=None):
+def _orth_phase(Q, keep, state: RNGState, fail, precision, noise=None):
     # basis completion (rl_cqrrpt.hh:343-368): the zeroed trailing columns
     # become Gaussians projected against the leading rank columns and
     # orthonormalized by CholQR2 (all n candidates completed, rank-masked)
@@ -227,8 +229,9 @@ def _orth_phase(Q, keep, state: RNGState, fail, noise=None):
     G_rand = noise.to(device=Q.device, dtype=Q.dtype)
     Qk = Q * keep[None, :]
     for _ in range(2):  # two projection passes (BCGS2)
-        G_rand = G_rand - Qk @ (Qk.T @ G_rand)
-    Qc, _, f2 = cholqr2(G_rand)
+        G_rand = G_rand - matmul(Qk, matmul(Qk.T, G_rand, precision),
+                                 precision)
+    Qc, _, f2 = cholqr2(G_rand, precision)
     return torch.where(keep[None, :] > 0, Q, Qc), fail | f2
 
 
@@ -249,14 +252,15 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
     with ``trsm_mode="blockinv"`` the timed path gathers A[:, J] as its own
     phase where the untimed one folds the gather into the solve.
     ``sketch``, ``qrcp_sketch`` and ``noise`` inject the random draws
-    (module docstring).
+    (module docstring). ``precision`` sets the products the JAX package
+    runs at the driver's precision (``ops.util.matmul``).
     """
     require(A.shape[0] >= A.shape[1],
             "cqrrpt requires a tall input (m >= n, the reference's CQRRPT "
             f"contract, rl_cqrrpt.hh) — got {tuple(A.shape)}; use "
             "hqrrp/bqrrp for wide matrices")
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     timer = PhaseTimer()
 
     def _phase(name):
@@ -267,7 +271,7 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
             device_sync(t)
 
     with _phase("saso"):
-        A_sk, state = _sketch_phase(A, cfg, state, sketch)
+        A_sk, state = _sketch_phase(A, cfg, state, precision, sketch)
         _sync(A_sk)
     with _phase("qrcp"):
         R_sk, J, state = _qrcp_phase(A_sk, cfg, state, precision,
@@ -299,10 +303,10 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
                 L = _cholesky(G)
                 _sync(L)
             with _phase("cholqr_qform"):
-                Q = _cholqr_qform(A_pre, L, cfg.q_form)
+                Q = _cholqr_qform(A_pre, L, cfg.q_form, precision)
                 _sync(Q)
             with _phase("cholqr_unprec"):
-                R = (L.T * s) @ R_sk_safe
+                R = matmul(L.T * s, R_sk_safe, precision)
                 fail = torch.isnan(L).any() | nonfin
                 _sync(R)
         else:
@@ -311,7 +315,7 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
     del A_pre
     if cfg.orthogonalization:
         with _phase("orth"):
-            Q, fail = _orth_phase(Q, keep, state, fail, noise)
+            Q, fail = _orth_phase(Q, keep, state, fail, precision, noise)
             state = state.advance()
             _sync(Q)
     if timing:

@@ -15,11 +15,12 @@ import enum
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops.cholqr import _cholesky, _finite_scaled, preconditioned_cholqr
 from ..ops.qr import qr_econ
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 from .bqrrp import _safe_triu_diag
@@ -47,12 +48,12 @@ class CQRRTConfig:
                                      # max |diag R_sk| (None → machine eps)
 
 
-def _sketch(A, cfg: CQRRTConfig, state: RNGState, sketch=None):
+def _sketch(A, cfg: CQRRTConfig, state: RNGState, precision, sketch=None):
     """CQRRPT's sketch phase at CQRRT's d_factor, kind and nnz."""
     return _sketch_phase(A, CQRRPTConfig(d_factor=cfg.d_factor,
                                          vec_nnz=cfg.vec_nnz,
                                          sketch=cfg.sketch.value),
-                         state, sketch)
+                         state, precision, sketch)
 
 
 def _sketch_qr(A_sk):
@@ -61,12 +62,13 @@ def _sketch_qr(A_sk):
     return _safe_triu_diag(qr_econ(A_sk)[1])
 
 
-def _cqrrt_timed(A, cfg: CQRRTConfig, state: RNGState, sketch=None):
+def _cqrrt_timed(A, cfg: CQRRTConfig, state: RNGState, precision,
+                 sketch=None):
     """Phase-split execution mirroring rl_cqrrt.hh's slots: saso, qr,
     precond, gram, potrf, q, finalize."""
     timer = PhaseTimer()
     with timer.phase("saso"):
-        A_sk, state = _sketch(A, cfg, state, sketch)
+        A_sk, state = _sketch(A, cfg, state, precision, sketch)
         device_sync(A_sk)
     with timer.phase("qr"):
         R_sk = _sketch_qr(A_sk)
@@ -77,7 +79,7 @@ def _cqrrt_timed(A, cfg: CQRRTConfig, state: RNGState, sketch=None):
         A_pre, s, nonfin = _finite_scaled(A_pre)
         device_sync(A_pre)
     with timer.phase("gram"):
-        G = A_pre.T @ A_pre
+        G = matmul(A_pre.T, A_pre, precision)
         device_sync(G)
     with timer.phase("potrf"):
         L = _cholesky(G)
@@ -90,7 +92,7 @@ def _cqrrt_timed(A, cfg: CQRRTConfig, state: RNGState, sketch=None):
                                               left=False)
             device_sync(Q)
     with timer.phase("finalize"):
-        R = (L.T * s) @ R_sk
+        R = matmul(L.T * s, R_sk, precision)
         device_sync(R)
     return Q, R, fail, state, timer.report()
 
@@ -109,38 +111,39 @@ def cqrrt(A: torch.Tensor, cfg: CQRRTConfig, state: RNGState,
     completed with projected Gaussians), ``rank`` the columns that came
     from A, R the un-finalized CholQR factor; with ``timing=True`` the
     phase dict holds ``total`` only. ``sketch`` and ``noise`` inject the
-    random draws.
+    random draws. ``precision`` sets the products the JAX package runs
+    at the driver's precision (``ops.util.matmul``).
     """
     require(A.shape[0] >= A.shape[1],
             "cqrrt requires a tall input (m >= n, rl_cqrrt.hh contract) "
             f"— got {tuple(A.shape)}")
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     if cfg.orthogonalization:
         if timing:
             timer = PhaseTimer()
             with timer.phase("total"):
-                out = _cqrrt_orth(A, cfg, state, sketch, noise)
+                out = _cqrrt_orth(A, cfg, state, precision, sketch, noise)
                 device_sync(out[0])
             return (*out, timer.report())
-        return _cqrrt_orth(A, cfg, state, sketch, noise)
+        return _cqrrt_orth(A, cfg, state, precision, sketch, noise)
     if timing:
-        return _cqrrt_timed(A, cfg, state, sketch)
-    A_sk, state = _sketch(A, cfg, state, sketch)
+        return _cqrrt_timed(A, cfg, state, precision, sketch)
+    A_sk, state = _sketch(A, cfg, state, precision, sketch)
     R_sk = _sketch_qr(A_sk)
     if not cfg.compute_q:
         # Q-less path (rl_cqrrt.hh:113): Gram + Cholesky only
         A_pre = torch.linalg.solve_triangular(R_sk, A, upper=True,
                                               left=False)
         A_pre, s, nonfin = _finite_scaled(A_pre)
-        L = _cholesky(A_pre.T @ A_pre)
+        L = _cholesky(matmul(A_pre.T, A_pre, precision))
         fail = torch.isnan(L).any() | nonfin
-        return None, (L.T * s) @ R_sk, fail, state
-    Q, R, fail = preconditioned_cholqr(A, R_sk)
+        return None, matmul(L.T * s, R_sk, precision), fail, state
+    Q, R, fail = preconditioned_cholqr(A, R_sk, precision)
     return Q, R, fail, state
 
 
-def _cqrrt_orth(A, cfg: CQRRTConfig, state: RNGState, sketch=None,
+def _cqrrt_orth(A, cfg: CQRRTConfig, state: RNGState, precision, sketch=None,
                 noise=None):
     """Orthogonalization mode (rl_cqrrt.hh:113-115): deficient columns
     (small unpivoted sketch-R diagonal, a column-wise mask) are zeroed
@@ -152,7 +155,7 @@ def _cqrrt_orth(A, cfg: CQRRTConfig, state: RNGState, sketch=None,
     m, n = A.shape
     dt, dev = A.dtype, A.device
     eye = torch.eye(n, dtype=dt, device=dev)
-    A_sk, state = _sketch(A, cfg, state, sketch)
+    A_sk, state = _sketch(A, cfg, state, precision, sketch)
     R_sk = qr_econ(A_sk)[1]
     d_sk = torch.diagonal(R_sk)
     mx = d_sk.abs().max()
@@ -165,15 +168,15 @@ def _cqrrt_orth(A, cfg: CQRRTConfig, state: RNGState, sketch=None,
     A_pre = torch.linalg.solve_triangular(R_sk_safe, A, upper=True,
                                           left=False) * keep[None, :]
     A_pre, s, nonfin = _finite_scaled(A_pre)
-    L = _cholesky(A_pre.T @ A_pre + torch.diag(1.0 - keep))
+    L = _cholesky(matmul(A_pre.T, A_pre, precision) + torch.diag(1.0 - keep))
     fail = torch.isnan(L).any() | nonfin
     L_safe = torch.where(torch.isnan(L), eye, L)
     Q = torch.linalg.solve_triangular(L_safe.T, A_pre, upper=True,
                                       left=False)
-    L2 = _cholesky(Q.T @ Q + torch.diag(1.0 - keep))
+    L2 = _cholesky(matmul(Q.T, Q, precision) + torch.diag(1.0 - keep))
     fail = fail | torch.isnan(L2).any()
     L2_safe = torch.where(torch.isnan(L2), eye, L2)
     Q = torch.linalg.solve_triangular(L2_safe.T, Q, upper=True, left=False)
-    Q, fail = _orth_phase(Q, keep, state, fail, noise)
-    R = (L2_safe.T @ L_safe.T) * s
+    Q, fail = _orth_phase(Q, keep, state, fail, precision, noise)
+    R = matmul(L2_safe.T, L_safe.T, precision) * s
     return Q, R, rank, fail, state.advance()

@@ -25,6 +25,10 @@ update the driver's own copy of A in place. A ``trailing_precision``
 other than "highest" sends the two the JAX package computes at that
 precision — W = Vᵀ·(A ⊙ live) and the trailing update A − V·(U ⊙ live)
 — through K1's and K2's forms on the card (``ops.wy.trailing_form``).
+The driver's ``precision`` sets every other product (``ops.util.matmul``);
+K5, K6 and K3 ignore it, as the Pallas kernels do. The packed columns,
+pivot order, taus and retired mask are built out of place, so
+``torch.func.vmap`` batches a CPU call.
 """
 from __future__ import annotations
 
@@ -36,15 +40,17 @@ import warnings
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops import util
 from ..ops.cholqr import cholqr2
 from ..ops.householder import apply_reflectors, orhr_col
 from ..ops.qr import wy_T
 from ..ops.qrcp import qrcp_panel_routed, qrcp_select_pivots_routed
-from ..ops.wy import (_require_highest, a_minus_vz_masked_mixed,
-                      masked_vt_a_mixed, trailing_form)
+from ..ops.util import matmul, product_form
+from ..ops.wy import (a_minus_vz_masked_mixed, masked_vt_a_mixed,
+                      trailing_form)
 from ..rng import RNGState
 from ..utils.timing import PhaseTimer, device_sync
 
@@ -97,10 +103,10 @@ def _check_cfg(cfg: HQRRPConfig, precision, device: torch.device) -> None:
     if cfg.shard_axis is not None:
         raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
                                   "ported")
-    _require_highest(precision)
+    resolve_precision(precision)
 
 
-def _cholqr_panel(panel, row0: int):
+def _cholqr_panel(panel, row0: int, precision):
     """CHOLQR_mod_WY (rl_hqrrp.hh:506): CholQR2 of the row-masked panel,
     then the ``orhr_col`` reconstruction at offset row0 (K3 on the card).
     τₗ = 2/‖vₗ‖² makes each stored reflector exact. A breakdown substitutes
@@ -112,13 +118,13 @@ def _cholqr_panel(panel, row0: int):
     rows = torch.arange(m, device=dev)[:, None]
     cols = torch.arange(b, device=dev)[None, :]
     Pm = torch.where(rows >= row0, panel, 0.0)
-    Qp, R_chol, fail = cholqr2(Pm)
+    Qp, R_chol, fail = cholqr2(Pm, precision)
     nanp = (~torch.isfinite(Qp)).any() | (~torch.isfinite(R_chol)).any()
     E_pad = (rows == row0 + cols).to(dt)
     Qp = torch.where(nanp, E_pad, Qp)
     R_chol = torch.where(nanp, 0.0, R_chol)
     fail = fail | nanp
-    V, _, s = orhr_col(Qp, row0)
+    V, _, s = orhr_col(Qp, row0, precision)
     taus = 2.0 / (V * V).sum(0)
     W = torch.where(rows < row0, panel, 0.0)
     W[row0:row0 + b] += s[:, None] * R_chol
@@ -127,13 +133,13 @@ def _cholqr_panel(panel, row0: int):
     return W, V, taus, sigma, fail
 
 
-def _panel(panel, c: int, cfg: HQRRPConfig):
+def _panel(panel, c: int, cfg: HQRRPConfig, precision):
     """The configured panel factorization at row offset c →
     (W, V, taus, sigma, fail)."""
     if cfg.panel_qr == PanelQR.cholqr:
-        return _cholqr_panel(panel, c)
+        return _cholqr_panel(panel, c, precision)
     W, V, taus, sigma = qrcp_panel_routed(
-        panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp),
+        panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp), precision=precision,
         use_pallas=cfg.pallas_panel)
     return W, V, taus, sigma, torch.zeros((), dtype=torch.bool,
                                           device=panel.device)
@@ -141,24 +147,23 @@ def _panel(panel, c: int, cfg: HQRRPConfig):
 
 class _State:
     """The loop carry: A (updated in place), the sketch Y and its
-    operator G, the packed pivot columns in selection order, the pivot
-    order, taus, the retired mask and the ``fail`` flag."""
+    operator G, the driver's ``precision``, the packed pivot columns, the
+    pivot order and taus a block each in selection order (joined at the
+    end), the retired mask and the ``fail`` flag."""
 
-    def __init__(self, A, Y, G, K):
-        m, n = A.shape
+    def __init__(self, A, Y, G, precision):
+        n = A.shape[1]
         dt, dev = A.dtype, A.device
-        self.A, self.Y, self.G = A, Y, G
-        self.Fstk = torch.zeros((m, K), dtype=dt, device=dev)
-        self.order = torch.zeros(K, dtype=torch.int64, device=dev)
-        self.taus = torch.zeros(K, dtype=dt, device=dev)
+        self.A, self.Y, self.G, self.precision = A, Y, G, precision
+        self.Fstk, self.order, self.taus = [], [], []
         self.retired = torch.zeros(n, dtype=dt, device=dev)
         self.fail = torch.zeros((), dtype=torch.bool, device=dev)
 
-    def commit(self, c, chosen, taus, fail):
-        b = chosen.shape[0]
-        self.order[c:c + b] = chosen
-        self.taus[c:c + b] = taus
-        self.retired[chosen] = 1.0
+    def commit(self, W, chosen, taus, fail):
+        self.Fstk.append(W)
+        self.order.append(chosen)
+        self.taus.append(taus)
+        self.retired = self.retired.index_fill(0, chosen, 1.0)
         self.fail = self.fail | fail
 
 
@@ -175,42 +180,41 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
         if timer is not None:
             device_sync(t)
 
+    p = st.precision
     live = 1.0 - st.retired
     with _phase("qrcp"):
-        chosen = qrcp_select_pivots_routed(st.Y, bsz, live,
+        chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
                                            use_pallas=cfg.pallas_qrcp)
         _sync(chosen)
     with _phase("qr"):
         panel = st.A.index_select(1, chosen)
-        W, V, taus, sigma, failp = _panel(panel, c, cfg)
+        W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
         chosen = chosen.index_select(0, sigma)
-        st.Fstk[:, c:c + bsz] = W
         _sync(W)
     with _phase("wy_t"):
-        T, Vz = wy_T(V, taus)
+        T, Vz = wy_T(V, taus, p)
         _sync(T)
     with _phase("updating_A"):
-        live2 = live.clone()
-        live2[chosen] = 0.0
+        live2 = live.index_fill(0, chosen, 0.0)
         tp = cfg.trailing_precision
         if trailing_form(tp, st.A) == "highest":
-            Wk = Vz.T @ (st.A * live2[None, :])
-            Upd = Vz @ (T.T @ Wk)
+            Wk = matmul(Vz.T, st.A * live2[None, :], p)
+            Upd = matmul(Vz, matmul(T.T, Wk, p), p)
             st.A.addcmul_(Upd, live2[None, :], value=-1.0)
         else:
             Wk = masked_vt_a_mixed(Vz, st.A, live2, tp)
-            a_minus_vz_masked_mixed(st.A, Vz, T.T @ Wk, live2, tp)
+            a_minus_vz_masked_mixed(st.A, Vz, matmul(T.T, Wk, p), live2, tp)
         _sync(st.A)
     with _phase("updating_sketch_g"):
-        st.G = st.G - ((st.G @ Vz) @ T) @ Vz.T
+        st.G = st.G - matmul(matmul(matmul(st.G, Vz, p), T, p), Vz.T, p)
         _sync(st.G)
     with _phase("updating_sketch_y"):
         B = st.G[:, c:c + bsz]
         R12 = st.A[c:c + bsz, :] * live2[None, :]
-        st.Y = st.Y - (B @ R12) * live2[None, :]
+        st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
         _sync(st.Y)
     with _phase("downdating"):
-        st.commit(c, chosen, taus, failp)
+        st.commit(W, chosen, taus, failp)
 
 
 def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
@@ -222,45 +226,43 @@ def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
     telescoping identities: A_j = A − Σ V_i U_i, G_j = G − Σ H_i V_iᵀ).
     Returns the new aggregates."""
     Vg, Ug, Hg = agg
-    A, G = st.A, st.G
+    A, G, p = st.A, st.G, st.precision
     live = 1.0 - st.retired
 
-    chosen = qrcp_select_pivots_routed(st.Y, bsz, live,
+    chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
                                        use_pallas=cfg.pallas_qrcp)
     panel = A.index_select(1, chosen)
     if j > 0:
-        panel = panel - Vg @ Ug.index_select(1, chosen)
-    W, V, taus, sigma, failp = _panel(panel, c, cfg)
+        panel = panel - matmul(Vg, Ug.index_select(1, chosen), p)
+    W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
     chosen = chosen.index_select(0, sigma)
-    st.Fstk[:, c:c + bsz] = W
 
-    T, Vz = wy_T(V, taus)
-    live2 = live.clone()
-    live2[chosen] = 0.0
+    T, Vz = wy_T(V, taus, p)
+    live2 = live.index_fill(0, chosen, 0.0)
     if trailing_form(cfg.trailing_precision, A) == "highest":
-        Wk = Vz.T @ (A * live2[None, :])
+        Wk = matmul(Vz.T, A * live2[None, :], p)
     else:
         Wk = masked_vt_a_mixed(Vz, A, live2, cfg.trailing_precision)
     if j > 0:
-        Wk = Wk - (Vz.T @ Vg) @ (Ug * live2[None, :])
-    U = T.T @ Wk
+        Wk = Wk - matmul(matmul(Vz.T, Vg, p), Ug * live2[None, :], p)
+    U = matmul(T.T, Wk, p)
 
-    GV = G @ Vz
+    GV = matmul(G, Vz, p)
     if j > 0:
-        GV = GV - Hg @ (Vg.T @ Vz)
-    H = GV @ T
+        GV = GV - matmul(Hg, matmul(Vg.T, Vz, p), p)
+    H = matmul(GV, T, p)
     B = G[:, c:c + bsz]
     Vz_rows = Vz[c:c + bsz]
     R12 = A[c:c + bsz, :]
     if j > 0:
         Vg_rows = Vg[c:c + bsz]
-        B = B - Hg @ Vg_rows.T
-        R12 = R12 - Vg_rows @ Ug
-    B = B - H @ Vz_rows.T
-    R12 = (R12 - Vz_rows @ U) * live2[None, :]
-    st.Y = st.Y - (B @ R12) * live2[None, :]
+        B = B - matmul(Hg, Vg_rows.T, p)
+        R12 = R12 - matmul(Vg_rows, Ug, p)
+    B = B - matmul(H, Vz_rows.T, p)
+    R12 = (R12 - matmul(Vz_rows, U, p)) * live2[None, :]
+    st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
 
-    st.commit(c, chosen, taus, failp)
+    st.commit(W, chosen, taus, failp)
     if j == 0:
         return Vz, U, H
     return (torch.cat([Vg, Vz], 1), torch.cat([Ug, U], 0),
@@ -286,12 +288,14 @@ def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
         # retired columns hold stale values every read masks out; their
         # final packed values live in Fstk
         live_end = 1.0 - st.retired
-        if trailing_form(cfg.trailing_precision, st.A) == "highest":
-            st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
-        else:
+        if trailing_form(cfg.trailing_precision, st.A) != "highest":
             a_minus_vz_masked_mixed(st.A, Vg, Ug * live_end[None, :],
                                     live_end, cfg.trailing_precision)
-        st.G = st.G - Hg @ Vg.T
+        elif product_form(st.precision, st.A) == "highest":
+            st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
+        else:
+            st.A.sub_(matmul(Vg, Ug * live_end[None, :], st.precision))
+        st.G = st.G - matmul(Hg, Vg.T, st.precision)
 
 
 def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
@@ -302,6 +306,10 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
     (R in the upper triangle, reflector tails below)."""
     require_fp32_matmul()
     _check_cfg(cfg, precision, A.device)
+    precision = resolve_precision(precision)
+    if A.device.type == "cuda":
+        # K5/K6 run on every call: refuse vmap and autograd up front
+        util.require_kernel_operands("hqrrp", A)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
     timer = PhaseTimer() if timing else None
 
@@ -325,12 +333,13 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
             require(tuple(sketch.shape) == (d, m),
                     f"sketch must be {(d, m)}, got {tuple(sketch.shape)}")
             G = sketch.to(device=dev, dtype=dt)
-        Y = G @ A
+        Y = matmul(G, A, precision)
         if timing:
             device_sync(Y)
 
     # the driver's own copy of A, updated in place
-    st = _State(A.clone(memory_format=torch.contiguous_format), Y, G, K)
+    st = _State(A.clone(memory_format=torch.contiguous_format), Y, G,
+                precision)
     with _phase("blocks"):
         if timing:
             if cfg.update_defer > 1:
@@ -355,18 +364,19 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
         # pivots to the front in selection order; the rest keep their
         # relative order (only reachable when n > K)
         cols = torch.arange(n, device=dev)
-        pos = torch.zeros(n, dtype=torch.int64, device=dev)
-        pos[st.order] = torch.arange(K, device=dev)
+        order = torch.cat(st.order)
+        pos = torch.zeros(n, dtype=torch.int64, device=dev).index_put(
+            (order,), torch.arange(K, device=dev))
         perm = torch.argsort(torch.where(st.retired > 0, pos, K + cols))
-        A_perm = st.A.index_select(1, perm)
-        A_perm[:, :K] = st.Fstk
+        A_perm = torch.cat([torch.cat(st.Fstk, 1),
+                            st.A.index_select(1, perm[K:])], 1)
         if timing:
             device_sync(A_perm)
 
     diag = torch.diagonal(A_perm[:K, :K])
     tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
     rank = util.naive_rank_est(diag, tol)
-    out = (A_perm, st.taus, perm, rank, st.fail, state)
+    out = (A_perm, torch.cat(st.taus), perm, rank, st.fail, state)
     return (*out, timer.report()) if timing else out
 
 

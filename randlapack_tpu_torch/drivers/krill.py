@@ -18,7 +18,9 @@ import torch
 from ..comps.determiter import PCGConfig, pcg
 from ..comps.preconditioners import rpchol_pc_data
 from ..comps.rpchol import RPCholConfig, rp_cholesky
+from ..config import STABLE_PRECISION, resolve_precision
 from ..linops.symmetric import SpectralPrecond
+from ..ops.util import matmul
 from ..rng import RNGState
 
 
@@ -42,7 +44,8 @@ def _default_rank(n: int, cfg: KrillConfig) -> int:
 
 
 def krill_full_rpchol(G, H: torch.Tensor, mus, cfg: KrillConfig,
-                      state: RNGState, noise=None):
+                      state: RNGState, precision=STABLE_PRECISION,
+                      noise=None):
     """Solve (K + μᵢ I) xᵢ = hᵢ for all columns of H.
 
     ``G`` is a regularized symmetric kernel operator exposing
@@ -59,22 +62,25 @@ def krill_full_rpchol(G, H: torch.Tensor, mus, cfg: KrillConfig,
 
     ``noise`` injects RPCholesky's random draws (see
     ``comps.rpchol.rp_cholesky``); ``None`` draws them from ``state``.
+    ``precision`` sets the products (``ops.util.matmul``); K4 ignores it.
 
     Returns ``(X, res_hist, iters, next_state)``, iters a Python int.
     """
+    precision = resolve_precision(precision)
     k = _default_rank(G.dim, cfg)
     V, lam, _, state = rpchol_pc_data(G.with_reg(False), k, state,
                                       block_size=cfg.rpchol_block,
-                                      noise=noise)
+                                      precision=precision, noise=noise)
     P = SpectralPrecond.prep(V, lam, torch.atleast_1d(torch.as_tensor(
         mus, dtype=H.dtype, device=H.device)))
     X, hist, iters = pcg(G.with_reg(True), H, P, torch.zeros_like(H),
-                         cfg.pcg, seminorm=cfg.seminorm)
+                         cfg.pcg, precision, seminorm=cfg.seminorm)
     return X, hist, iters, state
 
 
 def krill_restricted_rpchol(G, H: torch.Tensor, mus, cfg: KrillConfig,
-                            state: RNGState, noise=None):
+                            state: RNGState, precision=STABLE_PRECISION,
+                            noise=None):
     """Restricted-domain kernel ridge regression — the API the reference
     documents but ships disabled (rl_krill.hh:75-141
     ``krill_restricted_rpchol``, commented out): restrict the solution to
@@ -93,6 +99,7 @@ def krill_restricted_rpchol(G, H: torch.Tensor, mus, cfg: KrillConfig,
     rows (the k·s nonzeros + k indices representation the reference
     notes), y the coefficients in the restricted basis.
     """
+    precision = resolve_precision(precision)
     n = G.dim
     H2 = H if H.dim() == 2 else H[:, None]
     s = H2.shape[1]
@@ -101,9 +108,9 @@ def krill_restricted_rpchol(G, H: torch.Tensor, mus, cfg: KrillConfig,
     k = _default_rank(n, cfg)
     F, inds, state = rp_cholesky(G.with_reg(False), k,
                                  RPCholConfig(block_size=cfg.rpchol_block),
-                                 state, noise=noise)
-    Gv = F.T @ F                                               # (k, k)
-    rhs = F.T @ H2                                             # (k, s)
+                                 state, precision, noise=noise)
+    Gv = matmul(F.T, F, precision)                             # (k, k)
+    rhs = matmul(F.T, H2, precision)                           # (k, s)
     eye = torch.eye(k, dtype=H.dtype, device=H.device)
     y = torch.stack([torch.cholesky_solve(
         rhs[:, j:j + 1], torch.linalg.cholesky(Gv + mus_arr[j] * eye))[:, 0]

@@ -27,10 +27,11 @@ import torch
 from ..comps.rs import _gaussian_start
 from ..comps.syps import _apply_sym, _sym_dim
 from ..comps.syrf import SYRFConfig, syrf
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..ops.cholqr import _cholesky
 from ..ops.svd import svd_econ
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 
 
@@ -41,7 +42,8 @@ class REVD2Config:
     svd_method: str = "auto"      # see ops.svd.svd_econ
 
 
-def _power_error_est(A, V, lam, passes, state: RNGState, v0=None):
+def _power_error_est(A, V, lam, passes, state: RNGState, precision,
+                     v0=None):
     """‖A − V diag(λ) Vᵀ‖₂ estimated by ``passes`` steps of the power
     method from a Gaussian start (rl_revd2.hh:26). Returns
     ``(est, next_state)``."""
@@ -51,7 +53,7 @@ def _power_error_est(A, V, lam, passes, state: RNGState, v0=None):
     tiny = torch.finfo(V.dtype).tiny
     est = torch.zeros((), dtype=V.dtype, device=V.device)
     for _ in range(passes):
-        w = _apply_sym(A, v) - V @ (lam[:, None] * (V.T @ v))
+        w = _apply_sym(A, v, precision) - V @ (lam[:, None] * (V.T @ v))
         est = torch.linalg.norm(w)
         v = w / torch.clamp(est, min=tiny)
     return est, state
@@ -67,25 +69,26 @@ def revd2_fixed_rank(A, k: int, cfg: REVD2Config, state: RNGState,
     True on Cholesky breakdown; V, lam and err_est are then NaN, as in
     the JAX package."""
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     Q, state = syrf(A, k, cfg.syrf, state, precision, omega)
-    Y = _apply_sym(A, Q)
+    Y = _apply_sym(A, Q, precision)
     n = Q.shape[0]
     nu = math.sqrt(n) * torch.finfo(Y.dtype).eps * torch.linalg.norm(Y)
     Y = Y + nu * Q
-    C = _cholesky(Q.T @ Y)           # symmetrizes, all-NaN on breakdown
+    # symmetrizes, all-NaN on breakdown
+    C = _cholesky(matmul(Q.T, Y, precision))
     fail = torch.isnan(C).any()
     # B = Y·C⁻ᵀ: solve B·Cᵀ = Y (Cᵀ upper)
     B = torch.linalg.solve_triangular(C.T, Y, upper=True, left=False)
     # the SVD of a broken-down B (NaN) is NaN without asking the library,
     # which may refuse non-finite input; no host read
     V, S, _ = svd_econ(torch.where(fail, torch.zeros_like(B), B),
-                       cfg.svd_method)
+                       cfg.svd_method, precision)
     nan = torch.full((), float("nan"), dtype=Y.dtype, device=Y.device)
     V = torch.where(fail, nan, V)
     lam = torch.where(fail, nan, torch.clamp(S * S - nu, min=0.0))
     err, state = _power_error_est(A, V, lam, cfg.error_est_passes, state,
-                                  v0)
+                                  precision, v0)
     return V, lam, err, nu, fail, state
 
 

@@ -12,10 +12,11 @@ import dataclasses
 import torch
 
 from ..comps.qb import QBConfig, qb, qb_blocked
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
 from ..ops.svd import svd_econ
-from ..ops.wy import _require_highest
+from ..ops.util import matmul
 from ..rng import RNGState
 
 
@@ -33,12 +34,13 @@ def rsvd_fixed_rank(A: torch.Tensor, k: int, cfg: RSVDConfig,
     Returns ``(U, S, Vt, err, next_state)``; ``err`` is the relative
     Frobenius error of the rank-k QB (an upper bound for the SVD's).
     ``omegas`` injects QB's per-block starts (see ``comps.qb_blocked``).
+    Products at ``precision`` (``ops.util.matmul``).
     """
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     Q, B, errs, state = qb_blocked(A, k, cfg.qb, state, precision, omegas)
-    Ub, S, Vt = svd_econ(B, cfg.svd_method)
-    return Q @ Ub, S, Vt, errs[-1], state
+    Ub, S, Vt = svd_econ(B, cfg.svd_method, precision)
+    return matmul(Q, Ub, precision), S, Vt, errs[-1], state
 
 
 def rsvd(A: torch.Tensor, k: int, cfg: RSVDConfig, state: RNGState,
@@ -47,9 +49,9 @@ def rsvd(A: torch.Tensor, k: int, cfg: RSVDConfig, state: RNGState,
     and the SVD is of that many rows. Returns
     ``(U, S, Vt, rank, err, next_state)``."""
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     m, n = A.shape
     require(0 < k <= min(m, n), "target rank out of range")
     Q, B, rank, err, state = qb(A, k, cfg.qb, state, tol, precision, omegas)
-    Ub, S, Vt = svd_econ(B, cfg.svd_method)
-    return Q @ Ub, S, Vt, rank, err, state
+    Ub, S, Vt = svd_econ(B, cfg.svd_method, precision)
+    return matmul(Q, Ub, precision), S, Vt, rank, err, state

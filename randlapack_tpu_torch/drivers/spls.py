@@ -21,9 +21,9 @@ import dataclasses
 
 import torch
 
-from ..config import STABLE_PRECISION, require_fp32_matmul
+from ..config import (STABLE_PRECISION, require_fp32_matmul,
+                      resolve_precision)
 from ..errors import require
-from ..ops.wy import _require_highest
 from ..rng import RNGState
 from ..comps.determiter import PCGSaddleConfig, pcg_saddle
 from ..comps.lsqr import LSQRConfig, lsqr
@@ -73,9 +73,11 @@ def spls(A: torch.Tensor, b: torch.Tensor, mu, cfg: SPLSConfig,
     For μ > 0 the LSQR path reads max(μ) on the host, as the JAX package
     does.
 
-    Returns ``(x, res_hist, iters, next_state)``, iters a Python int."""
+    Returns ``(x, res_hist, iters, next_state)``, iters a Python int.
+    Products at ``precision`` (``ops.util.matmul``); SASO's scatter has
+    none."""
     require_fp32_matmul()
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     require(cfg.precond in ("qr", "svd"), f"unknown precond {cfg.precond!r}")
     m, n = A.shape
     d = min(int(cfg.d_factor * n), m)
@@ -83,9 +85,11 @@ def spls(A: torch.Tensor, b: torch.Tensor, mu, cfg: SPLSConfig,
         M, state = _qr_precond(A, d, cfg, state, sketch)
     elif cfg.refine_precond:
         M, _, _, state = right_precond_saso(A, d, mu, state, cfg.vec_nnz,
+                                            precision=precision,
                                             sketch=sketch)
     else:
         V_sk, sigma_sk, state = rpc_data_svd_saso(A, d, state, cfg.vec_nnz,
+                                                  precision=precision,
                                                   sketch=sketch)
         M, _ = make_right_orthogonalizer(V_sk, sigma_sk, mu)
     one_rhs = b.ndim == 1 or b.shape[1] == 1
@@ -105,7 +109,7 @@ def spls(A: torch.Tensor, b: torch.Tensor, mu, cfg: SPLSConfig,
             A = torch.cat([A, torch.sqrt(mu_) * eye])
             b = torch.cat([b.reshape(-1), torch.zeros((n,), dtype=A.dtype,
                                                       device=A.device)])
-        x, hist, iters = lsqr(A, b, M, lcfg)
+        x, hist, iters = lsqr(A, b, M, lcfg, precision)
         return x, hist, iters, state
     vector = b.ndim == 1
     x0 = torch.zeros((n,) + tuple(b.shape[1:]), dtype=A.dtype,
@@ -113,5 +117,5 @@ def spls(A: torch.Tensor, b: torch.Tensor, mu, cfg: SPLSConfig,
     c = torch.zeros_like(x0)
     if vector:
         b, x0, c = b[:, None], x0[:, None], c[:, None]
-    x, hist, iters = pcg_saddle(A, b, c, mu, M, x0, cfg.pcg)
+    x, hist, iters = pcg_saddle(A, b, c, mu, M, x0, cfg.pcg, precision)
     return (x[:, 0] if vector else x), hist, iters, state

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from .ops.util import matmul
 from .rng import RNGState
 
 
@@ -228,17 +229,19 @@ def mat_gen(info: MatGenInfo, state: RNGState, dtype=torch.float64,
 
 def fast_decay_matrix(m: int, n: int, state: RNGState,
                       dtype=torch.float32, decay: float = 6.0,
-                      device="cuda"):
+                      precision=None, device="cuda"):
     """Benchmark matrix with an approximately exponential spectrum:
     A = (G₁·diag(e^{-decay·i/k}))·G₂ᵀ/√(mk) with iid Gaussian factors
-    drawn on ``device`` (one GEMM, no orthogonal factors)."""
+    drawn on ``device`` (one GEMM at ``precision``, ``ops.util.matmul``;
+    None is "highest", as ``config.resolve_precision`` reads it; no
+    orthogonal factors)."""
     k = min(m, n)
     gen1, state = state.spawn(device)
     gen2, state = state.spawn(device)
     s = torch.exp(-decay * torch.arange(k, dtype=dtype, device=device) / k)
     G1 = torch.randn((m, k), generator=gen1, dtype=dtype, device=device)
     G2 = torch.randn((n, k), generator=gen2, dtype=dtype, device=device)
-    A = ((G1 * s[None, :]) @ G2.T) / math.sqrt(float(m) * k)
+    A = matmul(G1 * s[None, :], G2.T, precision) / math.sqrt(float(m) * k)
     return A, state
 
 

@@ -1,12 +1,13 @@
 """Dense linear operator (counterpart of ``randlapack_tpu/linops/
 dense.py``; reference: rl_dense_linop.hh:36). Its products are cuBLAS
-calls on the card, in full fp32 or f64 (``config.STABLE_PRECISION``)."""
+calls on the card at ``precision`` (``ops.util.matmul``)."""
 from __future__ import annotations
 
 import torch
 
 from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..config import resolve_precision
+from ..ops.util import matmul
 
 
 class DenseLinOp:
@@ -32,17 +33,14 @@ class DenseLinOp:
         return self.mat.device
 
     def matmat(self, X, precision=STABLE_PRECISION):
-        _require_highest(precision)
-        return self.mat @ X
+        return matmul(self.mat, X, precision)
 
     def tmatmat(self, X, precision=STABLE_PRECISION):
-        _require_highest(precision)
-        return self.mat.T @ X
+        return matmul(self.mat.T, X, precision)
 
     def rmatmat(self, X, precision=STABLE_PRECISION):
         """X @ A (the reference's Side::Right apply, rl_dense_linop.hh:94)."""
-        _require_highest(precision)
-        return X @ self.mat
+        return matmul(X, self.mat, precision)
 
     def fro_nrm(self):
         return torch.linalg.norm(self.mat)
@@ -57,6 +55,7 @@ class DenseLinOp:
     def cols(self, start: int, size: int, precision=STABLE_PRECISION):
         """Columns [start, start + size) as a dense tensor — the block
         access of the column-blocked Gram loops."""
+        resolve_precision(precision)
         return self.mat[:, int(start):int(start) + size]
 
     def T(self):

@@ -13,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
 from ..sketching.sparse_data import _host, _quiet
 
 
@@ -85,16 +84,16 @@ class SparseLinOp:
         return self.A.values().shape[0]
 
     def matmat(self, X, precision=STABLE_PRECISION):
-        _require_highest(precision)
+        resolve_precision(precision)
         return self.A @ X
 
     def tmatmat(self, X, precision=STABLE_PRECISION):
-        _require_highest(precision)
+        resolve_precision(precision)
         return self.At @ X
 
     def rmatmat(self, X, precision=STABLE_PRECISION):
         """X @ A = (Aᵀ·Xᵀ)ᵀ."""
-        _require_highest(precision)
+        resolve_precision(precision)
         return (self.At @ X.T).T
 
     def fro_nrm(self):

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
+from ..config import STABLE_PRECISION
 from ..errors import require
+from ..ops.util import matmul
 
 
 class ExplicitSymLinOp:
@@ -29,8 +31,8 @@ class ExplicitSymLinOp:
     def device(self):
         return self.mat.device
 
-    def matmat(self, X):
-        return self.mat @ X
+    def matmat(self, X, precision=STABLE_PRECISION):
+        return matmul(self.mat, X, precision)
 
     tmatmat = matmat
 
@@ -91,8 +93,8 @@ class RegExplicitSymLinOp:
                 f"{ncols} columns for {self.num_ops} μ")
         return self.mus
 
-    def matmat(self, X):
-        out = self.mat @ X
+    def matmat(self, X, precision=STABLE_PRECISION):
+        out = matmul(self.mat, X, precision)
         if self.evals_include_reg:
             out = out + X * self._col_mus(X.shape[1])[None, :]
         return out
@@ -160,15 +162,15 @@ class SpectralPrecond:
     def device(self):
         return self.V.device
 
-    def matmat(self, X):
-        W = self.V.T @ X                                  # (k, s)
+    def matmat(self, X, precision=STABLE_PRECISION):
+        W = matmul(self.V.T, X, precision)          # (k, s)
         if self.D.dim() == 1:
             W = W * self.D[:, None]
         else:
             require(X.shape[1] == self.D.shape[1],
                     f"{X.shape[1]} columns for D {tuple(self.D.shape)}")
             W = W * self.D
-        return X + self.V @ W
+        return X + matmul(self.V, W, precision)
 
     tmatmat = matmat
 

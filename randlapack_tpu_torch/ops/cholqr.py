@@ -6,19 +6,21 @@ input's device instead of raising, like the reference's ``chol_fail``.
 A failed Cholesky gives an all-NaN factor, as XLA's does, so the flag
 logic is the JAX package's. ``cholqr_auto``'s rescue ladder, ``lax.cond``
 in the JAX package, is a pair of host branches (at most two host reads a
-call).
+call); under ``torch.func.vmap`` every rung runs and ``torch.where``
+selects. ``precision`` sets the Gram and factor products
+(``ops.util.matmul``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import STABLE_PRECISION
-from .wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
+from .util import is_batched, matmul
 
 
-def _gram(A):
-    return A.T @ A
+def _gram(A, precision):
+    return matmul(A.T, A, precision)
 
 
 def gram_syrk(A, precision=STABLE_PRECISION, block: int = 512):
@@ -30,15 +32,15 @@ def gram_syrk(A, precision=STABLE_PRECISION, block: int = 512):
     symmetric. When n does not split into two or more blocks of
     ``block`` it is one full GEMM, whose G is symmetric only to
     rounding."""
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     m, n = A.shape
     nb = n // block
     if n % block or nb < 2:
-        return _gram(A)
+        return _gram(A, precision)
     W = torch.zeros((n, n), dtype=A.dtype, device=A.device)
     for i in range(nb):
-        W[i * block:(i + 1) * block, i * block:] = \
-            A[:, i * block:(i + 1) * block].T @ A[:, i * block:]
+        W[i * block:(i + 1) * block, i * block:] = matmul(
+            A[:, i * block:(i + 1) * block].T, A[:, i * block:], precision)
     bidx = torch.arange(n, device=A.device) // block
     above = bidx[None, :] > bidx[:, None]
     on_diag = bidx[None, :] == bidx[:, None]
@@ -97,46 +99,47 @@ def _finite_scaled(A):
     return A / s, s, nonfin
 
 
-def cholqr(A: torch.Tensor):
+def cholqr(A: torch.Tensor, precision=STABLE_PRECISION):
     """One-pass CholeskyQR. Returns ``(Q, R, fail)``."""
     A, s, nonfin = _finite_scaled(A)
-    L = _cholesky(_gram(A))
+    L = _cholesky(_gram(A, precision))
     fail = torch.isnan(L).any() | (torch.diagonal(L) <= 0).any() | nonfin
     R = L.T * s
     Q = _solve_rt(A, L.T)
     return Q, R, fail
 
 
-def cholqr2(A: torch.Tensor):
+def cholqr2(A: torch.Tensor, precision=STABLE_PRECISION):
     """CholeskyQR2 — two passes. Returns ``(Q, R, fail)``."""
-    Q1, R1, f1 = cholqr(A)
-    Q, R2, f2 = cholqr(Q1)
-    return Q, R2 @ R1, f1 | f2
+    Q1, R1, f1 = cholqr(A, precision)
+    Q, R2, f2 = cholqr(Q1, precision)
+    return Q, matmul(R2, R1, precision), f1 | f2
 
 
-def shifted_cholqr3(A: torch.Tensor):
+def shifted_cholqr3(A: torch.Tensor, precision=STABLE_PRECISION):
     """Shifted CholeskyQR3 (Fukaya et al.; rl_scholqr3_linops.hh:45):
     shift the first Gram by 11·eps·n·‖A‖_F², then two plain CholQR
     passes. Returns ``(Q, R, fail)``."""
     m, n = A.shape
     eps = torch.finfo(A.dtype).eps
     A, sc, nonfin = _finite_scaled(A)
-    G = _gram(A)
+    G = _gram(A, precision)
     s = 11.0 * eps * n * torch.trace(G)
     L1 = _cholesky(G + s * torch.eye(n, dtype=A.dtype, device=A.device))
     f1 = torch.isnan(L1).any() | nonfin
     Q1 = _solve_rt(A, L1.T)
-    Q2, R2, f2 = cholqr(Q1)
-    Q, R3, f3 = cholqr(Q2)
-    R = (R3 @ (R2 @ L1.T)) * sc
+    Q2, R2, f2 = cholqr(Q1, precision)
+    Q, R3, f3 = cholqr(Q2, precision)
+    R = matmul(R3, matmul(R2, L1.T, precision), precision) * sc
     return Q, R, f1 | f2 | f3
 
 
-def preconditioned_cholqr(A: torch.Tensor, R_pre: torch.Tensor):
+def preconditioned_cholqr(A: torch.Tensor, R_pre: torch.Tensor,
+                          precision=STABLE_PRECISION):
     """CholQR of A·R_pre⁻¹ (rl_cqrrt.hh, rl_cqrrpt.hh:287-332).
     Returns ``(Q, R, fail)`` with R = R_chol · R_pre."""
-    Q, R_chol, fail = cholqr(_solve_rt(A, R_pre))
-    return Q, R_chol @ R_pre, fail
+    Q, R_chol, fail = cholqr(_solve_rt(A, R_pre), precision)
+    return Q, matmul(R_chol, R_pre, precision), fail
 
 
 def _clamp_triu_diag(R):
@@ -170,20 +173,31 @@ def cholqr_auto(A: torch.Tensor, precision=STABLE_PRECISION):
                                      Householder R (diagonal floored)
 
     Each rescue rung runs only when reached: one host read decides the
-    first branch, a second (only on the rescue path) the next. Returns
-    ``(Q, R, fail)``; ``fail`` means that even the last rung broke down.
+    first branch, a second (only on the rescue path) the next. A batched
+    A (``torch.func.vmap``) runs every rung and selects with
+    ``torch.where``. Returns ``(Q, R, fail)``; ``fail`` means that even
+    the last rung broke down.
     """
-    _require_highest(precision)
+    precision = resolve_precision(precision)
     eps = torch.finfo(A.dtype).eps
-    Q1, R1, f1 = cholqr(A)
+    batched = is_batched(A)
+    Q1, R1, f1 = cholqr(A, precision)
     kappa = _kappa_est(R1)
-    if not bool(f1 | ~torch.isfinite(kappa) | (kappa > 0.1 / eps ** 0.5)):
-        Q, R2, f2 = cholqr(Q1)
-        return Q, R2 @ R1, f2
-    Qs, Rs, fs = shifted_cholqr3(A)
+    rescue = f1 | ~torch.isfinite(kappa) | (kappa > 0.1 / eps ** 0.5)
+    if batched or not bool(rescue):
+        Q, R2, f2 = cholqr(Q1, precision)
+        fast = (Q, matmul(R2, R1, precision), f2)
+        if not batched:
+            return fast
+    Qs, Rs, fs = shifted_cholqr3(A, precision)
     ks = _kappa_est(Rs)
-    if not bool(fs | ~torch.isfinite(ks) | (ks > 0.03 / eps)):
+    bad = fs | ~torch.isfinite(ks) | (ks > 0.03 / eps)
+    if not batched and not bool(bad):
         return Qs, Rs, fs
     R_h = _clamp_triu_diag(torch.linalg.qr(A, mode="r")[1][:A.shape[1], :])
-    Q, R, f = preconditioned_cholqr(A, R_h)
-    return Q, R, f | ~torch.isfinite(Q).all()
+    Q, R, f = preconditioned_cholqr(A, R_h, precision)
+    hqr = (Q, R, f | ~torch.isfinite(Q).all())
+    if not batched:
+        return hqr
+    shift = tuple(torch.where(bad, h, s) for h, s in zip(hqr, (Qs, Rs, fs)))
+    return tuple(torch.where(rescue, s, f) for s, f in zip(shift, fast))

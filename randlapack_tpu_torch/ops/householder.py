@@ -8,20 +8,23 @@ from __future__ import annotations
 
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from .lu import getrfnp, getrfnp_routed
+from .util import matmul
 
 __all__ = ["apply_reflectors", "getrfnp", "householder_reconstruct",
            "orhr_col"]
 
 
-def householder_reconstruct(Q: torch.Tensor):
+def householder_reconstruct(Q: torch.Tensor, precision=STABLE_PRECISION):
     """Given orthonormal Q (m, k), return ``(packed, taus, signs)`` such
     that the k reflectors (LAPACK convention: unit heads implicit, tails
     strictly below the diagonal of ``packed``) applied to I reproduce
     Q·diag(signs). Householder QR of an orthonormal Q has R = diag(±1),
     so its reflectors are Q's implicit form: one ``_larfg`` step a column,
-    in the JAX package's order."""
+    in the JAX package's order; vᵀ·W at ``precision``."""
     from .qr import _larfg
+    precision = resolve_precision(precision)
     m, k = Q.shape
     rows = torch.arange(m, device=Q.device)
     cols = torch.arange(k, device=Q.device)
@@ -30,7 +33,7 @@ def householder_reconstruct(Q: torch.Tensor):
     taus = torch.zeros((k,), dtype=Q.dtype, device=Q.device)
     for i in range(k):
         v, tau, alpha = _larfg(W[:, i], i)
-        w = torch.where(cols >= i, tau * (v @ W), 0.0)
+        w = torch.where(cols >= i, tau * matmul(v, W, precision), 0.0)
         W = W - torch.outer(v, w)
         coli = torch.where(rows < i, W[:, i], 0.0)
         coli[i] = alpha
@@ -41,7 +44,7 @@ def householder_reconstruct(Q: torch.Tensor):
     return torch.tril(V, -1), taus, signs
 
 
-def orhr_col(Q_panel: torch.Tensor, row0: int):
+def orhr_col(Q_panel: torch.Tensor, row0: int, precision=STABLE_PRECISION):
     """Blocked Householder reconstruction (LAPACK ``orhr_col``): given
     Q_panel (m×b) with orthonormal columns and zeros above row ``row0``,
     produce the compact-WY factors of an exactly defined orthogonal
@@ -51,8 +54,10 @@ def orhr_col(Q_panel: torch.Tensor, row0: int):
         V = (Q_panel − S_pad)·U1⁻¹   (unit diagonal at row0+l)
         T = −U1·S·L1⁻ᵀ               (upper triangular — LAPACK layout)
 
-    Returns ``(V, T, s)``.
+    Returns ``(V, T, s)``. ``precision`` is checked and otherwise unused,
+    as in the JAX package: every step is the LU and triangular solves.
     """
+    resolve_precision(precision)
     m, b = Q_panel.shape
     F, s = getrfnp_routed(Q_panel[row0:row0 + b])
     idx = torch.arange(b, device=Q_panel.device)
@@ -68,13 +73,15 @@ def orhr_col(Q_panel: torch.Tensor, row0: int):
 
 
 def apply_reflectors(packed: torch.Tensor, taus: torch.Tensor,
-                     X: torch.Tensor | None = None):
+                     X: torch.Tensor | None = None,
+                     precision=STABLE_PRECISION):
     """Form Q (or Q·X) from the packed implicit representation (reflector
     tails strictly below the diagonal, unit heads implicit) — the
     gemqrt/ormqr capability, through ``torch.linalg.householder_product``
-    (LAPACK orgqr / cuSOLVER, as the JAX package leaves it to XLA)."""
+    (LAPACK orgqr / cuSOLVER, as the JAX package leaves it to XLA); Q·X
+    at ``precision``."""
     m, k = packed.shape
     Q = torch.linalg.householder_product(
         packed + torch.eye(m, k, dtype=packed.dtype, device=packed.device),
         taus)
-    return Q if X is None else Q @ X
+    return Q if X is None else matmul(Q, X, precision)

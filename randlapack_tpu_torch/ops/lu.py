@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import require
+from .util import require_kernel_operands
 
 # kernel launches since the last reset
 LAUNCHES = {"getrfnp": 0, "getrfnp_flat": 0}
@@ -31,7 +32,7 @@ def getrfnp(M: torch.Tensor, base: int = 32):
     k = M.shape[0]
     if k <= base:
         F = M.clone()
-        s = torch.zeros(k, dtype=M.dtype, device=M.device)
+        s = []
         one = torch.ones((), dtype=M.dtype, device=M.device)
         for j in range(k):
             d = F[j, j]
@@ -41,8 +42,9 @@ def getrfnp(M: torch.Tensor, base: int = 32):
             F[j + 1:, j + 1:] -= torch.outer(col, F[j, j + 1:])
             F[j, j] = piv
             F[j + 1:, j] = col
-            s[j] = sj
-        return F, s
+            s.append(sj)
+        return F, (torch.stack(s) if s
+                   else torch.zeros(0, dtype=M.dtype, device=M.device))
 
     k1 = k // 2
     M11, M12 = M[:k1, :k1], M[:k1, k1:]
@@ -116,6 +118,7 @@ def getrfnp_flat(M: torch.Tensor):
 def getrfnp_routed(M: torch.Tensor):
     """``getrfnp``: K3 on CUDA, the recursive plain version on the CPU."""
     if M.device.type == "cuda":
+        require_kernel_operands("K3", M)
         return getrfnp_cuda(M.contiguous())
     if M.device.type == "cpu":
         return getrfnp(M)

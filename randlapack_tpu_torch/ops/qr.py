@@ -8,7 +8,10 @@ rl_bqrrp.hh:339-356) through ``lu_factor``, the port's one pivoted LU
 ``qrcp_select_pivots`` and ``qrcp_panel`` are the plain versions of the
 kernels K5 and K6 (``ops/qrcp.py``, ``csrc/qrcp.cu``): Python loops of
 small tensor ops, one reflector step per iteration, with the JAX
-package's masking, penalties and tie rules kept as they are."""
+package's masking, penalties and tie rules kept as they are. Their
+per-step pivots and taus are gathered and stacked, not written into
+preallocated buffers, so ``torch.func.vmap`` batches them.
+``precision`` sets the reflector products (``ops.util.matmul``)."""
 from __future__ import annotations
 
 import math
@@ -16,7 +19,9 @@ import threading
 
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from .cholqr import _pow2
+from .util import matmul
 
 
 def qr_econ(A: torch.Tensor):
@@ -113,12 +118,13 @@ def _swap_perm(cols, l: int, p):
 
 
 def geqp3(A: torch.Tensor, k: int | None = None, want_q: bool = True,
-          pivot: bool = True):
+          pivot: bool = True, precision=STABLE_PRECISION):
     """Column-pivoted Householder QR (GEQP3 capability): greedy max-norm
     pivoting with squared-norm downdating over (at most) k columns.
     Returns ``(Q, R, J)``: Q (m×k) explicit (None if ``want_q=False``), R
     (k×n) upper-trapezoidal of the pivoted matrix, J (n,) int64 with
     A[:, J] ≈ Q·R. O(m·n·k) work in k steps: for small matrices."""
+    precision = resolve_precision(precision)
     m, n = A.shape
     k = min(min(m, n) if k is None else k, m, n)
     dev = A.device
@@ -138,7 +144,7 @@ def geqp3(A: torch.Tensor, k: int | None = None, want_q: bool = True,
             J = J.index_select(0, perm)
             cn2 = cn2.index_select(0, perm)
         v, tau, alpha = _larfg(W[:, i], i)
-        w = torch.where(cols >= i, tau * (v @ W), 0.0)
+        w = torch.where(cols >= i, tau * matmul(v, W, precision), 0.0)
         W = W - torch.outer(v, w)
         coli = torch.where(rows < i, W[:, i], 0.0)
         coli[i] = alpha
@@ -183,7 +189,8 @@ def _drmac_rule(dN, eN, r_row, trail, update_mask):
     return torch.where(keep, dN, d_new), torch.where(keep, eN, e_new)
 
 
-def qrcp_select_pivots(Y: torch.Tensor, nsteps: int, live: torch.Tensor):
+def qrcp_select_pivots(Y: torch.Tensor, nsteps: int, live: torch.Tensor,
+                       precision=STABLE_PRECISION):
     """Plain version of K5: greedy Householder-QRCP pivot selection on a
     (d × n) sketch restricted to ``live`` columns — the reference HQRRP's
     per-block QRCP of the downdated sketch (rl_hqrrp.hh::
@@ -193,6 +200,7 @@ def qrcp_select_pivots(Y: torch.Tensor, nsteps: int, live: torch.Tensor):
     columns. The pivot is the FIRST index of the masked maximum;
     unavailable columns score −1. Returns (nsteps,) int64 indices in
     pivot order."""
+    precision = resolve_precision(precision)
     d, n = Y.shape
     dev = Y.device
     cols = torch.arange(n, device=dev)
@@ -200,19 +208,21 @@ def qrcp_select_pivots(Y: torch.Tensor, nsteps: int, live: torch.Tensor):
     W = torch.where(avail[None, :], Y, 0.0)
     dN = torch.linalg.vector_norm(W, dim=0)
     eN = dN
-    chosen = torch.zeros(nsteps, dtype=torch.int64, device=dev)
+    chosen = []
     for i in range(nsteps):
         p = torch.argmax(torch.where(avail, dN, -1.0))
-        chosen[i] = p
+        chosen.append(p)
         avail = avail & (cols != p)
         v, tau, _ = _larfg(W.index_select(1, p.view(1))[:, 0], i)
-        w = torch.where(avail, tau * (v @ W), 0.0)
+        w = torch.where(avail, tau * matmul(v, W, precision), 0.0)
         W = W - torch.outer(v, w)
         dN, eN = _drmac_downdate(W, i, W[i, :], dN, eN, avail)
-    return chosen
+    return (torch.stack(chosen) if chosen
+            else torch.zeros(0, dtype=torch.int64, device=dev))
 
 
-def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True):
+def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True,
+               precision=STABLE_PRECISION):
     """Plain version of K6: unblocked Householder QR(CP) of a full-height
     panel whose factorization starts at row ``row0`` (rl_hqrrp.hh:1088,
     NoFLA_QRPmod_WY_unb_var4 on A[j:, j:j+b]). Reflector l has its head at
@@ -224,13 +234,14 @@ def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True):
     V (m, b) the explicit reflectors (unit head, zeros above), taus (b,),
     sigma (b,) int64 the in-panel pivot order (identity when
     ``pivot=False``)."""
+    precision = resolve_precision(precision)
     m, b = panel.shape
     dev = panel.device
     rows = torch.arange(m, device=dev)
     cols = torch.arange(b, device=dev)
     W = panel.clone()
     V = torch.zeros_like(panel)
-    taus = torch.zeros(b, dtype=panel.dtype, device=dev)
+    taus = []
     sigma = torch.arange(b, device=dev)
     dN = torch.linalg.vector_norm(panel[row0:], dim=0)
     eN = dN
@@ -244,19 +255,20 @@ def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True):
             dN = dN.index_select(0, perm)
             eN = eN.index_select(0, perm)
         v, tau, alpha = _larfg(W[:, l], i)
-        w = torch.where(cols >= l, tau * (v @ W), 0.0)
+        w = torch.where(cols >= l, tau * matmul(v, W, precision), 0.0)
         W = W - torch.outer(v, w)
         # column l packed: R above, alpha at row i, the tail of v below
         W[:, l] = torch.where(rows < i, W[:, l],
                               torch.where(rows == i, alpha, v))
         V[:, l] = v
-        taus[l] = tau
+        taus.append(tau)
         if pivot:
             dN, eN = _drmac_downdate(W, i, W[i, :], dN, eN, cols > l)
-    return W, V, taus, sigma
+    return W, V, (torch.stack(taus) if taus else
+                  torch.zeros(0, dtype=panel.dtype, device=dev)), sigma
 
 
-def wy_T(V: torch.Tensor, taus: torch.Tensor):
+def wy_T(V: torch.Tensor, taus: torch.Tensor, precision=STABLE_PRECISION):
     """Compact-WY triangular factor: T (b×b upper) with
     H₁·…·H_b = I − V·T·Vᵀ (LAPACK larft, forward/columnwise), built from
     T⁻¹ = diag(1/τ) + strict_upper(VᵀV) by one triangular solve.
@@ -265,7 +277,7 @@ def wy_T(V: torch.Tensor, taus: torch.Tensor):
     b = taus.shape[0]
     active = taus != 0
     Vz = torch.where(active[None, :], V, 0.0)
-    S = Vz.T @ Vz
+    S = matmul(Vz.T, Vz, precision)
     one = torch.ones((), dtype=V.dtype, device=V.device)
     tinv = torch.where(active, 1.0 / torch.where(active, taus, one), one)
     Tinv = torch.triu(S, 1) + torch.diag(tinv)

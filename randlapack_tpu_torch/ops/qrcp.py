@@ -27,10 +27,11 @@ import functools
 
 import torch
 
+from ..config import resolve_precision
 from ..errors import require
 from .qr import (_drmac_downdate, _drmac_rule, qrcp_panel,
                  qrcp_select_pivots)
-from .wy import _require_highest
+from .util import require_kernel_operands
 
 # kernel launches since the last reset
 LAUNCHES = {"qrcp_select_pivots": 0, "qrcp_panel": 0,
@@ -285,6 +286,7 @@ def _take_kernel(t: torch.Tensor, use_pallas: str) -> bool:
         raise NotImplementedError(
             f"use_pallas={use_pallas!r} on a CUDA tensor: a CUDA tensor "
             "always takes the kernel, only 'auto' is accepted there")
+    require_kernel_operands("K5/K6", t)
     return True
 
 
@@ -292,22 +294,24 @@ def qrcp_select_pivots_routed(Y: torch.Tensor, nsteps: int,
                               live: torch.Tensor, precision="highest",
                               use_pallas: str = "auto") -> torch.Tensor:
     """``qrcp_select_pivots``: K5 for a CUDA tensor, the plain version for
-    a CPU tensor. Returns (nsteps,) int64 pivots."""
-    _require_highest(precision)
+    a CPU tensor. Returns (nsteps,) int64 pivots. K5 ignores
+    ``precision``, as the Pallas kernel does; the plain version takes it."""
+    precision = resolve_precision(precision)
     if _take_kernel(Y, use_pallas):
         return qrcp_select_pivots_cuda(Y.contiguous(), nsteps,
                                        live.to(Y.dtype).contiguous())
-    return qrcp_select_pivots(Y, nsteps, live)
+    return qrcp_select_pivots(Y, nsteps, live, precision)
 
 
 def qrcp_panel_routed(panel: torch.Tensor, row0: int, pivot: bool = True,
                       precision="highest", use_pallas: str = "auto"):
     """``qrcp_panel``: K6 for a CUDA tensor (V rebuilt from the packed W:
     unit heads at row0 + l, tails below), the plain version for a CPU
-    tensor. Same ``(W, V, taus, sigma)`` contract."""
-    _require_highest(precision)
+    tensor. Same ``(W, V, taus, sigma)`` contract. K6 ignores
+    ``precision``, as the Pallas kernel does; the plain version takes it."""
+    precision = resolve_precision(precision)
     if not _take_kernel(panel, use_pallas):
-        return qrcp_panel(panel, row0, pivot)
+        return qrcp_panel(panel, row0, pivot, precision)
     W, taus, sigma = qrcp_panel_cuda(panel.contiguous(), row0, pivot)
     m, b = panel.shape
     rows = torch.arange(m, device=panel.device)[:, None]

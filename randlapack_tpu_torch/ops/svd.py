@@ -38,7 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
+from .util import matmul
 
 _METHODS = ("auto", "xla", "gram_eigh", "jacobi")
 
@@ -133,13 +135,16 @@ def _svd_library(B: torch.Tensor):
     return Qb @ Ur, s, Vt
 
 
-def svd_econ(B: torch.Tensor, method: str = "auto"):
+def svd_econ(B: torch.Tensor, method: str = "auto",
+             precision=STABLE_PRECISION):
     """Economy SVD → (U, s, Vt) with s descending.
 
     ``method``: "auto" or "xla" (``torch.linalg.svd``), "gram_eigh"
     (√eps relative cutoff) or "jacobi" (one-sided Jacobi, wide B through
-    its transpose)."""
+    its transpose). ``precision`` sets the Gram route's products
+    (``ops.util.matmul``); the library and Jacobi routes have none."""
     method = resolve_svd_method(method)
+    precision = resolve_precision(precision)
     if method == "xla":
         return _svd_library(B)
     if method == "jacobi":
@@ -151,11 +156,11 @@ def svd_econ(B: torch.Tensor, method: str = "auto"):
     p, q = B.shape
     sqrt_eps = torch.finfo(B.dtype).eps ** 0.5
     if p <= q:
-        G = B @ B.T
+        G = matmul(B, B.T, precision)
         _, U = torch.linalg.eigh(0.5 * (G + G.T))
         U = U.flip(1)
         # Rayleigh refinement: σᵢ = ‖uᵢᵀB‖, one already-needed GEMM
-        W = U.T @ B
+        W = matmul(U.T, B, precision)
         s = torch.linalg.norm(W, dim=1)
         # refined values can swap order within their error band vs eigh's
         # λ sort — re-sort so downstream S[:k] truncations stay valid
@@ -165,10 +170,10 @@ def svd_econ(B: torch.Tensor, method: str = "auto"):
         Vt = W / torch.where(good, s, torch.ones_like(s))[:, None]
         Vt = torch.where(good[:, None], Vt, torch.zeros_like(Vt))
         return U, s, Vt
-    G = B.T @ B
+    G = matmul(B.T, B, precision)
     _, V = torch.linalg.eigh(0.5 * (G + G.T))
     V = V.flip(1)
-    W = B @ V
+    W = matmul(B, V, precision)
     s = torch.linalg.norm(W, dim=0)       # Rayleigh-refined σ (see above)
     ordr = _stable_descending(s)
     s, V, W = s[ordr], V[:, ordr], W[:, ordr]

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import STABLE_PRECISION
-from .wy import _require_highest
+from ..config import STABLE_PRECISION, resolve_precision
+from .util import matmul
 
 
 def trsm_right_upper_blockinv(A, R, block: int = 256,
@@ -26,8 +26,9 @@ def trsm_right_upper_blockinv(A, R, block: int = 256,
 
     ``cols`` (optional int vector of length n) gathers the columns of A
     block by block, so the permuted m×n operand is never materialized.
-    One triangular solve when n does not split into two or more blocks."""
-    _require_highest(precision)
+    One triangular solve when n does not split into two or more blocks.
+    The block products run at ``precision`` (``ops.util.matmul``)."""
+    precision = resolve_precision(precision)
     n = R.shape[1]
     if n % block or n // block < 2:
         if cols is not None:
@@ -45,6 +46,6 @@ def trsm_right_upper_blockinv(A, R, block: int = 256,
         sl = slice(j * block, (j + 1) * block)
         Aj = A[:, sl] if cols is None else A.index_select(1, cols[sl])
         if j:
-            Aj = Aj - X[:, :j * block] @ R[:j * block, sl]
-        X[:, sl] = Aj @ dinv[j]
+            Aj = Aj - matmul(X[:, :j * block], R[:j * block, sl], precision)
+        X[:, sl] = matmul(Aj, dinv[j], precision)
     return X

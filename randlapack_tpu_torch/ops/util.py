@@ -5,9 +5,149 @@ buffer-layout helpers, which on tensors reduce to views and copies.
 Scalar results are 0-d tensors on the input's device (no host sync)."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..config import STABLE_PRECISION, resolve_precision
 from ..errors import require
+
+
+def is_batched(*ts) -> bool:
+    """Whether any of the tensors is a ``torch.func.vmap`` batched tensor.
+    A host branch on a batched value cannot be read: where this holds, a
+    driver computes both branches and selects on the device."""
+    return any(isinstance(t, torch.Tensor)
+               and torch._C._functorch.is_batchedtensor(t) for t in ts)
+
+
+def require_kernel_operands(what: str, *ts) -> None:
+    """Raise for operands a ctypes call cannot take: a tensor under
+    ``torch.func.vmap`` (the hand-written kernels and the TF32 product
+    have no batching rule) or one autograd would have to differentiate
+    through (they have no backward; a silently detached result would be a
+    wrong gradient)."""
+    ts = [t for t in ts if isinstance(t, torch.Tensor)]
+    require(not is_batched(*ts),
+            f"{what}: torch.func.vmap over a CUDA tensor is not supported: "
+            "the hand-written kernels have no batching rule")
+    require(not (torch.is_grad_enabled()
+                 and any(t.requires_grad for t in ts)),
+            f"{what}: autograd through a hand-written kernel is not "
+            "supported: call with tensors that do not require grad, or on "
+            "the CPU")
+
+
+# cuBLAS enums (cublas_api.h, library_types.h)
+_CUDA_R_32F = 0
+_CUBLAS_COMPUTE_32F_FAST_TF32 = 77
+_CUBLAS_GEMM_DEFAULT_TENSOR_OP = 99
+_CUBLAS = []
+
+
+def _cublas():
+    """The cuBLAS library PyTorch has loaded (found by its path in
+    /proc/self/maps, so the handle PyTorch hands out and the calls share
+    one library)."""
+    if not _CUBLAS:
+        torch.cuda.current_blas_handle()        # loads cuBLAS
+        with open("/proc/self/maps") as f:
+            paths = sorted({ln.split()[-1] for ln in f
+                            if "/libcublas.so" in ln})
+        require(bool(paths), "cuBLAS is not loaded in this process")
+        lib = ctypes.CDLL(paths[0])
+        lib.cublasGemmEx.restype = ctypes.c_int
+        _CUBLAS.append(lib)
+    return _CUBLAS[0]
+
+
+def _colmajor(T: torch.Tensor):
+    """(tensor, op, ld) for cuBLAS: T as stored column-major, and whether
+    cuBLAS must transpose it to read Tᵀ (the row-major T)."""
+    r, c = T.shape
+    if T.stride(1) == 1 and T.stride(0) >= max(1, c):
+        return T, 0, T.stride(0)                # row-major T = col-major Tᵀ
+    if T.stride(0) == 1 and T.stride(1) >= max(1, r):
+        return T, 1, T.stride(1)                # col-major T: transpose it
+    T = T.contiguous()
+    return T, 0, max(1, c)
+
+
+def tf32_mm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """X·Y for 2-D CUDA f32 X, Y with TF32 inputs and fp32 accumulation,
+    one ``cublasGemmEx`` call with ``CUBLAS_COMPUTE_32F_FAST_TF32`` on
+    PyTorch's handle and stream: the TF32 product of this call only,
+    with no process-wide switch touched."""
+    require(X.dim() == 2 and Y.dim() == 2 and X.shape[1] == Y.shape[0],
+            f"tf32_mm needs (m, k)·(k, n), got {tuple(X.shape)}·"
+            f"{tuple(Y.shape)}")
+    require_kernel_operands("tf32_mm", X, Y)
+    m, k = X.shape
+    n = Y.shape[1]
+    C = torch.empty((m, n), dtype=torch.float32, device=X.device)
+    if m == 0 or n == 0:
+        return C
+    if k == 0:
+        return C.zero_()
+    # row-major C = X·Y is col-major Cᵀ = Yᵀ·Xᵀ
+    Yc, opa, lda = _colmajor(Y)
+    Xc, opb, ldb = _colmajor(X)
+    one, zero = ctypes.c_float(1.0), ctypes.c_float(0.0)
+    st = _cublas().cublasGemmEx(
+        ctypes.c_void_p(torch.cuda.current_blas_handle()),
+        ctypes.c_int(opa), ctypes.c_int(opb), ctypes.c_int(n),
+        ctypes.c_int(m), ctypes.c_int(k), ctypes.byref(one),
+        ctypes.c_void_p(Yc.data_ptr()), ctypes.c_int(_CUDA_R_32F),
+        ctypes.c_int(lda), ctypes.c_void_p(Xc.data_ptr()),
+        ctypes.c_int(_CUDA_R_32F), ctypes.c_int(ldb), ctypes.byref(zero),
+        ctypes.c_void_p(C.data_ptr()), ctypes.c_int(_CUDA_R_32F),
+        ctypes.c_int(n), ctypes.c_int(_CUBLAS_COMPUTE_32F_FAST_TF32),
+        ctypes.c_int(_CUBLAS_GEMM_DEFAULT_TENSOR_OP))
+    require(st == 0, f"cublasGemmEx returned status {st}")
+    return C
+
+
+def bf16_mm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """X·Y for 2-D CUDA f32 X, Y with bf16 inputs (round to nearest even)
+    and fp32 accumulation: one bf16 cuBLAS product into fp32."""
+    return torch.mm(X.to(torch.bfloat16), Y.to(torch.bfloat16),
+                    out_dtype=torch.float32)
+
+
+def product_form(precision, t: torch.Tensor) -> str:
+    """What a product at ``precision`` computes for the tensor ``t``:
+    "highest" (the plain ``@``) on the CPU, in f64 and at "highest";
+    "high" (TF32) or "default" (bf16) for a CUDA f32 tensor."""
+    p = resolve_precision(precision)
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        return "highest"
+    return p
+
+
+def matmul(X: torch.Tensor, Y: torch.Tensor,
+           precision=STABLE_PRECISION) -> torch.Tensor:
+    """X @ Y at a JAX precision (``config.resolve_precision``): the port's
+    ``jnp.matmul(X, Y, precision=precision)``. On the CPU, and in f64 on
+    any device, every precision is the plain ``@`` (XLA's CPU dot ignores
+    ``precision``, and f64 has no TF32 or bf16 form). On a CUDA f32
+    tensor "highest" is ``@`` (true fp32), "high" one TF32 product
+    (``tf32_mm``) and "default" one bf16 product (``bf16_mm``), both with
+    fp32 accumulation: the mapping of ``ops.wy.trailing_form``. A vector
+    operand is taken as one column (Y) or one row (X)."""
+    p = product_form(precision, X)
+    if p == "highest" or Y.dtype != torch.float32:
+        return X @ Y
+    require(X.dim() <= 2 and Y.dim() <= 2,
+            f"matmul at precision {p!r} takes matrices and vectors, got "
+            f"{X.dim()}-d and {Y.dim()}-d")
+    X2 = X.unsqueeze(0) if X.dim() == 1 else X
+    Y2 = Y.unsqueeze(1) if Y.dim() == 1 else Y
+    C = tf32_mm(X2, Y2) if p == "high" else bf16_mm(X2, Y2)
+    if X.dim() == 1:
+        C = C.squeeze(0)
+    if Y.dim() == 1:
+        C = C.squeeze(-1)
+    return C
 
 
 def eye(m: int, n: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
@@ -60,10 +200,12 @@ def naive_rank_est(diag_R: torch.Tensor, tol) -> torch.Tensor:
     return torch.cumprod(ok, 0).sum().to(torch.int32)
 
 
-def orthogonality_check(Q: torch.Tensor) -> torch.Tensor:
-    """‖QᵀQ − I‖_F (rl_util.hh:468), a 0-d tensor on Q's device."""
+def orthogonality_check(Q: torch.Tensor,
+                        precision=STABLE_PRECISION) -> torch.Tensor:
+    """‖QᵀQ − I‖_F (rl_util.hh:468), a 0-d tensor on Q's device; QᵀQ at
+    ``precision`` (``matmul``)."""
     k = Q.shape[1]
-    G = Q.T @ Q
+    G = matmul(Q.T, Q, precision)
     return torch.linalg.matrix_norm(
         G - torch.eye(k, dtype=Q.dtype, device=Q.device))
 

@@ -65,6 +65,7 @@ import functools
 import torch
 
 from ..errors import require
+from .util import require_kernel_operands
 
 # kernel launches since the last reset (a run sets these to 0 and reads
 # them back to show which kernels it went through). The first two count
@@ -762,6 +763,8 @@ def _a_minus_vz_masked_bf16x3_f64(A, V, Z, mask):
 def _device_route(t):
     if t.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"no kernel for device {t.device}")
+    if t.device.type == "cuda":
+        require_kernel_operands("K1/K2", t)
     return t.device.type == "cuda"
 
 
@@ -795,13 +798,6 @@ def trailing_wy_update(A, V, T, mask):
     Z = T.T @ W
     return a_minus_vz_masked_routed(
         torch.clone(A, memory_format=torch.contiguous_format), V, Z, mask)
-
-
-def _require_highest(trailing_precision):
-    if trailing_precision != "highest":
-        raise NotImplementedError(
-            f"trailing_precision={trailing_precision!r}: only 'highest' "
-            "(true fp32/f64 products) is ported")
 
 
 def trailing_form(trailing_precision, t):

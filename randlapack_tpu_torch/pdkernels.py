@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from .config import STABLE_PRECISION, resolve_precision
 from .errors import require
 from .ops.kernels import kernel_matmat, kernel_matmat_reference
+from .ops.util import matmul, require_kernel_operands
 from .ops.wy import _device_route
 
 
@@ -25,36 +27,41 @@ def standardize_dataset(X: torch.Tensor) -> torch.Tensor:
     return Xc / torch.clamp(scale, min=torch.finfo(X.dtype).tiny)
 
 
-def squared_distances(XI: torch.Tensor, XJ: torch.Tensor) -> torch.Tensor:
+def squared_distances(XI: torch.Tensor, XJ: torch.Tensor,
+                      precision=STABLE_PRECISION) -> torch.Tensor:
     """Pairwise squared Euclidean distances between columns of XI (d,p) and
-    XJ (d,q) → (p, q); GEMM-based (euclidean_distance_submatrix)."""
+    XJ (d,q) → (p, q); GEMM-based (euclidean_distance_submatrix), the
+    cross term at ``precision`` (``ops.util.matmul``)."""
     ni = torch.sum(XI * XI, dim=0)
     nj = torch.sum(XJ * XJ, dim=0)
-    return torch.clamp(ni[:, None] + nj[None, :] - 2.0 * (XI.T @ XJ),
-                       min=0.0)
+    return torch.clamp(
+        ni[:, None] + nj[None, :] - 2.0 * matmul(XI.T, XJ, precision),
+        min=0.0)
 
 
-def squared_exp_kernel(XI: torch.Tensor, XJ: torch.Tensor,
-                       bandwidth) -> torch.Tensor:
+def squared_exp_kernel(XI: torch.Tensor, XJ: torch.Tensor, bandwidth,
+                       precision=STABLE_PRECISION) -> torch.Tensor:
     """k(x, y) = exp(−‖x−y‖² / (2σ²)) for all column pairs."""
-    return torch.exp(-squared_distances(XI, XJ) / (2.0 * bandwidth ** 2))
+    return torch.exp(-squared_distances(XI, XJ, precision)
+                     / (2.0 * bandwidth ** 2))
 
 
 def squared_exp_kernel_submatrix(X: torch.Tensor, rows: torch.Tensor,
-                                 cols: torch.Tensor,
-                                 bandwidth) -> torch.Tensor:
+                                 cols: torch.Tensor, bandwidth,
+                                 precision=STABLE_PRECISION) -> torch.Tensor:
     """K[rows, cols] for the squared-exponential kernel over X (d, n)."""
-    return squared_exp_kernel(X[:, rows], X[:, cols], bandwidth)
+    return squared_exp_kernel(X[:, rows], X[:, cols], bandwidth, precision)
 
 
 def block_arrowhead_multiply(D_diag: torch.Tensor, B: torch.Tensor,
-                             C: torch.Tensor, V: torch.Tensor):
+                             C: torch.Tensor, V: torch.Tensor,
+                             precision=STABLE_PRECISION):
     """Multiply the block-arrowhead matrix [[diag(D), B], [Bᵀ, C]] by V —
     helper for restricted KRR systems (rl_pdkernels.hh:161)."""
     k = D_diag.shape[0]
     V1, V2 = V[:k, :], V[k:, :]
-    top = D_diag[:, None] * V1 + B @ V2
-    bot = B.T @ V1 + C @ V2
+    top = D_diag[:, None] * V1 + matmul(B, V2, precision)
+    bot = matmul(B.T, V1, precision) + matmul(C, V2, precision)
     return torch.cat([top, bot], dim=0)
 
 
@@ -130,12 +137,15 @@ class SquaredExpKernelLinOp:
                 out = out + V * self.mus[None, :]
         return out
 
-    def matmat(self, V: torch.Tensor):
-        """K V (+ per-column μ V). CUDA: the fused kernel K4, always. CPU:
-        column blocks of K (clipped indices, masked tail), so the n×n
-        kernel matrix never fully materializes."""
+    def matmat(self, V: torch.Tensor, precision=STABLE_PRECISION):
+        """K V (+ per-column μ V). CUDA: the fused kernel K4, always (it
+        ignores ``precision``, as the Pallas kernel does). CPU: column
+        blocks of K (clipped indices, masked tail), so the n×n kernel
+        matrix never fully materializes."""
+        resolve_precision(precision)
         if _device_route(self.X):
             require(V.device == self.X.device, "V must be on X's device")
+            require_kernel_operands("K4", V)
             return self._add_reg(
                 kernel_matmat(self.X.contiguous(), V.contiguous(),
                               self.bandwidth), V)

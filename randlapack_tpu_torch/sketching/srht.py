@@ -16,7 +16,7 @@ import math
 import torch
 
 from ..config import STABLE_PRECISION
-from ..ops.wy import _require_highest
+from ..ops.util import matmul, product_form
 from ..rng import RNGState
 
 
@@ -30,8 +30,9 @@ def _hadamard_matrix(k: int, dtype, device="cuda"):
 
 def fwht(x: torch.Tensor, precision=STABLE_PRECISION) -> torch.Tensor:
     """Walsh-Hadamard transform along axis 0 (length a power of two):
-    radix 128, the last stage's radix what is left."""
-    _require_highest(precision)
+    radix 128, the last stage's radix what is left. Each stage's product
+    at ``precision`` (``ops.util.matmul``)."""
+    form = product_form(precision, x)
     m = x.shape[0]
     assert m & (m - 1) == 0, "fwht length must be a power of two"
     radix = 128
@@ -42,7 +43,13 @@ def fwht(x: torch.Tensor, precision=STABLE_PRECISION) -> torch.Tensor:
         r = min(radix, m // done)
         # view as (m // (done*r), r, done·rest) and transform the r axis
         h = _hadamard_matrix(r, x.dtype, x.device)
-        x = torch.matmul(h, x.reshape(m // (done * r), r, done * width))
+        x3 = x.reshape(m // (done * r), r, done * width)
+        if form == "highest":
+            x = torch.matmul(h, x3)
+        else:
+            # one 2-D product over the stacked blocks
+            y = matmul(h, x3.transpose(0, 1).reshape(r, -1), form)
+            x = y.reshape(r, x3.shape[0], -1).transpose(0, 1)
         x = x.reshape(m, *rest)
         done *= r
     return x

@@ -18,10 +18,10 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 
-def device_sync(t: torch.Tensor) -> None:
-    """Wait for the device that holds ``t``; a no-op on the CPU."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def device_sync(out: torch.Tensor) -> None:
+    """Wait for the device that holds ``out``; a no-op on the CPU."""
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
 
 
 class PhaseTimer:

@@ -54,7 +54,13 @@ bit to the plain one; "high" launches them and not the earlier TF32 form
 are held the same way (pre-pass bit for bit, Inf/NaN included; plain
 version and order of sums within 1e-5); "default" and "bf16_3x_emul"
 launch them and not the earlier forms ("bf16_wy", "bf16x3_wy"), also in
-the 8192² BQRRP and HQRRP speed modes."""
+the 8192² BQRRP and HQRRP speed modes. The driver-level ``precision=``
+(``ops.util.matmul``): "high" is the f64 product of the operands rounded
+to TF32 and "default" that of the operands rounded to bf16, within fp32
+summation error; "highest" and f64 are ``@`` bit for bit; no TF32 switch
+changes. Autograd through QB and RSVD (no kernel) on the card matches
+the CPU's gradient; a kernel path raises for a tensor that requires grad
+or is batched."""
 import numpy as np
 import pytest
 import torch
@@ -1957,3 +1963,119 @@ def test_speed_modes_at_8192_launch_the_ring_forms(cuda, tp, form):
         R, fail = (out.R, out.fail) if hasattr(out, "R") else (out[1],
                                                                out[4])
         assert not bool(fail) and bool(torch.isfinite(R).all())
+
+
+# -- the driver-level precision= ------------------------------------------
+
+def _tf32_trunc(t):
+    """t (float32) with the low 13 mantissa bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rne(t):
+    """t (float32) rounded to TF32, to nearest, ties to even."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(
+        torch.float32)
+
+
+@pytest.mark.cuda
+def test_precision_matmul_rounds_as_its_mode(cuda):
+    """``ops.util.matmul`` on 1000×700 · 700×900 f32 (and on column-major
+    views, and a vector): "high" within fp32 summation error (16·√k units
+    of fp32 roundoff, relative Frobenius) of the f64 product of the
+    operands rounded to TF32 to nearest even, as cuBLAS rounds them
+    (truncation and the exact product are both ~1e-4 away); for one
+    column the library takes its fp32 path, within the same bound of the
+    exact product. "default" matches the operands rounded to bf16 to
+    nearest even; "highest" and f64 are ``@`` bit for bit; the TF32
+    switches read as before every call."""
+    from randlapack_tpu_torch.ops import util
+    g = torch.Generator(device=cuda).manual_seed(0)
+    X = torch.randn((1000, 700), generator=g, device=cuda)
+    Y = torch.randn((700, 900), generator=g, device=cuda)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.get_float32_matmul_precision())
+    bound = 16 * 700 ** 0.5 * 2.0 ** -24
+
+    def f64_of(r, a, b):
+        return r(a).double() @ r(b).double()
+
+    # row-major, column-major views (the transposes of contiguous
+    # tensors) on either side, and a vector
+    for a, b in ((X, Y), (X.T.contiguous().T, Y), (X, Y.T.contiguous().T),
+                 (X, Y[:, 0])):
+        hi = util.matmul(a, b, "high")
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision()) == before
+        exact = _relf(hi, a.double() @ b.double())
+        if b.dim() == 1:
+            assert exact <= bound
+        else:
+            assert _relf(hi, f64_of(_tf32_rne, a, b)) <= bound
+            assert min(exact, _relf(hi, f64_of(_tf32_trunc, a, b))) \
+                > 10 * bound                # the check tells them apart
+        lo = util.matmul(a, b, "default")
+        bf = f64_of(lambda t: t.to(torch.bfloat16).float(), a, b)
+        assert _relf(lo, bf) <= bound
+        assert torch.equal(util.matmul(a, b, "highest"), a @ b)
+        assert torch.equal(util.matmul(a.double(), b.double(), "high"),
+                           a.double() @ b.double())
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision()) == before
+
+
+@pytest.mark.cuda
+def test_grad_through_qb_and_rsvd_on_the_card(cuda):
+    """QB's loss ‖A − QB‖²_F and RSVD's Σ S[:4] at the CPU tests' f64
+    shapes (96×64, k 32, block 16): the card's gradient (cuBLAS and
+    cuSOLVER, no kernel) within 1e-8 relative of the CPU's on the same
+    starts."""
+    from randlapack_tpu_torch.comps import QBConfig, qb_blocked
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((96, 64)) * np.logspace(0, -2, 64)
+    om = [rng.standard_normal((64, 16)) for _ in range(2)]
+
+    def grads(dev):
+        oms = [torch.tensor(o, device=dev) for o in om]
+
+        def loss_qb(a):
+            Q, B = qb_blocked(a, 32, QBConfig(block_size=16), rt.RNGState(1),
+                              omegas=oms)[:2]
+            return torch.sum((a - Q @ B) ** 2)
+
+        def loss_rsvd(a):
+            return torch.sum(rsvd_fixed_rank(
+                a, 16, RSVDConfig(QBConfig(block_size=16)), rt.RNGState(2),
+                omegas=oms[:1])[1][:4])
+
+        out = []
+        for loss in (loss_qb, loss_rsvd):
+            At = torch.tensor(A, device=dev, requires_grad=True)
+            loss(At).backward()
+            out.append(At.grad.cpu())
+        return out
+
+    for g_card, g_cpu in zip(grads(cuda), grads("cpu")):
+        assert _relf(g_card, g_cpu.double()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_kernel_paths_refuse_grad_and_vmap_on_the_card(cuda):
+    """HQRRP (K5/K6) and BQRRP (K1–K3) on a CUDA tensor that requires
+    grad raise instead of handing back a detached result; under
+    ``torch.func.vmap`` (the sketches injected, one for the batch) they
+    raise too."""
+    from randlapack_tpu_torch.errors import RandLAPACKError
+    A = torch.randn((64, 48), device=cuda)
+    G = torch.rand((26, 64), device=cuda) * 2 - 1
+    S = torch.randn((20, 64), device=cuda) / 20 ** 0.5
+    for run in (lambda a: hqrrp(a, HQRRPConfig(block_size=16),
+                                rt.RNGState(0), sketch=G)[1],
+                lambda a: bqrrp_factored(a, BQRRPConfig(block_size=16),
+                                         rt.RNGState(0), sketch=S)[0].R):
+        with pytest.raises(RandLAPACKError, match="autograd"):
+            run(A.clone().requires_grad_(True))
+        with pytest.raises(RandLAPACKError, match="vmap"):
+            torch.func.vmap(run)(torch.stack([A, A]))

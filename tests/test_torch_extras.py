@@ -432,3 +432,42 @@ def test_lu_from_mm(tmp_path):
     np.testing.assert_allclose(A @ op.matmat(torch.tensor(B)).numpy(), B,
                                atol=1e-9)
     assert os.path.getsize(p) > 0
+
+
+def test_native_names_round_trip_against_scipy(tmp_path):
+    """``randlapack_tpu_torch.native`` exports the JAX package's three
+    names, builds nothing on import (the build runs on first use, into
+    ``build/native/``), and a small COO matrix written by
+    ``fast_mm_write`` reads back through ``scipy.io.mmread``, and a file
+    ``scipy.io.mmwrite`` wrote reads back through ``fast_mm_read``,
+    value for value."""
+    import subprocess
+    import sys
+
+    import scipy.io as sio
+    code = ("import randlapack_tpu_torch._build as b; "
+            "b.load_native = None; "
+            "import randlapack_tpu_torch.native as nat; "
+            "from randlapack_tpu_torch.extras import io; "
+            "print(sorted(nat.__all__), io._native == [])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__)))).stdout.strip()
+    assert out == "['HAVE_NATIVE', 'fast_mm_read', 'fast_mm_write'] True"
+    import randlapack_tpu_torch.native as nat
+    assert nat.HAVE_NATIVE is True
+    rows = np.array([0, 2, 4, 1], np.int32)
+    cols = np.array([1, 0, 3, 3], np.int32)
+    vals = np.array([1.5, -2.25, 1e-300, np.pi])
+    path = tmp_path / "a.mtx"
+    nat.fast_mm_write(str(path), rows, cols, vals, 5, 4)
+    M = sio.mmread(str(path)).tocoo()
+    assert M.shape == (5, 4)
+    assert sorted(zip(M.row, M.col, M.data)) == sorted(zip(rows, cols, vals))
+    path2 = tmp_path / "b.mtx"
+    sio.mmwrite(str(path2), sp.coo_matrix((vals, (rows, cols)),
+                                          shape=(5, 4)))
+    r, c, v, m, n = nat.fast_mm_read(str(path2))
+    assert (m, n) == (5, 4)
+    assert sorted(zip(r, c, v)) == sorted(zip(rows, cols, vals))

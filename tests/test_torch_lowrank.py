@@ -224,8 +224,11 @@ def test_cholqr_auto_rank_deficient_stays_finite():
 
 
 def test_cholqr_auto_holds_precision():
-    with pytest.raises(NotImplementedError):
-        tcholqr.cholqr_auto(torch.eye(4, dtype=torch.float64), "high")
+    # "high" was refused until the driver-level precision was ported: on
+    # the CPU it is the "highest" product, bit for bit
+    A = torch.tensor(np.random.default_rng(1).standard_normal((12, 4)))
+    runs = [tcholqr.cholqr_auto(A, p) for p in ("high", "highest")]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
 # -- orth and stabilize -------------------------------------------------------

@@ -75,6 +75,52 @@ def test_package_imports_without_cuda_nvcc_or_jax():
 
 # -- config / rng ------------------------------------------------------------
 
+def _public_functions(module):
+    """name → the plain function behind each public module-level callable
+    defined in ``module`` (jit wrappers unwrapped)."""
+    import inspect
+    out = {}
+    for name, obj in vars(module).items():
+        f = inspect.unwrap(obj) if callable(obj) else obj
+        if (not name.startswith("_") and inspect.isfunction(f)
+                and f.__module__ == module.__name__):
+            out[name] = f
+    return out
+
+
+def test_signatures_lead_with_the_jax_parameters():
+    """Every public module-level function of the port whose JAX
+    counterpart (same module path, same name) exists takes JAX's
+    parameters first, in JAX's positions, so positional callers see the
+    same function; the port's own parameters (``sketch``, ``omegas``,
+    ``noise``, ``device``) come after. ``ops/pallas_*`` (their kernels'
+    tests cover them, and they carry JAX-only parameters) and
+    ``parallel/`` (not ported) are out of scope."""
+    import inspect
+    import pkgutil
+
+    import randlapack_tpu
+    drift, pairs = [], 0
+    for info in pkgutil.walk_packages(rt.__path__, "randlapack_tpu_torch."):
+        rel = info.name.removeprefix("randlapack_tpu_torch.")
+        if rel.startswith(("ops.pallas_", "parallel")):
+            continue
+        jname = "randlapack_tpu." + rel
+        if importlib.util.find_spec(jname) is None:
+            continue
+        jfns = _public_functions(importlib.import_module(jname))
+        tfns = _public_functions(importlib.import_module(info.name))
+        for name in sorted(jfns.keys() & tfns.keys()):
+            pairs += 1
+            pj = list(inspect.signature(jfns[name]).parameters)
+            pt = list(inspect.signature(tfns[name]).parameters)
+            if pt[:len(pj)] != pj:
+                drift.append(f"{rel}.{name}: JAX {pj}, port {pt}")
+    assert randlapack_tpu.__name__ == "randlapack_tpu"
+    assert pairs > 100, pairs
+    assert not drift, "\n".join(drift)
+
+
 def test_tf32_policy_enforced():
     tconfig.require_fp32_matmul()
     prev = torch.get_float32_matmul_precision()

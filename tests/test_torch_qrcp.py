@@ -77,8 +77,11 @@ def test_select_pivots_routed_on_the_cpu_takes_the_plain_version():
     assert tqrcp.LAUNCHES == n0
     with pytest.raises(RandLAPACKError):
         tqrcp.qrcp_select_pivots_routed(Yt, 32, lt, use_pallas="always")
-    with pytest.raises(NotImplementedError):
-        tqrcp.qrcp_select_pivots_routed(Yt, 32, lt, precision="default")
+    # "default" runs the plain version on the CPU, as "highest" does
+    assert torch.equal(tqrcp.qrcp_select_pivots_routed(
+        Yt, 32, lt, precision="default"), ref)
+    with pytest.raises(ValueError):
+        tqrcp.qrcp_select_pivots_routed(Yt, 32, lt, precision="medium")
     # the kernel wrapper takes only CUDA tensors
     with pytest.raises(RandLAPACKError):
         tqrcp.qrcp_select_pivots_cuda(Yt, 32, lt)

@@ -276,12 +276,18 @@ def test_trsm_blockinv_matches_jax(n, block, gather):
 
 
 def test_precision_other_than_highest_raises():
-    A = torch.eye(4, dtype=torch.float64)
-    for call in (lambda: tchol.gram_syrk(A, "default"),
-                 lambda: ttrsm.trsm_right_upper_blockinv(A, A, 2, "high"),
-                 lambda: tsk.fwht(A, "default")):
-        with pytest.raises(NotImplementedError):
-            call()
+    # "default" and "high" were refused until the driver-level precision
+    # was ported: on the CPU they are the "highest" products, bit for bit,
+    # and a name JAX does not take raises
+    A = torch.tensor(np.random.default_rng(0).standard_normal((4, 4)))
+    R = torch.triu(A) + 4 * torch.eye(4, dtype=torch.float64)
+    for call in (lambda p: tchol.gram_syrk(A, p, 2),
+                 lambda p: ttrsm.trsm_right_upper_blockinv(A, R, 2, p),
+                 lambda p: tsk.fwht(A, p)):
+        for p in ("default", "high"):
+            assert torch.equal(call(p), call("highest"))
+        with pytest.raises(ValueError):
+            call("medium")
 
 
 def test_pivot_utilities_match_jax():

@@ -164,10 +164,14 @@ def test_config_names():
     assert config.resolve_precision(None) == config.STABLE_PRECISION
     assert config.resolve_precision(jax.lax.Precision.HIGHEST) == "highest"
     assert config.resolve_precision("float32") == "highest"
-    for name in ("default", "high", "bfloat16", "tensorfloat32",
-                 jax.lax.Precision.DEFAULT):
-        with pytest.raises(NotImplementedError):
-            config.resolve_precision(name)
+    # every JAX name maps (they were refused before the driver-level
+    # precision was ported); a name JAX does not take raises
+    for name, want in (("default", "default"), ("high", "high"),
+                       ("bfloat16", "default"), ("tensorfloat32", "high"),
+                       (jax.lax.Precision.DEFAULT, "default")):
+        assert config.resolve_precision(name) == want
+    with pytest.raises(ValueError):
+        config.resolve_precision("medium")
 
 
 # -- testing.py ----------------------------------------------------------------
