@@ -97,6 +97,19 @@ low-rank drivers, the operator slice and least squares:
   readings (set from tools/precision_residuals.py's CPU emulation) and
   on the TF32 switches, with one wrong answer per driver the gates must
   refuse;
+- the distributed layer (randlapack_tpu_torch.parallel, [parallel]): 4
+  gloo ranks share the card in one spawn (the kernels built first) and
+  run dist_bqrrp_factored on the headline's 8192² matrix (2048 rows a
+  rank, b 256, 2 stages, update defer 1: K1, K2, K3 32 each a rank,
+  gated on the f32 gates, R and J the same on every rank and the
+  trailing-norm ratios against bqrrp_factored on one process), the
+  distributed CholQR, Gram, sketch and rangefinder on 131072×256,
+  dist_cqrrpt/dist_cqrrt at config 3, dist_rsvd at config 1, dist_spls
+  at config 2, dist_revd2 (8192², rank 256) and dist_krill (n 16384),
+  each best of 3 beside the same call on one process, with the
+  collectives' share of one more run; one NCCL rank must reproduce the
+  single-process factorization bit for bit; K1 and K2 alone at a shard's
+  shapes;
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
@@ -4567,6 +4580,635 @@ def phase_precision(dev, card: str) -> dict:
     return counts_by
 
 
+# -- the distributed layer (randlapack_tpu_torch.parallel) --------------------
+
+# dist_bqrrp_factored at the headline's 8192² f32 on PAR_P gloo ranks of one
+# card, each holding 2048 rows; block 256, two stages, update defer 1 (the
+# JAX function's config): 32 blocks, one K1, K2 and K3 launch each a rank
+PAR_P = 4
+PAR_B, PAR_STAGES = 256, 2
+DIST_LAUNCHES = {**NO_LAUNCHES, "masked_vt_a": 32, "a_minus_vz_masked": 32,
+                 "getrfnp": 32}
+# the other entries' sizes: the tall orthogonalization and sketch entries
+# on 131072×256 (a sketch of d = 1.25·256 rows, a rangefinder of 64
+# columns), CQRRPT/CQRRT at config 3, RSVD at config 1, SPLS at config 2,
+# REVD2 of the n 8192 kernel matrix at rank 256, KRILL at n 16384, k 256
+PAR_TALL_M, PAR_TALL_N, PAR_TALL_D, PAR_TALL_K = 131072, 256, 320, 64
+PAR_REVD2_N, PAR_REVD2_K = 8192, 256
+PAR_KRILL_N, PAR_KRILL_K, PAR_KRILL_ITERS = 16384, 256, 100
+PAR_REPS = 3
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _psum_f64(mesh, *vals):
+    """Sums over the ranks (in f64) of the given 0-d tensors."""
+    return mesh.psum(torch.stack([v.double() for v in vals])).tolist()
+
+
+def _gathered_orth(mesh, Q):
+    """‖QᵀQ − I‖_F of a row-sharded Q, the Gram psummed in f64."""
+    Qd = Q.double()
+    G = mesh.psum(Qd.T @ Qd)
+    return float(torch.linalg.norm(G - torch.eye(G.shape[0], dtype=G.dtype,
+                                                 device=G.device)))
+
+
+def _tall_input(mesh, make):
+    """Every rank builds the whole input (one seed) and keeps its rows."""
+    full = make()
+    r0, r1 = mesh.rows(full.shape[0] // mesh.size)
+    return full, full[r0:r1].contiguous()
+
+
+def par_tsqr(mesh, dev):
+    """dist_gram, dist_cholqr (1 and 2 passes), dist_shifted_cholqr3,
+    dist_sketch_left and dist_rangefinder_step on a 131072×256 Gaussian
+    matrix: G against the f64 product (at most 4× torch.mm's fp32 error),
+    Q's residual and orthogonality (RES_GATE, RES_GATE·√k), S·A likewise,
+    the rangefinder's capture within 3× the optimal rank-64 tail (the JAX
+    test's gate). The single-process port functions on the whole input:
+    gram_syrk, cholqr, cholqr2, shifted_cholqr3, the sketch's product, and
+    (no single-device rangefinder step exists in either package) cholqr2
+    of A·Ω with QᵀA."""
+    from randlapack_tpu_torch.ops.cholqr import (cholqr, cholqr2, gram_syrk,
+                                                 shifted_cholqr3)
+    from randlapack_tpu_torch.ops.kernels import gaussian_sketch_matrix
+    from randlapack_tpu_torch.parallel import (dist_cholqr, dist_gram,
+                                               dist_rangefinder_step,
+                                               dist_shifted_cholqr3,
+                                               dist_sketch_left)
+    g = torch.Generator(device=dev).manual_seed(21)
+    A, Al = _tall_input(mesh, lambda: torch.randn(
+        (PAR_TALL_M, PAR_TALL_N), generator=g, device=dev))
+    ml = Al.shape[0]
+    S = gaussian_sketch_matrix(PAR_TALL_D, ml, 22, device=dev,
+                               col0=mesh.rank * ml)
+    Om = torch.randn((PAR_TALL_N, PAR_TALL_K), generator=g, device=dev)
+    runs = {"dist_gram": lambda: dist_gram(Al, mesh),
+            "dist_cholqr passes=1": lambda: dist_cholqr(Al, mesh, passes=1),
+            "dist_cholqr passes=2": lambda: dist_cholqr(Al, mesh),
+            "dist_shifted_cholqr3": lambda: dist_shifted_cholqr3(Al, mesh),
+            "dist_sketch_left": lambda: dist_sketch_left(S, Al, mesh),
+            "dist_rangefinder_step": lambda: dist_rangefinder_step(
+                Al, Om, mesh)}
+
+    def rangefinder():
+        Q, _, fail = cholqr2(A @ Om)
+        B = Q.T @ A
+        return Q, B, B.T, fail
+    Sf = gaussian_sketch_matrix(PAR_TALL_D, PAR_TALL_M, 22, device=dev)
+    singles = {"dist_gram": ("gram_syrk", lambda: gram_syrk(A)),
+               "dist_cholqr passes=1": ("cholqr", lambda: cholqr(A)),
+               "dist_cholqr passes=2": ("cholqr2", lambda: cholqr2(A)),
+               "dist_shifted_cholqr3": ("shifted_cholqr3",
+                                        lambda: shifted_cholqr3(A)),
+               "dist_sketch_left": ("S @ A", lambda: Sf @ A),
+               "dist_rangefinder_step": ("cholqr2(A @ Om), Q.T @ A",
+                                         rangefinder)}
+    A64 = A.double()
+    k_gate = RES_GATE * math.sqrt(PAR_TALL_N)
+
+    def check(name, out):
+        if name == "dist_gram":
+            G64 = A64.T @ A64
+            err, lib = relf(out, G64), relf(A.T @ A, G64)
+            return dict(err=err, gate=F64_ERR_FACTOR * lib, G=_sha(out)), \
+                err <= F64_ERR_FACTOR * lib
+        if name == "dist_sketch_left":
+            ref = Sf.double() @ A64
+            err, lib = relf(out, ref), relf(Sf @ A, ref)
+            return dict(err=err, gate=F64_ERR_FACTOR * lib, SA=_sha(out)), \
+                err <= F64_ERR_FACTOR * lib
+        if name == "dist_rangefinder_step":
+            Q, B, _, fail = out
+            E = Al.double() - Q.double() @ B.double()
+            e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al.double() ** 2).sum())
+            sig = torch.linalg.svdvals(A64)
+            tail = float(torch.linalg.norm(sig[PAR_TALL_K:])
+                         / torch.linalg.norm(sig))
+            res = math.sqrt(e2 / a2)
+            orth = _gathered_orth(mesh, Q)
+            gk = RES_GATE * math.sqrt(PAR_TALL_K)
+            return dict(capture=res, tail=tail, orth=orth, fail=bool(fail),
+                        B=_sha(B)), \
+                res <= 3 * tail and orth <= gk and not bool(fail)
+        Q, R, fail = out
+        E = Q.double() @ R.double() - Al.double()
+        e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al.double() ** 2).sum())
+        res, orth = math.sqrt(e2 / a2), _gathered_orth(mesh, Q)
+        return dict(res=res, orth=orth, fail=bool(fail), R=_sha(R)), \
+            res <= RES_GATE and orth <= k_gate and not bool(fail)
+    return runs, singles, check
+
+
+def par_tall_qr(mesh, dev):
+    """dist_cqrrpt and dist_cqrrt at config 3 (131072×2048 f32,
+    fast_decay_matrix decay 9 from RNGState(2), as [cqrrpt] builds it; the
+    Gaussian sketch of each rank's columns): the gates of
+    tests/test_qr_drivers.py at f32 and the rank k, as tall_gates. The
+    single-process port drivers on the whole input: cqrrpt and cqrrt with
+    a Gaussian sketch of the same d = 1.25·n (cqrrpt's QRCP geqp3, as
+    here)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (CQRRPTConfig, CQRRTConfig,
+                                              cqrrpt, cqrrt)
+    from randlapack_tpu_torch.drivers.cqrrt import SketchKind
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.parallel import dist_cqrrpt, dist_cqrrt
+    A, Al = _tall_input(mesh, lambda: fast_decay_matrix(
+        TALL_M, TALL_N, RNGState(2), decay=9.0, device=dev)[0])
+    runs = {"dist_cqrrpt": lambda: dist_cqrrpt(Al, mesh, RNGState(8)),
+            "dist_cqrrt": lambda: dist_cqrrt(Al, mesh, RNGState(8))}
+    singles = {"dist_cqrrpt": ("cqrrpt", lambda: cqrrpt(
+        A, CQRRPTConfig(sketch="gaussian"), RNGState(8))),
+        "dist_cqrrt": ("cqrrt", lambda: cqrrt(
+            A, CQRRTConfig(sketch=SketchKind.gaussian), RNGState(8)))}
+
+    def check(name, out):
+        if name == "dist_cqrrpt":
+            Q, R, J, rank, fail, _ = out
+            k = int(rank)
+            perm = torch.equal(torch.sort(J).values,
+                               torch.arange(TALL_N, device=dev))
+        else:
+            Q, R, fail, _ = out
+            J, k, perm = torch.arange(TALL_N, device=dev), TALL_N, True
+        Qk, Rk = Q[:, :k].double(), R[:k].double()
+        AJ = Al.index_select(1, J).double()
+        E = Qk @ Rk - AJ
+        e2, a2 = _psum_f64(mesh, (E * E).sum(), (AJ * AJ).sum())
+        res, orth = math.sqrt(e2 / a2), _gathered_orth(mesh, Q[:, :k])
+        ok = (res <= RES_GATE and orth <= RES_GATE * math.sqrt(k)
+              and not bool(fail) and perm)
+        return dict(res=res, orth=orth, rank=k, fail=bool(fail),
+                    R=_sha(R), J=_sha(J)), ok
+    return runs, singles, check
+
+
+def par_rsvd(mesh, dev, tail):
+    """dist_rsvd at config 1 (4096² f32, decay 80, rank 256; two
+    rangefinder cycles, the JAX function's default): ‖A − U·S·Vt‖_F/‖A‖_F
+    within RSVD_TAIL_FACTOR of the optimal tail ([rsvd]'s), U and Vt
+    orthonormal to RSVD_ORTH_GATE, S descending, fail False. The
+    single-process port driver: rsvd_fixed_rank with [rsvd]'s QB block
+    (it has no failure flag: read as False)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import QBConfig
+    from randlapack_tpu_torch.drivers import RSVDConfig, rsvd_fixed_rank
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.parallel import dist_rsvd
+    A, Al = _tall_input(mesh, lambda: fast_decay_matrix(
+        RSVD_N, RSVD_N, RNGState(1), decay=80.0, device=dev)[0])
+    del A
+    runs = {"dist_rsvd": lambda: dist_rsvd(Al, RSVD_K, mesh, RNGState(9))}
+
+    def single():
+        U, S, Vt, _, st = rsvd_fixed_rank(
+            Al, RSVD_K, RSVDConfig(QBConfig(block_size=RSVD_B)),
+            RNGState(9))
+        return U, S, Vt, torch.zeros((), dtype=torch.bool), st
+    singles = {"dist_rsvd": ("rsvd_fixed_rank", single)}
+
+    def check(name, out):
+        U, S, Vt, fail, _ = out
+        E = Al.double() - (U.double() * S.double()) @ Vt.double()
+        e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al.double() ** 2).sum())
+        ratio = math.sqrt(e2 / a2) / tail
+        orth_u = _gathered_orth(mesh, U)
+        Vd = Vt.double()
+        orth_v = float(torch.linalg.norm(Vd @ Vd.T - torch.eye(
+            RSVD_K, dtype=Vd.dtype, device=dev)))
+        ok = (ratio <= RSVD_TAIL_FACTOR and max(orth_u, orth_v)
+              <= RSVD_ORTH_GATE and bool((S[:-1] >= S[1:]).all())
+              and not bool(fail))
+        return dict(tail_ratio=ratio, orth_u=orth_u, orth_v=orth_v,
+                    fail=bool(fail), S=_sha(S)), ok
+    return runs, singles, check
+
+
+def par_spls(mesh, dev, kappa):
+    """dist_spls at config 2 (100000×2000 f32, decay 7, b = A·x_t, μ 0;
+    PCG tol 1e-6, at most 60 iterations; the Gaussian sketch of each
+    rank's columns, d = 4n = 8000): [spls]'s f32 gates, the
+    normal-equations residual ≤ √n·eps32 and ‖Ax−b‖/‖b‖ ≤ (1+2κ)·eps32,
+    κ from [spls]'s f64 R of A, in f64 with the sums psummed. The
+    single-process port driver: spls with [spls]'s config (LSQR on a SASO
+    sketch)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps.determiter import PCGSaddleConfig
+    from randlapack_tpu_torch.drivers import SPLSConfig, spls
+    from randlapack_tpu_torch.parallel import dist_spls
+    A, xt, _ = spls_problem(dev)
+    r0, r1 = mesh.rows(SPLS_M // mesh.size)
+    bl = (A[r0:r1] @ xt).contiguous()
+    Al = A[r0:r1].contiguous()
+    del A
+    runs = {"dist_spls": lambda: dist_spls(
+        Al, bl, 0.0, mesh, RNGState(4), tol=SPLS_TOL, max_iters=SPLS_ITERS)}
+    singles = {"dist_spls": ("spls", lambda: spls(
+        Al, bl, 0.0, SPLSConfig(pcg=PCGSaddleConfig(
+            tol=SPLS_TOL, max_iters=SPLS_ITERS)), RNGState(4)))}
+
+    def check(name, out):
+        x, _, iters, _ = out
+        A64, x64, b64 = Al.double(), x.double(), bl.double()
+        r = b64 - A64 @ x64
+        ne = mesh.psum(A64.T @ r)
+        r2, b2, f2 = _psum_f64(mesh, (r * r).sum(), (b64 * b64).sum(),
+                               (A64 * A64).sum())
+        rel = math.sqrt(r2 / b2)
+        ne_rel = float(torch.linalg.norm(ne) / (f2 * torch.linalg.norm(x64)))
+        ok = (ne_rel <= math.sqrt(SPLS_N) * EPS32
+              and rel <= (1 + 2 * kappa) * EPS32 and iters < SPLS_ITERS
+              and bool(torch.isfinite(x).all()))
+        return dict(rel=rel, ne=ne_rel, iters=iters, x=_sha(x)), ok
+    return runs, singles, check
+
+
+def par_revd2(mesh, dev):
+    """dist_revd2 at rank 256 of the 8192² PSD matrix A = B·Bᵀ, B an
+    8192×512 Gaussian matrix with columns scaled by e^(−j/128) (λ falls
+    by e⁻⁴ over the first 256: the power iterations' CholQR2 holds in
+    f32, where a squared-exponential kernel matrix's spectrum falls past
+    1/√eps32 within rank 256 and breaks it in either package): fail
+    False, ‖VᵀV − I‖_F ≤ 10·eps32^0.75·√k, λ ≥ 0 descending, the top-8
+    eigenpair residuals ‖Avᵢ − λᵢvᵢ‖/λ₁ ≤ 1e-3 ([revd2]'s gates). The
+    single-process port driver: revd2_fixed_rank (SYRF's LU-stabilized
+    power passes)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import REVD2Config, revd2_fixed_rank
+    from randlapack_tpu_torch.parallel import dist_revd2
+    g = torch.Generator(device=dev).manual_seed(23)
+    B = torch.randn((PAR_REVD2_N, 2 * PAR_REVD2_K), generator=g,
+                    device=dev) * torch.exp(-torch.arange(
+                        2 * PAR_REVD2_K, device=dev) / 128.0)
+    r0, r1 = mesh.rows(PAR_REVD2_N // mesh.size)
+    Al = (B[r0:r1] @ B.T).contiguous()
+    del B
+    runs = {"dist_revd2": lambda: dist_revd2(Al, PAR_REVD2_K, mesh,
+                                             RNGState(10))}
+    singles = {"dist_revd2": ("revd2_fixed_rank", lambda: revd2_fixed_rank(
+        Al, PAR_REVD2_K, REVD2Config(), RNGState(10)))}
+
+    def check(name, out):
+        V, lam, err, nu, fail, _ = out
+        V8 = mesh.gather_rows(V[:, :8].contiguous()).double()
+        KV = Al.double() @ V8
+        E = KV - V[:, :8].double() * lam[:8].double()
+        pairs = torch.sqrt(mesh.psum((E * E).sum(0))) / float(lam[0])
+        orth = _gathered_orth(mesh, V)
+        ok = (not bool(fail) and orth <= RES_GATE * math.sqrt(PAR_REVD2_K)
+              and bool((lam >= 0).all() and (lam[:-1] >= lam[1:]).all())
+              and float(pairs.max()) <= 1e-3
+              and bool(torch.isfinite(err)))
+        return dict(orth=orth, pair_res=float(pairs.max()),
+                    lam0=float(lam[0]), err=float(err), nu=float(nu),
+                    fail=bool(fail), lam=_sha(lam)), ok
+    return runs, singles, check
+
+
+def par_krill(mesh, dev):
+    """dist_krill at n 16384, k 256, μ 1e-2, tol 1e-5 (bench.py's recipe,
+    the sharded plain-PyTorch K(X_local, X)·V, 4096×16384 a rank at p 4):
+    iterations below the cap, PCG's recursive residual ≤ 1e-5 and the
+    backward error ≤ 1 eps32 (krill_run's gates; ‖K‖₂ ≥ ‖K·e‖/‖e‖). The
+    single-process port driver: krill_full_rpchol on the unsharded
+    operator (its products through K4)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps.determiter import PCGConfig
+    from randlapack_tpu_torch.drivers import KrillConfig, krill_full_rpchol
+    from randlapack_tpu_torch.parallel import (DistSquaredExpKernelLinOp,
+                                               dist_krill)
+    G, H = krill_problem(PAR_KRILL_N, 1, 1e-2, dev)
+    runs = {"dist_krill": lambda: dist_krill(
+        G.X, G.bandwidth, 1e-2, H, mesh, RNGState(6), k=PAR_KRILL_K,
+        tol=1e-5, max_iters=PAR_KRILL_ITERS)}
+    kcfg = KrillConfig(k=PAR_KRILL_K, rpchol_block=64, pcg=PCGConfig(
+        tol=1e-5, max_iters=PAR_KRILL_ITERS))
+    singles = {"dist_krill": ("krill_full_rpchol", lambda: krill_full_rpchol(
+        G, H, 1e-2, kcfg, RNGState(6)))}
+
+    def check(name, out):
+        Xs, hist, iters, _ = out
+        Gd = DistSquaredExpKernelLinOp(G.X, G.bandwidth, 1e-2, mesh)
+        res = float(torch.linalg.norm(Gd.matmat(Xs) - H))
+        ones = torch.ones((PAR_KRILL_N, 1), device=dev)
+        nrm_K = float(torch.linalg.norm(Gd.with_reg(False).matmat(ones))
+                      / math.sqrt(PAR_KRILL_N))
+        backward = res / ((nrm_K + 1e-2) * float(torch.linalg.norm(Xs))) \
+            / EPS32
+        final = float(hist[iters, 0] / hist[0, 0])
+        ok = (iters < PAR_KRILL_ITERS and final <= 1e-5 and backward <= 1.0
+              and bool(torch.isfinite(Xs).all()))
+        return dict(iters=iters, recursive=final, backward=backward,
+                    x=_sha(Xs)), ok
+    return runs, singles, check
+
+
+def par_entries(mesh, dev, tail, kappa):
+    """Every entry but the flagship: (name, run, single, check) in order,
+    ``single`` the single-process port function's (name, run) on the same
+    whole input (for a mesh of one rank)."""
+    for build in (par_tsqr, par_tall_qr, lambda m, d: par_rsvd(m, d, tail),
+                  lambda m, d: par_spls(m, d, kappa), par_revd2, par_krill):
+        runs, singles, check = build(mesh, dev)
+        for name, fn in runs.items():
+            yield name, fn, singles[name], check
+        del runs, singles, check
+        torch.cuda.empty_cache()
+
+
+def par_time(mesh, fn):
+    """``fn()`` PAR_REPS times after a warm-up, wall seconds around a
+    synchronize (the ranks start each run together: a barrier of one
+    psum), the launch counts of the last run, then one more run with the
+    collectives timed: its wall and the collectives' share of it."""
+    from randlapack_tpu_torch.parallel.mesh import collective_timer
+    barrier = torch.zeros(1, device=mesh.device)
+    fn()
+    times, counts, out = [], None, None
+    for _ in range(PAR_REPS):
+        mesh.psum(barrier)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts()
+    share, calls = 0.0, 0            # one rank: every collective is the
+    if mesh.size > 1:                # identity
+        mesh.psum(barrier)
+        torch.cuda.synchronize()
+        with collective_timer() as st:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        share, calls = st["seconds"] / wall, st["calls"]
+    return out, times, counts, share, calls
+
+
+def par_flagship(mesh, dev):
+    """dist_bqrrp_factored at 8192² f32 (the headline's matrix and
+    state), block 256, two stages; bqrrp_q on the sharded factors; the
+    gates (residual, orthogonality, fail, J a permutation), this rank's
+    launches, R and J (replicated) by digest, and on rank 0 the
+    trailing norms of R over the leading half."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import bqrrp_q
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.parallel import dist_bqrrp_factored
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    r0, r1 = mesh.rows(N // mesh.size)
+    Al = A[r0:r1].contiguous()
+    del A
+    fac, times, counts, share, calls = par_time(
+        mesh, lambda: dist_bqrrp_factored(Al, mesh, st, block_size=PAR_B,
+                                          stages=PAR_STAGES)[0])
+    Q = bqrrp_q(fac, mesh=mesh)
+    E = Q @ fac.R - Al.index_select(1, fac.J)
+    e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al * Al).sum())
+    del E
+    G = mesh.psum(Q.T @ Q)
+    orth = float(torch.linalg.norm(G - torch.eye(N, device=dev)))
+    del G, Q
+    perm = torch.equal(torch.sort(fac.J).values, torch.arange(N, device=dev))
+    out = dict(times=times, counts=counts, share=share, calls=calls,
+               res=math.sqrt(e2 / a2), orth=orth, fail=bool(fac.fail),
+               perm=perm, R=_sha(fac.R), J=_sha(fac.J),
+               finite=bool(torch.isfinite(fac.R).all()))
+    if mesh.rank == 0:
+        out["tn"] = trailing_norms(fac.R)[:N // 2].cpu()
+        out["J_host"] = fac.J.cpu()
+    return out
+
+
+def parallel_rank_body(mesh, tail, kappa):
+    """One rank of [parallel]: the flagship, then every other entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"flagship": par_flagship(mesh, dev)}
+    for name, fn, _, check in par_entries(mesh, dev, tail, kappa):
+        res, times, counts, share, calls = par_time(mesh, fn)
+        metrics, ok = check(name, res)
+        out[name] = dict(times=times, counts=counts, share=share,
+                         calls=calls, metrics=metrics, ok=ok)
+        del res
+    return out
+
+
+def nccl_rank_body(mesh):
+    """One NCCL rank: the flagship call (its R and J by digest) and
+    dist_cholqr of the 131072×256 Gaussian matrix."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.parallel import dist_bqrrp_factored
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    reset_counts()
+    fac, _ = dist_bqrrp_factored(A, mesh, st, block_size=PAR_B,
+                                 stages=PAR_STAGES)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    one = torch.ones(4, device=dev)
+    torch.distributed.all_reduce(one)       # the group takes a CUDA tensor
+    out = dict(backend=torch.distributed.get_backend(), R=_sha(fac.R),
+               J=_sha(fac.J), counts=counts, all_reduce=one.tolist())
+    del A, fac
+    runs, _, check = par_tsqr(mesh, dev)
+    out["cholqr"] = check("dist_cholqr passes=2",
+                          runs["dist_cholqr passes=2"]())
+    return out
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """[parallel]: the distributed layer on one card. The kernels are
+    built (phase_build) before any rank starts. PAR_P gloo ranks share the
+    card in one spawn and run the flagship dist_bqrrp_factored (8192² f32,
+    2048 rows a rank) and every other distributed entry at full size,
+    best of 3, with the collectives' share of one more run; then each
+    entry's single-process port function on the same whole input (par_*'s
+    docstrings name it), best of 3, and the flagship's single-process
+    counterpart bqrrp_factored(update_defer=1) on the same sketch: the
+    trailing-norm
+    ratios over the leading half within PIVOT_BAND, then one NCCL rank
+    must reproduce it bit for bit. Gates (PERF.md §2, written before the
+    first card run): the flagship's residual ≤ RES_GATE, orthogonality ≤
+    ORTH_GATE, fail False, J a permutation, DIST_LAUNCHES on every rank,
+    R and J the same bits on every rank; each entry's gates (its
+    docstring) at p = PAR_P and on the single-process function;
+    replicated outputs the same bits on every rank. K1 and K2 alone at
+    the shard's shapes (V 2048×256, A 2048×8192 and stage 2's 2048×4096,
+    k 256), each held against its plain version at 1e-4·max|plain|, then
+    timed beside the plain version, torch.mm and their bounds.
+    Returns the flagship's launches by rank."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import BQRRPConfig, bqrrp_factored
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.ops import wy
+    from randlapack_tpu_torch.parallel import make_mesh, run_ranks
+    tail = PRECISION_INPUT["rsvd_tail"]
+    kappa = PRECISION_INPUT["spls_kappa"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank_body, PAR_P, tail, kappa,
+                      backend="gloo", device="cuda", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    fl = [r["flagship"] for r in ranks]
+    f0 = fl[0]
+    print(f"[parallel] dist_bqrrp_factored {N}x{N} f32 b{PAR_B}/stages"
+          f"{PAR_STAGES}/defer1 on {PAR_P} gloo ranks of {card} ({N // PAR_P}"
+          f" rows a rank; spawn and all entries {spawn_s:.1f} s): runs "
+          f"{[round(t, 4) for t in f0['times']]} s, best "
+          f"{min(f0['times']):.4f} s; collectives {100 * f0['share']:.1f} % "
+          f"of a run ({f0['calls']} calls); residual {f0['res']:.3e} (gate "
+          f"{RES_GATE:.2e}), orth {f0['orth']:.3e} (gate {ORTH_GATE:.2e}), "
+          f"fail {f0['fail']}; launches a rank "
+          f"{[{k: v for k, v in r['counts'].items() if v} for r in fl]}",
+          flush=True)
+    for r in fl:
+        gate(r["counts"] == DIST_LAUNCHES,
+             f"parallel: launches {r['counts']} != {DIST_LAUNCHES}")
+        gate(r["R"] == f0["R"] and r["J"] == f0["J"],
+             "parallel: R or J differ between ranks")
+    gate(f0["res"] <= RES_GATE, f"parallel: residual {f0['res']}")
+    gate(f0["orth"] <= ORTH_GATE, f"parallel: orthogonality {f0['orth']}")
+    gate(not f0["fail"] and f0["perm"] and f0["finite"],
+         "parallel: fail raised, J not a permutation or R not finite")
+
+    # the single-process driver on the same matrix and sketch
+    A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
+    cfg = BQRRPConfig(block_size=PAR_B, stages=PAR_STAGES, update_defer=1)
+    single = [None]
+
+    def one():
+        single[0] = bqrrp_factored(A, cfg, st)[0]
+    bqrrp_factored(A, cfg, st)
+    times1 = []
+    for _ in range(PAR_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times1.append(time.perf_counter() - t1)
+    fac1 = single[0]
+    ratio = trailing_norms(fac1.R)[:N // 2].cpu() / torch.as_tensor(f0["tn"])
+    J4 = torch.as_tensor(f0["J_host"])
+    differ = torch.nonzero(fac1.J.cpu() != J4)
+    first = int(differ[0]) if len(differ) else N
+    print(f"[parallel] the same on one process, bqrrp_factored(update_defer"
+          f"=1): runs {[round(t, 4) for t in times1]} s, best "
+          f"{min(times1):.4f} s ({min(f0['times']) / min(times1):.2f}x "
+          f"faster than {PAR_P} ranks); J equal up to position {first} "
+          f"of {N}; trailing-norm "
+          f"ratios single/sharded over the leading half "
+          f"[{float(ratio.min()):.4f}, {float(ratio.max()):.4f}] (band "
+          f"{PIVOT_BAND})", flush=True)
+    gate(PIVOT_BAND[0] <= float(ratio.min())
+         and float(ratio.max()) <= PIVOT_BAND[1],
+         f"parallel: trailing-norm ratios [{ratio.min()}, {ratio.max()}]")
+
+    # one NCCL rank reproduces the single-process call bit for bit
+    nccl, = run_ranks(nccl_rank_body, 1, backend="nccl", device="cuda",
+                      timeout=600)
+    bit = nccl["R"] == _sha(fac1.R) and nccl["J"] == _sha(fac1.J)
+    cq, ok = nccl["cholqr"]
+    print(f"[parallel-nccl] one {nccl['backend']} rank: dist_bqrrp_factored "
+          f"bit-equal to bqrrp_factored(update_defer=1) {bit} (launches "
+          f"{ {k: v for k, v in nccl['counts'].items() if v} }); "
+          f"dist_cholqr {PAR_TALL_M}x{PAR_TALL_N}: residual {cq['res']:.3e},"
+          f" orth {cq['orth']:.3e}, fail {cq['fail']}", flush=True)
+    gate(nccl["backend"] == "nccl" and nccl["all_reduce"] == [1.0] * 4,
+         "parallel: the rank did not run NCCL")
+    gate(bit, "parallel: one NCCL rank differs from the single process")
+    gate(nccl["counts"] == DIST_LAUNCHES,
+         f"parallel-nccl: launches {nccl['counts']}")
+    gate(ok, f"parallel-nccl: dist_cholqr gates {cq}")
+    del A, fac1, single
+    torch.cuda.empty_cache()
+
+    # every other entry: p ranks against the single-process port function
+    # on the same whole input
+    mesh1 = make_mesh(device=dev)
+    for name, _, (name1, fn1), check in par_entries(mesh1, dev, tail,
+                                                    kappa):
+        res, times, counts, _, _ = par_time(mesh1, fn1)
+        m1, ok1 = check(name, res)
+        del res
+        rk = [r[name] for r in ranks]
+        m4 = rk[0]["metrics"]
+        shown = {k: v for k, v in m4.items() if not isinstance(v, str)}
+        shown1 = {k: v for k, v in m1.items() if not isinstance(v, str)}
+        print(f"[parallel] {name}: {PAR_P} ranks best "
+              f"{min(rk[0]['times']):.4f} s (runs "
+              f"{[round(t, 4) for t in rk[0]['times']]}), collectives "
+              f"{100 * rk[0]['share']:.1f} % ({rk[0]['calls']} calls); "
+              f"one process, {name1}, best {min(times):.4f} s; {PAR_P} "
+              f"ranks {_fmt(shown)}; {name1} {_fmt(shown1)}", flush=True)
+        for r in rk:
+            gate(r["ok"], f"parallel {name}: gates at {PAR_P} ranks "
+                 f"{r['metrics']}")
+            gate(r["counts"] == NO_LAUNCHES,
+                 f"parallel {name}: launches {r['counts']}")
+            for k, v in r["metrics"].items():
+                if isinstance(v, str):
+                    gate(v == m4[k], f"parallel {name}: {k} differs "
+                         "between ranks")
+        gate(ok1, f"parallel {name}: gates of {name1} on one process {m1}")
+
+    # K1 and K2 alone at the shard's shapes: V 2048×256 against the full
+    # 8192-column window (stage 1) and stage 2's 4096-column window, each
+    # held against its plain version before it is timed
+    g = torch.Generator(device=dev).manual_seed(3)
+    ml, b = N // PAR_P, PAR_B
+    V = torch.randn((ml, b), generator=g, device=dev)
+    for w in (N, N // PAR_STAGES):
+        Ash = torch.randn((ml, w), generator=g, device=dev)
+        Z = torch.randn((b, w), generator=g, device=dev)
+        mask = (torch.rand(w, generator=g, device=dev) < 0.6).float()
+        Wp = wy.masked_vt_a_reference(V, Ash, mask)
+        k1_err = float((wy.masked_vt_a(V, Ash, mask) - Wp).abs().max())
+        gate(k1_err <= 1e-4 * float(Wp.abs().max()),
+             f"parallel: K1 at V {ml}x{b}, A {ml}x{w}, max|d| {k1_err}")
+        Ap = wy.a_minus_vz_masked_reference(Ash, V, Z, mask)
+        k2_err = float((wy.a_minus_vz_masked(Ash.clone(), V, Z, mask)
+                        - Ap).abs().max())
+        gate(k2_err <= 1e-4 * float(Ap.abs().max()),
+             f"parallel: K2 at V {ml}x{b}, A {ml}x{w}, max|d| {k2_err}")
+        k1 = cuda_ms(lambda: wy.masked_vt_a(V, Ash, mask), 20)
+        k1_plain = cuda_ms(lambda: wy.masked_vt_a_reference(V, Ash, mask),
+                           20)
+        k1_mm = cuda_ms(lambda: torch.mm(V.T, Ash), 20)
+        k1_b = bound(2.0 * ml * w * b + ml * w,
+                     4.0 * (ml * b + ml * w + w + b * w), tensor=True)
+        k2_plain = cuda_ms(
+            lambda: wy.a_minus_vz_masked_reference(Ash, V, Z, mask), 20)
+        A2 = Ash.clone()
+        k2 = cuda_ms(lambda: wy.a_minus_vz_masked(A2, V, Z, mask), 20)
+        k2_mm = cuda_ms(lambda: A2.addmm_(V, Z, alpha=-1), 20)
+        k2_b = bound(2.0 * ml * w * b + 2 * ml * w,
+                     4.0 * (2 * ml * w + ml * b + b * w + w), tensor=True)
+        print(f"[parallel-kernels] the shard's shapes (V {ml}x{b}, A "
+              f"{ml}x{w}, k {b}): masked_vt_a {k1:.4f} ms (plain "
+              f"{k1_plain:.4f} ms, torch.mm(V.T, A) {k1_mm:.4f} ms, bound "
+              f"{k1_b['bound_ms']:.4f} ms by {k1_b['bound_by']}, max|d| "
+              f"{k1_err:.3e} of max|plain| {float(Wp.abs().max()):.3e}); "
+              f"a_minus_vz_masked {k2:.4f} ms (plain {k2_plain:.4f} ms, "
+              f"A.addmm_(V, Z, alpha=-1) {k2_mm:.4f} ms, bound "
+              f"{k2_b['bound_ms']:.4f} ms by {k2_b['bound_by']}, max|d| "
+              f"{k2_err:.3e} of max|plain| {float(Ap.abs().max()):.3e})",
+              flush=True)
+        del Ash, Z, A2, Wp, Ap
+    return {name: [r["counts"][name] for r in fl]
+            for name in ("masked_vt_a", "a_minus_vz_masked", "getrfnp")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4626,6 +5268,7 @@ def main() -> int:
     run(phase_mm_native, dev)
     run(phase_spls_small_vs_plain, dev)
     precision_counts = run(phase_precision, dev, f"{smi}")
+    dist_counts = run(phase_parallel, dev, f"{smi}")
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
     if "--profile" in sys.argv[1:]:
@@ -4648,6 +5291,8 @@ def main() -> int:
             # the BQRRP headline's launches at the driver-level precisions
             k["precision_launches"] = {
                 p: precision_counts[p][k["name"]] for p in PRECISIONS}
+            # and dist_bqrrp_factored's, each of the PAR_P ranks
+            k["dist_launches"] = dist_counts[k["name"]]
     # K1/K2's trailing-precision forms: launches in the BQRRP speed mode,
     # beside HQRRP's and CQRRPT's
     for tp, form in MODES.items():

@@ -22,15 +22,18 @@ formats, the generators of ``gen``, ``extras.io``, ABRIK through
 squares (``drivers.spls`` over ``comps.lsqr`` and the sketch
 preconditioners), the solver operators and native Matrix Market IO of
 ``extras``, the memory and profiling utilities, ``testing`` and what
-they run.
+they run; the distributed layer ``parallel`` (meshes of ranks of a
+``torch.distributed`` group, the distributed CholQR, sketch and
+rangefinder, the row-sharded drivers and ``dist_bqrrp_factored``).
 """
 from .rng import RNGState, as_state
 from . import (comps, config, drivers, extras, gen, interop, linops, ops,
-               pdkernels, sketching, testing, utils)
+               parallel, pdkernels, sketching, testing, utils)
 
 __version__ = "0.1.0"
 __all__ = ["RNGState", "as_state", "comps", "config", "drivers", "extras",
            "gen",
-           "interop", "linops", "ops", "pdkernels", "sketching", "testing",
+           "interop", "linops", "ops", "parallel", "pdkernels", "sketching",
+           "testing",
            "utils",
            "__version__"]

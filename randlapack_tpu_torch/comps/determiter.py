@@ -219,22 +219,41 @@ def pcg_saddle(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor, mu,
     """
     prec = resolve_precision(precision)
 
+    def normal(x):
+        return matmul(A.T, matmul(A, x, prec), prec)
+
+    rhs = matmul(A.T, b, prec) - c
+    return pcg_saddle_normal(normal, rhs, mu, M, x0, cfg, prec)
+
+
+def pcg_saddle_normal(normal, rhs: torch.Tensor, mu, M: torch.Tensor,
+                      x0: torch.Tensor, cfg: PCGSaddleConfig,
+                      precision=STABLE_PRECISION):
+    """``pcg_saddle``'s loop on (AᵀA + μI) x = rhs, with the product
+    x ↦ Aᵀ(A·x) given as ``normal``: the distributed least-squares driver
+    passes one whose Aᵀ contraction is all-reduced over a mesh. The stop
+    test reads one value from the device an iteration, so ``rhs`` and what
+    ``normal`` returns must be the same on every rank of a mesh.
+
+    Returns ``(x, res_hist, iters)``, iters a Python int."""
+    prec = resolve_precision(precision)
+
     def G(x):
-        return matmul(A.T, matmul(A, x, prec), prec) + mu * x
+        return normal(x) + mu * x
 
     def N(r):
         return matmul(M, matmul(M.T, r, prec), prec)
 
-    rhs = matmul(A.T, b, prec) - c
     tol_abs = cfg.tol * torch.clamp(torch.linalg.norm(rhs),
-                                    min=torch.finfo(A.dtype).tiny)
+                                    min=torch.finfo(rhs.dtype).tiny)
     x = x0
     r = rhs - G(x0)
     z = N(r)
     p = z
     rho = torch.sum(r * z)
     nrm_r = torch.linalg.norm(r)
-    hist = torch.zeros((cfg.max_iters + 1,), dtype=A.dtype, device=A.device)
+    hist = torch.zeros((cfg.max_iters + 1,), dtype=rhs.dtype,
+                       device=rhs.device)
     hist[0] = nrm_r
 
     it = 0

@@ -66,7 +66,11 @@ class BQRRPConfig:
     block_reorth: bool = True     # explicit form only
     final_orth: int = 1           # explicit form only
     stages: int = 1               # shrinking-width stages
-    shard_axis: str | None = None # TPU mesh sharding: only None is ported
+    shard_axis: str | None = None # row-sharded mode over the mesh of this
+                                  # axis set by ``parallel.set_mesh``
+                                  # (``bqrrp_factored`` only): A is the
+                                  # rank's rows, V comes back so, R/T/J
+                                  # replicated
     pivot_candidates: int | None = None
                                   # preselect this many × block_size
                                   # top-norm sketch columns before the LU
@@ -108,14 +112,21 @@ class BQRRPFactors(typing.NamedTuple):
     fail: torch.Tensor     # bool — CholQR breakdown along the way
 
 
-def _check_cfg(cfg: BQRRPConfig) -> None:
+def _check_cfg(cfg: BQRRPConfig, factored: bool = False):
+    """Refuse what the port does not take; return the mesh that
+    ``cfg.shard_axis`` names (None when it is None)."""
     if cfg.pallas_trailing != "auto":
         raise NotImplementedError(
             f"pallas_trailing={cfg.pallas_trailing!r} routes TPU kernels; "
             "only the default 'auto' is accepted")
-    if cfg.shard_axis is not None:
-        raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
-                                  "ported")
+    if cfg.shard_axis is None:
+        return None
+    if not factored:
+        raise NotImplementedError("shard_axis: the explicit form's "
+                                  "row-sharded mode is not ported "
+                                  "(bqrrp_factored takes it)")
+    from ..parallel.mesh import current_mesh
+    return current_mesh(cfg.shard_axis)
 
 
 def _select_pivots(Y_m, b, cfg: BQRRPConfig):
@@ -428,34 +439,59 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     return Q, R, J, rank, fail, state
 
 
-def _sketch_product(A, d, state: RNGState, sketch, precision):
+def _sketch_product(A, d, state: RNGState, sketch, precision, mesh=None):
     """S·A for the dense (d, m) Gaussian sketch S, N(0, 1/d) entries: the
     injected ``sketch``, or drawn from ``state`` on A's device (the caller
-    advances ``state``)."""
-    m = A.shape[0]
+    advances ``state``). On a row shard, A is the rank's rows, ``sketch``
+    the matching (d, m_local) column block (an undrawn S is drawn whole,
+    as the unsharded driver draws it, and sliced), and the product is
+    psummed."""
+    ml = A.shape[0]
+    m = ml if mesh is None else ml * mesh.size
     if sketch is None:
         gen, _ = state.spawn(A.device)
         sketch = torch.randn((d, m), generator=gen, dtype=A.dtype,
                              device=A.device) / math.sqrt(d)
+        if mesh is not None:
+            r0, r1 = mesh.rows(ml)
+            sketch = sketch[:, r0:r1]
     require(isinstance(sketch, torch.Tensor)
-            and tuple(sketch.shape) == (d, m),
-            f"sketch must be a {(d, m)} tensor")
-    return matmul(sketch.to(device=A.device, dtype=A.dtype), A, precision)
+            and tuple(sketch.shape) == (d, A.shape[0]),
+            f"sketch must be a {(d, A.shape[0])} tensor")
+    Y = matmul(sketch.to(device=A.device, dtype=A.dtype), A, precision)
+    return Y if mesh is None else mesh.psum(Y)
 
 
-def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig, precision):
+def _householder_r(panel_m, b, mesh):
+    """The floored R of a Householder QR of the panel: on a row shard the
+    panel is gathered whole (the rescue rungs only) and rank 0's R is
+    broadcast."""
+    if mesh is None:
+        return _safe_triu_diag(torch.linalg.qr(panel_m, mode="r").R[:b, :])
+    R = torch.linalg.qr(mesh.gather_rows(panel_m), mode="r").R[:b, :]
+    return _safe_triu_diag(mesh.broadcast(R.contiguous()))
+
+
+def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig, precision, mesh=None):
     """Panel QR at its row offset, with the JAX package's rescue ladder.
     Returns ``(Q_panel, R11, failp, fail_all)``: ``failp`` that the first
-    attempt broke down, ``fail_all`` that every rescue did too."""
+    attempt broke down, ``fail_all`` that every rescue did too. On a row
+    shard the Grams are psummed and the flags reduced, so every rank takes
+    the same branches."""
     dt, dev = panel_m.dtype, panel_m.device
+    rows = None if mesh is None else panel_m.shape[0] * mesh.size
+
+    def anyr(flag):
+        return flag if mesh is None else mesh.any(flag)
+
     if cfg.qr_tall == QRTall.hqr:
         # Householder-R panel (the reference's geqrf qr_tall option): R
         # from a backward-stable QR, explicit Q via one solve, which keeps
         # the zeros above row c that the WY form needs
-        R11 = _safe_triu_diag(torch.linalg.qr(panel_m, mode="r").R[:b, :])
+        R11 = _householder_r(panel_m, b, mesh)
         Q_panel = torch.linalg.solve_triangular(R11, panel_m, upper=True,
                                                 left=False)
-        failp = (~torch.isfinite(Q_panel)).any()
+        failp = anyr((~torch.isfinite(Q_panel)).any())
     else:
         if cfg.sketch_r == "qr" or (cfg.sketch_r == "auto" and b > 512):
             R_sk = _safe_triu_diag(qr_econ(Ysk_p)[1])
@@ -467,9 +503,10 @@ def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig, precision):
             badsk = torch.isnan(L_sk).any()
             R_sk = _safe_triu_diag(torch.where(
                 badsk, torch.eye(b, dtype=dt, device=dev), L_sk.T * s_y))
-        Q_panel, R11, failp = preconditioned_cholqr(panel_m, R_sk, precision)
+        Q_panel, R11, failp = preconditioned_cholqr(panel_m, R_sk, precision,
+                                                    mesh, rows)
     if cfg.panel_reorth:
-        Q_panel, R2, f2 = cholqr(Q_panel, precision)
+        Q_panel, R2, f2 = cholqr(Q_panel, precision, mesh, rows)
         R11 = matmul(R2, R11, precision)
         failp = failp | f2
     fail_all = torch.zeros((), dtype=torch.bool, device=dev)
@@ -487,18 +524,17 @@ def _panel_qr(panel_m, Ysk_p, b, cfg: BQRRPConfig, precision):
                 torch.where(failp, R_r, R11), failp,
                 failp & f_r & f_h)
     if bool(failp):
-        Q_panel, R11, f_r = shifted_cholqr3(panel_m, precision)
+        Q_panel, R11, f_r = shifted_cholqr3(panel_m, precision, mesh, rows)
         if bool(f_r):
-            R_h = _safe_triu_diag(
-                torch.linalg.qr(panel_m, mode="r").R[:b, :])
+            R_h = _householder_r(panel_m, b, mesh)
             Q_panel, R11, f_h = preconditioned_cholqr(panel_m, R_h,
-                                                      precision)
-            fail_all = f_h | (~torch.isfinite(Q_panel)).any()
+                                                      precision, mesh, rows)
+            fail_all = f_h | anyr((~torch.isfinite(Q_panel)).any())
     return Q_panel, R11, failp, fail_all
 
 
 def _wy_stage(A, Y, Vs, Ts, bT: int, J_loc, fail, cfg: BQRRPConfig,
-              c0: int, nblocks: int, bsz: int, precision):
+              c0: int, nblocks: int, bsz: int, precision, mesh=None):
     """Factored-form stage over a column WINDOW (columns [g0:n) of the
     global problem): in-place Householder coordinates (live columns carry
     QᵀA), mask-based retirement, exact trsm sketch downdate, then ONE
@@ -514,6 +550,11 @@ def _wy_stage(A, Y, Vs, Ts, bT: int, J_loc, fail, cfg: BQRRPConfig,
     exact low-rank correction through the group aggregates (Vg, Ug), and
     the group ends with ONE k = g·b masked update. Returns the permuted
     ``(A, Y, J_loc, fail)``.
+
+    With ``mesh`` (of more than one rank) A and V are this rank's rows and
+    ``c0`` counts global rows: K1 and K2 run on the shard, W and the R12
+    rows are psummed, the b×b block ``orhr_col`` factors (K3) is gathered
+    and factored on every rank, and the pivots are rank 0's.
     """
     m, n = A.shape
     b = bsz
@@ -528,34 +569,47 @@ def _wy_stage(A, Y, Vs, Ts, bT: int, J_loc, fail, cfg: BQRRPConfig,
         # -- qrcp_wide: LU pivots on the masked live sketch -------------
         chosen = _select_pivots(Y * live[None, :], b, cfg)
         chosen = _fix_pivots(chosen, retired)
+        if mesh is not None:
+            chosen = mesh.broadcast(chosen)
 
         # -- panel QR at row offset c (lazily-corrected true panel) ------
+        # (lo, hi): the local rows of the global rows [c, c + b); cl: the
+        # local rows above row c
+        lo, hi = (c, c + b) if mesh is None else mesh.local_rows(m, c, c + b)
+        cl = c if mesh is None else mesh.local_rows(m, 0, c)[1]
         panel = A.index_select(1, chosen)
         if j > 0:
             panel = panel - matmul(Vg, Ug.index_select(1, chosen), precision)
         panel_m = panel.clone()
-        panel_m[:c] = 0.0
+        panel_m[:cl] = 0.0
         Ysk_p = Y.index_select(1, chosen)
         Q_panel, R11, failp, fail_all = _panel_qr(panel_m, Ysk_p, b, cfg,
-                                                  precision)
+                                                  precision, mesh)
         fail = fail | (failp & fail_all)
         # rescue 2: degenerate panels NaN even the rescues; substitute
         # identity columns so outputs stay finite with `fail` raised
         nanp = torch.isnan(Q_panel).any() | torch.isnan(R11).any()
-        idx = torch.arange(b, device=dev)
+        if mesh is not None:
+            nanp = mesh.any(nanp)
+        r0 = 0 if mesh is None else mesh.rows(m)[0]
+        idx = torch.arange(lo, hi, device=dev)
         E_pad = torch.zeros((m, b), dtype=dt, device=dev)
-        E_pad[c + idx, idx] = 1.0
+        E_pad[idx, r0 + idx - c] = 1.0
         Q_panel = torch.where(nanp, E_pad, Q_panel)
         R11 = torch.triu(torch.where(nanp, 0.0, R11))
         fail = fail | nanp
 
         # -- Householder reconstruction (adaptive-sign orhr_col) ----------
-        V, T, s = orhr_col(Q_panel, c, precision)
+        V, T, s = orhr_col(Q_panel, c - r0, precision, Q1=None
+                           if mesh is None else mesh.rows_of(Q_panel, c,
+                                                               c + b))
 
         # -- the chosen columns' final values: R12 rows (< c) kept and the
         # signed R11, stacked in selection order (merged at stage end)
-        Fstk.append(torch.cat([panel[:c], s[:, None] * R11,
-                               panel.new_zeros((m - c - b, b))], 0))
+        F = panel.new_zeros((m, b))
+        F[:cl] = panel[:cl]
+        F[lo:hi] = (s[:, None] * R11)[r0 + lo - c:r0 + hi - c]
+        Fstk.append(F)
         live2 = live.index_fill(0, chosen, 0.0)
 
         # -- W = Vᵀ·(A_true ⊙ live2); U = Tᵀ·W (update stays deferred) --
@@ -563,13 +617,17 @@ def _wy_stage(A, Y, Vs, Ts, bT: int, J_loc, fail, cfg: BQRRPConfig,
         if j > 0:
             W = W - matmul(matmul(V.T, Vg, precision), Ug * live2[None, :],
                            precision)
+        if mesh is not None:
+            W = mesh.psum(W)
         U = matmul(T.T, W, precision)
 
         # -- R12 = rows c:c+b of the true post-update A, on live cols ---
-        R12 = A[c:c + b, :]
+        R12 = A[lo:hi, :]
         if j > 0:
-            R12 = R12 - matmul(Vg[c:c + b, :], Ug, precision)
-        R12 = (R12 - matmul(V[c:c + b, :], U, precision)) * live2[None, :]
+            R12 = R12 - matmul(Vg[lo:hi, :], Ug, precision)
+        R12 = (R12 - matmul(V[lo:hi, :], U, precision)) * live2[None, :]
+        if mesh is not None:
+            R12 = mesh.join_rows(R12, m, c, c + b)
 
         # -- exact sketch downdate: B = Y_panel·R11⁻¹·S -----------------
         B = torch.linalg.solve_triangular(
@@ -629,9 +687,19 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     ``timing=True``). ``precision`` sets the products the JAX package
     runs in ``jnp`` at the driver's precision (``ops.util.matmul``); the
     kernels K1–K3 ignore it, as the Pallas kernels do.
+
+    Row-sharded mode (``cfg.shard_axis`` names the axis of the mesh set by
+    ``parallel.set_mesh``; ``parallel.dist_bqrrp_factored`` sets both): A
+    is this rank's rows (the ranks hold equal blocks, in rank order),
+    ``sketch`` the matching (d, m_local) column block of S, V comes back as
+    this rank's rows and R, T, J, rank and fail replicated. A mesh of one
+    rank is the unsharded call. Per block: one psum of the sketch (once),
+    of each CholQR Gram with the band guard's pmax, of the b×b block K3
+    factors, of W = Vᵀ·A (K1 on the shard) and of the R12 rows; K2
+    updates the shard in place; rank 0's pivots are broadcast.
     """
     require_fp32_matmul()
-    _check_cfg(cfg)
+    mesh = _check_cfg(cfg, factored=True)
     precision = resolve_precision(precision)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
     if A.device.type == "cuda":
@@ -642,8 +710,16 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     def _phase(name):
         return timer.phase(name) if timing else contextlib.nullcontext()
 
-    m, n = A.shape
+    m = m_loc = A.shape[0]
+    n = A.shape[1]
     dt, dev = A.dtype, A.device
+    if mesh is not None:
+        from ..parallel.mesh import global_rows
+        require(A.device == mesh.device, f"A is on {A.device}, the mesh's "
+                f"rank computes on {mesh.device}")
+        m = global_rows(m_loc, mesh, "bqrrp_factored")
+        if mesh.size == 1:
+            mesh = None             # a mesh of one rank: the unsharded call
     b = min(cfg.block_size, min(m, n))
     if b != cfg.block_size:
         cfg = dataclasses.replace(cfg, block_size=b)
@@ -654,7 +730,7 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     d = int(cfg.d_factor * b)
 
     with _phase("sketch"):
-        Y = _sketch_product(A, d, state, sketch, precision)
+        Y = _sketch_product(A, d, state, sketch, precision, mesh)
         state = state.advance()
         if timing:
             device_sync(Y)
@@ -680,7 +756,7 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
         with _phase(f"stage_{si}"):
             A_loc, Y_loc, J_loc, fail = _wy_stage(
                 A_loc, Y[:, g0:], Vs, Ts, b, J[g0:], fail, cfg, g0, nbl, bsz,
-                precision)
+                precision, mesh)
             if timing:
                 device_sync(A_loc)
         if g0 == 0:
@@ -691,7 +767,8 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
             J[g0:] = J_loc
 
     with _phase("epilogue"):
-        R = torch.triu(A_work[:K, :])
+        R = torch.triu(A_work[:K, :] if mesh is None
+                       else mesh.rows_of(A_work, 0, K))
         if timing:
             device_sync(R)
 
@@ -699,7 +776,7 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
     rank = util.naive_rank_est(diag, tol)
     fac = BQRRPFactors(
-        V=torch.cat(Vs, 1) if Vs else A.new_zeros((m, 0)),
+        V=torch.cat(Vs, 1) if Vs else A.new_zeros((m_loc, 0)),
         T=torch.stack(Ts) if Ts else A.new_zeros((0, b, b)), R=R, J=J,
         rank=rank, fail=fail)
     if timing:
@@ -707,9 +784,10 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     return fac, state
 
 
-def _wy_tree_merge(fac: BQRRPFactors, precision):
+def _wy_tree_merge(fac: BQRRPFactors, precision, mesh=None):
     """Merge the per-block WY factors into ONE (V, T) pair by pairwise
-    combination: H₁H₂ = I − [V₁ V₂]·[[T₁, −T₁(V₁ᵀV₂)T₂],[0, T₂]]·[V₁ V₂]ᵀ."""
+    combination: H₁H₂ = I − [V₁ V₂]·[[T₁, −T₁(V₁ᵀV₂)T₂],[0, T₂]]·[V₁ V₂]ᵀ
+    (V₁ᵀV₂ psummed over ``mesh`` when V is row-sharded)."""
     nb, b, _ = fac.T.shape
     Vs = [fac.V[:, i * b:(i + 1) * b] for i in range(nb)]
     Ts = [fac.T[i] for i in range(nb)]
@@ -718,8 +796,10 @@ def _wy_tree_merge(fac: BQRRPFactors, precision):
         for i in range(0, len(Vs) - 1, 2):
             V1, T1 = Vs[i], Ts[i]
             V2, T2 = Vs[i + 1], Ts[i + 1]
-            cross = -matmul(T1, matmul(matmul(V1.T, V2, precision), T2,
-                                       precision), precision)
+            G = matmul(V1.T, V2, precision)
+            if mesh is not None:
+                G = mesh.psum(G)
+            cross = -matmul(T1, matmul(G, T2, precision), precision)
             zeros = torch.zeros((T2.shape[0], T1.shape[0]), dtype=T1.dtype,
                                 device=T1.device)
             nTs.append(torch.cat([torch.cat([T1, cross], 1),
@@ -732,38 +812,67 @@ def _wy_tree_merge(fac: BQRRPFactors, precision):
     return Vs[0], Ts[0]
 
 
+def _factor_mesh(fac: BQRRPFactors, mesh):
+    """The mesh of row-sharded factors, after checking that the ranks hold
+    equal blocks (None for a mesh of one rank or none)."""
+    if mesh is None or mesh.size == 1:
+        return None
+    from ..parallel.mesh import global_rows
+    global_rows(fac.V.shape[0], mesh, "row-sharded factors")
+    return mesh
+
+
 def bqrrp_q(fac: BQRRPFactors, k: int | None = None,
-            method: str = "sequential", precision=STABLE_PRECISION):
+            method: str = "sequential", precision=STABLE_PRECISION,
+            mesh=None):
     """Materialize the leading ``k`` (default all K = min(m,n)) columns of
     Q from the factored form — the orgqr/ungqr analogue. ``"sequential"``
     applies the nb blocks one by one; ``"tree"`` merges them pairwise
-    into one reflector block first. Products at ``precision``."""
+    into one reflector block first. Products at ``precision``. With the
+    ``mesh`` of a row-sharded factorization (V this rank's rows), the
+    rank's rows of Q: each Vᵀ·Q is psummed."""
     precision = resolve_precision(precision)
+    mesh = _factor_mesh(fac, mesh)
     m = fac.V.shape[0]
     nb, b, _ = fac.T.shape
     k = fac.R.shape[0] if k is None else k
+    r0 = 0 if mesh is None else mesh.rows(m)[0]
+    lo, hi = (0, min(m, k)) if mesh is None else mesh.local_rows(m, 0, k)
+    diag = torch.arange(lo, hi, device=fac.V.device)
     if method == "tree":
-        V, T = _wy_tree_merge(fac, precision)
-        Q = -matmul(V, matmul(T, V[:k, :].T, precision), precision)
-        Q.diagonal().add_(1.0)
+        V, T = _wy_tree_merge(fac, precision, mesh)
+        Vk = V[:k, :] if mesh is None else mesh.rows_of(V, 0, k)
+        Q = -matmul(V, matmul(T, Vk.T, precision), precision)
+        Q[diag, r0 + diag] += 1.0
         return Q
     require(method == "sequential", f"unknown method {method!r}")
-    Q = torch.eye(m, k, dtype=fac.V.dtype, device=fac.V.device)
+    if mesh is None:
+        Q = torch.eye(m, k, dtype=fac.V.dtype, device=fac.V.device)
+    else:
+        Q = fac.V.new_zeros((m, k))
+        Q[diag, r0 + diag] = 1.0
     for i in reversed(range(nb)):
         Vi = fac.V[:, i * b:(i + 1) * b]
-        Q = Q - matmul(Vi, matmul(fac.T[i], matmul(Vi.T, Q, precision),
-                                  precision), precision)
+        P = matmul(Vi.T, Q, precision)
+        if mesh is not None:
+            P = mesh.psum(P)
+        Q = Q - matmul(Vi, matmul(fac.T[i], P, precision), precision)
     return Q
 
 
 def bqrrp_apply_qt(fac: BQRRPFactors, X: torch.Tensor,
-                   precision=STABLE_PRECISION):
+                   precision=STABLE_PRECISION, mesh=None):
     """Qᵀ·X from the factored form — the ormqr/gemqrt analogue
-    (rl_bqrrp.hh:535-547); products at ``precision``."""
+    (rl_bqrrp.hh:535-547); products at ``precision``. With the ``mesh``
+    of a row-sharded factorization, X and the result are this rank's
+    rows: each Vᵀ·X is psummed."""
     precision = resolve_precision(precision)
+    mesh = _factor_mesh(fac, mesh)
     nb, b, _ = fac.T.shape
     for i in range(nb):
         Vi = fac.V[:, i * b:(i + 1) * b]
-        X = X - matmul(Vi, matmul(fac.T[i].T, matmul(Vi.T, X, precision),
-                                  precision), precision)
+        P = matmul(Vi.T, X, precision)
+        if mesh is not None:
+            P = mesh.psum(P)
+        X = X - matmul(Vi, matmul(fac.T[i].T, P, precision), precision)
     return X

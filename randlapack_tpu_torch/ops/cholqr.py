@@ -9,6 +9,12 @@ in the JAX package, is a pair of host branches (at most two host reads a
 call); under ``torch.func.vmap`` every rung runs and ``torch.where``
 selects. ``precision`` sets the Gram and factor products
 (``ops.util.matmul``).
+
+``cholqr``, ``preconditioned_cholqr`` and ``shifted_cholqr3`` also take a
+row shard: with ``mesh`` (a ``parallel.Mesh``) A holds this rank's rows
+of a row-sharded matrix, each Gram is all-reduced over the mesh, the
+band guard's max and non-finite flag are reduced with one ``pmax``, and
+Q comes back as this rank's rows, R and the flag replicated.
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ from ..config import STABLE_PRECISION, resolve_precision
 from .util import is_batched, matmul
 
 
-def _gram(A, precision):
-    return matmul(A.T, A, precision)
+def _gram(A, precision, mesh=None):
+    G = matmul(A.T, A, precision)
+    return G if mesh is None else mesh.psum(G)
 
 
 def gram_syrk(A, precision=STABLE_PRECISION, block: int = 512):
@@ -76,13 +83,20 @@ def _pow2(k, dtype):
     return torch.ldexp(torch.ones((), dtype=dtype, device=k.device), k)
 
 
-def _finite_scaled(A):
+def _finite_scaled(A, mesh=None, rows=None):
     """Sanitize + scale-guard an orthogonalization input: non-finite
     entries → 0 (reported), and a GLOBAL power-of-two rescale so the Gram
     matrix can neither overflow nor underflow toward the denormal floor.
     Healthy inputs pass through bitwise (scale == 1.0). Returns
-    ``(A_scaled, scale, nonfinite)``."""
+    ``(A_scaled, scale, nonfinite)``.
+
+    With ``mesh``, A is a row shard: max|A| and the non-finite flag are
+    reduced over the mesh in one ``pmax``, so every rank takes the same
+    scale. ``rows`` sizes the overflow bound (default A's own row count;
+    the sharded drivers pass the global one, as XLA sees the global
+    shape)."""
     m, n = A.shape
+    m = m if rows is None else rows
     finite = torch.isfinite(A)
     nonfin = ~finite.all()
     A = torch.where(finite, A, torch.zeros((), dtype=A.dtype,
@@ -92,6 +106,9 @@ def _finite_scaled(A):
     big = float(np.sqrt(fi.max / (8.0 * m * n)))
     small = float(npdt.type(fi.eps) ** 2)
     mx = A.abs().max()
+    if mesh is not None:
+        mx, nf = mesh.pmax(torch.stack([mx, nonfin.to(A.dtype)]))
+        nonfin = nf > 0
     in_band = ((mx <= big) & (mx >= small)) | (mx == 0.0)
     k = torch.round(torch.log2(torch.where(mx > 0, mx, 1.0))).to(torch.int32)
     s = torch.where(in_band, torch.ones((), dtype=A.dtype, device=A.device),
@@ -99,10 +116,12 @@ def _finite_scaled(A):
     return A / s, s, nonfin
 
 
-def cholqr(A: torch.Tensor, precision=STABLE_PRECISION):
-    """One-pass CholeskyQR. Returns ``(Q, R, fail)``."""
-    A, s, nonfin = _finite_scaled(A)
-    L = _cholesky(_gram(A, precision))
+def cholqr(A: torch.Tensor, precision=STABLE_PRECISION, mesh=None,
+           rows=None):
+    """One-pass CholeskyQR. Returns ``(Q, R, fail)``; with ``mesh`` on a
+    row shard (``rows`` the global row count), as the module says."""
+    A, s, nonfin = _finite_scaled(A, mesh, rows)
+    L = _cholesky(_gram(A, precision, mesh))
     fail = torch.isnan(L).any() | (torch.diagonal(L) <= 0).any() | nonfin
     R = L.T * s
     Q = _solve_rt(A, L.T)
@@ -116,29 +135,31 @@ def cholqr2(A: torch.Tensor, precision=STABLE_PRECISION):
     return Q, matmul(R2, R1, precision), f1 | f2
 
 
-def shifted_cholqr3(A: torch.Tensor, precision=STABLE_PRECISION):
+def shifted_cholqr3(A: torch.Tensor, precision=STABLE_PRECISION, mesh=None,
+                    rows=None):
     """Shifted CholeskyQR3 (Fukaya et al.; rl_scholqr3_linops.hh:45):
     shift the first Gram by 11·eps·n·‖A‖_F², then two plain CholQR
-    passes. Returns ``(Q, R, fail)``."""
+    passes. Returns ``(Q, R, fail)``; ``mesh``/``rows`` as ``cholqr``."""
     m, n = A.shape
     eps = torch.finfo(A.dtype).eps
-    A, sc, nonfin = _finite_scaled(A)
-    G = _gram(A, precision)
+    A, sc, nonfin = _finite_scaled(A, mesh, rows)
+    G = _gram(A, precision, mesh)
     s = 11.0 * eps * n * torch.trace(G)
     L1 = _cholesky(G + s * torch.eye(n, dtype=A.dtype, device=A.device))
     f1 = torch.isnan(L1).any() | nonfin
     Q1 = _solve_rt(A, L1.T)
-    Q2, R2, f2 = cholqr(Q1, precision)
-    Q, R3, f3 = cholqr(Q2, precision)
+    Q2, R2, f2 = cholqr(Q1, precision, mesh, rows)
+    Q, R3, f3 = cholqr(Q2, precision, mesh, rows)
     R = matmul(R3, matmul(R2, L1.T, precision), precision) * sc
     return Q, R, f1 | f2 | f3
 
 
 def preconditioned_cholqr(A: torch.Tensor, R_pre: torch.Tensor,
-                          precision=STABLE_PRECISION):
+                          precision=STABLE_PRECISION, mesh=None, rows=None):
     """CholQR of A·R_pre⁻¹ (rl_cqrrt.hh, rl_cqrrpt.hh:287-332).
-    Returns ``(Q, R, fail)`` with R = R_chol · R_pre."""
-    Q, R_chol, fail = cholqr(_solve_rt(A, R_pre), precision)
+    Returns ``(Q, R, fail)`` with R = R_chol · R_pre; ``mesh``/``rows``
+    as ``cholqr``."""
+    Q, R_chol, fail = cholqr(_solve_rt(A, R_pre), precision, mesh, rows)
     return Q, matmul(R_chol, R_pre, precision), fail
 
 

@@ -44,7 +44,8 @@ def householder_reconstruct(Q: torch.Tensor, precision=STABLE_PRECISION):
     return torch.tril(V, -1), taus, signs
 
 
-def orhr_col(Q_panel: torch.Tensor, row0: int, precision=STABLE_PRECISION):
+def orhr_col(Q_panel: torch.Tensor, row0: int, precision=STABLE_PRECISION,
+             Q1: torch.Tensor | None = None):
     """Blocked Householder reconstruction (LAPACK ``orhr_col``): given
     Q_panel (m×b) with orthonormal columns and zeros above row ``row0``,
     produce the compact-WY factors of an exactly defined orthogonal
@@ -56,13 +57,21 @@ def orhr_col(Q_panel: torch.Tensor, row0: int, precision=STABLE_PRECISION):
 
     Returns ``(V, T, s)``. ``precision`` is checked and otherwise unused,
     as in the JAX package: every step is the LU and triangular solves.
+
+    On a row shard, Q_panel holds some rows of the panel and ``row0`` is
+    the block's first row counted from the shard's first row (negative,
+    or past the shard, where the b×b block lies partly or wholly
+    elsewhere); ``Q1`` then passes the whole block, rows [row0, row0+b),
+    and V comes back as the shard's rows.
     """
     resolve_precision(precision)
     m, b = Q_panel.shape
-    F, s = getrfnp_routed(Q_panel[row0:row0 + b])
-    idx = torch.arange(b, device=Q_panel.device)
+    F, s = getrfnp_routed(Q_panel[row0:row0 + b] if Q1 is None else Q1)
+    lo = min(b, max(0, -row0))
+    hi = max(lo, min(b, m - row0))
+    idx = torch.arange(lo, hi, device=Q_panel.device)
     S_pad = torch.zeros_like(Q_panel)
-    S_pad[row0 + idx, idx] = s
+    S_pad[row0 + idx, idx] = s[lo:hi]
     V = torch.linalg.solve_triangular(F, Q_panel - S_pad, upper=True,
                                       left=False)
     # T = −U1·S·L1⁻ᵀ  via  Tᵀ = −L1⁻¹·(U1·S)ᵀ

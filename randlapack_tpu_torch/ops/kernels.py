@@ -294,16 +294,20 @@ def _seed_key(seed: int) -> tuple[int, int]:
 
 
 def gaussian_sketch_matrix(d: int, m: int, seed: int, dtype=torch.float32,
-                           device="cuda"):
+                           device="cuda", col0: int = 0):
     """The (d, m) sketching operator of K7, S ~ N(0, 1/d), entry by entry
     what the kernel generates: Philox4x32-10 on the counter (r // 4, i, 0,
     0) with the key (seed's low word, its high word) gives w0..w3; 23-bit
     uniforms from their low bits, u₁ floored at 1e-7; Box–Muller, both
     branches: S[i, 4q] and S[i, 4q+1] are the cosine and the sine branch
     of (w0, w1), S[i, 4q+2] and S[i, 4q+3] those of (w2, w3); all times
-    1/√d."""
-    quads = -(-m // 4)
-    q = torch.arange(quads, dtype=torch.int64, device=device)[None, :]
+    1/√d. ``col0`` gives columns [col0, col0 + m) of the operator of that
+    seed (a row shard's block: the operator does not depend on how its
+    columns are split)."""
+    q0 = col0 // 4
+    quads = -(-(col0 + m) // 4) - q0
+    q = torch.arange(q0, q0 + quads, dtype=torch.int64,
+                     device=device)[None, :]
     i = torch.arange(d, dtype=torch.int64, device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     w = philox4x32_10((q, i, zero, zero), _seed_key(seed))
@@ -316,7 +320,7 @@ def gaussian_sketch_matrix(d: int, m: int, seed: int, dtype=torch.float32,
         cols += [(radius * torch.cos(angle)) * scale,
                  (radius * torch.sin(angle)) * scale]
     S = torch.stack(cols, dim=2).reshape(d, 4 * quads)
-    return S[:, :m].contiguous()
+    return S[:, col0 - 4 * q0:col0 - 4 * q0 + m].contiguous()
 
 
 def gaussian_sketch_reference(A, d: int, seed: int):

@@ -1,0 +1,244 @@
+"""Rank bodies of the distributed layer's CPU tests
+(``tests/test_torch_parallel*.py``), run by ``parallel.run_ranks`` in
+spawned processes. They import only torch, numpy and the port: a spawned
+rank has neither the tests' conftest nor JAX.
+
+Each body takes the whole inputs as numpy arrays, puts this rank's rows
+on its mesh and returns numpy results: row-sharded outputs as the rank's
+rows (the test stacks them in rank order), replicated ones as they are
+(the test checks that every rank holds the same bits).
+"""
+import numpy as np
+import torch
+
+from randlapack_tpu_torch import RNGState
+from randlapack_tpu_torch.drivers import (BQRRPConfig, bqrrp_apply_qt,
+                                          bqrrp_factored, bqrrp_q)
+from randlapack_tpu_torch.ops.cholqr import _finite_scaled, cholqr2
+from randlapack_tpu_torch.parallel import (DistSquaredExpKernelLinOp,
+                                           dist_bqrrp_factored, dist_cholqr,
+                                           dist_cqrrpt, dist_cqrrt,
+                                           dist_gram, dist_krill,
+                                           dist_rangefinder_step, dist_revd2,
+                                           dist_rsvd, dist_shifted_cholqr3,
+                                           dist_sketch_left, dist_spls,
+                                           row_sharded, set_mesh)
+from randlapack_tpu_torch.parallel.tsqr import _band_guard_local
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _rows(mesh, X):
+    return row_sharded(mesh).put(_t(X))
+
+
+def _cols(mesh, S):
+    """This rank's column block of S (the columns matching its rows)."""
+    r0, r1 = mesh.rows(S.shape[1] // mesh.size)
+    return _t(S[:, r0:r1])
+
+
+def ops_body(mesh, A, A_ill, S, Om, guards):
+    """tsqr.py and distributed.py on the inputs of tests/test_parallel.py,
+    and both band guards (with dist_cholqr) on each of ``guards``."""
+    As = _rows(mesh, A)
+    out = {"gram": dist_gram(As, mesh)}
+    for passes in (1, 2):
+        out[f"cholqr{passes}"] = dist_cholqr(As, mesh, passes=passes)
+    out["scholqr3"] = dist_shifted_cholqr3(_rows(mesh, A_ill), mesh)
+    out["sketch_left"] = dist_sketch_left(_cols(mesh, S), As, mesh)
+    out["rangefinder"] = dist_rangefinder_step(As, _t(Om), mesh)
+    if mesh.size == 1:
+        out["cholqr2_single"] = cholqr2(_t(A))
+    for tag, X in guards.items():
+        Xs = _rows(mesh, X)
+        _, s, nf = _band_guard_local(Xs, mesh)
+        _, sg, nfg = _finite_scaled(Xs, mesh, X.shape[0])
+        out[f"guard_{tag}"] = (s, nf, sg, nfg)
+        out[f"cholqr_{tag}"] = dist_cholqr(Xs, mesh)
+    return out
+
+
+def failing_body(mesh):
+    if mesh.rank == 1:
+        raise ArithmeticError("rank 1 stops here")
+    return mesh.rank
+
+
+def hanging_body(mesh):
+    """Rank 0 waits in a psum that rank 1 never joins."""
+    if mesh.rank == 0:
+        mesh.psum(torch.ones(4))
+    else:
+        import time
+        time.sleep(60)
+    return mesh.rank
+
+
+def drivers_body(mesh, inp):
+    """Every distributed driver but BQRRP on the inputs the test drew,
+    the JAX draws injected."""
+    out = {}
+    c = inp["cqrrpt"]
+    out["cqrrpt"] = dist_cqrrpt(_rows(mesh, c["A"]), mesh, RNGState(21),
+                                sketch=_cols(mesh, c["S"]))[:5]
+    c = inp["cqrrt"]
+    out["cqrrt"] = dist_cqrrt(_rows(mesh, c["A"]), mesh, RNGState(32),
+                              sketch=_cols(mesh, c["S"]))[:3]
+    c = inp["rsvd"]
+    out["rsvd"] = dist_rsvd(_rows(mesh, c["A"]), 16, mesh, RNGState(23),
+                            omega=_t(c["Om"]))[:4]
+    c = inp["revd2"]
+    out["revd2"] = dist_revd2(_rows(mesh, c["A"]), c["k"], mesh,
+                              RNGState(42), omega=_t(c["Om"]),
+                              v0=_t(c["v0"]))[:5]
+    for bw, c in inp["revd2_f32"].items():
+        out[f"revd2_f32_{bw}"] = dist_revd2(
+            _rows(mesh, c["A"]), c["k"], mesh, RNGState(42),
+            omega=_t(c["Om"]), v0=_t(c["v0"]))[4]
+    for tag, c in inp["spls"].items():
+        x, hist, it, st = dist_spls(
+            _rows(mesh, c["A"]), _rows(mesh, c["b"]), c["mu"], mesh,
+            RNGState(c["seed"]), tol=1e-12, max_iters=100,
+            sketch=_cols(mesh, c["S"]))
+        out[f"spls_{tag}"] = (x, it, st.counter)
+    c = inp["kernel"]
+    G = DistSquaredExpKernelLinOp(_t(c["X"]), 2.0, 1e-2, mesh)
+    out["kernel"] = G.matmat(_t(c["V"]))
+    c = inp["krill"]
+    X, hist, it, _ = dist_krill(_t(c["X"]), c["bw"], 1e-2, _t(c["H"]),
+                                mesh, RNGState(9), k=64, rpchol_block=32,
+                                tol=1e-8, max_iters=100,
+                                noise=_t(c["noise"]))
+    out["krill"] = (X, it)
+    # undrawn sketches: each rank generates its own columns of one operator
+    out["cqrrpt_drawn"] = dist_cqrrpt(_rows(mesh, inp["cqrrpt"]["A"]), mesh,
+                                      RNGState(5))[:3]
+    return out
+
+
+def bqrrp_body(mesh, cases):
+    """dist_bqrrp_factored (and bqrrp_q, bqrrp_apply_qt on its factors)
+    for each case, the JAX sketch's column block injected; at one rank
+    also the unsharded driver on the same inputs."""
+    out = {}
+    for tag, c in cases.items():
+        As = _rows(mesh, c["A"])
+        kw = c["kw"]
+        fac, st = dist_bqrrp_factored(As, mesh, RNGState(c["seed"]),
+                                      sketch=_cols(mesh, c["S"]), **kw)
+        Q = bqrrp_q(fac, mesh=mesh)
+        Qt = bqrrp_q(fac, method="tree", mesh=mesh)
+        QtA = bqrrp_apply_qt(fac, As.index_select(1, fac.J), mesh=mesh)
+        out[tag] = dict(V=fac.V, T=fac.T, R=fac.R, J=fac.J, rank=fac.rank,
+                        fail=fac.fail, Q=Q, Qt=Qt, QtA=QtA,
+                        counter=st.counter)
+        if mesh.size == 1:
+            f1, _ = bqrrp_factored(_t(c["A"]), BQRRPConfig(**kw),
+                                   RNGState(c["seed"]), sketch=_t(c["S"]))
+            out[tag]["single"] = dict(V=f1.V, T=f1.T, R=f1.R, J=f1.J)
+    # an undrawn sketch: the unsharded driver's draw, sliced
+    c = cases["straddle"]
+    fac, _ = dist_bqrrp_factored(_rows(mesh, c["A"]), mesh, RNGState(7),
+                                 **c["kw"])
+    out["drawn"] = dict(R=fac.R, J=fac.J)
+    # the row-sharded mode with the options dist_bqrrp_factored leaves at
+    # their defaults: deferred updates, candidate preselection, a
+    # trailing-precision form
+    for tag, tp in (("defer2", "highest"), ("defer2_bf16x3", "bf16_3x_emul")):
+        cfg = BQRRPConfig(block_size=32, update_defer=2, pivot_candidates=2,
+                          trailing_precision=tp, shard_axis="rows")
+        with set_mesh(mesh):
+            fac, _ = bqrrp_factored(_rows(mesh, c["A"]), cfg, RNGState(7),
+                                    sketch=_cols(mesh, c["S"]))
+        out[tag] = dict(R=fac.R, J=fac.J, V=fac.V)
+    return out
+
+
+def refusals_body(mesh):
+    """What a rank must refuse: rows that do not split evenly, shard_axis
+    with no mesh set, a mesh axis the config does not name."""
+    def raises(fn):
+        try:
+            fn()
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            return type(e).__name__ + ": " + str(e)
+        return None
+
+    A = torch.randn(8 + mesh.rank, 4, dtype=torch.float64)
+    cfg = BQRRPConfig(block_size=2, shard_axis="rows")
+    return {
+        "uneven": raises(lambda: dist_gram(A, mesh)),
+        "uneven_put": raises(lambda: row_sharded(mesh).put(
+            torch.zeros(4 * mesh.size + 1, 3))),
+        "no_mesh": raises(lambda: bqrrp_factored(A[:8], cfg, RNGState(0))),
+        "other_axis": raises(lambda: _with_other_axis(mesh, A[:8], cfg)),
+    }
+
+
+def _with_other_axis(mesh, A, cfg):
+    import dataclasses
+    other = dataclasses.replace(mesh, axis="cols")
+    with set_mesh(other):
+        return bqrrp_factored(A, cfg, RNGState(0))
+
+
+def rescue_body(mesh, A, S, kw):
+    """The sharded BQRRP on an input whose panels take the rescue ladder."""
+    fac, _ = dist_bqrrp_factored(_rows(mesh, A), mesh, RNGState(3),
+                                 sketch=_cols(mesh, S), **kw)
+    return dict(R=fac.R, J=fac.J, fail=fac.fail)
+
+
+def _launches():
+    from randlapack_tpu_torch.ops import lu, wy
+    return {**wy.LAUNCHES, **lu.LAUNCHES}
+
+
+def _reset_launches():
+    from randlapack_tpu_torch.ops import lu, wy
+    for counts in (wy.LAUNCHES, lu.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def cuda_bqrrp_body(mesh, m, n, b):
+    """dist_bqrrp_factored of an m×n f32 fast-decay matrix on the card:
+    this rank's launches, the residual and orthogonality (norms psummed,
+    in f64) and the replicated R and J."""
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A, st = fast_decay_matrix(m, n, RNGState(0), device=mesh.device)
+    As = row_sharded(mesh).put(A)
+    _reset_launches()
+    fac, _ = dist_bqrrp_factored(As, mesh, st, block_size=b)
+    torch.cuda.synchronize()
+    counts = _launches()
+    Q = bqrrp_q(fac, mesh=mesh).double()
+    E = Q @ fac.R.double() - As.index_select(1, fac.J).double()
+    sums = mesh.psum(torch.stack([(E * E).sum(),
+                                  (As.double() ** 2).sum()]))
+    G = mesh.psum(Q.T @ Q)
+    orth = torch.linalg.norm(G - torch.eye(n, dtype=G.dtype,
+                                           device=G.device))
+    return dict(counts=counts, res=float(torch.sqrt(sums[0] / sums[1])),
+                orth=float(orth), fail=bool(fac.fail), R=fac.R, J=fac.J)
+
+
+def cuda_cholqr_body(mesh, m, n):
+    """dist_cholqr (passes 2) of an m×n Gaussian matrix on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=mesh.device).manual_seed(5)
+    A = torch.randn((m, n), generator=g, device=mesh.device)
+    As = row_sharded(mesh).put(A)
+    Q, R, fail = dist_cholqr(As, mesh)
+    E = (Q.double() @ R.double() - As.double())
+    sums = mesh.psum(torch.stack([(E * E).sum(),
+                                  (As.double() ** 2).sum()]))
+    G = mesh.psum(Q.double().T @ Q.double())
+    return dict(res=float(torch.sqrt(sums[0] / sums[1])),
+                orth=float(torch.linalg.norm(G - torch.eye(
+                    n, dtype=G.dtype, device=G.device))),
+                fail=bool(fail), backend=torch.distributed.get_backend())

@@ -2079,3 +2079,43 @@ def test_kernel_paths_refuse_grad_and_vmap_on_the_card(cuda):
             run(A.clone().requires_grad_(True))
         with pytest.raises(RandLAPACKError, match="vmap"):
             torch.func.vmap(run)(torch.stack([A, A]))
+
+
+# -- the distributed layer on the card (randlapack_tpu_torch.parallel) --------
+
+def _ranks():
+    import _torch_parallel_ranks
+    return _torch_parallel_ranks
+
+
+@pytest.mark.cuda
+def test_dist_bqrrp_factored_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks share cuda:0 (NCCL refuses two ranks on one device):
+    each launches K1, K2 and K3 once a block on its 512 rows, and the
+    factorization holds the f32 gates of tests/test_bqrrp_factored.py."""
+    from randlapack_tpu_torch.parallel import run_ranks
+    m, n, b = 1024, 512, 64
+    out = run_ranks(_ranks().cuda_bqrrp_body, 2, m, n, b, backend="gloo",
+                    device="cuda", timeout=300)
+    eps = float(np.finfo(np.float32).eps)
+    for r in out:
+        c = r["counts"]
+        assert (c["masked_vt_a"], c["a_minus_vz_masked"], c["getrfnp"]) \
+            == (n // b,) * 3
+        assert r["res"] <= 10 * eps ** 0.75
+        assert r["orth"] <= 10 * eps ** 0.75 * np.sqrt(n)
+        assert not r["fail"]
+        assert np.array_equal(r["R"], out[0]["R"])
+        assert np.array_equal(r["J"], out[0]["J"])
+        assert sorted(r["J"].tolist()) == list(range(n))
+
+
+@pytest.mark.cuda
+def test_dist_cholqr_one_nccl_rank(cuda):
+    from randlapack_tpu_torch.parallel import run_ranks
+    out, = run_ranks(_ranks().cuda_cholqr_body, 1, 8192, 128,
+                     backend="nccl", device="cuda", timeout=300)
+    eps = float(np.finfo(np.float32).eps)
+    assert out["backend"] == "nccl" and not out["fail"]
+    assert out["res"] <= 10 * eps ** 0.75
+    assert out["orth"] <= 10 * eps ** 0.75 * np.sqrt(128)

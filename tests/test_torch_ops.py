@@ -94,8 +94,8 @@ def test_signatures_lead_with_the_jax_parameters():
     parameters first, in JAX's positions, so positional callers see the
     same function; the port's own parameters (``sketch``, ``omegas``,
     ``noise``, ``device``) come after. ``ops/pallas_*`` (their kernels'
-    tests cover them, and they carry JAX-only parameters) and
-    ``parallel/`` (not ported) are out of scope."""
+    tests cover them, and they carry JAX-only parameters) are out of
+    scope."""
     import inspect
     import pkgutil
 
@@ -103,7 +103,7 @@ def test_signatures_lead_with_the_jax_parameters():
     drift, pairs = [], 0
     for info in pkgutil.walk_packages(rt.__path__, "randlapack_tpu_torch."):
         rel = info.name.removeprefix("randlapack_tpu_torch.")
-        if rel.startswith(("ops.pallas_", "parallel")):
+        if rel.startswith("ops.pallas_"):
             continue
         jname = "randlapack_tpu." + rel
         if importlib.util.find_spec(jname) is None:
