@@ -4597,6 +4597,22 @@ PAR_TALL_M, PAR_TALL_N, PAR_TALL_D, PAR_TALL_K = 131072, 256, 320, 64
 PAR_REVD2_N, PAR_REVD2_K = 8192, 256
 PAR_KRILL_N, PAR_KRILL_K, PAR_KRILL_ITERS = 16384, 256, 100
 PAR_REPS = 3
+# the row-sharded modes of the single-device QR drivers at full width, on
+# the headline's 8192² f32 matrix and state: the explicit BQRRP (b 256, two
+# stages, update defer 1 as the JAX function forces) in "highest" (no
+# kernel) and in "high" (K2·TF32 once a block), HQRRP at b 128 with
+# Householder panels (K5 and K6 once a block) and, on smooth_matrix, with
+# CholQR panels (K5 and K3 once a block); ABRIK at BASELINE config 5 (CQRRT
+# on the shards, no kernel). Each rank launches these counts
+PAR_HQ_B = 128
+DIST_QR_LAUNCHES = {
+    "dist_bqrrp": NO_LAUNCHES,
+    "dist_bqrrp high": {**NO_LAUNCHES, "a_minus_vz_masked_tf32": 32},
+    "dist_hqrrp": {**NO_LAUNCHES, "qrcp_select_pivots": 64,
+                   "qrcp_panel": 64},
+    "dist_hqrrp cholqr": {**NO_LAUNCHES, "qrcp_select_pivots": 64,
+                          "getrfnp": 64},
+    "dist_abrik": NO_LAUNCHES}
 
 
 def _sha(t) -> str:
@@ -4922,14 +4938,16 @@ def par_entries(mesh, dev, tail, kappa):
         torch.cuda.empty_cache()
 
 
-def par_time(mesh, fn):
-    """``fn()`` PAR_REPS times after a warm-up, wall seconds around a
-    synchronize (the ranks start each run together: a barrier of one
-    psum), the launch counts of the last run, then one more run with the
-    collectives timed: its wall and the collectives' share of it."""
+def par_time(mesh, fn, warm: bool = True):
+    """``fn()`` PAR_REPS times after a warm-up (none without ``warm``),
+    wall seconds around a synchronize (the ranks start each run together:
+    a barrier of one psum), the launch counts of the last run, then one
+    more run with the collectives timed: its wall and the collectives'
+    share of it."""
     from randlapack_tpu_torch.parallel.mesh import collective_timer
     barrier = torch.zeros(1, device=mesh.device)
-    fn()
+    if warm:
+        fn()
     times, counts, out = [], None, None
     for _ in range(PAR_REPS):
         mesh.psum(barrier)
@@ -4988,12 +5006,149 @@ def par_flagship(mesh, dev):
     return out
 
 
+def smooth_matrix(dev):
+    """The 8192² f32 matrix Q₁·diag(e^(−6i/n))·Q₂ᵀ (Q₁, Q₂ the Q factors
+    of two Gaussian matrices, seed 24) and RNGState(0): fast_decay_matrix's
+    spectrum without the cliff its square Gaussian factor puts at the
+    tail. The headline's matrix ends in a trailing block of condition
+    5e3–1.5e5 (512² in f64), past 1/√eps32, where f32 CholQR2 panels may
+    break down in either package (tests/test_torch_hqrrp.py::
+    test_f32_cholqr_panels_break_on_an_ill_conditioned_last_block)."""
+    from randlapack_tpu_torch import RNGState
+    g = torch.Generator(device=dev).manual_seed(24)
+    Q1 = torch.linalg.qr(torch.randn((N, N), generator=g, device=dev))[0]
+    Q2 = torch.linalg.qr(torch.randn((N, N), generator=g, device=dev))[0]
+    s = torch.exp(-6.0 * torch.arange(N, device=dev) / N)
+    return (Q1 * s[None, :]) @ Q2.T, RNGState(0)
+
+
+def _qr_cfgs():
+    """The row-sharded QR entries: (driver, config, smooth) by entry, the
+    config without ``shard_axis``, ``smooth`` whether the input is
+    smooth_matrix rather than the headline's matrix."""
+    from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig,
+                                              PanelQR)
+    bq = dict(block_size=PAR_B, stages=PAR_STAGES, update_defer=1)
+    return {"dist_bqrrp": ("bqrrp", BQRRPConfig(**bq), False),
+            "dist_bqrrp high": ("bqrrp", BQRRPConfig(
+                **bq, trailing_precision="high"), False),
+            "dist_hqrrp": ("hqrrp", HQRRPConfig(block_size=PAR_HQ_B), False),
+            "dist_hqrrp cholqr": ("hqrrp", HQRRPConfig(
+                block_size=PAR_HQ_B, panel_qr=PanelQR.cholqr), True)}
+
+
+def _qr_call(driver, cfg, A, st, mesh=None):
+    """One call of ``driver`` with ``cfg`` (in its row-sharded mode under
+    ``mesh``): (Q, R, J, fail)."""
+    import dataclasses
+    from randlapack_tpu_torch import drivers
+    from randlapack_tpu_torch.parallel import set_mesh
+    fn = getattr(drivers, driver)
+    if mesh is None:
+        Q, R, J, _, fail, _ = fn(A, cfg, st)
+        return Q, R, J, fail
+    with set_mesh(mesh):
+        Q, R, J, _, fail, _ = fn(
+            A, dataclasses.replace(cfg, shard_axis=mesh.axis), st)
+    return Q, R, J, fail
+
+
+def _qr_metrics(mesh, Al, Q, R, J, fail) -> dict:
+    """Residual and orthogonality of a row-sharded factorization (the sums
+    and the Gram psummed, as the flagship's), fail, J a permutation, R
+    finite, R and J by digest."""
+    n = Al.shape[1]
+    E = Q @ R - Al.index_select(1, J)
+    e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al * Al).sum())
+    del E
+    G = mesh.psum(Q.T @ Q)
+    orth = float(torch.linalg.norm(G - torch.eye(n, device=Al.device)))
+    del G
+    perm = torch.equal(torch.sort(J).values,
+                       torch.arange(n, device=Al.device))
+    return dict(res=math.sqrt(e2 / a2), orth=orth, fail=bool(fail),
+                perm=perm, finite=bool(torch.isfinite(R).all()),
+                R=_sha(R), J=_sha(J))
+
+
+def par_qr(mesh, dev) -> dict:
+    """The row-sharded QR entries on this rank (DIST_QR_LAUNCHES): each
+    through par_time (best of PAR_REPS, the collectives' share of one more
+    run; no warm-up: the flagship has warmed the process, and a run takes
+    seconds), its factorization's gates (_qr_metrics; for HQRRP also taus by
+    digest, from hqrrp_lapack_format on the same call), and on rank 0 the
+    trailing norms of R over the leading half and J. dist_abrik at config
+    5: S, and the sharded abrik_factor's bases' orthogonality and Krylov
+    relation ([abrik]'s gates) on the same draws."""
+    import dataclasses
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (ABRIKConfig, HQRRPConfig,
+                                              abrik_factor,
+                                              hqrrp_lapack_format)
+    from randlapack_tpu_torch.gen import fast_decay_matrix
+    from randlapack_tpu_torch.parallel import dist_abrik, set_mesh
+    r0, r1 = mesh.rows(N // mesh.size)
+    inputs = {}
+    for smooth in (False, True):
+        A, st = (smooth_matrix(dev) if smooth
+                 else fast_decay_matrix(N, N, RNGState(0), device=dev))
+        inputs[smooth] = A[r0:r1].contiguous(), st
+        del A
+    out = {}
+    for name, (driver, cfg, smooth) in _qr_cfgs().items():
+        Al, st = inputs[smooth]
+        res, times, counts, share, calls = par_time(
+            mesh, lambda: _qr_call(driver, cfg, Al, st, mesh), warm=False)
+        rec = dict(times=times, counts=counts, share=share, calls=calls,
+                   **_qr_metrics(mesh, Al, *res))
+        if isinstance(cfg, HQRRPConfig):
+            with set_mesh(mesh):
+                taus = hqrrp_lapack_format(Al, dataclasses.replace(
+                    cfg, shard_axis=mesh.axis), st)[1]
+            rec["taus"] = _sha(taus)
+        if mesh.rank == 0:
+            rec["tn"] = trailing_norms(res[1])[:N // 2].cpu()
+            rec["J_host"] = res[2].cpu()
+        out[name] = rec
+        del res
+        torch.cuda.empty_cache()
+    del inputs
+    A, ast, _ = abrik_problem(dev)
+    r0, r1 = mesh.rows(ABRIK_M // mesh.size)
+    Al = A[r0:r1].contiguous()
+    del A
+    (U, S, Vt, info, _), times, counts, share, calls = par_time(
+        mesh, lambda: dist_abrik(Al, ABRIK_K, mesh, ast, block_size=ABRIK_B,
+                                 max_iters=ABRIK_Q), warm=False)
+    cfg = ABRIKConfig(block_size=ABRIK_B, max_iters=ABRIK_Q,
+                      qr_explicit="cqrrt", shard_axis=mesh.axis)
+    with set_mesh(mesh):
+        Ub, Vb, B, _, iters, _ = abrik_factor(Al, ast, cfg)
+    K = ABRIK_B * ABRIK_Q
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    Ubd, Vbd = Ub.double(), Vb.double()
+    orth_u = float(torch.linalg.norm(mesh.psum(Ubd.T @ Ubd) - eye))
+    orth_v = float(torch.linalg.norm(Vbd.T @ Vbd - eye))
+    E = Al.double() @ Vbd - Ubd @ B.double()
+    e2, a2 = _psum_f64(mesh, (E * E).sum(), (Al.double() ** 2).sum())
+    out["dist_abrik"] = dict(
+        times=times, counts=counts, share=share, calls=calls,
+        S=S.cpu(), S_sha=_sha(S), Vt=_sha(Vt),
+        iters=(info["num_krylov_iters"], iters), orth_u=orth_u,
+        orth_v=orth_v, kry=math.sqrt(e2 / a2),
+        finite=bool(torch.isfinite(U).all() and torch.isfinite(S).all()
+                    and torch.isfinite(Vt).all()))
+    return out
+
+
 def parallel_rank_body(mesh, tail, kappa):
-    """One rank of [parallel]: the flagship, then every other entry."""
+    """One rank of [parallel]: the flagship, the row-sharded QR entries,
+    then every other entry."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = mesh.device
-    out = {"flagship": par_flagship(mesh, dev)}
+    out = {"flagship": par_flagship(mesh, dev), "qr": par_qr(mesh, dev)}
+    torch.cuda.empty_cache()
     for name, fn, _, check in par_entries(mesh, dev, tail, kappa):
         res, times, counts, share, calls = par_time(mesh, fn)
         metrics, ok = check(name, res)
@@ -5004,11 +5159,12 @@ def parallel_rank_body(mesh, tail, kappa):
 
 
 def nccl_rank_body(mesh):
-    """One NCCL rank: the flagship call (its R and J by digest) and
-    dist_cholqr of the 131072×256 Gaussian matrix."""
+    """One NCCL rank: the flagship call and dist_hqrrp (b 128; their R, J
+    and HQRRP's Q by digest, and the launches of each) and dist_cholqr of
+    the 131072×256 Gaussian matrix."""
     from randlapack_tpu_torch import RNGState
     from randlapack_tpu_torch.gen import fast_decay_matrix
-    from randlapack_tpu_torch.parallel import dist_bqrrp_factored
+    from randlapack_tpu_torch.parallel import dist_bqrrp_factored, dist_hqrrp
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh.device
     A, st = fast_decay_matrix(N, N, RNGState(0), device=dev)
@@ -5021,7 +5177,13 @@ def nccl_rank_body(mesh):
     torch.distributed.all_reduce(one)       # the group takes a CUDA tensor
     out = dict(backend=torch.distributed.get_backend(), R=_sha(fac.R),
                J=_sha(fac.J), counts=counts, all_reduce=one.tolist())
-    del A, fac
+    del fac
+    reset_counts()
+    Q, R, J, _, _, _ = dist_hqrrp(A, mesh, st, block_size=PAR_HQ_B)
+    torch.cuda.synchronize()
+    out["hqrrp"] = dict(Q=_sha(Q), R=_sha(R), J=_sha(J),
+                        counts=read_counts())
+    del A, Q, R
     runs, _, check = par_tsqr(mesh, dev)
     out["cholqr"] = check("dist_cholqr passes=2",
                           runs["dist_cholqr passes=2"]())
@@ -5098,6 +5260,7 @@ def phase_parallel(dev, card: str) -> dict:
         torch.cuda.synchronize()
         times1.append(time.perf_counter() - t1)
     fac1 = single[0]
+    f0["R1"], f0["J1"] = _sha(fac1.R), _sha(fac1.J)
     ratio = trailing_norms(fac1.R)[:N // 2].cpu() / torch.as_tensor(f0["tn"])
     J4 = torch.as_tensor(f0["J_host"])
     differ = torch.nonzero(fac1.J.cpu() != J4)
@@ -5114,28 +5277,46 @@ def phase_parallel(dev, card: str) -> dict:
          and float(ratio.max()) <= PIVOT_BAND[1],
          f"parallel: trailing-norm ratios [{ratio.min()}, {ratio.max()}]")
 
-    # one NCCL rank reproduces the single-process call bit for bit
+    del fac1, single
+    torch.cuda.empty_cache()
+    mesh1 = make_mesh(device=dev)
+    hq1 = par_qr_singles(ranks, mesh1, A, st, card)
+    dist_counts = {name: {"dist_bqrrp_factored": [r["counts"][name]
+                                                  for r in fl]}
+                   for name in NO_LAUNCHES}
+    for r in ranks:
+        for entry, rec in r["qr"].items():
+            for name, v in rec["counts"].items():
+                dist_counts[name].setdefault(entry, []).append(v)
+
+    # one NCCL rank reproduces the single-process calls bit for bit
     nccl, = run_ranks(nccl_rank_body, 1, backend="nccl", device="cuda",
                       timeout=600)
-    bit = nccl["R"] == _sha(fac1.R) and nccl["J"] == _sha(fac1.J)
+    bit = nccl["R"] == f0["R1"] and nccl["J"] == f0["J1"]
+    nh = nccl["hqrrp"]
+    bit_hq = (nh["Q"], nh["R"], nh["J"]) == hq1
     cq, ok = nccl["cholqr"]
     print(f"[parallel-nccl] one {nccl['backend']} rank: dist_bqrrp_factored "
           f"bit-equal to bqrrp_factored(update_defer=1) {bit} (launches "
-          f"{ {k: v for k, v in nccl['counts'].items() if v} }); "
+          f"{ {k: v for k, v in nccl['counts'].items() if v} }); dist_hqrrp "
+          f"b{PAR_HQ_B} bit-equal (Q, R, J) to hqrrp {bit_hq} (launches "
+          f"{ {k: v for k, v in nh['counts'].items() if v} }); "
           f"dist_cholqr {PAR_TALL_M}x{PAR_TALL_N}: residual {cq['res']:.3e},"
           f" orth {cq['orth']:.3e}, fail {cq['fail']}", flush=True)
     gate(nccl["backend"] == "nccl" and nccl["all_reduce"] == [1.0] * 4,
          "parallel: the rank did not run NCCL")
     gate(bit, "parallel: one NCCL rank differs from the single process")
+    gate(bit_hq, "parallel: one NCCL rank's dist_hqrrp differs from hqrrp")
     gate(nccl["counts"] == DIST_LAUNCHES,
          f"parallel-nccl: launches {nccl['counts']}")
+    gate(nh["counts"] == DIST_QR_LAUNCHES["dist_hqrrp"],
+         f"parallel-nccl: dist_hqrrp launches {nh['counts']}")
     gate(ok, f"parallel-nccl: dist_cholqr gates {cq}")
-    del A, fac1, single
+    del A
     torch.cuda.empty_cache()
 
     # every other entry: p ranks against the single-process port function
     # on the same whole input
-    mesh1 = make_mesh(device=dev)
     for name, _, (name1, fn1), check in par_entries(mesh1, dev, tail,
                                                     kappa):
         res, times, counts, _, _ = par_time(mesh1, fn1)
@@ -5205,8 +5386,168 @@ def phase_parallel(dev, card: str) -> dict:
               f"{k2_err:.3e} of max|plain| {float(Ap.abs().max()):.3e})",
               flush=True)
         del Ash, Z, A2, Wp, Ap
-    return {name: [r["counts"][name] for r in fl]
-            for name in ("masked_vt_a", "a_minus_vz_masked", "getrfnp")}
+    par_kernels_tf32(dev)
+    return {name: {e: c for e, c in entries.items() if any(c)}
+            for name, entries in dist_counts.items()}
+
+
+def par_qr_singles(ranks, mesh1, A, st, card: str):
+    """[parallel]'s row-sharded QR entries: each rank's gates (launches,
+    the factorization's gates, R, J and taus the same bits on every rank),
+    then the single-process port function on the same whole input (A or
+    smooth_matrix) and state, best of PAR_REPS, its own gates and the
+    trailing-norm ratios single/sharded over the leading half within
+    PIVOT_BAND; dist_abrik's
+    [abrik] gates and its top σ within 1e-4·σ₀ of abrik(qr_explicit=
+    "cqrrt") on the same draws. Returns the digests (Q, R, J) of the
+    single-process hqrrp (b PAR_HQ_B) for the NCCL rank."""
+    import dataclasses
+    from randlapack_tpu_torch.drivers import abrik
+    hq1 = None
+    inputs = {False: (A, st), True: smooth_matrix(A.device)}
+    for name, (driver, cfg, smooth) in _qr_cfgs().items():
+        Ai, sti = inputs[smooth]
+        rk = [r["qr"][name] for r in ranks]
+        r0 = rk[0]
+        res_gate = (MODE_RES_GATE["high"] if name.endswith("high")
+                    else RES_GATE)
+        for r in rk:
+            gate(r["counts"] == DIST_QR_LAUNCHES[name],
+                 f"parallel {name}: launches {r['counts']}")
+            gate(all(r[k] == r0[k] for k in ("R", "J", "taus") if k in r),
+                 f"parallel {name}: R, J or taus differ between ranks")
+        gate(r0["res"] <= res_gate and r0["orth"] <= ORTH_GATE
+             and not r0["fail"] and r0["perm"] and r0["finite"],
+             f"parallel {name}: residual {r0['res']}, orth {r0['orth']}, "
+             f"fail {r0['fail']}, J a permutation {r0['perm']}, R finite "
+             f"{r0['finite']}")
+        out, times, _, _, _ = par_time(mesh1,
+                                       lambda: _qr_call(driver, cfg, Ai, sti))
+        Q1, R1, J1, fail1 = out
+        res1 = float(torch.linalg.norm(Q1 @ R1 - Ai.index_select(1, J1))
+                     / torch.linalg.norm(Ai))
+        orth1 = float(torch.linalg.norm(Q1.T @ Q1 - torch.eye(
+            N, device=Ai.device)))
+        ratio = trailing_norms(R1)[:N // 2].cpu() / torch.as_tensor(r0["tn"])
+        differ = torch.nonzero(J1.cpu() != torch.as_tensor(r0["J_host"]))
+        first = int(differ[0]) if len(differ) else N
+        if name == "dist_hqrrp":
+            hq1 = (_sha(Q1), _sha(R1), _sha(J1))
+        del out, Q1, R1, J1
+        torch.cuda.empty_cache()
+        tp = getattr(cfg, "trailing_precision", "highest")
+        print(f"[parallel] {name} {N}x{N} f32 ({driver}, {cfg.block_size}"
+              f"-column blocks, trailing {tp}) on {PAR_P} gloo ranks of "
+              f"{card}: best {min(r0['times']):.4f} s (runs "
+              f"{[round(t, 4) for t in r0['times']]}), collectives "
+              f"{100 * r0['share']:.1f} % ({r0['calls']} calls); residual "
+              f"{r0['res']:.3e} (gate {res_gate:.2e}), orth {r0['orth']:.3e} "
+              f"(gate {ORTH_GATE:.2e}), fail {r0['fail']}; launches a rank "
+              f"{[{k: v for k, v in r['counts'].items() if v} for r in rk]};"
+              f" one process, {driver} with the same config, best "
+              f"{min(times):.4f} s (residual {res1:.3e}, orth {orth1:.3e}, "
+              f"fail {bool(fail1)}); J equal up to position {first} of {N}; "
+              f"trailing-norm ratios single/sharded over the leading half "
+              f"[{float(ratio.min()):.4f}, {float(ratio.max()):.4f}] (band "
+              f"{PIVOT_BAND})", flush=True)
+        gate(res1 <= res_gate and orth1 <= ORTH_GATE and not bool(fail1),
+             f"parallel {name}: gates of {driver} on one process")
+        gate(PIVOT_BAND[0] <= float(ratio.min())
+             and float(ratio.max()) <= PIVOT_BAND[1],
+             f"parallel {name}: trailing-norm ratios [{ratio.min()}, "
+             f"{ratio.max()}]")
+    del inputs
+    torch.cuda.empty_cache()
+    Aa, ast, acfg = abrik_problem(A.device)
+    acfg = dataclasses.replace(acfg, qr_explicit="cqrrt")
+    (_, S1, _, info1, _), times, _, _, _ = par_time(
+        mesh1, lambda: abrik(Aa, ABRIK_K, acfg, ast))
+    del Aa
+    rk = [r["qr"]["dist_abrik"] for r in ranks]
+    r0 = rk[0]
+    sgap = float((torch.as_tensor(r0["S"]).double() - S1.double().cpu())
+                 .abs().max() / float(S1[0]))
+    print(f"[parallel] dist_abrik {ABRIK_M}x{ABRIK_N} f32 (BASELINE config "
+          f"5: k {ABRIK_K}, block {ABRIK_B}, {ABRIK_Q} iterations, cqrrt) on "
+          f"{PAR_P} gloo ranks: best {min(r0['times']):.4f} s (runs "
+          f"{[round(t, 4) for t in r0['times']]}), collectives "
+          f"{100 * r0['share']:.1f} % ({r0['calls']} calls); the sharded "
+          f"abrik_factor on the same draws: |Ub^T Ub - I|_F "
+          f"{r0['orth_u']:.3e}, |Vb^T Vb - I|_F {r0['orth_v']:.3e} (gate "
+          f"{ABRIK_ORTH_GATE:.3e}), |A Vb - Ub B|_F/|A|_F {r0['kry']:.3e} "
+          f"(gate 1e-4), iterations {r0['iters']}; one process, abrik(qr_"
+          f"explicit=\"cqrrt\"), best {min(times):.4f} s: top {ABRIK_K} "
+          f"sigma max |ds|/s0 {sgap:.3e} (gate 1e-4); launches a rank "
+          f"{[{k: v for k, v in r['counts'].items() if v} for r in rk]}",
+          flush=True)
+    for r in rk:
+        gate(r["counts"] == DIST_QR_LAUNCHES["dist_abrik"],
+             f"parallel dist_abrik: launches {r['counts']}")
+        gate(r["S_sha"] == r0["S_sha"] and r["Vt"] == r0["Vt"],
+             "parallel dist_abrik: S or Vt differ between ranks")
+    gate(max(r0["orth_u"], r0["orth_v"]) <= ABRIK_ORTH_GATE
+         and r0["kry"] <= 1e-4 and r0["finite"]
+         and r0["iters"] == (ABRIK_Q, ABRIK_Q)
+         and info1["num_krylov_iters"] == ABRIK_Q,
+         f"parallel dist_abrik: gates {r0['orth_u']}, {r0['orth_v']}, "
+         f"{r0['kry']}, iterations {r0['iters']}")
+    gate(sgap <= 1e-4, f"parallel dist_abrik: sigma against one process "
+         f"{sgap}")
+    return hq1
+
+
+def par_kernels_tf32(dev) -> None:
+    """[parallel-kernels] K1·TF32 at the HQRRP shard's shapes (V 2048×128,
+    A 2048×8192) and K2·TF32 at the BQRRP shard's (V 2048×256, Z 256×8192,
+    A 2048×8192), the forms a trailing mode launches there: each held
+    against its plain version at 1e-5·max|plain| ([wy-modes]' gate), then
+    timed beside its plain version, its bound and the fp32 library call
+    with TF32 allowed."""
+    from randlapack_tpu_torch.ops import wy
+    g = torch.Generator(device=dev).manual_seed(4)
+    ml, w = N // PAR_P, N
+    A = torch.randn((ml, w), generator=g, device=dev)
+    mask = (torch.rand(w, generator=g, device=dev) < 0.6).float()
+    b = PAR_HQ_B
+    V = torch.randn((ml, b), generator=g, device=dev)
+    Wp = wy.masked_vt_a_tf32_reference(V, A, mask)
+    err = float((wy.masked_vt_a_form(V, A, mask, "tf32") - Wp).abs().max())
+    scale = float(Wp.abs().max())
+    gate(err <= 1e-5 * scale, f"parallel: K1·TF32 at V {ml}x{b}, A {ml}x{w}"
+         f", max|d| {err}")
+    ms = cuda_ms(lambda: wy.masked_vt_a_form(V, A, mask, "tf32"), 100)
+    plain = cuda_ms(lambda: wy.masked_vt_a_tf32_reference(V, A, mask), 20)
+    lib, _ = form_library_ms("tf32", lambda: torch.mm(V.T, A), 100)
+    bd = form_bound(2 * ml * b * w, 4 * (ml * b + ml * w + w + b * w),
+                    "tf32")
+    print(f"[parallel-kernels] masked_vt_a tf32 at the HQRRP shard (V {ml}x"
+          f"{b}, A {ml}x{w}): {ms:.4f} ms (plain {plain:.4f} ms, torch.mm(V.T"
+          f", A) with TF32 allowed {lib:.4f} ms, bound {bd['bound_ms']:.4f} "
+          f"ms by {bd['bound_by']}, max|d| {err:.3e} of max|plain| "
+          f"{scale:.3e})", flush=True)
+    b = PAR_B
+    V = torch.randn((ml, b), generator=g, device=dev)
+    Z = torch.randn((b, w), generator=g, device=dev)
+    Ap = wy.a_minus_vz_masked_tf32_reference(A, V, Z, mask)
+    err = float((wy.a_minus_vz_masked_form(A.clone(), V, Z, mask, "tf32")
+                 - Ap).abs().max())
+    scale = float(Ap.abs().max())
+    gate(err <= 1e-5 * scale, f"parallel: K2·TF32 at V {ml}x{b}, A {ml}x{w}"
+         f", max|d| {err}")
+    A2 = A.clone()
+    ms = cuda_ms(lambda: wy.a_minus_vz_masked_form(A2, V, Z, mask, "tf32"),
+                 100)
+    plain = cuda_ms(
+        lambda: wy.a_minus_vz_masked_tf32_reference(A, V, Z, mask), 20)
+    lib, _ = form_library_ms("tf32", lambda: A2.addmm_(V, Z, alpha=-1.0),
+                             100)
+    bd = form_bound(2 * ml * b * w + 2 * ml * w,
+                    4 * (2 * ml * w + ml * b + b * w + w), "tf32")
+    print(f"[parallel-kernels] a_minus_vz_masked tf32 at the BQRRP shard (V "
+          f"{ml}x{b}, Z {b}x{w}, A {ml}x{w}): {ms:.4f} ms (plain {plain:.4f} "
+          f"ms, A.addmm_(V, Z, alpha=-1) with TF32 allowed {lib:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, max|d| "
+          f"{err:.3e} of max|plain| {scale:.3e})", flush=True)
 
 
 def main() -> int:
@@ -5291,8 +5632,8 @@ def main() -> int:
             # the BQRRP headline's launches at the driver-level precisions
             k["precision_launches"] = {
                 p: precision_counts[p][k["name"]] for p in PRECISIONS}
-            # and dist_bqrrp_factored's, each of the PAR_P ranks
-            k["dist_launches"] = dist_counts[k["name"]]
+        # the distributed entries that launch it, each of the PAR_P ranks
+        k["dist_launches"] = dist_counts[k["name"]]
     # K1/K2's trailing-precision forms: launches in the BQRRP speed mode,
     # beside HQRRP's and CQRRPT's
     for tp, form in MODES.items():
@@ -5307,7 +5648,8 @@ def main() -> int:
                 launches=speed["bqrrp"][tp][name], **timed[name],
                 trailing_precision=tp,
                 hqrrp_launches=speed["hqrrp"][tp][name],
-                cqrrpt_launches=speed["cqrrpt"][tp][name]))
+                cqrrpt_launches=speed["cqrrpt"][tp][name],
+                dist_launches=dist_counts[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

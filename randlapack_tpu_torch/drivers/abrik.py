@@ -13,6 +13,14 @@ stopped iteration writes zero blocks and ends the loop, so the outputs
 equal the full-budget run's. Every step is a PyTorch call (the JAX
 package runs none of it in Pallas): the operator's products (cuBLAS or
 cuSPARSE), cuSOLVER QR and Cholesky, the band SVD of ``ops.svd``.
+
+Row-sharded mode (``ABRIKConfig.shard_axis`` under ``parallel.set_mesh``;
+``parallel.dist_abrik`` sets both): A (a tensor) is this rank's rows and
+U comes back so; A·V is row-local, Aᵀ·U, the U-side re-orthogonalization
+Uᵀ·Z and the squared norms of Z and A are psummed, so the stop flag is
+replicated; the m-side tall QRs run on the shard (``"cqrrt"``: the sketch
+S·W psummed, then the sharded preconditioned CholQR; ``"geqrf"`` and the
+rescue gather the block); the n-side work is replicated.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from ..config import (STABLE_PRECISION, require_fp32_matmul,
                       resolve_precision)
 from ..errors import require
 from ..ops.cholqr import preconditioned_cholqr
-from ..ops.qr import qr_econ
+from ..ops.qr import qr_econ, qr_econ_rows
 from ..ops.svd import svd_econ
 from ..ops.util import matmul
 from ..rng import RNGState
@@ -67,8 +75,10 @@ class ABRIKConfig:
                                   # chain, with a qr_econ rescue on
                                   # Cholesky breakdown
     d_factor: float = 1.25        # cqrrt sketch rows = d_factor·b
-    shard_axis: str | None = None # row-sharded factors (the JAX
-                                  # package's dist_abrik); not ported
+    shard_axis: str | None = None # row-sharded mode over the mesh of this
+                                  # axis set by ``parallel.set_mesh``: A
+                                  # and U the rank's rows (the module
+                                  # docstring says how each step shards)
 
 
 class _Draws:
@@ -76,7 +86,11 @@ class _Draws:
     mode, one Gaussian sketch (⌈d_factor·b⌉ ∧ rows, rows) per tall QR
     from a second spawned generator, 2q of them (index 1 is never used,
     as in the JAX package). Injected tensors stand in for the draws; the
-    state advances as if they were drawn."""
+    state advances as if they were drawn. In the row-sharded mode an
+    m-side sketch (i = 0 and every odd i) is this rank's column block:
+    injected so, or drawn whole (every rank draws every sketch in one
+    order) and sliced, so the result does not depend on the world
+    size."""
 
     def __init__(self, A, cfg: ABRIKConfig, state: RNGState, dtype,
                  device, v0=None, qr_sketches=None):
@@ -89,7 +103,7 @@ class _Draws:
                              device=device)
         else:
             state = state.advance()
-        self.v0 = v0.to(dtype)
+        self.v0 = v0.to(device=device, dtype=dtype)
         self.qr_gen = None
         self.qr_sketches = qr_sketches
         if cfg.qr_explicit != "geqrf":
@@ -101,46 +115,91 @@ class _Draws:
                 state = state.advance()
         self.state = state
 
-    def sketch(self, i: int, rows: int):
+    def sketch(self, i: int, rows: int, cols=None):
         """The Gaussian sketch of tall QR ``i`` (rows × b input), scaled
-        by 1/√d."""
+        by 1/√d; ``cols`` = (c0, c1) keeps only those columns (this
+        rank's, for an m-side sketch under a mesh)."""
         if self.cfg.qr_explicit == "geqrf":
             return None
         d = min(rows, int(math.ceil(self.cfg.d_factor
                                     * self.cfg.block_size)))
+        c0, c1 = (0, rows) if cols is None else cols
         if self.qr_sketches is not None:
-            S = self.qr_sketches[i].to(self.dtype)
+            S = self.qr_sketches[i]
+            require(isinstance(S, torch.Tensor)
+                    and tuple(S.shape) == (d, c1 - c0),
+                    f"qr_sketches[{i}] must be a {(d, c1 - c0)} tensor")
+            S = S.to(device=self.device, dtype=self.dtype)
         else:
             S = torch.randn((d, rows), generator=self.qr_gen,
                             dtype=self.dtype, device=self.device)
+            if cols is not None:
+                S = S[:, c0:c1]
         return S / math.sqrt(d)
 
 
-def _qr_explicit(W, S, cfg: ABRIKConfig, precision):
+def _qr_explicit(W, S, cfg: ABRIKConfig, precision, mesh=None):
     """Inner tall-QR dispatch (rl_abrik.hh:311-348): geqrf → qr_econ;
     cqrrt → CholQR preconditioned by the R of the sketch S·W, with a
     qr_econ rescue (a host branch, one read) when the Cholesky breaks on
-    a deficient or frozen block."""
+    a deficient or frozen block. With ``mesh``, W is this rank's rows and
+    S its column block: S·W and the Gram are psummed, and ``qr_econ``
+    gathers W (``ops.qr.qr_econ_rows``)."""
     if cfg.qr_explicit == "geqrf":
-        return qr_econ(W)
-    R_sk = _floor_diag(torch.linalg.qr(matmul(S, W, precision),
-                                       mode="r")[1])
-    Q, R, failq = preconditioned_cholqr(W, R_sk, precision)
+        return qr_econ_rows(W, mesh)
+    Wsk = matmul(S, W, precision)
+    if mesh is not None:
+        Wsk = mesh.psum(Wsk)
+    R_sk = _floor_diag(torch.linalg.qr(Wsk, mode="r")[1])
+    Q, R, failq = preconditioned_cholqr(
+        W, R_sk, precision, mesh, None if mesh is None
+        else W.shape[0] * mesh.size)
     if bool(failq):
-        return qr_econ(W)
+        return qr_econ_rows(W, mesh)
     return Q, R
 
 
-def _require_ported(cfg: ABRIKConfig, precision):
+def _check_cfg(cfg: ABRIKConfig, precision):
+    """Refuse what the port does not take; return the mesh that
+    ``cfg.shard_axis`` names (None when it is None)."""
     require_fp32_matmul()
     resolve_precision(precision)
-    require(cfg.shard_axis is None,
-            "shard_axis: the distributed ABRIK is not ported")
+    if cfg.shard_axis is None:
+        return None
+    from ..parallel.mesh import current_mesh
+    return current_mesh(cfg.shard_axis)
 
 
-def _reorth(W, Basis, passes: int, precision):
+def _sharding(A, cfg: ABRIKConfig, precision):
+    """``(m, n, mesh, cols)``: A's global shape, the mesh of the
+    row-sharded mode (None for none or one rank) and this rank's columns
+    of an m-side sketch (None unsharded)."""
+    mesh = _check_cfg(cfg, precision)
+    m, n = _shape(A)
+    if mesh is None:
+        return m, n, None, None
+    from ..parallel.mesh import shard_rows
+    require(isinstance(A, torch.Tensor), "shard_axis: the row-sharded "
+            "mode takes a tensor (this rank's rows), not an operator")
+    m, mesh = shard_rows(A, mesh, "abrik")
+    return m, n, mesh, (None if mesh is None else mesh.rows(A.shape[0]))
+
+
+def _psum(t, mesh):
+    return t if mesh is None else mesh.psum(t)
+
+
+def _norm(X, mesh):
+    """‖X‖_F of X, or of the row-sharded matrix whose rows X holds."""
+    if mesh is None:
+        return torch.linalg.norm(X)
+    return torch.sqrt(mesh.psum(torch.sum(X * X)))
+
+
+def _reorth(W, Basis, passes: int, precision, mesh=None):
     for _ in range(passes):
-        W = W - matmul(Basis, matmul(Basis.T, W, precision), precision)
+        W = W - matmul(Basis, _psum(matmul(Basis.T, W, precision), mesh),
+                       precision)
     return W
 
 
@@ -168,8 +227,7 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
     0 the first A·V, 2j the Aᵀ·U of iteration j, 2j+1 its A·V; entry 1 is
     unused).
     """
-    _require_ported(cfg, precision)
-    m, n = _shape(A)
+    m, n, mesh, cols = _sharding(A, cfg, precision)
     b, q = cfg.block_size, cfg.max_iters
     K = q * b
     dtype = A.dtype
@@ -178,9 +236,9 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
 
     # V_1 from a Gaussian block (rl_abrik.hh:272-299)
     V1, _ = qr_econ(dr.v0)
-    U1, R1 = _qr_explicit(_matmat(A, V1, precision), dr.sketch(0, m), cfg,
-                          precision)
-    U = torch.zeros((m, K), dtype=dtype, device=dev)
+    U1, R1 = _qr_explicit(_matmat(A, V1, precision), dr.sketch(0, m, cols),
+                          cfg, precision, mesh)
+    U = torch.zeros((_shape(A)[0], K), dtype=dtype, device=dev)
     V = torch.zeros((n, K), dtype=dtype, device=dev)
     B = torch.zeros((K, K), dtype=dtype, device=dev)
     capture = torch.zeros((q,), dtype=dtype, device=dev)
@@ -190,7 +248,7 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
     tol_bd = 100.0 * eps * torch.linalg.norm(R1)
     if tol and tol > 0.0:
         norm_A = (A.fro_nrm() if hasattr(A, "fro_nrm")
-                  else torch.linalg.norm(A))
+                  else _norm(A, mesh))
         norm_A2 = norm_A * norm_A
         gap_thresh = max(float(tol) ** 2, 32.0 * eps) * norm_A2
     stopped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -201,15 +259,17 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
         Vj = V[:, c - b:c]
         Rj = B[c - b:c, c - b:c]
         # odd half-step: W = AᵀU_j − V_j R_jᵀ, reorth, QR → V_{j+1}, L
-        W = _tmatmat(A, Uj, precision) - matmul(Vj, Rj.T, precision)
+        W = _psum(_tmatmat(A, Uj, precision), mesh) - matmul(Vj, Rj.T,
+                                                            precision)
         W = _reorth(W, V, cfg.reorth_passes, precision)
         stopped = stopped | (torch.linalg.norm(W) < tol_bd)
         Vn, L = _qr_explicit(W, dr.sketch(2 * j, n), cfg, precision)
         # even half-step: Z = A V_{j+1} − U_j Lᵀ, reorth, QR → U_{j+1}, R
         Z = _matmat(A, Vn, precision) - matmul(Uj, L.T, precision)
-        Z = _reorth(Z, U, cfg.reorth_passes, precision)
-        stopped = stopped | (torch.linalg.norm(Z) < tol_bd)
-        Un, Rn = _qr_explicit(Z, dr.sketch(2 * j + 1, m), cfg, precision)
+        Z = _reorth(Z, U, cfg.reorth_passes, precision, mesh)
+        stopped = stopped | (_norm(Z, mesh) < tol_bd)
+        Un, Rn = _qr_explicit(Z, dr.sketch(2 * j + 1, m, cols), cfg,
+                              precision, mesh)
 
         keep = (~stopped).to(dtype)
         U[:, c:c + b] = Un * keep
@@ -234,14 +294,14 @@ def _abrik_factor_timed(A, state, cfg, precision, timer, v0=None,
     r_cpy / s_cpy / norm / main_loop / get_factors / total), each phase
     synced; all q iterations run (a stopped one writes zeros), as in the
     JAX package's measurement mode."""
-    m, n = _shape(A)
+    m, n, mesh, cols = _sharding(A, cfg, precision)
     b, q = cfg.block_size, cfg.max_iters
     K = q * b
     dtype, dev = A.dtype, A.device
 
     with timer.phase("allocation"):
         dr = _Draws(A, cfg, state, dtype, dev, v0, qr_sketches)
-        U = torch.zeros((m, K), dtype=dtype, device=dev)
+        U = torch.zeros((_shape(A)[0], K), dtype=dtype, device=dev)
         V = torch.zeros((n, K), dtype=dtype, device=dev)
         B = torch.zeros((K, K), dtype=dtype, device=dev)
         capture = torch.zeros((q,), dtype=dtype, device=dev)
@@ -253,7 +313,8 @@ def _abrik_factor_timed(A, state, cfg, precision, timer, v0=None,
         Z1 = _matmat(A, V1, precision)
         device_sync(Z1)
     with timer.phase("qr"):
-        U1, R1 = _qr_explicit(Z1, dr.sketch(0, m), cfg, precision)
+        U1, R1 = _qr_explicit(Z1, dr.sketch(0, m, cols), cfg, precision,
+                              mesh)
         device_sync(U1)
     with timer.phase("r_cpy"):
         U[:, :b], V[:, :b], B[:b, :b] = U1, V1, R1
@@ -271,7 +332,8 @@ def _abrik_factor_timed(A, state, cfg, precision, timer, v0=None,
         Uj, Vj = U[:, c - b:c], V[:, c - b:c]
         Rj = B[c - b:c, c - b:c]
         with timer.phase("gemm_A"):
-            W = _tmatmat(A, Uj, precision) - matmul(Vj, Rj.T, precision)
+            W = _psum(_tmatmat(A, Uj, precision), mesh) - matmul(
+                Vj, Rj.T, precision)
             device_sync(W)
         with timer.phase("reorth"):
             W = _reorth(W, V, cfg.reorth_passes, precision)
@@ -284,12 +346,12 @@ def _abrik_factor_timed(A, state, cfg, precision, timer, v0=None,
             Z = _matmat(A, Vn, precision) - matmul(Uj, L.T, precision)
             device_sync(Z)
         with timer.phase("reorth"):
-            Z = _reorth(Z, U, cfg.reorth_passes, precision)
+            Z = _reorth(Z, U, cfg.reorth_passes, precision, mesh)
             device_sync(Z)
         with timer.phase("qr"):
-            stopped = stopped | (torch.linalg.norm(Z) < tol_bd)
-            Un, Rn = _qr_explicit(Z, dr.sketch(2 * j + 1, m), cfg,
-                                  precision)
+            stopped = stopped | (_norm(Z, mesh) < tol_bd)
+            Un, Rn = _qr_explicit(Z, dr.sketch(2 * j + 1, m, cols), cfg,
+                                  precision, mesh)
             device_sync(Un)
         with timer.phase("s_cpy"):
             keep = (~stopped).to(dtype)
@@ -324,7 +386,6 @@ def abrik(A, k: int, cfg: ABRIKConfig, state: RNGState, tol: float = 0.0,
     b, q = cfg.block_size, cfg.max_iters
     require(k <= q * b, f"need max_iters*block_size >= k ({q * b} < {k})")
     if timing:
-        _require_ported(cfg, precision)
         timer = PhaseTimer()
         t0 = time.perf_counter()
         Ub, Vb, B, capture, state = _abrik_factor_timed(

@@ -42,7 +42,7 @@ from ..ops import util
 from ..ops.cholqr import (_cholesky, _finite_scaled, _pow2, cholqr,
                           preconditioned_cholqr, shifted_cholqr3)
 from ..ops.householder import orhr_col
-from ..ops.qr import lu_pivot_columns, qr_econ
+from ..ops.qr import lu_pivot_columns, qr_econ, qr_econ_rows
 from ..ops.util import matmul
 from ..ops.wy import (a_minus_vz_masked_mixed, masked_vt_a_mixed,
                       trailing_form)
@@ -67,9 +67,9 @@ class BQRRPConfig:
     final_orth: int = 1           # explicit form only
     stages: int = 1               # shrinking-width stages
     shard_axis: str | None = None # row-sharded mode over the mesh of this
-                                  # axis set by ``parallel.set_mesh``
-                                  # (``bqrrp_factored`` only): A is the
-                                  # rank's rows, V comes back so, R/T/J
+                                  # axis set by ``parallel.set_mesh``: A is
+                                  # the rank's rows, Q (explicit) or V
+                                  # (factored) comes back so, R/T/J
                                   # replicated
     pivot_candidates: int | None = None
                                   # preselect this many × block_size
@@ -112,7 +112,7 @@ class BQRRPFactors(typing.NamedTuple):
     fail: torch.Tensor     # bool — CholQR breakdown along the way
 
 
-def _check_cfg(cfg: BQRRPConfig, factored: bool = False):
+def _check_cfg(cfg: BQRRPConfig):
     """Refuse what the port does not take; return the mesh that
     ``cfg.shard_axis`` names (None when it is None)."""
     if cfg.pallas_trailing != "auto":
@@ -121,10 +121,6 @@ def _check_cfg(cfg: BQRRPConfig, factored: bool = False):
             "only the default 'auto' is accepted")
     if cfg.shard_axis is None:
         return None
-    if not factored:
-        raise NotImplementedError("shard_axis: the explicit form's "
-                                  "row-sharded mode is not ported "
-                                  "(bqrrp_factored takes it)")
     from ..parallel.mesh import current_mesh
     return current_mesh(cfg.shard_axis)
 
@@ -216,7 +212,7 @@ def _tp_subtract(A, X, Y, trailing_precision, precision):
 
 
 def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
-           g0: int, q_hi: int, nblocks: int, precision):
+           g0: int, q_hi: int, nblocks: int, precision, mesh=None):
     """Explicit-form stage: ``nblocks`` panel blocks inside the column
     window starting at global column ``g0``. ``A_loc`` (owned, updated in
     place), ``A_sk_loc``, ``R_loc`` (K rows × window columns, written in
@@ -227,8 +223,14 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
     The chosen columns' R values (the BCGS2 projection and R11) are
     written into ``R_loc`` as each block commits; the JAX package stacks
     them in a scatter-free buffer and adds it after the permutation,
-    which gives the same values."""
+    which gives the same values.
+
+    With ``mesh`` (of more than one rank) ``A_loc`` and ``Q`` are this
+    rank's rows: the BCGS2 projection, the panel CholQR Grams and T =
+    Q_panelᵀ·A are psummed, the trailing update is row-local, the
+    ``qr_econ`` rescue gathers the panel, and the pivots are rank 0's."""
     m, w = A_loc.shape
+    rows = None if mesh is None else m * mesh.size
     b = cfg.block_size
     K = R_loc.shape[0]
     dt, dev = A_loc.dtype, A_loc.device
@@ -248,6 +250,8 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         live = 1.0 - retired
         chosen = _select_pivots(A_sk * live[None, :], b, cfg)
         chosen = _fix_pivots(chosen, retired)
+        if mesh is not None:
+            chosen = mesh.broadcast(chosen)
 
         # -- panel QR: sketch-preconditioned CholQR ---------------------
         A_sk_panel = A_sk.index_select(1, chosen)
@@ -259,20 +263,22 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
             # BCGS2 against the filled basis prefix; the correction goes
             # into R's earlier rows at the chosen columns
             proj = matmul(Qp.T, panel, precision)
+            if mesh is not None:
+                proj = mesh.psum(proj)
             panel = panel - matmul(Qp, proj, precision)
             patch[:q_hi] = proj
         if cfg.qr_tall == QRTall.cholqr:
             R_sk = _safe_triu_diag(qr_econ(A_sk_panel)[1])
-            Q_panel, R11, failp = preconditioned_cholqr(panel, R_sk,
-                                                        precision)
+            Q_panel, R11, failp = preconditioned_cholqr(
+                panel, R_sk, precision, mesh, rows)
             if cfg.panel_reorth:
-                Q_panel, R2, f2 = cholqr(Q_panel, precision)
+                Q_panel, R2, f2 = cholqr(Q_panel, precision, mesh, rows)
                 R11 = matmul(R2, R11, precision)
                 failp = failp | f2
             if bool(failp):
-                Q_panel, R11 = qr_econ(panel)
+                Q_panel, R11 = qr_econ_rows(panel, mesh)
         else:
-            Q_panel, R11 = qr_econ(panel)
+            Q_panel, R11 = qr_econ_rows(panel, mesh)
             failp = torch.zeros((), dtype=torch.bool, device=dev)
         R11 = torch.triu(R11)
         patch[g0 + c:g0 + c + b] = R11
@@ -281,6 +287,8 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         retired[chosen] = 1.0
         live2 = 1.0 - retired
         T = matmul(Q_panel.T, A_work, precision)
+        if mesh is not None:
+            T = mesh.psum(T)
         if deferred and j > 0:
             # T must read the TRUE trailing matrix
             T = T - matmul(matmul(Q_panel.T, Qg, precision), Tg, precision)
@@ -307,7 +315,9 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         return A_sk, fail, Qg, Tg
 
     A_work, A_sk = A_loc, A_sk_loc
-    g = max(1, min(int(cfg.update_defer), nblocks))
+    # the row-sharded mode keeps the per-block updates, as JAX's does
+    g = 1 if cfg.shard_axis is not None else max(
+        1, min(int(cfg.update_defer), nblocks))
     if g == 1:
         for i in range(nblocks):
             A_sk, fail = block(i, A_work, A_sk, fail)
@@ -349,9 +359,21 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     drawn from ``state`` on A's device. ``A`` is not modified.
     ``precision`` sets every product the JAX package runs at the driver's
     precision (``ops.util.matmul``).
+
+    Row-sharded mode (``cfg.shard_axis`` names the axis of the mesh set by
+    ``parallel.set_mesh``; ``parallel.dist_bqrrp`` sets both): A is this
+    rank's rows, ``sketch`` the matching (d, m_local) column block of S
+    (an undrawn S is the unsharded driver's, sliced), Q comes back as this
+    rank's rows and R, J, rank and fail replicated; ``update_defer`` is
+    read as 1, as in the JAX package. A mesh of one rank is the unsharded
+    call. Collectives: one psum of the sketch; per block, the BCGS2
+    projection, each panel CholQR Gram (with the band guard's pmax) and
+    T = Q_panelᵀ·A; the final pass's K×K Gram QᵀQ. The trailing update
+    is row-local (K2's form in a trailing mode), and rank 0's pivots are
+    broadcast.
     """
     require_fp32_matmul()
-    _check_cfg(cfg)
+    mesh = _check_cfg(cfg)
     precision = resolve_precision(precision)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
     timer = PhaseTimer()
@@ -359,7 +381,9 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     def _phase(name):
         return timer.phase(name) if timing else contextlib.nullcontext()
 
-    m, n = A.shape
+    from ..parallel.mesh import shard_rows
+    m, mesh = shard_rows(A, mesh, "bqrrp")
+    m_loc, n = A.shape
     dt, dev = A.dtype, A.device
     b = min(cfg.block_size, min(m, n))
     if b != cfg.block_size:
@@ -373,12 +397,12 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     chunk = K_full // S if K_full else 0
 
     with _phase("sketch"):
-        A_sk = _sketch_product(A, d, state, sketch, precision)
+        A_sk = _sketch_product(A, d, state, sketch, precision, mesh)
         state = state.advance()
         if timing:
             device_sync(A_sk)
 
-    Q = torch.zeros((m, K), dtype=dt, device=dev)
+    Q = torch.zeros((m_loc, K), dtype=dt, device=dev)
     R = torch.zeros((K, n), dtype=dt, device=dev)
     J = torch.arange(n, device=dev)
     fail = torch.zeros((), dtype=torch.bool, device=dev)
@@ -401,7 +425,7 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
         with _phase(f"stage_{s}"):
             A_loc, A_sk_loc, R_loc, J_loc, fail = _stage(
                 A_loc, A_sk[:, g0:], Q, R[:, g0:], J[g0:], fail, scfg, g0,
-                q_hi, nblocks, precision)
+                q_hi, nblocks, precision, mesh)
             if timing:
                 device_sync(Q)
         if g0 == 0:
@@ -419,6 +443,8 @@ def bqrrp(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
             # fallback panels) breaks the unshifted Cholesky, and the
             # shifted factor keeps the outputs finite with `fail` raised
             G = matmul(Q.T, Q, precision)
+            if mesh is not None:
+                G = mesh.psum(G)
             L = _cholesky(G)
             bad = torch.isnan(L).any() | (torch.diagonal(L) <= 0).any()
             if bool(bad):
@@ -699,7 +725,7 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     updates the shard in place; rank 0's pivots are broadcast.
     """
     require_fp32_matmul()
-    mesh = _check_cfg(cfg, factored=True)
+    mesh = _check_cfg(cfg)
     precision = resolve_precision(precision)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
     if A.device.type == "cuda":
@@ -710,16 +736,10 @@ def bqrrp_factored(A: torch.Tensor, cfg: BQRRPConfig, state: RNGState,
     def _phase(name):
         return timer.phase(name) if timing else contextlib.nullcontext()
 
-    m = m_loc = A.shape[0]
-    n = A.shape[1]
+    from ..parallel.mesh import shard_rows
+    m, mesh = shard_rows(A, mesh, "bqrrp_factored")
+    m_loc, n = A.shape
     dt, dev = A.dtype, A.device
-    if mesh is not None:
-        from ..parallel.mesh import global_rows
-        require(A.device == mesh.device, f"A is on {A.device}, the mesh's "
-                f"rank computes on {mesh.device}")
-        m = global_rows(m_loc, mesh, "bqrrp_factored")
-        if mesh.size == 1:
-            mesh = None             # a mesh of one rank: the unsharded call
     b = min(cfg.block_size, min(m, n))
     if b != cfg.block_size:
         cfg = dataclasses.replace(cfg, block_size=b)

@@ -77,7 +77,11 @@ class HQRRPConfig:
     panel_qr: PanelQR = PanelQR.qrcp
     pallas_qrcp: str = "auto"     # K5 routing: "auto" | "never" (CPU only)
     pallas_panel: str = "auto"    # K6 routing: "auto" | "never" (CPU only)
-    shard_axis: str | None = None  # TPU mesh sharding: only None is ported
+    shard_axis: str | None = None  # row-sharded mode over the mesh of
+                                   # this axis set by
+                                   # ``parallel.set_mesh``: A and the
+                                   # sketch operator G (its columns) stay
+                                   # sharded, Y/T/R replicated
     trailing_precision: str = "highest"
                                   # the trailing-update products W = Vᵀ·A
                                   # and A −= V·U (``ops.wy.trailing_form``):
@@ -93,68 +97,93 @@ class HQRRPConfig:
     update_defer: int = 1         # blocks per aggregated trailing update
 
 
-def _check_cfg(cfg: HQRRPConfig, precision, device: torch.device) -> None:
+def _check_cfg(cfg: HQRRPConfig, precision, device: torch.device):
+    """Refuse what the port does not take; return the mesh that
+    ``cfg.shard_axis`` names (None when it is None)."""
     if device.type == "cuda" and (cfg.pallas_qrcp, cfg.pallas_panel) != (
             "auto", "auto"):
         raise NotImplementedError(
             f"pallas_qrcp={cfg.pallas_qrcp!r}, pallas_panel="
             f"{cfg.pallas_panel!r} on a CUDA tensor: a CUDA tensor always "
             "takes the kernels, only 'auto' is accepted there")
-    if cfg.shard_axis is not None:
-        raise NotImplementedError("shard_axis (TPU mesh sharding) is not "
-                                  "ported")
     resolve_precision(precision)
+    if cfg.shard_axis is None:
+        return None
+    from ..parallel.mesh import current_mesh
+    return current_mesh(cfg.shard_axis)
 
 
-def _cholqr_panel(panel, row0: int, precision):
+def _cholqr_panel(panel, row0: int, precision, mesh=None):
     """CHOLQR_mod_WY (rl_hqrrp.hh:506): CholQR2 of the row-masked panel,
     then the ``orhr_col`` reconstruction at offset row0 (K3 on the card).
     τₗ = 2/‖vₗ‖² makes each stored reflector exact. A breakdown substitutes
     identity columns at the panel offset, so the outputs stay finite with
     ``fail`` raised. Returns (W, V, taus, sigma, fail) in ``qrcp_panel``'s
-    layout."""
+    layout. With ``mesh`` the panel, W and V are this rank's rows: the
+    CholQR2 Grams and the reflector norms are psummed, and K3 factors the
+    b×b block gathered to every rank."""
     m, b = panel.shape
     dt, dev = panel.dtype, panel.device
-    rows = torch.arange(m, device=dev)[:, None]
+    r0 = 0 if mesh is None else mesh.rows(m)[0]
+    rows = r0 + torch.arange(m, device=dev)[:, None]     # global rows
     cols = torch.arange(b, device=dev)[None, :]
     Pm = torch.where(rows >= row0, panel, 0.0)
-    Qp, R_chol, fail = cholqr2(Pm, precision)
+    Qp, R_chol, fail = cholqr2(Pm, precision, mesh,
+                               None if mesh is None else m * mesh.size)
     nanp = (~torch.isfinite(Qp)).any() | (~torch.isfinite(R_chol)).any()
+    if mesh is not None:
+        nanp = mesh.any(nanp)
     E_pad = (rows == row0 + cols).to(dt)
     Qp = torch.where(nanp, E_pad, Qp)
     R_chol = torch.where(nanp, 0.0, R_chol)
     fail = fail | nanp
-    V, _, s = orhr_col(Qp, row0, precision)
-    taus = 2.0 / (V * V).sum(0)
+    V, _, s = orhr_col(Qp, row0 - r0, precision, Q1=None if mesh is None
+                       else mesh.rows_of(Qp, row0, row0 + b))
+    vv = (V * V).sum(0)
+    taus = 2.0 / (vv if mesh is None else mesh.psum(vv))
     W = torch.where(rows < row0, panel, 0.0)
-    W[row0:row0 + b] += s[:, None] * R_chol
+    lo, hi = (row0, row0 + b) if mesh is None else mesh.local_rows(
+        m, row0, row0 + b)
+    W[lo:hi] += (s[:, None] * R_chol)[r0 + lo - row0:r0 + hi - row0]
     W = W + torch.where(rows > row0 + cols, V, 0.0)
     sigma = torch.arange(b, device=dev)
     return W, V, taus, sigma, fail
 
 
-def _panel(panel, c: int, cfg: HQRRPConfig, precision):
+def _panel(panel, c: int, cfg: HQRRPConfig, precision, mesh=None):
     """The configured panel factorization at row offset c →
-    (W, V, taus, sigma, fail)."""
+    (W, V, taus, sigma, fail). With ``mesh`` a Householder panel (K6 on
+    the card) factors the panel gathered whole on every rank, each rank
+    keeps its rows of W and V, and rank 0's pivots and taus are
+    broadcast."""
     if cfg.panel_qr == PanelQR.cholqr:
-        return _cholqr_panel(panel, c, precision)
+        return _cholqr_panel(panel, c, precision, mesh)
     W, V, taus, sigma = qrcp_panel_routed(
-        panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp), precision=precision,
+        panel if mesh is None else mesh.gather_rows(panel), c,
+        pivot=(cfg.panel_qr == PanelQR.qrcp), precision=precision,
         use_pallas=cfg.pallas_panel)
+    if mesh is not None:
+        r0, r1 = mesh.rows(panel.shape[0])
+        W, V = W[r0:r1], V[r0:r1]
+        taus = mesh.broadcast(taus.contiguous())
+        sigma = mesh.broadcast(sigma.contiguous())
     return W, V, taus, sigma, torch.zeros((), dtype=torch.bool,
                                           device=panel.device)
 
 
 class _State:
     """The loop carry: A (updated in place), the sketch Y and its
-    operator G, the driver's ``precision``, the packed pivot columns, the
-    pivot order and taus a block each in selection order (joined at the
-    end), the retired mask and the ``fail`` flag."""
+    operator G, the driver's ``precision``, the mesh of the row-sharded
+    mode (None unsharded: A and G's columns are then this rank's), the
+    packed pivot columns, the pivot order and taus a block each in
+    selection order (joined at the end), the retired mask and the
+    ``fail`` flag."""
 
-    def __init__(self, A, Y, G, precision):
+    def __init__(self, A, Y, G, precision, mesh=None):
         n = A.shape[1]
         dt, dev = A.dtype, A.device
         self.A, self.Y, self.G, self.precision = A, Y, G, precision
+        self.mesh = mesh
         self.Fstk, self.order, self.taus = [], [], []
         self.retired = torch.zeros(n, dtype=dt, device=dev)
         self.fail = torch.zeros((), dtype=torch.bool, device=dev)
@@ -170,8 +199,15 @@ class _State:
 def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
                 timer: PhaseTimer | None = None):
     """One HQRRP block with its trailing update applied at once (the
-    ``update_defer = 1`` path and the timed path); ``timer`` accumulates
-    the reference's nested per-phase slots (rl_hqrrp.hh:1150-1160)."""
+    ``update_defer = 1`` path, the timed path and the row-sharded mode);
+    ``timer`` accumulates the reference's nested per-phase slots
+    (rl_hqrrp.hh:1150-1160).
+
+    With ``st.mesh``: K5 runs on the replicated Y and rank 0's pivots are
+    broadcast; the panel as ``_panel`` says; VᵀV (``wy_T``), Wk = Vᵀ·A
+    and G·V are psummed (in a trailing mode K1's form runs on the rank's
+    rows first); the update of A and of G's columns are row-local; the b
+    rows of A and columns of G the Y downdate reads are gathered."""
     def _phase(name):
         return timer.phase(name) if timer is not None else (
             contextlib.nullcontext())
@@ -180,37 +216,48 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
         if timer is not None:
             device_sync(t)
 
-    p = st.precision
+    p, mesh = st.precision, st.mesh
+
+    def psum(t):
+        return t if mesh is None else mesh.psum(t)
+
     live = 1.0 - st.retired
     with _phase("qrcp"):
         chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
                                            use_pallas=cfg.pallas_qrcp)
+        if mesh is not None:
+            chosen = mesh.broadcast(chosen)
         _sync(chosen)
     with _phase("qr"):
         panel = st.A.index_select(1, chosen)
-        W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
+        W, V, taus, sigma, failp = _panel(panel, c, cfg, p, mesh)
         chosen = chosen.index_select(0, sigma)
         _sync(W)
     with _phase("wy_t"):
-        T, Vz = wy_T(V, taus, p)
+        T, Vz = wy_T(V, taus, p, mesh)
         _sync(T)
     with _phase("updating_A"):
         live2 = live.index_fill(0, chosen, 0.0)
         tp = cfg.trailing_precision
         if trailing_form(tp, st.A) == "highest":
-            Wk = matmul(Vz.T, st.A * live2[None, :], p)
+            Wk = psum(matmul(Vz.T, st.A * live2[None, :], p))
             Upd = matmul(Vz, matmul(T.T, Wk, p), p)
             st.A.addcmul_(Upd, live2[None, :], value=-1.0)
         else:
-            Wk = masked_vt_a_mixed(Vz, st.A, live2, tp)
+            Wk = psum(masked_vt_a_mixed(Vz, st.A, live2, tp))
             a_minus_vz_masked_mixed(st.A, Vz, matmul(T.T, Wk, p), live2, tp)
         _sync(st.A)
     with _phase("updating_sketch_g"):
-        st.G = st.G - matmul(matmul(matmul(st.G, Vz, p), T, p), Vz.T, p)
+        GV = psum(matmul(st.G, Vz, p))
+        st.G = st.G - matmul(matmul(GV, T, p), Vz.T, p)
         _sync(st.G)
     with _phase("updating_sketch_y"):
-        B = st.G[:, c:c + bsz]
-        R12 = st.A[c:c + bsz, :] * live2[None, :]
+        if mesh is None:
+            B, R12 = st.G[:, c:c + bsz], st.A[c:c + bsz, :]
+        else:
+            B = mesh.rows_of(st.G.T, c, c + bsz).T
+            R12 = mesh.rows_of(st.A, c, c + bsz)
+        R12 = R12 * live2[None, :]
         st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
         _sync(st.Y)
     with _phase("downdating"):
@@ -301,45 +348,57 @@ def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
 def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
                 precision=STABLE_PRECISION, timing: bool = False,
                 sketch: torch.Tensor | None = None):
-    """Shared core: returns ``(A_packed, taus, J, rank, fail, state[,
-    phases])`` with ``A_packed`` the pivoted matrix in LAPACK GEQP3 layout
-    (R in the upper triangle, reflector tails below)."""
+    """Shared core: returns ``(A_packed, R, taus, J, rank, fail, state,
+    mesh[, phases])`` with ``A_packed`` the pivoted matrix in LAPACK GEQP3
+    layout (R in the upper triangle, reflector tails below; this rank's
+    rows under a mesh), R its K leading rows (replicated) and ``mesh`` that
+    of the row-sharded mode (None for none or one rank)."""
     require_fp32_matmul()
-    _check_cfg(cfg, precision, A.device)
+    mesh = _check_cfg(cfg, precision, A.device)
     precision = resolve_precision(precision)
     if A.device.type == "cuda":
         # K5/K6 run on every call: refuse vmap and autograd up front
         util.require_kernel_operands("hqrrp", A)
     require(A.dim() == 2, f"A must be a matrix, got shape {tuple(A.shape)}")
+    if cfg.shard_axis is not None:
+        # the row-sharded mode keeps the per-block updates, as JAX's does
+        cfg = dataclasses.replace(cfg, update_defer=1)
+    from ..parallel.mesh import shard_rows
+    m, mesh = shard_rows(A, mesh, "hqrrp")
     timer = PhaseTimer() if timing else None
 
     def _phase(name):
         return timer.phase(name) if timing else contextlib.nullcontext()
 
-    m, n = A.shape
+    m_loc, n = A.shape
     dt, dev = A.dtype, A.device
     K = min(m, n)
     b = min(cfg.block_size, K)
     d = b + cfg.oversample
     nb_full, r = divmod(K, b)
+    r0, r1 = (0, m) if mesh is None else mesh.rows(m_loc)
 
     with _phase("sketch"):
-        # uniform sketch on [-1, 1), as the reference (ScalarDist::Uniform)
+        # uniform sketch on [-1, 1), as the reference (ScalarDist::Uniform);
+        # under a mesh each rank keeps G's columns of its rows, drawn whole
         gen, state = state.spawn(dev)
         if sketch is None:
             G = torch.rand((d, m), generator=gen, dtype=dt, device=dev)
-            G = 2.0 * G - 1.0
+            G = (2.0 * G - 1.0)[:, r0:r1].contiguous()
         else:
-            require(tuple(sketch.shape) == (d, m),
-                    f"sketch must be {(d, m)}, got {tuple(sketch.shape)}")
+            require(tuple(sketch.shape) == (d, m_loc),
+                    f"sketch must be {(d, m_loc)}, got "
+                    f"{tuple(sketch.shape)}")
             G = sketch.to(device=dev, dtype=dt)
         Y = matmul(G, A, precision)
+        if mesh is not None:
+            Y = mesh.psum(Y)
         if timing:
             device_sync(Y)
 
     # the driver's own copy of A, updated in place
     st = _State(A.clone(memory_format=torch.contiguous_format), Y, G,
-                precision)
+                precision, mesh)
     with _phase("blocks"):
         if timing:
             if cfg.update_defer > 1:
@@ -370,14 +429,50 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
         perm = torch.argsort(torch.where(st.retired > 0, pos, K + cols))
         A_perm = torch.cat([torch.cat(st.Fstk, 1),
                             st.A.index_select(1, perm[K:])], 1)
+        R = torch.triu(A_perm[:K, :] if mesh is None
+                       else mesh.rows_of(A_perm, 0, K))
         if timing:
             device_sync(A_perm)
 
-    diag = torch.diagonal(A_perm[:K, :K])
+    diag = torch.diagonal(R[:, :K])
     tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
     rank = util.naive_rank_est(diag, tol)
-    out = (A_perm, torch.cat(st.taus), perm, rank, st.fail, state)
+    out = (A_perm, R, torch.cat(st.taus), perm, rank, st.fail, state, mesh)
     return (*out, timer.report()) if timing else out
+
+
+def _packed(A_perm, K: int, mesh):
+    """The reflector tails strictly below the diagonal of A_perm's first K
+    columns (this rank's rows under ``mesh``)."""
+    if mesh is None:
+        return torch.tril(A_perm[:, :K], -1)
+    m = A_perm.shape[0]
+    rows = mesh.rows(m)[0] + torch.arange(m, device=A_perm.device)
+    cols = torch.arange(K, device=A_perm.device)
+    return torch.where(rows[:, None] > cols[None, :], A_perm[:, :K], 0.0)
+
+
+def _sharded_q(packed, taus, b: int, precision, mesh):
+    """This rank's rows of Q = H₁·…·H_K·E from row-sharded packed
+    reflectors: the blocked WY from the last block of ``b`` back, each
+    block's VᵀQ psummed (as ``bqrrp_q(mesh=)``); block i leaves Q's
+    columns before its first untouched, so it updates the rest only."""
+    m, K = packed.shape
+    dev = packed.device
+    r0 = mesh.rows(m)[0]
+    rows = r0 + torch.arange(m, device=dev)[:, None]
+    lo, hi = mesh.local_rows(m, 0, K)
+    diag = torch.arange(lo, hi, device=dev)
+    Q = packed.new_zeros((m, K))
+    Q[diag, r0 + diag] = 1.0
+    for c in reversed(range(0, K, b)):
+        e = min(c + b, K)
+        heads = (rows == torch.arange(c, e, device=dev)[None, :])
+        T, Vz = wy_T(packed[:, c:e] + heads.to(packed.dtype), taus[c:e],
+                     precision, mesh)
+        P = mesh.psum(matmul(Vz.T, Q[:, c:], precision))
+        Q[:, c:] -= matmul(Vz, matmul(T, P, precision), precision)
+    return Q
 
 
 def hqrrp(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
@@ -394,15 +489,31 @@ def hqrrp(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
     operator G (d = block + oversample); when None, G is drawn from
     ``state`` on A's device. ``A`` is not modified. ``timing=True``
     appends a phase dict (sketch / blocks / epilogue and the seven
-    per-block slots)."""
+    per-block slots).
+
+    Row-sharded mode (``cfg.shard_axis`` names the axis of the mesh set by
+    ``parallel.set_mesh``; ``parallel.dist_hqrrp`` sets both): A is this
+    rank's rows, ``sketch`` G's matching (d, m_local) column block (an
+    undrawn G is drawn whole on every rank, each keeping its columns), Q
+    comes back as this rank's rows and R, J, rank and fail replicated;
+    ``update_defer`` is read as 1, as in the JAX package. A mesh of one
+    rank is the unsharded call. Collectives a block: the pivots (K5 on the
+    replicated sketch) broadcast from rank 0; a Householder panel (K6)
+    gathered whole and its pivots and taus broadcast, or a CholQR panel's
+    Grams, reflector norms and the b×b block K3 factors psummed; VᵀV,
+    Vᵀ·A and G·V psummed; the b rows of A and columns of G the sketch
+    downdate reads gathered. Q is formed by the blocked WY, each block's
+    VᵀQ psummed."""
     out = _hqrrp_core(A, cfg, state, precision, timing, sketch)
-    A_perm, taus, J, rank, fail, state = out[:6]
-    m, n = A_perm.shape
-    K = min(m, n)
-    R = torch.triu(A_perm[:K, :])
-    Q = apply_reflectors(torch.tril(A_perm[:, :K], -1), taus)
+    A_perm, R, taus, J, rank, fail, state, mesh = out[:8]
+    K = R.shape[0]
+    if mesh is None:
+        Q = apply_reflectors(_packed(A_perm, K, None), taus)
+    else:
+        Q = _sharded_q(_packed(A_perm, K, mesh), taus,
+                       min(cfg.block_size, K), precision, mesh)
     if timing:
-        return Q, R, J, rank, fail, state, out[6]
+        return Q, R, J, rank, fail, state, out[8]
     return Q, R, J, rank, fail, state
 
 
@@ -413,12 +524,8 @@ def hqrrp_lapack_format(A: torch.Tensor, cfg: HQRRPConfig,
     ``packed`` (m, K) holds the reflector tails strictly below the
     diagonal (unit heads implicit) — HQRRP's native form (rl_hqrrp.hh:
     778-779). Form Q with :func:`randlapack_tpu_torch.ops.householder.
-    apply_reflectors`."""
-    A_perm, taus, J, rank, fail, state = _hqrrp_core(A, cfg, state,
-                                                     precision,
-                                                     sketch=sketch)
-    m, n = A_perm.shape
-    K = min(m, n)
-    R = torch.triu(A_perm[:K, :])
-    packed = torch.tril(A_perm[:, :K], -1)
-    return packed, taus, R, J, state
+    apply_reflectors`. In the row-sharded mode (see :func:`hqrrp`)
+    ``packed`` is this rank's rows, the rest replicated."""
+    A_perm, R, taus, J, rank, fail, state, mesh = _hqrrp_core(
+        A, cfg, state, precision, sketch=sketch)
+    return _packed(A_perm, R.shape[0], mesh), taus, R, J, state

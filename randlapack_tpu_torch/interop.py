@@ -57,7 +57,8 @@ LAPACK_FORMAT_FIELDS = ("packed", "taus", "R", "J")
 
 def lapack_format_from_numpy(arrays: dict, device="cuda"):
     """``{"packed", "taus", "R", "J"}`` numpy arrays (as
-    ``hqrrp_lapack_format`` returns them) → the tuple
+    ``hqrrp_lapack_format`` returns them; in its row-sharded mode
+    ``packed`` is a rank's rows, taken as they are) → the tuple
     ``(packed, taus, R, J)`` on ``device`` (J as int64)."""
     return tuple(torch.tensor(np.asarray(arrays[name]),
                               dtype=torch.int64 if name == "J" else None,

@@ -10,11 +10,12 @@ call); under ``torch.func.vmap`` every rung runs and ``torch.where``
 selects. ``precision`` sets the Gram and factor products
 (``ops.util.matmul``).
 
-``cholqr``, ``preconditioned_cholqr`` and ``shifted_cholqr3`` also take a
-row shard: with ``mesh`` (a ``parallel.Mesh``) A holds this rank's rows
-of a row-sharded matrix, each Gram is all-reduced over the mesh, the
-band guard's max and non-finite flag are reduced with one ``pmax``, and
-Q comes back as this rank's rows, R and the flag replicated.
+``cholqr``, ``cholqr2``, ``preconditioned_cholqr`` and ``shifted_cholqr3``
+also take a row shard: with ``mesh`` (a ``parallel.Mesh``) A holds this
+rank's rows of a row-sharded matrix, each Gram is all-reduced over the
+mesh, the band guard's max and non-finite flag are reduced with one
+``pmax``, and Q comes back as this rank's rows, R and the flag
+replicated.
 """
 from __future__ import annotations
 
@@ -128,10 +129,12 @@ def cholqr(A: torch.Tensor, precision=STABLE_PRECISION, mesh=None,
     return Q, R, fail
 
 
-def cholqr2(A: torch.Tensor, precision=STABLE_PRECISION):
-    """CholeskyQR2 — two passes. Returns ``(Q, R, fail)``."""
-    Q1, R1, f1 = cholqr(A, precision)
-    Q, R2, f2 = cholqr(Q1, precision)
+def cholqr2(A: torch.Tensor, precision=STABLE_PRECISION, mesh=None,
+            rows=None):
+    """CholeskyQR2 — two passes. Returns ``(Q, R, fail)``;
+    ``mesh``/``rows`` as ``cholqr``."""
+    Q1, R1, f1 = cholqr(A, precision, mesh, rows)
+    Q, R2, f2 = cholqr(Q1, precision, mesh, rows)
     return Q, matmul(R2, R1, precision), f1 | f2
 
 

@@ -29,6 +29,18 @@ def qr_econ(A: torch.Tensor):
     return torch.linalg.qr(A, mode="reduced")
 
 
+def qr_econ_rows(A: torch.Tensor, mesh=None):
+    """``qr_econ`` of A; with ``mesh`` (a ``parallel.Mesh``), A holds this
+    rank's rows of a row-sharded matrix, which is gathered whole (a rescue
+    path of the sharded drivers): R is rank 0's, broadcast, and each rank
+    keeps its rows of Q."""
+    if mesh is None:
+        return qr_econ(A)
+    Q, R = qr_econ(mesh.gather_rows(A))
+    r0, r1 = mesh.rows(A.shape[0])
+    return Q[r0:r1].contiguous(), mesh.broadcast(R.contiguous())
+
+
 _LU_BACKEND = threading.Lock()
 
 
@@ -268,16 +280,20 @@ def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True,
                   torch.zeros(0, dtype=panel.dtype, device=dev)), sigma
 
 
-def wy_T(V: torch.Tensor, taus: torch.Tensor, precision=STABLE_PRECISION):
+def wy_T(V: torch.Tensor, taus: torch.Tensor, precision=STABLE_PRECISION,
+         mesh=None):
     """Compact-WY triangular factor: T (b×b upper) with
     H₁·…·H_b = I − V·T·Vᵀ (LAPACK larft, forward/columnwise), built from
     T⁻¹ = diag(1/τ) + strict_upper(VᵀV) by one triangular solve.
     τ = 0 (identity reflector) columns are zeroed in V and get a unit
-    diagonal. Returns ``(T, Vz)`` with Vz the zeroed V."""
+    diagonal. Returns ``(T, Vz)`` with Vz the zeroed V. With ``mesh`` (a
+    ``parallel.Mesh``), V holds this rank's rows and VᵀV is psummed."""
     b = taus.shape[0]
     active = taus != 0
     Vz = torch.where(active[None, :], V, 0.0)
     S = matmul(Vz.T, Vz, precision)
+    if mesh is not None:
+        S = mesh.psum(S)
     one = torch.ones((), dtype=V.dtype, device=V.device)
     tinv = torch.where(active, 1.0 / torch.where(active, taus, one), one)
     Tinv = torch.triu(S, 1) + torch.diag(tinv)

@@ -13,21 +13,26 @@ collectives written out (``mesh``'s ``psum``/``pmax``/``broadcast``, the
     and the rangefinder step ``dist_rangefinder_step``
   * the distributed drivers ``dist_cqrrpt``, ``dist_cqrrt``,
     ``dist_rsvd``, ``dist_revd2``, ``dist_spls``, ``dist_krill`` over
-    ``DistSquaredExpKernelLinOp``, and ``dist_bqrrp_factored``, the
-    row-sharded mode of ``drivers.bqrrp_factored`` (K1–K3 on the card)
+    ``DistSquaredExpKernelLinOp``, and the row-sharded modes of four
+    single-device drivers: ``dist_bqrrp_factored`` (K1–K3 on the card),
+    ``dist_bqrrp`` (the explicit form; K2's forms in a trailing mode),
+    ``dist_hqrrp`` (K5/K6, or K3 with CholQR panels) and ``dist_abrik``
+    (CQRRT on the shards)
 """
 from .mesh import Mesh, make_mesh, replicated, row_sharded, set_mesh
 from .launch import run_ranks
 from .tsqr import dist_cholqr, dist_gram, dist_shifted_cholqr3
 from .distributed import dist_rangefinder_step, dist_sketch_left
-from .dist_drivers import (DistSquaredExpKernelLinOp, dist_bqrrp_factored,
-                           dist_cqrrpt, dist_cqrrt, dist_krill, dist_revd2,
+from .dist_drivers import (DistSquaredExpKernelLinOp, dist_abrik,
+                           dist_bqrrp, dist_bqrrp_factored, dist_cqrrpt,
+                           dist_cqrrt, dist_hqrrp, dist_krill, dist_revd2,
                            dist_rsvd, dist_spls)
 
 __all__ = ["Mesh", "make_mesh", "row_sharded", "replicated", "set_mesh",
            "run_ranks",
            "dist_cholqr", "dist_gram", "dist_shifted_cholqr3",
            "dist_sketch_left", "dist_rangefinder_step",
-           "dist_bqrrp_factored", "dist_cqrrpt", "dist_cqrrt", "dist_rsvd",
+           "dist_bqrrp", "dist_bqrrp_factored", "dist_hqrrp", "dist_abrik",
+           "dist_cqrrpt", "dist_cqrrt", "dist_rsvd",
            "dist_revd2", "dist_spls", "dist_krill",
            "DistSquaredExpKernelLinOp"]

@@ -14,12 +14,14 @@ U, V as this rank's rows, and R, J, S, B, λ, x and the flags replicated
 Random draws: the JAX functions draw with ``jax.random`` from
 ``state.spawn()``; the port cannot reproduce threefry, so each takes the
 draw injected after the JAX parameters (``sketch=``: this rank's (d, m/p)
-column block of S; ``omega=``, ``v0=``; ``noise=`` for RPCholesky), and an
-injected draw still advances ``state``. An undrawn S is the counter-based
-Philox operator of ``ops.kernels.gaussian_sketch_matrix`` of the state's
-seed, each rank generating only its own columns, so it does not depend on
-the world size; the small replicated draws come from ``state.spawn`` on
-the rank's device.
+column block of S or G; ``omega=``, ``v0=``, ``qr_sketches=``; ``noise=``
+for RPCholesky), and an injected draw still advances ``state``. An undrawn
+S of the tall drivers is the counter-based Philox operator of
+``ops.kernels.gaussian_sketch_matrix`` of the state's seed, each rank
+generating only its own columns; the BQRRP sketches, HQRRP's G and
+ABRIK's m-side sketches are drawn whole on every rank, as the unsharded
+driver draws them, and sliced. Neither depends on the world size. The
+small replicated draws come from ``state.spawn`` on the rank's device.
 """
 from __future__ import annotations
 
@@ -140,6 +142,24 @@ def dist_rsvd(A: torch.Tensor, k: int, mesh: Mesh, state: RNGState,
     return matmul(Q, Ub, precision), S, Vt, fail, state
 
 
+def dist_bqrrp(A: torch.Tensor, mesh: Mesh, state: RNGState,
+               block_size: int = 256, stages: int = 1, axis: str = "rows",
+               precision=STABLE_PRECISION, sketch=None):
+    """Distributed explicit BQRRP (``drivers.bqrrp``'s row-sharded mode):
+    panel Grams, the BCGS2 projections and the trailing projections
+    psummed, the trailing updates row-local, pivots on the replicated
+    sketch. ``sketch`` injects this rank's (d, m/p) column block of the
+    sketch (d = 1.25·b); an undrawn sketch is the unsharded driver's,
+    sliced. Returns ``(Q, R, J, rank, fail, next_state)`` with Q this
+    rank's rows."""
+    from ..drivers.bqrrp import BQRRPConfig, bqrrp
+    check_axis(mesh, axis)
+    cfg = BQRRPConfig(block_size=block_size, stages=stages,
+                      shard_axis=axis)
+    with set_mesh(mesh):
+        return bqrrp(A, cfg, state, precision, sketch=sketch)
+
+
 def dist_bqrrp_factored(A: torch.Tensor, mesh: Mesh, state: RNGState,
                         block_size: int = 256, stages: int = 1,
                         axis: str = "rows", precision=STABLE_PRECISION,
@@ -158,6 +178,43 @@ def dist_bqrrp_factored(A: torch.Tensor, mesh: Mesh, state: RNGState,
                       shard_axis=axis)
     with set_mesh(mesh):
         return bqrrp_factored(A, cfg, state, precision, sketch=sketch)
+
+
+def dist_hqrrp(A: torch.Tensor, mesh: Mesh, state: RNGState,
+               block_size: int = 64, axis: str = "rows",
+               precision=STABLE_PRECISION, sketch=None):
+    """Distributed HQRRP (``drivers.hqrrp``'s row-sharded mode): the
+    sketch QRCP (K5) on the replicated sketch, each Householder panel (K6)
+    on the panel gathered whole, the WY trailing updates row-local with
+    their Vᵀ·A psummed, the uniform operator G column-sharded along m.
+    ``sketch`` injects this rank's (d, m/p) column block of G (d = b +
+    10); an undrawn G is drawn whole on every rank and sliced. Returns
+    ``(Q, R, J, rank, fail, next_state)`` with Q this rank's rows."""
+    from ..drivers.hqrrp import HQRRPConfig, hqrrp
+    check_axis(mesh, axis)
+    cfg = HQRRPConfig(block_size=block_size, shard_axis=axis)
+    with set_mesh(mesh):
+        return hqrrp(A, cfg, state, precision, sketch=sketch)
+
+
+def dist_abrik(A: torch.Tensor, k: int, mesh: Mesh, state: RNGState,
+               block_size: int = 32, max_iters: int = 10,
+               axis: str = "rows", precision=STABLE_PRECISION, v0=None,
+               qr_sketches=None):
+    """Distributed ABRIK (``drivers.abrik``'s row-sharded mode, its inner
+    tall QRs through CQRRT on the shards): A·V row-local, Aᵀ·U and the
+    inner Grams psummed, the n-side work replicated. ``v0`` injects the
+    (n, b) start and ``qr_sketches`` the 2q unscaled sketches: the m-side
+    ones (i = 0 and every odd i) as this rank's column block, the n-side
+    ones (every even i from 2) whole, entry 1 unused. Returns ``(U, S,
+    Vt, info, next_state)`` with U this rank's rows."""
+    from ..drivers.abrik import ABRIKConfig, abrik
+    check_axis(mesh, axis)
+    cfg = ABRIKConfig(block_size=block_size, max_iters=max_iters,
+                      qr_explicit="cqrrt", shard_axis=axis)
+    with set_mesh(mesh):
+        return abrik(A, k, cfg, state, precision=precision, v0=v0,
+                     qr_sketches=qr_sketches)
 
 
 def dist_spls(A: torch.Tensor, b: torch.Tensor, mu, mesh: Mesh,

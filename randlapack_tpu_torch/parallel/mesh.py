@@ -258,6 +258,19 @@ def global_rows(m_local: int, mesh: Mesh, what: str) -> int:
     return m_local * mesh.size
 
 
+def shard_rows(A: torch.Tensor, mesh: Mesh | None, what: str):
+    """``(m, mesh)`` for the operand A of a driver's row-sharded mode: the
+    global row count (``global_rows``, after checking that A lies on the
+    rank's device) and the mesh, or None for a mesh of one rank (its call
+    is the unsharded one). With no mesh, A's own row count and None."""
+    if mesh is None:
+        return A.shape[0], None
+    require(A.device == mesh.device, f"A is on {A.device}, the mesh's "
+            f"rank computes on {mesh.device}")
+    m = global_rows(A.shape[0], mesh, what)
+    return m, (mesh if mesh.size > 1 else None)
+
+
 def check_axis(mesh: Mesh, axis: str) -> None:
     require(axis == mesh.axis, f"axis {axis!r} is not the mesh's "
             f"{mesh.axis!r}")

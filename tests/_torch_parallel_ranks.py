@@ -12,13 +12,18 @@ import numpy as np
 import torch
 
 from randlapack_tpu_torch import RNGState
-from randlapack_tpu_torch.drivers import (BQRRPConfig, bqrrp_apply_qt,
-                                          bqrrp_factored, bqrrp_q)
+from randlapack_tpu_torch.drivers import (ABRIKConfig, BQRRPConfig,
+                                          HQRRPConfig, PanelQR, abrik,
+                                          bqrrp, bqrrp_apply_qt,
+                                          bqrrp_factored, bqrrp_q, hqrrp,
+                                          hqrrp_lapack_format)
 from randlapack_tpu_torch.ops.cholqr import _finite_scaled, cholqr2
 from randlapack_tpu_torch.parallel import (DistSquaredExpKernelLinOp,
+                                           dist_abrik, dist_bqrrp,
                                            dist_bqrrp_factored, dist_cholqr,
                                            dist_cqrrpt, dist_cqrrt,
-                                           dist_gram, dist_krill,
+                                           dist_gram, dist_hqrrp,
+                                           dist_krill,
                                            dist_rangefinder_step, dist_revd2,
                                            dist_rsvd, dist_shifted_cholqr3,
                                            dist_sketch_left, dist_spls,
@@ -159,7 +164,8 @@ def bqrrp_body(mesh, cases):
 
 def refusals_body(mesh):
     """What a rank must refuse: rows that do not split evenly, shard_axis
-    with no mesh set, a mesh axis the config does not name."""
+    with no mesh set, a mesh axis the config does not name (each driver
+    with a row-sharded mode)."""
     def raises(fn):
         try:
             fn()
@@ -168,21 +174,35 @@ def refusals_body(mesh):
         return None
 
     A = torch.randn(8 + mesh.rank, 4, dtype=torch.float64)
-    cfg = BQRRPConfig(block_size=2, shard_axis="rows")
-    return {
+    calls = {
+        "": lambda a: bqrrp_factored(a, BQRRPConfig(
+            block_size=2, shard_axis="rows"), RNGState(0)),
+        "_bqrrp": lambda a: bqrrp(a, BQRRPConfig(
+            block_size=2, shard_axis="rows"), RNGState(0)),
+        "_hqrrp": lambda a: hqrrp(a, HQRRPConfig(
+            block_size=2, shard_axis="rows"), RNGState(0)),
+        "_hqrrp_lapack_format": lambda a: hqrrp_lapack_format(
+            a, HQRRPConfig(block_size=2, shard_axis="rows"), RNGState(0)),
+        "_abrik": lambda a: abrik(a, 2, ABRIKConfig(
+            block_size=2, max_iters=2, shard_axis="rows"), RNGState(0)),
+    }
+    out = {
         "uneven": raises(lambda: dist_gram(A, mesh)),
         "uneven_put": raises(lambda: row_sharded(mesh).put(
             torch.zeros(4 * mesh.size + 1, 3))),
-        "no_mesh": raises(lambda: bqrrp_factored(A[:8], cfg, RNGState(0))),
-        "other_axis": raises(lambda: _with_other_axis(mesh, A[:8], cfg)),
     }
+    for tag, call in calls.items():
+        out["no_mesh" + tag] = raises(lambda: call(A[:8]))
+        out["other_axis" + tag] = raises(
+            lambda: _with_other_axis(mesh, A[:8], call))
+    return out
 
 
-def _with_other_axis(mesh, A, cfg):
+def _with_other_axis(mesh, A, call):
     import dataclasses
     other = dataclasses.replace(mesh, axis="cols")
     with set_mesh(other):
-        return bqrrp_factored(A, cfg, RNGState(0))
+        return call(A)
 
 
 def rescue_body(mesh, A, S, kw):
@@ -193,13 +213,13 @@ def rescue_body(mesh, A, S, kw):
 
 
 def _launches():
-    from randlapack_tpu_torch.ops import lu, wy
-    return {**wy.LAUNCHES, **lu.LAUNCHES}
+    from randlapack_tpu_torch.ops import lu, qrcp, wy
+    return {**wy.LAUNCHES, **lu.LAUNCHES, **qrcp.LAUNCHES}
 
 
 def _reset_launches():
-    from randlapack_tpu_torch.ops import lu, wy
-    for counts in (wy.LAUNCHES, lu.LAUNCHES):
+    from randlapack_tpu_torch.ops import lu, qrcp, wy
+    for counts in (wy.LAUNCHES, lu.LAUNCHES, qrcp.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -242,3 +262,139 @@ def cuda_cholqr_body(mesh, m, n):
                 orth=float(torch.linalg.norm(G - torch.eye(
                     n, dtype=G.dtype, device=G.device))),
                 fail=bool(fail), backend=torch.distributed.get_backend())
+
+
+def _abrik_sketches(mesh, sk):
+    """ABRIK's injected sketches on this rank: the m-side ones (i = 0 and
+    every odd i) as its column block, the n-side ones whole."""
+    if sk is None:
+        return None
+    return [None if S is None else _cols(mesh, S) if i == 0 or i % 2
+            else _t(S) for i, S in enumerate(sk)]
+
+
+def qr_body(mesh, cases):
+    """The row-sharded explicit BQRRP, HQRRP (with hqrrp_lapack_format)
+    and ABRIK on each case, JAX's draws injected; each driver once more
+    with the draws left to the port; at one rank also the unsharded
+    driver on the whole inputs."""
+    out = {}
+    one = mesh.size == 1
+    for tag, c in cases["bqrrp"].items():
+        As, kw = _rows(mesh, c["A"]), c["kw"]
+        st, S = RNGState(c["seed"]), _cols(mesh, c["S"])
+        if set(kw) <= {"block_size", "stages"}:
+            res = dist_bqrrp(As, mesh, st, sketch=S, **kw)
+        else:
+            with set_mesh(mesh):
+                res = bqrrp(As, BQRRPConfig(shard_axis="rows", **kw), st,
+                            sketch=S)
+        keys = ("Q", "R", "J", "rank", "fail")
+        out[tag] = dict(zip(keys, res), counter=res[5].counter)
+        if one:
+            res1 = bqrrp(_t(c["A"]), BQRRPConfig(**kw), RNGState(c["seed"]),
+                         sketch=_t(c["S"]))
+            out[tag]["single"] = dict(zip(keys, res1))
+    for tag, c in cases["hqrrp"].items():
+        As, st, G = _rows(mesh, c["A"]), RNGState(c["seed"]), c["G"]
+        panel = PanelQR(c["panel"])
+        cfg = HQRRPConfig(block_size=c["b"], panel_qr=panel)
+        if panel == PanelQR.qrcp:
+            res = dist_hqrrp(As, mesh, st, block_size=c["b"],
+                             sketch=_cols(mesh, G))
+        else:
+            with set_mesh(mesh):
+                res = hqrrp(As, HQRRPConfig(block_size=c["b"],
+                                            panel_qr=panel,
+                                            shard_axis="rows"), st,
+                            sketch=_cols(mesh, G))
+        with set_mesh(mesh):
+            lap = hqrrp_lapack_format(
+                As, HQRRPConfig(block_size=c["b"], panel_qr=panel,
+                                shard_axis="rows"), st,
+                sketch=_cols(mesh, G))
+        keys = ("Q", "R", "J", "rank", "fail")
+        out[tag] = dict(zip(keys, res), counter=res[5].counter,
+                        packed=lap[0], taus=lap[1])
+        if one:
+            res1 = hqrrp(_t(c["A"]), cfg, RNGState(c["seed"]),
+                         sketch=_t(G))
+            lap1 = hqrrp_lapack_format(_t(c["A"]), cfg, RNGState(c["seed"]),
+                                       sketch=_t(G))
+            out[tag]["single"] = dict(zip(keys, res1), packed=lap1[0],
+                                      taus=lap1[1])
+    for tag, c in cases["abrik"].items():
+        As, st, kw = _rows(mesh, c["A"]), RNGState(c["seed"]), c["kw"]
+        v0, sk = _t(c["v0"]), _abrik_sketches(mesh, c["sk"])
+        if kw.get("qr_explicit") == "cqrrt" and not c["tol"]:
+            res = dist_abrik(As, c["k"], mesh, st, block_size=kw[
+                "block_size"], max_iters=kw["max_iters"], v0=v0,
+                qr_sketches=sk)
+        else:
+            with set_mesh(mesh):
+                res = abrik(As, c["k"], ABRIKConfig(shard_axis="rows", **kw),
+                            st, tol=c["tol"], v0=v0, qr_sketches=sk)
+        U, S, Vt, info, st2 = res
+        out[tag] = dict(U=U, S=S, Vt=Vt, iters=info["num_krylov_iters"],
+                        capture=info["capture"], counter=st2.counter)
+        if one:
+            U1, S1, Vt1, info1, _ = abrik(
+                _t(c["A"]), c["k"], ABRIKConfig(**kw), RNGState(c["seed"]),
+                tol=c["tol"], v0=v0, qr_sketches=c["sk"] and [
+                    None if x is None else _t(x) for x in c["sk"]])
+            out[tag]["single"] = dict(U=U1, S=S1, Vt=Vt1,
+                                      capture=info1["capture"])
+    # the draws left to the port: the sketch / G / m-side sketches drawn
+    # whole and sliced on every rank
+    c = cases["bqrrp"]["straddle"]
+    res = dist_bqrrp(_rows(mesh, c["A"]), mesh, RNGState(5), block_size=32)
+    out["drawn_bqrrp"] = dict(R=res[1], J=res[2])
+    c = cases["hqrrp"]["straddle_cholqr"]
+    with set_mesh(mesh):
+        res = hqrrp(_rows(mesh, c["A"]), HQRRPConfig(
+            block_size=32, panel_qr=PanelQR.cholqr, shard_axis="rows"),
+            RNGState(5))
+    out["drawn_hqrrp"] = dict(R=res[1], J=res[2])
+    c = cases["abrik"]["cqrrt"]
+    res = dist_abrik(_rows(mesh, c["A"]), c["k"], mesh, RNGState(5),
+                     block_size=16, max_iters=4)
+    out["drawn_abrik"] = dict(S=res[1], Vt=res[2])
+    return out
+
+
+def cuda_qr_body(mesh, entry, A, sketch):
+    """One row-sharded QR entry on the card (A and the injected sketch or
+    G whole, as numpy; its dtype is A's): this rank's launches, Q's rows,
+    R, J and fail. "bqrrp_high" is the explicit BQRRP at b 64 in the
+    "high" trailing mode, "hqrrp" / "hqrrp_cholqr" HQRRP at b 32 with
+    Householder / CholQR panels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    As, S = _rows(mesh, A), _cols(mesh, sketch)
+    _reset_launches()
+    if entry == "bqrrp_high":
+        cfg = BQRRPConfig(block_size=64, trailing_precision="high",
+                          shard_axis="rows")
+        with set_mesh(mesh):
+            Q, R, J, _, fail, _ = bqrrp(As, cfg, RNGState(3), sketch=S)
+    elif entry == "hqrrp":
+        Q, R, J, _, fail, _ = dist_hqrrp(As, mesh, RNGState(3),
+                                         block_size=32, sketch=S)
+    else:
+        cfg = HQRRPConfig(block_size=32, panel_qr=PanelQR.cholqr,
+                          shard_axis="rows")
+        with set_mesh(mesh):
+            Q, R, J, _, fail, _ = hqrrp(As, cfg, RNGState(3), sketch=S)
+    torch.cuda.synchronize()
+    return dict(counts=_launches(), Q=Q, R=R, J=J, fail=fail)
+
+
+def cuda_abrik_body(mesh, A, v0, sk):
+    """dist_abrik (k 12, b 16, q 4) on the card with the draws injected:
+    this rank's launches, U's rows, S and Vt."""
+    _reset_launches()
+    U, S, Vt, info, _ = dist_abrik(_rows(mesh, A), 12, mesh, RNGState(8),
+                                   block_size=16, max_iters=4, v0=_t(v0),
+                                   qr_sketches=_abrik_sketches(mesh, sk))
+    torch.cuda.synchronize()
+    return dict(counts=_launches(), U=U, S=S, Vt=Vt,
+                iters=info["num_krylov_iters"])

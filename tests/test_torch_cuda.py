@@ -2110,6 +2110,119 @@ def test_dist_bqrrp_factored_two_gloo_ranks_on_one_card(cuda):
         assert sorted(r["J"].tolist()) == list(range(n))
 
 
+def _spread_columns(m, n, seed, dtype=np.float64):
+    """A Gaussian m×n matrix with exp(-3·U) column scaling (pivots well
+    above rounding level) as numpy."""
+    g = np.random.default_rng(seed)
+    return (g.standard_normal((m, n))
+            * np.exp(-3.0 * g.random(n))).astype(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,launches", [
+    ("hqrrp", {"qrcp_select_pivots": 6, "qrcp_panel": 6, "getrfnp": 0}),
+    ("hqrrp_cholqr", {"qrcp_select_pivots": 6, "qrcp_panel": 0,
+                      "getrfnp": 6})])
+def test_dist_hqrrp_two_gloo_ranks_on_one_card(cuda, entry, launches):
+    """The row-sharded HQRRP in f64 on two gloo ranks of one card: each
+    rank launches K5 and K6 (or, with CholQR panels, K5 and K3) once a
+    block, and Q's rows, R and J agree with the plain versions' (the port
+    on the CPU, the same G) within 1e-10 of the largest entry."""
+    from randlapack_tpu_torch.drivers import HQRRPConfig, PanelQR, hqrrp
+    from randlapack_tpu_torch.parallel import run_ranks
+    m, n = 256, 192
+    A = _spread_columns(m, n, 3)
+    G = np.random.default_rng(4).uniform(-1.0, 1.0, (42, m))
+    out = run_ranks(_ranks().cuda_qr_body, 2, entry, A, G, backend="gloo",
+                    device="cuda", timeout=300)
+    panel = PanelQR.cholqr if entry == "hqrrp_cholqr" else PanelQR.qrcp
+    Q, R, J, _, fail, _ = hqrrp(torch.from_numpy(A), HQRRPConfig(
+        block_size=32, panel_qr=panel), rt.RNGState(3),
+        sketch=torch.from_numpy(G))
+    for r in out:
+        assert {k: r["counts"][k] for k in launches} == launches
+        assert np.array_equal(r["R"], out[0]["R"])
+        assert np.array_equal(r["J"], out[0]["J"])
+        assert not r["fail"]
+    np.testing.assert_array_equal(out[0]["J"], J.numpy())
+    Qd = np.concatenate([r["Q"] for r in out])
+    for x, ref in ((Qd, Q.numpy()), (out[0]["R"], R.numpy())):
+        assert np.abs(x - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_dist_bqrrp_high_two_gloo_ranks_on_one_card(cuda):
+    """The row-sharded explicit BQRRP in the "high" mode, f32, on two gloo
+    ranks of one card: each rank launches K2·TF32 once a block (and no
+    other K1/K2 form), the factorization holds the mode's residual gate
+    (2·2⁻¹¹) and f32 orthogonality, R and J the same on both ranks, and
+    J agrees with the single-process card run on the leading half."""
+    from randlapack_tpu_torch.drivers import bqrrp
+    from randlapack_tpu_torch.parallel import run_ranks
+    m, n = 1024, 512
+    A = _spread_columns(m, n, 5, np.float32)
+    S = (np.random.default_rng(6).standard_normal((80, m))
+         / np.sqrt(80)).astype(np.float32)
+    out = run_ranks(_ranks().cuda_qr_body, 2, "bqrrp_high", A, S,
+                    backend="gloo", device="cuda", timeout=300)
+    eps = float(np.finfo(np.float32).eps)
+    At = torch.from_numpy(A).to(cuda)
+    _, _, J1, _, _, _ = bqrrp(At, BQRRPConfig(
+        block_size=64, trailing_precision="high"), rt.RNGState(3),
+        sketch=torch.from_numpy(S).to(cuda))
+    for r in out:
+        c = r["counts"]
+        assert c["a_minus_vz_masked_tf32"] == n // 64
+        assert sum(v for k, v in c.items() if k.startswith(
+            ("masked_vt_a", "a_minus_vz_masked"))) == n // 64
+        assert np.array_equal(r["R"], out[0]["R"])
+        assert np.array_equal(r["J"], out[0]["J"])
+        assert not r["fail"]
+    Q = np.concatenate([r["Q"] for r in out]).astype(np.float64)
+    R, J = out[0]["R"].astype(np.float64), out[0]["J"]
+    res = np.linalg.norm(Q @ R - A[:, J].astype(np.float64)) \
+        / np.linalg.norm(A.astype(np.float64))
+    assert res <= 2 * 2.0 ** -11
+    assert np.linalg.norm(Q.T @ Q - np.eye(n)) <= 10 * eps ** 0.75 \
+        * np.sqrt(n)
+    np.testing.assert_array_equal(J[:n // 2], J1.cpu().numpy()[:n // 2])
+
+
+@pytest.mark.cuda
+def test_dist_abrik_two_gloo_ranks_on_one_card(cuda):
+    """dist_abrik in f64 on two gloo ranks of one card (no kernel), k 12
+    of a 64-column Krylov space: S bit-equal on both ranks and within
+    1e-10·σ₀ of the port's single-process abrik on the CPU with the same
+    draws injected, U's rows and Vt within 1e-9 after sign alignment
+    (test_abrik_on_the_card_f64_against_the_cpu's gates)."""
+    from randlapack_tpu_torch.drivers import ABRIKConfig, abrik
+    from randlapack_tpu_torch.parallel import run_ranks
+    m, n = 256, 128
+    g = np.random.default_rng(7)
+    A = (g.standard_normal((m, n)) * np.exp(-np.arange(n) / 4.0))
+    v0 = g.standard_normal((n, 16))
+    sk = [None if i == 1 else g.standard_normal(
+        (20, m if i == 0 or i % 2 else n)) for i in range(8)]
+    out = run_ranks(_ranks().cuda_abrik_body, 2, A, v0, sk, backend="gloo",
+                    device="cuda", timeout=300)
+    U, S, Vt, info, _ = abrik(
+        torch.from_numpy(A), 12, ABRIKConfig(block_size=16, max_iters=4,
+                                             qr_explicit="cqrrt"),
+        rt.RNGState(8), v0=torch.from_numpy(v0),
+        qr_sketches=[None if x is None else torch.from_numpy(x)
+                     for x in sk])
+    for r in out:
+        assert not any(r["counts"].values())
+        assert np.array_equal(r["S"], out[0]["S"])
+        assert r["iters"] == info["num_krylov_iters"]
+    Ud = np.concatenate([r["U"] for r in out])
+    sv = np.sign(np.sum(out[0]["Vt"] * Vt.numpy(), axis=1))
+    su = np.sign(np.sum(Ud * U.numpy(), axis=0))
+    assert np.abs(out[0]["S"] - S.numpy()).max() <= 1e-10 * float(S[0])
+    assert np.abs(out[0]["Vt"] * sv[:, None] - Vt.numpy()).max() <= 1e-9
+    assert np.abs(Ud * su[None, :] - U.numpy()).max() <= 1e-9
+
+
 @pytest.mark.cuda
 def test_dist_cholqr_one_nccl_rank(cuda):
     from randlapack_tpu_torch.parallel import run_ranks

@@ -217,7 +217,11 @@ def test_float32_headline_config_gates():
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("shard_axis", "rows", NotImplementedError),
+    # refused until the row-sharded mode was ported (the id is kept): now
+    # it needs a mesh of that axis set (parallel.set_mesh), and with none
+    # it raises ValueError
+    pytest.param("shard_axis", "rows", ValueError,
+                 id="shard_axis-rows-NotImplementedError"),
     # refused until the trailing modes were ported (the id is kept): now
     # it runs, and on the CPU "default" is the "highest" product
     pytest.param("trailing_precision", "default", None,
@@ -264,3 +268,46 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     cfg = HQRRPConfig()
     assert cfg.pallas_qrcp == cfg.pallas_panel == "auto"
+
+
+def _last_block_cond(A, b):
+    """Condition number of the last b×b trailing block of A's R from
+    LAPACK geqp3 in f64."""
+    import scipy.linalg
+    R = scipy.linalg.qr(A.astype(np.float64), mode="r", pivoting=True)[0]
+    s = np.linalg.svd(R[-b:, -b:], compute_uv=False)
+    return s[0] / s[-1]
+
+
+def test_f32_cholqr_panels_break_on_an_ill_conditioned_last_block():
+    """CholQR panels square a panel's condition number, so in f32 they
+    break down where a panel's exceeds 1/√eps32 (2.9e3). A square
+    ``fast_decay_matrix`` ends in such a block (its square Gaussian factor
+    puts a cliff at the tail of the spectrum): at 512², b 128, seed 1 the
+    last 128×128 trailing block has condition 1.2e5, and both packages'
+    f32 HQRRP with CholQR panels raise ``fail``. A matrix with orthogonal
+    factors and the same e^(−6i/n) spectrum keeps the block near 10, and
+    neither raises it. (chip_smoke.py's sharded CholQR-panel entry runs on
+    such a matrix for this reason.)"""
+    from randlapack_tpu.gen import fast_decay_matrix as j_fast_decay
+    n, b = 512, 128
+    g = np.random.default_rng(1)
+    Q1 = np.linalg.qr(g.standard_normal((n, n)))[0]
+    Q2 = np.linalg.qr(g.standard_normal((n, n)))[0]
+    smooth = ((Q1 * np.exp(-6.0 * np.arange(n) / n)) @ Q2.T).astype(
+        np.float32)
+    cliff = np.asarray(j_fast_decay(n, n, JRNG(1), dtype=jnp.float32)[0])
+    eps32 = float(np.finfo(np.float32).eps)
+    for A, broken in ((cliff, True), (smooth, False)):
+        assert (_last_block_cond(A, b) > 1 / math.sqrt(eps32)) == broken
+        st = JRNG(101)
+        fj = j_hqrrp(jnp.asarray(A), JCfg(block_size=b,
+                                          panel_qr=JPanel.cholqr), st)[4]
+        key, _ = st.spawn()
+        G = np.asarray(jax.random.uniform(key, (b + 10, n),
+                                          dtype=jnp.float32, minval=-1.0,
+                                          maxval=1.0))
+        ft = hqrrp(torch.tensor(A), HQRRPConfig(
+            block_size=b, panel_qr=PanelQR.cholqr), rt.RNGState(0),
+            sketch=torch.tensor(G))[4]
+        assert bool(fj) == bool(ft) == broken

@@ -18,7 +18,8 @@ non-finite flag on every rank, and dist_cholqr of the scaled input as
 JAX's (f64) or, in f32, where two packages' CholQR2 of a κ 1e4 input
 differ by rounding at 1e-4, as the port's own of the unscaled input
 (1e-5 on Q, 2e-5 on R/scale, the JAX test's gates). Refusals: rows that do not split evenly,
-``shard_axis`` with no mesh (or another axis) set, ``make_mesh`` for a
+``shard_axis`` with no mesh (or another axis) set (``bqrrp_factored``, the
+explicit ``bqrrp``, ``hqrrp``, ``hqrrp_lapack_format``, ``abrik``), ``make_mesh`` for a
 card on a host with none, a rank that raises, and a collective one rank
 never reaches (the launcher's timeout).
 """
@@ -210,8 +211,10 @@ def test_refusals_on_ranks():
     for r in out:
         assert "multiple of the mesh size" in r["uneven"]
         assert "do not split" in r["uneven_put"]
-        assert "no mesh with that axis" in r["no_mesh"]
-        assert "no mesh with that axis" in r["other_axis"]
+        for tag in ("", "_bqrrp", "_hqrrp", "_hqrrp_lapack_format",
+                    "_abrik"):
+            assert "no mesh with that axis" in r["no_mesh" + tag], tag
+            assert "no mesh with that axis" in r["other_axis" + tag], tag
 
 
 def test_make_mesh_refuses_a_card_it_does_not_have():
