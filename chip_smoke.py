@@ -113,7 +113,15 @@ low-rank drivers, the operator slice and least squares:
 - the n 65536 KRILL solve and that sketch once more with K4 and K7 pointed
   at their earlier SIMT kernels and at the tensor-core ones, in turns;
 - K5 and K6 with their earlier cooperative kernels and the step kernels,
-  in turns at the main shapes, and the 8192² HQRRP with each pair.
+  in turns at the main shapes, and the 8192² HQRRP with each pair;
+- [lu]: ops.qr.lu_factor (cuSOLVER's getrf through csrc/getrf.cu) against
+  lu_factor_ex under the cuSOLVER preference at the main paths' LU shapes,
+  bit for bit and in turns, with a thread reading the backend setting;
+- [edge]: the kernel paths (BQRRP, HQRRP, CQRRPT, KRILL, REVD2, two gloo
+  ranks of dist_bqrrp_factored and dist_hqrrp) at small shapes under
+  tools/fuzz_sweep.py's mutators, each kernel launched held against its
+  plain version on the run's operands, and each kernel and form alone on
+  mutated operands (randlapack_tpu_torch.utils.kernel_checks).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and is checked against the JAX test gates at f32 (residual,
@@ -133,6 +141,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
@@ -315,9 +324,8 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from randlapack_tpu_torch.ops import kernels, lu, qrcp, wy
-    return {**wy.LAUNCHES, **lu.LAUNCHES, **qrcp.LAUNCHES,
-            **kernels.LAUNCHES}
+    from randlapack_tpu_torch.utils.kernel_checks import launch_counts
+    return launch_counts()
 
 
 def sfu_rate() -> float:
@@ -420,6 +428,69 @@ def phase_build() -> None:
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f}"
           f" s ({nvcc}); ptxas: "
           f"{' | '.join(regs)}", flush=True)
+
+
+def switched_lu(A):
+    """The LU as ops.qr.lu_factor took it before its cuSOLVER binding: the
+    process-wide backend switched to cuSOLVER around lu_factor_ex."""
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.lu_factor_ex(A)
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+
+
+# the pivoted LUs of the main paths: the BQRRP headline's pivot pass
+# (the transposed d x n_rem sketch panel, d 320, at its first, a middle
+# and its last block) and comps.orth's PLU stabilization (RSVD config 1's
+# 4096 x 64, REVD2's 65536 x 1024)
+LU_SHAPES = ((N, 320), (N // 2, 320), (256, 320), (RSVD_N, RSVD_B),
+             (KRILL_N, REVD2_K))
+
+
+def phase_lu(dev) -> None:
+    """ops.qr.lu_factor (cuSOLVER's getrf through csrc/getrf.cu) against
+    the process-wide switch it replaced, at the main paths' shapes: LU,
+    pivots and info bit-equal, times in turns; a thread reading the
+    backend setting during 100 calls sees "default" throughout."""
+    import threading
+
+    from randlapack_tpu_torch.ops.qr import lu_factor
+    default = torch._C._LinalgBackend.Default
+    rows = []
+    for shape in LU_SHAPES:
+        Y = torch.randn(shape, device=dev)
+        new, old = lu_factor(Y), switched_lu(Y)
+        gate(all(torch.equal(a, b) for a, b in zip(new, old)),
+             f"lu: {shape} LU, pivots or info differ from the switched "
+             f"route")
+        reps = 3 if shape[0] * shape[1] > 1 << 24 else 20
+        t_old, t_new = in_turns(lambda: switched_lu(Y),
+                                lambda: lu_factor(Y), reps)
+        rows.append(f"{shape[0]}x{shape[1]} binding {t_new:.4f} ms, switch "
+                    f"{t_old:.4f} ms")
+    seen, stop = set(), threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            seen.add(torch.backends.cuda.preferred_linalg_library())
+
+    Y = torch.randn(LU_SHAPES[0], device=dev)
+    reader = threading.Thread(target=watch)
+    reader.start()
+    try:
+        for _ in range(100):
+            lu_factor(Y)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        reader.join(timeout=60)
+    gate(not reader.is_alive() and seen == {default},
+         f"lu: a reading thread saw the backend setting {seen}")
+    print("[lu] ops.qr.lu_factor f32 (cuSOLVER getrf through "
+          "csrc/getrf.cu) against the switched lu_factor_ex, bit-equal, in "
+          "turns: " + "; ".join(rows) + f"; a thread's readings during 100 "
+          f"calls: {sorted(str(b) for b in seen)}", flush=True)
 
 
 def phase_kernels(dev) -> dict:
@@ -5550,6 +5621,297 @@ def par_kernels_tf32(dev) -> None:
           f"{err:.3e} of max|plain| {scale:.3e})", flush=True)
 
 
+# [edge]: the port's driver paths and kernels under tools/fuzz_sweep.py's
+# mutators, at small shapes (1024² BQRRP at b 128 and HQRRP at b 64,
+# 8192×256 CQRRPT with the sketch QRCP through HQRRP, KRILL and REVD2 over
+# an n 4096 kernel operator, and 2 gloo ranks of dist_bqrrp_factored and
+# dist_hqrrp), fixed seeds. A run that flags ``fail`` or misses its f32
+# gate is run again on the CPU with the same draws: if the CPU run is
+# sound, the card's is a kernel fault and the phase raises; if not, the
+# line says "shared". Every kernel a run launched is held on that run's
+# operands (its first launch) against its plain version, and each kernel
+# and form alone on mutated operands (randlapack_tpu_torch.utils.
+# kernel_checks, whose gates are those of phase_kernels above)
+EDGE_N = 1024
+EDGE_MUTATORS = ("colscale", "neardup", "zerotiny", "kahan", "2^60",
+                 "2^-60", "1e25", "1e-25")
+
+
+def edge_input(shape, how, seed):
+    from randlapack_tpu_torch.utils import kernel_checks
+    g = torch.Generator()
+    g.manual_seed(seed)
+    A = torch.randn(shape, generator=g) * torch.exp(
+        -3 * torch.rand(shape[1], generator=g))[None, :]
+    return kernel_checks.mutate(A, how, g)
+
+
+def edge_paths():
+    """name -> (input shape, run(A, dev) -> outputs, the f32 gates)."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.comps import PCGConfig
+    from randlapack_tpu_torch.drivers import (BQRRPConfig, CQRRPTConfig,
+                                              HQRRPConfig, KrillConfig,
+                                              PanelQR, QRCPKind,
+                                              REVD2Config, bqrrp_factored,
+                                              bqrrp_q, cqrrpt, hqrrp,
+                                              krill_full_rpchol,
+                                              revd2_fixed_rank)
+    from randlapack_tpu_torch.interop import saso_from_numpy, saso_to_numpy
+    from randlapack_tpu_torch.pdkernels import SquaredExpKernelLinOp
+    from randlapack_tpu_torch.sketching import SparseDist, fill_sparse
+    g = torch.Generator()
+    g.manual_seed(5)
+    n = EDGE_N
+    S_bq = torch.randn((160, n), generator=g) / 160 ** 0.5
+    G_hq = torch.rand((74, n), generator=g) * 2 - 1
+    saso, _ = fill_sparse(SparseDist(320, 8192, 2), RNGState(7),
+                          device="cpu")
+    G_cq = torch.rand((138, 320), generator=g) * 2 - 1
+    kn = 1024                   # the kernel operator's n
+    noise = -torch.log(-torch.log(torch.rand((4, kn), generator=g)))
+    omega = torch.randn((kn, 64), generator=g)
+    v0 = torch.randn((kn, 1), generator=g)
+    H = torch.randn((kn, 1), generator=g)
+
+    def qr_out(Q, R, J, fail, k=None):
+        return dict(Q=Q, R=R, J=J, fail=bool(fail), k=k)
+
+    def bq(tp):
+        def run(A, dev):
+            fac, _ = bqrrp_factored(A.to(dev), BQRRPConfig(
+                block_size=128, trailing_precision=tp), RNGState(0),
+                sketch=S_bq.to(dev))
+            return qr_out(bqrrp_q(fac), fac.R, fac.J, fac.fail)
+        return run
+
+    def hq(panel, tp="highest"):
+        def run(A, dev):
+            Q, R, J, _, fail, _ = hqrrp(A.to(dev), HQRRPConfig(
+                block_size=64, panel_qr=panel, trailing_precision=tp),
+                RNGState(0), sketch=G_hq.to(dev))
+            return qr_out(Q, R, J, fail)
+        return run
+
+    def cq(A, dev):
+        f, rows, vals = saso_to_numpy(saso)
+        Q, R, J, k, fail, _ = cqrrpt(
+            A.to(dev), CQRRPTConfig(qrcp=QRCPKind.hqrrp, bqrrp_block=128),
+            RNGState(0), sketch=saso_from_numpy(f, rows, vals, device=dev),
+            qrcp_sketch=G_cq.to(dev))
+        return qr_out(Q, R, J, fail, int(k))
+
+    def kop(X, dev):
+        return SquaredExpKernelLinOp(X.to(dev), 3.8, 1e-2, block=2048)
+
+    def krill(X, dev):
+        x, _, it, _ = krill_full_rpchol(
+            kop(X, dev), H.to(dev), 1e-2, KrillConfig(
+                k=64, rpchol_block=16, pcg=PCGConfig(tol=1e-5,
+                                                      max_iters=200)),
+            RNGState(0), noise=noise.to(dev))
+        return dict(x=x, iters=it)
+
+    def revd2(X, dev):
+        V, lam, _, _, fail, _ = revd2_fixed_rank(
+            kop(X, dev), 64, REVD2Config(), RNGState(0),
+            omega=omega.to(dev), v0=v0.to(dev))
+        return dict(V=V, lam=lam, fail=bool(fail))
+
+    def qr_gates(tp):
+        def gates(A, o):
+            Q, R, J, k = o["Q"], o["R"], o["J"], o["k"]
+            if k is not None:
+                Q, R = Q[:, :k], R[:k]
+            perm = torch.equal(torch.sort(J.cpu()).values,
+                               torch.arange(A.shape[1]))
+            if o["fail"]:
+                return False, f"fail, J a permutation {perm}"
+            if not bool(torch.isfinite(Q).all() and torch.isfinite(R).all()):
+                return False, "non-finite output"
+            res, orth = _f64_res_orth(A.to(Q.device), Q, R, J)
+            ok = perm and res <= MODE_RES_GATE.get(tp, RES_GATE) and \
+                orth <= 10 * EPS32 ** 0.75 * math.sqrt(Q.shape[1])
+            return ok, f"res {res:.2e} orth {orth:.2e}"
+        return gates
+
+    def krill_gates(X, o):
+        """PCG stopped before its cap, and the backward error
+        ‖r‖/(‖K + μI‖₂‖x‖) within 10·tol (PCG's relative-residual stop
+        bounds it by tol; f32 drift between the recursive and the true
+        residual takes the rest; PERF.md §2's one eps32 holds only where
+        PCG reaches f32's floor, as on the main path), ‖K + μI‖₂ by 30
+        power steps in f64."""
+        x = o["x"].double()
+        K = kop(X.double(), x.device)
+        r = K.matmat(x) - H.double().to(x.device)
+        v = torch.ones_like(x)
+        for _ in range(30):
+            v = K.matmat(v)
+            Kn = float(torch.linalg.vector_norm(v))
+            v = v / Kn
+        back = float(torch.linalg.vector_norm(r) / (
+            Kn * torch.linalg.vector_norm(x))) / EPS32
+        return back <= 10 * 1e-5 / EPS32 and o["iters"] < 200, \
+            f"backward {back:.3f} eps, {o['iters']} iterations"
+
+    def revd2_gates(X, o):
+        V, lam = o["V"].double(), o["lam"]
+        orth = float(torch.linalg.norm(V.T @ V - torch.eye(
+            64, dtype=torch.float64, device=V.device)))
+        ok = (not o["fail"] and orth <= 10 * EPS32 ** 0.75 * 8
+              and bool((lam >= 0).all() and (lam[:-1] >= lam[1:]).all()))
+        return ok, f"orth {orth:.2e}, fail {o['fail']}"
+
+    paths = {f"bqrrp_factored {n}x{n} b128 {tp}": ((n, n), bq(tp),
+                                                    qr_gates(tp))
+             for tp in ("highest", *MODES)}
+    paths[f"hqrrp {n}x{n} b64 qrcp"] = ((n, n), hq(PanelQR.qrcp),
+                                        qr_gates("highest"))
+    paths[f"hqrrp {n}x{n} b64 qrcp high"] = ((n, n), hq(PanelQR.qrcp,
+                                                        "high"),
+                                             qr_gates("high"))
+    paths[f"hqrrp {n}x{n} b64 cholqr"] = ((n, n), hq(PanelQR.cholqr),
+                                          qr_gates("highest"))
+    paths["cqrrpt 8192x256 qrcp=hqrrp b128"] = ((8192, 256), cq,
+                                                qr_gates("highest"))
+    paths[f"krill_full_rpchol n{kn} d8 k64"] = ((8, kn), krill,
+                                                 krill_gates)
+    paths[f"revd2_fixed_rank n{kn} d8 k64"] = ((8, kn), revd2, revd2_gates)
+    return paths
+
+
+def edge_rank_body(mesh, mutators):
+    """2 gloo ranks: dist_bqrrp_factored (K1-K3) and dist_hqrrp (K5, K6)
+    on 1024x512 under each mutator, and beside each the single-process
+    driver on the whole input (its ``fail`` must agree); the gates and
+    each kernel's hold on this rank's first launch, per mutator."""
+    from randlapack_tpu_torch import RNGState
+    from randlapack_tpu_torch.drivers import (BQRRPConfig, HQRRPConfig,
+                                              bqrrp_factored, bqrrp_q,
+                                              hqrrp)
+    from randlapack_tpu_torch.parallel import (dist_bqrrp_factored,
+                                               dist_hqrrp, row_sharded)
+    from randlapack_tpu_torch.utils import kernel_checks
+    out = {}
+    for how in mutators:
+        A = edge_input((1024, 512), how, 3)
+        g = torch.Generator()
+        g.manual_seed(4)
+        S = torch.randn((160, 1024), generator=g) / 160 ** 0.5
+        G = torch.rand((74, 1024), generator=g) * 2 - 1
+        r0, r1 = mesh.rows(1024 // mesh.size)
+        As = row_sharded(mesh).put(A)
+        for name in ("dist_bqrrp_factored", "dist_hqrrp"):
+            with kernel_checks.Recorder() as rec:
+                if name == "dist_bqrrp_factored":
+                    fac, _ = dist_bqrrp_factored(
+                        As, mesh, RNGState(0), block_size=128,
+                        sketch=S[:, r0:r1].to(mesh.device))
+                    Q, R, J, fail = (bqrrp_q(fac, mesh=mesh), fac.R, fac.J,
+                                     fac.fail)
+                else:
+                    Q, R, J, _, fail, _ = dist_hqrrp(
+                        As, mesh, RNGState(0), block_size=64,
+                        sketch=G[:, r0:r1].to(mesh.device))
+            Qw = mesh.gather_rows(Q)
+            res, orth = _f64_res_orth(A.to(Q.device), Qw, R, J)
+            held = {k: v["ok"] for k, v in rec.hold().items()}
+            Ad = A.to(mesh.device)
+            if name == "dist_bqrrp_factored":
+                f1, _ = bqrrp_factored(Ad, BQRRPConfig(block_size=128),
+                                       RNGState(0), sketch=S.to(mesh.device))
+                Q1, R1, J1, fail1 = bqrrp_q(f1), f1.R, f1.J, f1.fail
+            else:
+                Q1, R1, J1, _, fail1, _ = hqrrp(
+                    Ad, HQRRPConfig(block_size=64), RNGState(0),
+                    sketch=G.to(mesh.device))
+            out[(name, how)] = dict(
+                res=res, orth=orth, fail=bool(fail), single_fail=bool(fail1),
+                single=_f64_res_orth(Ad, Q1, R1, J1), launches=rec.launches,
+                held=held)
+    return out
+
+
+def edge_run(run, gates, A, dev):
+    """``gates(A, run(A, dev))``, an exception counted as unsound."""
+    try:
+        return gates(A, run(A, dev))
+    except (RuntimeError, ValueError) as e:   # a LinAlgError, a refusal
+        return False, f"raised {type(e).__name__}: {str(e)[:80]}"
+
+
+def phase_edge(dev) -> None:
+    """[edge]: the driver paths and kernels under the mutators (see the
+    comment above EDGE_N)."""
+    from randlapack_tpu_torch.parallel import run_ranks
+    from randlapack_tpu_torch.utils import kernel_checks
+    t0 = time.perf_counter()
+    runs = shared = 0
+    for name, (shape, run, gates) in edge_paths().items():
+        rows, launches = [], Counter()
+        for i, how in enumerate(EDGE_MUTATORS):
+            A = edge_input(shape, how, 10 + i)
+            with kernel_checks.Recorder() as rec:
+                ok, detail = edge_run(run, gates, A, dev)
+                torch.cuda.synchronize()
+            runs += 1
+            launches.update(rec.launches)
+            for kname, r in rec.hold().items():
+                gate(r["ok"], f"edge: {name} {how}: {kname} against its "
+                     f"plain version: {r['why']}")
+            if not ok:
+                cpu_ok, cpu_detail = edge_run(run, gates, A, "cpu")
+                gate(not cpu_ok, f"edge: {name} {how}: the card run is "
+                     f"unsound ({detail}) where the CPU's is sound "
+                     f"({cpu_detail})")
+                shared += 1
+                detail += f" [shared: the CPU run too, {cpu_detail}]"
+            rows.append(f"{how} {detail}")
+        print(f"[edge] {name}: " + "; ".join(rows) + f"; launches over "
+              f"the {len(EDGE_MUTATORS)} runs {dict(launches)}, every "
+              f"kernel held on each run's operands", flush=True)
+    par = run_ranks(edge_rank_body, 2, EDGE_MUTATORS, backend="gloo",
+                    device="cuda", timeout=600)
+    for name in ("dist_bqrrp_factored", "dist_hqrrp"):
+        rows = []
+        for how in EDGE_MUTATORS:
+            r = par[0][(name, how)]
+            gate(all(all(p[(name, how)]["held"].values()) for p in par),
+                 f"edge: {name} {how}: a kernel differs from its plain "
+                 f"version on a rank's operands")
+            def sound(fail, res, orth):
+                return not fail and res <= RES_GATE and \
+                    orth <= 10 * EPS32 ** 0.75 * math.sqrt(512)
+            ok = sound(r["fail"], r["res"], r["orth"])
+            gate(r["fail"] == r["single_fail"]
+                 and (ok or not sound(r["single_fail"], *r["single"])),
+                 f"edge: {name} {how}: {r}")
+            runs += 1
+            rows.append(f"{how} res {r['res']:.2e} orth {r['orth']:.2e}"
+                        + ("" if ok else f", fail {r['fail']} [shared: one "
+                           f"process too, res {r['single'][0]:.2e}]"))
+        print(f"[edge] {name} 1024x512, 2 gloo ranks: " + "; ".join(rows)
+              + f"; rank 0's launches {par[0][(name, how)]['launches']}",
+              flush=True)
+    cases = 0
+    by_kernel = {}
+    for kname, how in kernel_checks.cases():
+        r = kernel_checks.hold(kname, *kernel_checks.operands(
+            kname, how, False, dev))
+        gate(r["ok"], f"edge: {kname} on {how} operands: {r['why']}")
+        by_kernel.setdefault(kname, []).append(
+            f"{how} {r['max_abs_err']:.1e}" + (f" ({r['why']})"
+                                                if r["why"] else ""))
+        cases += 1
+    for kname, rows in by_kernel.items():
+        print(f"[edge-kernel] {kname} against its plain version, max|d|: "
+              + "; ".join(rows), flush=True)
+    print(f"[edge] {runs} driver runs ({shared} unsound on the CPU too), "
+          f"{cases} kernel cases: every gate held, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5573,6 +5935,7 @@ def main() -> int:
 
     smi = run(phase_env)
     run(phase_build)
+    run(phase_lu, dev)
     timed = run(phase_kernels, dev)
     timed.update(run(phase_wy_modes, dev))
     counts = {"bqrrp": run(phase_main, dev, f"{smi}")}
@@ -5612,6 +5975,7 @@ def main() -> int:
     dist_counts = run(phase_parallel, dev, f"{smi}")
     run(phase_k4_k7_old_vs_new, dev)
     run(phase_k5_k6_old_vs_new, dev)
+    run(phase_edge, dev)
     if "--profile" in sys.argv[1:]:
         run(phase_kernel_anatomy, dev)
         run(phase_profile, dev)

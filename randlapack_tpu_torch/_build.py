@@ -7,7 +7,9 @@ processes of all files run at once. A library goes into ``build/kernels/``
 beside the package, named by its source, a hash of that source, the
 ``*.cu`` files it includes, the shared ``*.cuh`` headers and the flags, so
 an unchanged file reuses its library; ``nvcc``'s report (registers, shared memory and spills per
-kernel, from ``-Xptxas -v``) is written beside it as ``<name>.log``.
+kernel, from ``-Xptxas -v``) is written beside it as ``<name>.log``. A
+source that calls a CUDA library links it (``LINK_LIBS``: ``getrf.cu``,
+cuSOLVER's LU), found through the toolkit's ``lib64``.
 
 Only the CUDA branches of the kernel wrappers import this module for the
 kernels: the package imports and its CPU tests run where there is no
@@ -31,6 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NATIVE_DIR = BUILD_DIR.parent / "native"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# libraries a source links beyond the CUDA runtime (found, at build and at
+# load time, in the toolkit's own lib64): getrf.cu binds cuSOLVER's LU
+LINK_LIBS = {"getrf.cu": ["cusolver"]}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _D, _U = ctypes.c_double, ctypes.c_uint
@@ -104,6 +109,11 @@ _SIGNATURES = {
     "rl_gaussian_sketch_simt": {"_f32": _SKETCH_SIMT},
     # () -> clusters of K7's tensor-core kernel the card holds at once
     "rl_gaussian_sketch_wave": {"": []},
+    # cuSOLVER's getrf (csrc/getrf.cu, a library call, not a kernel):
+    # (A, m, n, host int lwork, stream) and (A, work, ipiv, info, m, n,
+    # stream), A column-major with lda m
+    "rl_getrf_lwork": [_P, _I, _I, _P, _P],
+    "rl_getrf": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _fns: dict | None = None
@@ -117,7 +127,8 @@ def _sources() -> list[Path]:
 
 
 def library_path(src: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS
+                                + LINK_LIBS.get(src.name, [])).encode())
     included = [_CSRC / name for name in
                 re.findall(r'^#include "(\w+\.cu)"', src.read_text(), re.M)]
     for f in [src, *included, *sorted(_CSRC.glob("*.cuh"))]:
@@ -137,6 +148,14 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _link_flags(src: Path, nvcc: str) -> list[str]:
+    libs = LINK_LIBS.get(src.name, [])
+    if not libs:
+        return []
+    lib64 = Path(nvcc).resolve().parent.parent / "lib64"
+    return [f"-l{name}" for name in libs] + ["-Xlinker", f"-rpath={lib64}"]
+
+
 def build() -> list[Path]:
     """Compile every source whose library does not exist yet, all in
     parallel. Returns the libraries' paths."""
@@ -154,7 +173,8 @@ def build() -> list[Path]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         with open(out.with_suffix(".log"), "w") as log:
             pending.append((src, out, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc, *NVCC_FLAGS, *_link_flags(src, nvcc), "-o", str(tmp),
+                 str(src)],
                 stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     source_seconds.clear()

@@ -26,7 +26,7 @@
 //   zero rows up to a multiple of 8 in d and zero points up to a multiple
 //   of 128 in n, in the order the fragments are read; n'; and V in chunks
 //   of SC columns, zero past n and s. The clamp min(e, 0) is the TPU
-//   kernel's max(d^2, 0).
+//   kernel's max(d^2, 0), and like it keeps a NaN.
 // - Cross term on the tensor cores: mma.sync.m16n8k8 (tf32 in, fp32
 //   accumulate) on lo.lo + lo.hi + hi.lo + hi.hi, the accumulator started
 //   from zero, so the tensor cores' truncating adds act on a sum of d
@@ -200,7 +200,7 @@ kernel_matmat_kernel(const T* __restrict__ X, const T* __restrict__ V,
 #pragma unroll
       for (int a = 0; a < kRows; ++a) {
         T d2 = ni[a] + nj - T(2) * cross[a][b];
-        d2 = d2 > T(0) ? d2 : T(0);
+        d2 = d2 < T(0) ? T(0) : d2;      // keeps a NaN (norms out of range)
         const T kt = exp_t(-d2 * inv2s2);
 #pragma unroll
         for (int c = 0; c < SC; ++c) acc[a][c] += kt * vj[c];
@@ -244,6 +244,14 @@ __host__ __device__ constexpr int smem_point_floats(int ks) {
 template <int KS, int SC>
 __host__ __device__ constexpr int tile_floats() {
   return kTcTJ * (smem_point_floats(KS) + 1 + SC);
+}
+
+// min(x, 0) keeping a NaN: where the norms have left fp32's range the
+// exponent is NaN, and fminf would make it 0, an entry of 1
+__device__ __forceinline__ float min0_nan(float x) {
+  float y;
+  asm("min.NaN.f32 %0, %1, 0f00000000;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -426,7 +434,7 @@ kernel_matmat_tc_kernel(const float* __restrict__ xs,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float ex = c4[2 * h + e] + (ni[mt][h] + (e ? nj.y : nj.x));
-            const float kt = ex2_approx(fminf(ex, 0.f));
+            const float kt = ex2_approx(min0_nan(ex));
 #pragma unroll
             for (int c = 0; c < SC; ++c) {
               if (kTwoLevel)

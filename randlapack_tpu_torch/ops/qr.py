@@ -14,14 +14,15 @@ preallocated buffers, so ``torch.func.vmap`` batches them.
 ``precision`` sets the reflector products (``ops.util.matmul``)."""
 from __future__ import annotations
 
+import ctypes
 import math
-import threading
 
 import torch
 
 from ..config import STABLE_PRECISION, resolve_precision
+from ..errors import require
 from .cholqr import _pow2
-from .util import matmul
+from .util import is_batched, matmul
 
 
 def qr_econ(A: torch.Tensor):
@@ -41,29 +42,90 @@ def qr_econ_rows(A: torch.Tensor, mesh=None):
     return Q[r0:r1].contiguous(), mesh.broadcast(R.contiguous())
 
 
-_LU_BACKEND = threading.Lock()
+def lu_factor_backward(LU: torch.Tensor, piv: torch.Tensor,
+                       gLU: torch.Tensor) -> torch.Tensor:
+    """The gradient of A from that of the packed L\\U of A = P·L·U (m×n,
+    ``piv`` LAPACK's 1-based row swaps). With B = Pᵀ·A = L·U, k = min(m,
+    n), L₁ and U₁ the leading k×k blocks, L₂ the rows of L below them and
+    U₂ the columns of U right of them: X = L₁⁻¹·dB₁·U₁⁻¹ gives dL₁ =
+    L₁·tril(X, −1) and dU₁ = triu(X)·U₁; dL₂ = (dB₂ − L₂·dU₁)·U₁⁻¹ (tall)
+    and dU₂ = L₁⁻¹·(dB₂ − dL₁·U₂) (wide). So gB₂ = gL₂·U₁⁻ᵀ (tall) or
+    L₁⁻ᵀ·gU₂ (wide), gB₁ = L₁⁻ᵀ·(tril(L₁ᵀ·gL₁', −1) + triu(gU₁'·U₁ᵀ))·U₁⁻ᵀ
+    with gU₁' = gU₁ − L₂ᵀ·gB₂ (tall), gL₁' = gL₁ − gB₂·U₂ᵀ (wide), and gA =
+    P·gB."""
+    m, n = LU.shape
+    k = min(m, n)
+    L1 = torch.tril(LU[:k, :k], -1) + torch.eye(k, dtype=LU.dtype,
+                                                device=LU.device)
+    U1 = torch.triu(LU[:k, :k])
+    gL1, gU1 = torch.tril(gLU[:k, :k], -1), torch.triu(gLU[:k, :k])
+    if m >= n:
+        gB2 = torch.linalg.solve_triangular(U1.mT, gLU[k:], upper=False,
+                                            left=False)
+        gU1 = gU1 - LU[k:].mT @ gB2
+    else:
+        gB2 = torch.linalg.solve_triangular(L1.mT, gLU[:, k:], upper=True,
+                                            unitriangular=True)
+        gL1 = gL1 - gB2 @ LU[:, k:].mT
+    gX = torch.tril(L1.mT @ gL1, -1) + torch.triu(gU1 @ U1.mT)
+    gB1 = torch.linalg.solve_triangular(
+        L1.mT, torch.linalg.solve_triangular(U1.mT, gX, upper=False,
+                                             left=False),
+        upper=True, unitriangular=True)
+    gA = torch.cat([gB1, gB2], dim=0 if m >= n else 1)
+    for i, p in reversed(list(enumerate(piv.tolist()))):
+        if p - 1 != i:          # the swaps undone in reverse order
+            gA[[i, p - 1]] = gA[[p - 1, i]]
+    return gA
+
+
+class _GetrfLU(torch.autograd.Function):
+    """cuSOLVER's getrf (``csrc/getrf.cu``) of a CUDA f32/f64 matrix; its
+    backward is ``lu_factor_backward``."""
+
+    @staticmethod
+    def forward(ctx, A):
+        from .. import _build
+        m, n = A.shape
+        F = A.mT.contiguous()            # A column-major, lda m, in place
+        lwork = ctypes.c_int(0)
+        _build.call("rl_getrf_lwork", F, F, m, n, ctypes.addressof(lwork))
+        work = torch.empty(max(lwork.value, 1), dtype=A.dtype,
+                           device=A.device)
+        piv = torch.empty(min(m, n), dtype=torch.int32, device=A.device)
+        info = torch.empty((), dtype=torch.int32, device=A.device)
+        _build.call("rl_getrf", F, F, work, piv, info, m, n)
+        LU = F.mT
+        ctx.save_for_backward(LU, piv)
+        ctx.mark_non_differentiable(piv, info)
+        return LU, piv, info
+
+    @staticmethod
+    def backward(ctx, gLU, _gpiv, _ginfo):
+        return lu_factor_backward(*ctx.saved_tensors, gLU)
 
 
 def lu_factor(A: torch.Tensor):
-    """``torch.linalg.lu_factor_ex(A)`` → ``(LU, pivots, info)``. On the
-    card, where the caller has left ``torch.backends.cuda.
-    preferred_linalg_library`` at "default", cuSOLVER is asked for: for a
-    tall matrix the library's own choice (MAGMA) takes several times as
-    long with the same pivots (``chip_smoke.py``'s ``[revd2-lu]`` line;
-    PERF.md §6). A backend the caller chose stands. The preference is
-    process-wide: a lock keeps two of these calls from restoring each
-    other's setting, but a linalg call on another thread during one of
-    them takes cuSOLVER too."""
+    """``torch.linalg.lu_factor_ex(A)`` → ``(LU, pivots, info)``: the
+    packed L\\U, 1-based int32 row swaps and LAPACK's info. On the card it is cuSOLVER's getrf, called through
+    ``csrc/getrf.cu`` on PyTorch's current stream: for a tall matrix the
+    library's own choice of backend (MAGMA) takes several times as long
+    with the same pivots (``chip_smoke.py``'s ``[revd2-lu]`` line), and
+    asking PyTorch for cuSOLVER would take ``torch.backends.cuda.
+    preferred_linalg_library``, a setting of the whole process. A backend
+    the caller has chosen there stands. Differentiable; under
+    ``torch.func.vmap`` a CUDA tensor raises, as the kernels do."""
     if (A.device.type != "cuda"
-            or torch.backends.cuda.preferred_linalg_library()
-            != torch._C._LinalgBackend.Default):
+            or torch._C._get_linalg_preferred_backend()
+            != torch._C._LinalgBackend.Default):   # read, never written
         return torch.linalg.lu_factor_ex(A)
-    with _LU_BACKEND:
-        torch.backends.cuda.preferred_linalg_library("cusolver")
-        try:
-            return torch.linalg.lu_factor_ex(A)
-        finally:
-            torch.backends.cuda.preferred_linalg_library("default")
+    require(A.dim() == 2 and A.numel() > 0
+            and A.dtype in (torch.float32, torch.float64),
+            f"lu_factor: a nonempty f32/f64 matrix on the card, got "
+            f"{tuple(A.shape)} {A.dtype}")
+    require(not is_batched(A), "lu_factor: torch.func.vmap over a CUDA "
+            "tensor is not supported: the cuSOLVER call has no batching rule")
+    return _GetrfLU.apply(A)
 
 
 def lu_pivot_columns(A_panel_t: torch.Tensor) -> torch.Tensor:
@@ -268,7 +330,13 @@ def qrcp_panel(panel: torch.Tensor, row0: int, pivot: bool = True,
             eN = eN.index_select(0, perm)
         v, tau, alpha = _larfg(W[:, l], i)
         w = torch.where(cols >= l, tau * matmul(v, W, precision), 0.0)
-        W = W - torch.outer(v, w)
+        # the update selects rows >= i of columns >= l rather than relying
+        # on v's and w's zeros elsewhere: on finite data the two agree, and
+        # where a norm has left the range (tau not finite) rows < row0 and
+        # finished columns keep their values, as the docstring says and
+        # the kernel does
+        W = torch.where((rows >= i)[:, None] & (cols >= l)[None, :],
+                        W - torch.outer(v, w), W)
         # column l packed: R above, alpha at row i, the tail of v below
         W[:, l] = torch.where(rows < i, W[:, l],
                               torch.where(rows == i, alpha, v))

@@ -398,3 +398,79 @@ def cuda_abrik_body(mesh, A, v0, sk):
     torch.cuda.synchronize()
     return dict(counts=_launches(), U=U, S=S, Vt=Vt,
                 iters=info["num_krylov_iters"])
+
+
+def sweep_body(mesh, trials):
+    """tests/test_torch_property_sweeps.py's distributed grid: each trial on
+    a mesh of its own ``p`` ranks (a subgroup of this spawn's, made by
+    every rank), JAX's draws injected. Returns one result a trial (None
+    on the ranks past its ``p``)."""
+    from randlapack_tpu_torch.parallel.mesh import make_mesh
+    out = []
+    for c in trials:
+        sub = make_mesh(c["p"], device=mesh.device.type)
+        if sub is None:
+            out.append(None)
+            continue
+        As, st = _rows(sub, c["A"]), RNGState(c["seed"])
+        if c["drv"] == "abrik":
+            U, S, Vt, info, _ = dist_abrik(
+                As, 8, sub, st, block_size=8, max_iters=4, v0=_t(c["v0"]),
+                qr_sketches=_abrik_sketches(sub, c["sk"]))
+            out.append(dict(U=U, S=S))
+            continue
+        S = _cols(sub, c["S"])
+        if c["drv"] == "bqrrp":
+            res = dist_bqrrp(As, sub, st, block_size=16, sketch=S)
+        elif c["drv"] == "factored":
+            fac, _ = dist_bqrrp_factored(As, sub, st, block_size=16,
+                                         sketch=S)
+            res = (bqrrp_q(fac, mesh=sub), fac.R, fac.J, fac.rank, fac.fail)
+        else:
+            res = dist_cqrrpt(As, sub, st, sketch=S)
+        out.append(dict(zip(("Q", "R", "J", "rank", "fail"), res[:5])))
+    return out
+
+
+def fuzz_body(mesh, c):
+    """One distributed trial of ``tools/fuzz_torch.py``: ``c["drv"]`` on
+    this rank's rows of ``c["A"]`` (with ``c["b"]`` for SPLS), the draws
+    in ``c`` injected as the rank's share, in ``c["dtype"]``."""
+    dt = getattr(torch, c["dtype"])
+
+    def t(x):
+        return _t(x).to(dt)
+
+    def rows(X):
+        return row_sharded(mesh).put(t(X))
+
+    def cols(S):
+        return _cols(mesh, S).to(dt)
+
+    st, drv, A = RNGState(c["seed"]), c["drv"], c["A"]
+    if drv == "spls":
+        x, _, it, _ = dist_spls(rows(A), rows(c["b"]), c["mu"], mesh, st,
+                                tol=1e-12, max_iters=150,
+                                sketch=cols(c["S"]))
+        return dict(x=x, iters=it)
+    if drv == "rsvd":
+        U, S, Vt, fail, _ = dist_rsvd(rows(A), 8, mesh, st,
+                                      omega=t(c["omega"]))
+        return dict(U=U, S=S, fail=fail)
+    if drv == "revd2":
+        V, lam, err, nu, fail, _ = dist_revd2(
+            rows(c["P"]), 8, mesh, st, error_est_passes=4,
+            omega=t(c["omega"]), v0=t(c["v0"]))
+        return dict(V=V, lam=lam, fail=fail)
+    if drv == "cqrrt":
+        Q, R, fail, _ = dist_cqrrt(rows(A), mesh, st, sketch=cols(c["S"]))
+        return dict(Q=Q, R=R, fail=fail)
+    if drv == "bqrrp":
+        res = dist_bqrrp(rows(A), mesh, st, block_size=16,
+                         sketch=cols(c["S"]))
+    elif drv == "hqrrp":
+        res = dist_hqrrp(rows(A), mesh, st, block_size=16,
+                         sketch=cols(c["S"]))
+    else:
+        res = dist_cqrrpt(rows(A), mesh, st, sketch=cols(c["S"]))
+    return dict(zip(("Q", "R", "J", "rank", "fail"), res[:5]))

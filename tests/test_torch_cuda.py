@@ -2232,3 +2232,122 @@ def test_dist_cholqr_one_nccl_rank(cuda):
     assert out["backend"] == "nccl" and not out["fail"]
     assert out["res"] <= 10 * eps ** 0.75
     assert out["orth"] <= 10 * eps ** 0.75 * np.sqrt(128)
+
+
+# -- ops.qr.lu_factor: cuSOLVER's getrf through csrc/getrf.cu ------------------
+
+def _switched_lu(A):
+    """The LU as lu_factor took it before its binding: the process-wide
+    backend switched to cuSOLVER around lu_factor_ex."""
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.lu_factor_ex(A)
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(8192, 320), (4096, 320), (256, 320),
+                                   (4096, 64), (1024, 1024), (7, 3)])
+def test_lu_factor_is_the_switched_route_bit_for_bit(cuda, dtype, shape):
+    """The BQRRP headline's pivot-pass panels (b 256, d 320: the first, a
+    middle and the last, wide, block), PLU stabilization's RSVD shape, a
+    square and a tiny one: LU, pivots and info bit-equal to lu_factor_ex
+    under the cuSOLVER preference, which lu_factor leaves at "default"."""
+    A = torch.tensor(np.random.default_rng(sum(shape)).standard_normal(
+        shape), dtype=dtype, device=cuda)
+    A[:, 1] = 0.0                      # a zero pivot column: info > 0
+    LU, piv, info = tqr.lu_factor(A)
+    ref = _switched_lu(A)
+    assert LU.shape == ref[0].shape and piv.dtype == torch.int32
+    for got, want in zip((LU, piv, info), ref):
+        assert torch.equal(got, want)
+    assert int(info) == int(ref[2]) > 0
+    assert torch.backends.cuda.preferred_linalg_library() \
+        == torch._C._LinalgBackend.Default
+
+
+@pytest.mark.cuda
+def test_lu_factor_leaves_the_backend_setting_to_other_threads(cuda):
+    """A thread reading preferred_linalg_library() during 100 calls sees
+    "default" throughout; a backend the caller chose still stands."""
+    import threading
+    A = torch.randn((8192, 320), device=cuda)
+    seen, stop = set(), threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            seen.add(torch.backends.cuda.preferred_linalg_library())
+
+    reader = threading.Thread(target=watch)
+    reader.start()
+    try:
+        for _ in range(100):
+            tqr.lu_factor(A)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        reader.join(timeout=60)
+    assert not reader.is_alive()
+    assert seen == {torch._C._LinalgBackend.Default}
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        assert all(torch.equal(a, b) for a, b in zip(
+            tqr.lu_factor(A), torch.linalg.lu_factor_ex(A)))
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+
+
+@pytest.mark.cuda
+def test_lu_factor_gradient_and_vmap_on_the_card(cuda):
+    """The binding's backward (ops.qr.lu_factor_backward) against the
+    CPU's lu_factor_ex gradient, tall and wide; vmap raises."""
+    from randlapack_tpu_torch.errors import RandLAPACKError
+    rng = np.random.default_rng(5)
+    for shape in ((40, 12), (12, 40)):
+        A0, G = rng.standard_normal(shape), rng.standard_normal(shape)
+        grads = []
+        for dev, lu in ((cuda, tqr.lu_factor),
+                        ("cpu", torch.linalg.lu_factor_ex)):
+            A = torch.tensor(A0, device=dev, requires_grad=True)
+            (lu(A)[0] * torch.tensor(G, device=dev)).sum().backward()
+            grads.append(A.grad.cpu())
+        assert _relf(grads[0], grads[1]) <= 1e-12
+    with pytest.raises(RandLAPACKError, match="vmap"):
+        torch.func.vmap(tqr.lu_factor)(torch.randn((2, 8, 4), device=cuda))
+
+
+@pytest.mark.cuda
+def test_bqrrp_headline_pivots_unchanged_by_the_lu_binding(cuda,
+                                                           monkeypatch):
+    """The BQRRP headline (8192², b 256, 2 candidates, 2 stages, defer 4)
+    chooses the same J with the pivot pass's LU through the binding as
+    through the switched route."""
+    A, st = rt.gen.fast_decay_matrix(8192, 8192, rt.RNGState(0),
+                                     dtype=torch.float32, device=cuda)
+    cfg = BQRRPConfig(block_size=256, pivot_candidates=2, stages=2,
+                      update_defer=4)
+    fac, _ = bqrrp_factored(A, cfg, st)
+    monkeypatch.setattr(tqr, "lu_factor", _switched_lu)
+    ref, _ = bqrrp_factored(A, cfg, st)
+    assert torch.equal(fac.J, ref.J) and not bool(fac.fail)
+
+
+# -- the [edge] kernel cases at a smaller size ---------------------------------
+
+from randlapack_tpu_torch.utils import kernel_checks  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,how", kernel_checks.cases(),
+                         ids=[f"{k}-{h}" for k, h in kernel_checks.cases()])
+def test_kernel_on_adversarial_operands(cuda, kernel, how):
+    """chip_smoke.py's [edge] kernel cases at 256 rows: each kernel and
+    form on operands under tools/fuzz_sweep.py's mutators (and one Inf or
+    NaN entry) against its plain version, by kernel_checks' rules: the
+    finite pattern equal, the finite entries within the kernel's gate,
+    pivots equal or parting at a tie."""
+    r = kernel_checks.hold(kernel, *kernel_checks.operands(kernel, how, True,
+                                                            cuda))
+    assert r["ok"], r

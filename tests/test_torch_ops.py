@@ -195,21 +195,6 @@ def test_finite_scaled_bitwise(dtype, case):
     assert _np(sj) == st.item() and bool(nj) == bool(nt)
 
 
-@pytest.mark.parametrize("case", ["healthy", "overflowing", "nonfinite"])
-def test_sanitize_sketch_bitwise(case):
-    rng = np.random.default_rng(2)
-    Y = rng.standard_normal((20, 30))
-    if case == "overflowing":
-        Y *= 3.1e9
-    elif case == "nonfinite":
-        Y[0, 0], Y[5, 7] = -np.inf, np.nan
-    Yj, fj = jbq._sanitize_sketch(jnp.asarray(Y), jnp.asarray(False),
-                                  jnp.float64)
-    Yt, ft = tbq._sanitize_sketch(torch.tensor(Y), torch.tensor(False))
-    np.testing.assert_array_equal(_bits(Yj), _bits(Yt))
-    assert bool(fj) == bool(ft) == (case == "nonfinite")
-
-
 @pytest.mark.parametrize("case", ["healthy", "deficient", "zero"])
 def test_safe_triu_diag(case):
     rng = np.random.default_rng(3)
@@ -280,20 +265,8 @@ def test_qr_econ_parity():
 
 # -- pivots: exactly equal -------------------------------------------------
 
-@pytest.mark.parametrize("case", ["dense", "deficient", "wide", "zero"])
-def test_lu_pivot_columns_exact(case):
-    rng = np.random.default_rng(8)
-    n, d = (40, 64) if case == "wide" else (160, 40)
-    P = rng.standard_normal((n, d))
-    if case == "deficient":
-        # fewer live rows than d: the δ pad decides the tail of the order
-        P[rng.permutation(n)[:130]] = 0.0
-    elif case == "zero":
-        P[:] = 0.0
-    pj = _np(jqr.lu_pivot_columns(jnp.asarray(P)))
-    pt = tqr.lu_pivot_columns(torch.tensor(P)).numpy()
-    np.testing.assert_array_equal(pj, pt)
-
+# lu_pivot_columns's exact parity and _sanitize_sketch's bitwise parity are
+# cases of tests/test_torch_edge_cases.py::test_inf_sanitization
 
 @pytest.mark.parametrize("cand", [2, None])
 def test_select_pivots_ties_exact(cand):
@@ -329,3 +302,30 @@ def test_fix_pivots_exact(chosen, retired_idx):
     np.testing.assert_array_equal(_np(fj), ft.numpy())
     assert len(set(ft.tolist())) == len(chosen)
     assert not set(ft.tolist()) & set(retired_idx)
+
+
+# -- lu_factor: cuSOLVER's getrf on the card, lu_factor_ex on the CPU -------------
+
+def test_lu_factor_on_the_cpu_is_lu_factor_ex_and_switches_nothing():
+    """The CPU path is lu_factor_ex itself; the module never sets the
+    process-wide backend (it reads it, for a caller's choice to stand)."""
+    import inspect
+    A = torch.tensor(np.random.default_rng(9).standard_normal((30, 12)))
+    for got, want in zip(tqr.lu_factor(A), torch.linalg.lu_factor_ex(A)):
+        assert torch.equal(got, want)
+    src = inspect.getsource(tqr)
+    assert "preferred_linalg_library(" not in src
+    assert "_LinalgBackend.Default" in src
+
+
+@pytest.mark.parametrize("shape", [(12, 5), (6, 6), (5, 12), (1, 4), (4, 1)])
+def test_lu_factor_backward_is_the_library_gradient(shape):
+    """ops.qr.lu_factor_backward, the card binding's backward, against
+    autograd through lu_factor_ex on the CPU (tall, square and wide)."""
+    rng = np.random.default_rng(sum(shape))
+    A = torch.tensor(rng.standard_normal(shape), requires_grad=True)
+    G = torch.tensor(rng.standard_normal(shape))
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    (LU * G).sum().backward()
+    got = tqr.lu_factor_backward(LU.detach(), piv, G)
+    assert _rel(got, A.grad) < 1e-12
