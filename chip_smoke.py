@@ -412,21 +412,28 @@ def phase_env() -> str:
 
 def phase_build() -> None:
     from randlapack_tpu_torch import _build
+    from randlapack_tpu_torch.utils import timing
     t0 = time.perf_counter()
-    paths = _build.build()
     _build.lib()
+    paths = _build.build()
     regs = [f"{path.stem.rsplit('_', 1)[0][3:]}: " + ", ".join(
         ln.split(":", 1)[1].strip() for ln in
         path.with_suffix(".log").read_text().splitlines()
         if "registers" in ln) for path in paths]
-    nvcc = ("reused" if _build.build_seconds is None
-            else f"nvcc {_build.build_seconds:.2f} s, in parallel; each: "
-            + ", ".join(f"{k} {v:.2f} s"
-                        for k, v in _build.source_seconds.items())
-            + f"; one after another would take "
-            f"{sum(_build.source_seconds.values()):.2f} s or less")
+    # the set-up spans of _build.lib(): "nvcc" (where a library was stale)
+    # with one span a source, all started together
+    setup = timing.setup_spans()
+    load = [s["id"] for s in setup if s["name"] == "setup.kernels"][-1:]
+    nvcc = [s for s in setup if s["name"] == "nvcc" and s["parent"] in load]
+    each = [s for s in setup if nvcc and s["parent"] == nvcc[-1]["id"]]
+    built = ("reused" if not nvcc
+             else f"nvcc {nvcc[-1]['host_ms'] * 1e-3:.2f} s, in parallel; "
+             "each: " + ", ".join(f"{s['name']} {s['host_ms'] * 1e-3:.2f} s"
+                                  for s in each)
+             + "; one after another would take "
+             f"{sum(s['host_ms'] for s in each) * 1e-3:.2f} s or less")
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f}"
-          f" s ({nvcc}); ptxas: "
+          f" s ({built}); ptxas: "
           f"{' | '.join(regs)}", flush=True)
 
 

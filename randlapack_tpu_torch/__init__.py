@@ -26,9 +26,17 @@ they run; the distributed layer ``parallel`` (meshes of ranks of a
 ``torch.distributed`` group, the distributed CholQR, sketch and
 rangefinder, the row-sharded drivers and ``dist_bqrrp_factored``).
 """
-from .rng import RNGState, as_state
-from . import (comps, config, drivers, extras, gen, interop, linops, ops,
-               parallel, pdkernels, sketching, testing, utils)
+import time as _time
+
+_import_start_ns = _time.perf_counter_ns()
+
+from .rng import RNGState, as_state  # noqa: E402
+from . import (comps, config, drivers, extras, gen, interop,  # noqa: E402
+               linops, ops, parallel, pdkernels, sketching, testing, utils)
+
+# the package's import, the first of the set-up spans (utils.timing)
+utils.timing.add_setup_span("setup.import", _import_start_ns,
+                            _time.perf_counter_ns())
 
 __version__ = "0.1.0"
 __all__ = ["RNGState", "as_state", "comps", "config", "drivers", "extras",

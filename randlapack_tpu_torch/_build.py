@@ -117,9 +117,6 @@ _SIGNATURES = {
 }
 
 _fns: dict | None = None
-build_seconds: float | None = None   # wall time of this process's build
-source_seconds: dict = {}            # source name -> its nvcc's wall time
-                                     # (all start together)
 
 
 def _sources() -> list[Path]:
@@ -158,16 +155,25 @@ def _link_flags(src: Path, nvcc: str) -> list[str]:
 
 def build() -> list[Path]:
     """Compile every source whose library does not exist yet, all in
-    parallel. Returns the libraries' paths."""
-    global build_seconds
+    parallel: the set-up span ``nvcc``, with a span a source from the
+    common start to its ``nvcc``'s end (``utils.timing.setup_spans``).
+    Returns the libraries' paths."""
     outs = [library_path(src) for src in _sources()]
     todo = [(src, out) for src, out in zip(_sources(), outs)
             if not out.exists()]
     if not todo:
         return outs
+    from .utils.timing import setup_span
+    with setup_span("nvcc"):
+        _compile(todo)
+    return outs
+
+
+def _compile(todo) -> None:
+    from .utils.timing import add_setup_span
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     pending = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -177,47 +183,51 @@ def build() -> list[Path]:
                  str(src)],
                 stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    source_seconds.clear()
     while pending:
         time.sleep(0.05)
         for job in [j for j in pending if j[3].poll() is not None]:
             pending.remove(job)
             src, out, tmp, proc = job
-            source_seconds[src.name] = time.perf_counter() - t0
+            add_setup_span(src.name, t0, time.perf_counter_ns())
             if proc.returncode != 0:
                 log = out.with_suffix(".log").read_text()
                 failed.append(f"{out.name}: nvcc failed ({proc.returncode})"
                               f":\n{log[-4000:]}")
             else:
                 os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
-    return outs
 
 
 def lib() -> dict:
     """The kernels' C entry points by name (``rl_…_f32``/``_f64``), the
-    libraries built on first use."""
+    libraries built on first use: the set-up span ``setup.kernels`` (the
+    sources' check, ``build``, the loads and the binding)."""
     global _fns
     if _fns is None:
-        libs = [ctypes.CDLL(str(path)) for path in build()]
-        fns = {}
-        for name, sig in _SIGNATURES.items():
-            if not isinstance(sig, dict):
-                sig = {"_f32": sig, "_f64": sig}
-            for suffix, argtypes in sig.items():
-                found = [getattr(so, name + suffix) for so in libs
-                         if hasattr(so, name + suffix)]
-                if len(found) != 1:
-                    raise RuntimeError(f"{name + suffix}: found in "
-                                       f"{len(found)} kernel libraries")
-                fn = found[0]
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name + suffix] = fn
-        _fns = fns
+        from .utils.timing import setup_span
+        with setup_span("setup.kernels"):
+            _fns = _load()
     return _fns
+
+
+def _load() -> dict:
+    libs = [ctypes.CDLL(str(path)) for path in build()]
+    fns = {}
+    for name, sig in _SIGNATURES.items():
+        if not isinstance(sig, dict):
+            sig = {"_f32": sig, "_f64": sig}
+        for suffix, argtypes in sig.items():
+            found = [getattr(so, name + suffix) for so in libs
+                     if hasattr(so, name + suffix)]
+            if len(found) != 1:
+                raise RuntimeError(f"{name + suffix}: found in "
+                                   f"{len(found)} kernel libraries")
+            fn = found[0]
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name + suffix] = fn
+    return fns
 
 
 def call(name: str, out, *args) -> None:

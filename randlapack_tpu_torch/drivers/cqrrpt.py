@@ -25,7 +25,6 @@ basis completion (``noise=``, (m, n)). An injected draw still advances
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import enum
 
@@ -42,7 +41,7 @@ from ..ops.util import matmul
 from ..rng import RNGState
 from ..sketching import (SparseDist, SparseSkOp, SRHTSkOp, fill_sparse,
                          saso_left_apply, srht_left_apply, srht_skop)
-from ..utils.timing import PhaseTimer, device_sync
+from ..utils.timing import UNTIMED, PhaseTimer, span
 from .bqrrp import BQRRPConfig, _sketch_product, bqrrp
 from .hqrrp import HQRRPConfig, hqrrp_lapack_format
 
@@ -207,13 +206,25 @@ def _cholqr_qform(A_pre, L, q_form, precision):
     return torch.linalg.solve_triangular(L.T, A_pre, upper=True, left=False)
 
 
-def _cholqr_phase(A_pre, keep, R_sk_safe, q_form, precision, gram_block=0):
-    A_pre, G, s, nonfin = _cholqr_gram(A_pre, keep, precision, gram_block)
-    L = _cholesky(G)
-    fail = torch.isnan(L).any() | nonfin
-    Q = _cholqr_qform(A_pre, L, q_form, precision)
-    R = matmul(L.T * s, R_sk_safe, precision)
+def _cholqr_steps(A_pre, keep, R_sk_safe, q_form, precision, gram_block,
+                  timer: PhaseTimer):
+    with timer.phase("cholqr_gram"):
+        A_pre, G, s, nonfin = _cholqr_gram(A_pre, keep, precision,
+                                           gram_block)
+    with timer.phase("cholqr_potrf"):
+        L = _cholesky(G)
+    with timer.phase("cholqr_qform"):
+        Q = _cholqr_qform(A_pre, L, q_form, precision)
+    with timer.phase("cholqr_unprec"):
+        R = matmul(L.T * s, R_sk_safe, precision)
+        fail = torch.isnan(L).any() | nonfin
     return Q, R, fail
+
+
+def _cholqr_phase(A_pre, keep, R_sk_safe, q_form, precision, gram_block=0):
+    """The untimed CholQR phase: its four steps, each a span."""
+    return _cholqr_steps(A_pre, keep, R_sk_safe, q_form, precision,
+                         gram_block, UNTIMED)
 
 
 def _orth_phase(Q, keep, state: RNGState, fail, precision, noise=None):
@@ -250,7 +261,9 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
     with its sub-slots ``cholqr_gram``, ``cholqr_potrf``, ``cholqr_qform``,
     ``cholqr_unprec``, and ``orth``), with a device sync between phases;
     with ``trsm_mode="blockinv"`` the timed path gathers A[:, J] as its own
-    phase where the untimed one folds the gather into the solve.
+    phase where the untimed one folds the gather into the solve. The call
+    is the span ``cqrrpt`` and each phase a span inside it, timed or not
+    (``utils.timing.span``; the untimed blockinv solve is ``a_mod_trsm``).
     ``sketch``, ``qrcp_sketch`` and ``noise`` inject the random draws
     (module docstring). ``precision`` sets the products the JAX package
     runs at the driver's precision (``ops.util.matmul``).
@@ -259,65 +272,47 @@ def cqrrpt(A: torch.Tensor, cfg: CQRRPTConfig, state: RNGState,
             "cqrrpt requires a tall input (m >= n, the reference's CQRRPT "
             f"contract, rl_cqrrpt.hh) — got {tuple(A.shape)}; use "
             "hqrrp/bqrrp for wide matrices")
+    with span("cqrrpt", A.device):
+        return _cqrrpt_body(A, cfg, state, precision, timing, sketch,
+                            qrcp_sketch, noise)
+
+
+def _cqrrpt_body(A, cfg, state, precision, timing, sketch, qrcp_sketch,
+                 noise):
     require_fp32_matmul()
     precision = resolve_precision(precision)
-    timer = PhaseTimer()
+    timer = PhaseTimer() if timing else UNTIMED
 
-    def _phase(name):
-        return timer.phase(name) if timing else contextlib.nullcontext()
-
-    def _sync(t):
-        if timing:
-            device_sync(t)
-
-    with _phase("saso"):
+    with timer.phase("saso"):
         A_sk, state = _sketch_phase(A, cfg, state, precision, sketch)
-        _sync(A_sk)
-    with _phase("qrcp"):
+    with timer.phase("qrcp"):
         R_sk, J, state = _qrcp_phase(A_sk, cfg, state, precision,
                                      qrcp_sketch)
-        _sync(R_sk)
-    with _phase("rank_reveal"):
+    with timer.phase("rank_reveal"):
         rank, keep, R_sk_safe = _rank_phase(R_sk, cfg)
-        _sync(R_sk_safe)
     if cfg.trsm_mode == "blockinv" and not timing:
-        A_pre = _trsm_phase_gather(A, J, R_sk_safe, keep, cfg.trsm_block,
-                                   precision)
+        with span("a_mod_trsm"):
+            A_pre = _trsm_phase_gather(A, J, R_sk_safe, keep,
+                                       cfg.trsm_block, precision)
     else:
-        with _phase("a_mod_piv"):
+        with timer.phase("a_mod_piv"):
             A_piv = util.col_swap(A, J)
-            _sync(A_piv)
-        with _phase("a_mod_trsm"):
+        with timer.phase("a_mod_trsm"):
             A_pre = _trsm_phase(A_piv, R_sk_safe, keep, cfg.trsm_mode,
                                 cfg.trsm_block, precision)
             del A_piv
-            _sync(A_pre)
-    with _phase("cholqr"):
+    with timer.phase("cholqr"):
         if timing:
-            # the fused phase's pieces, synced in between
-            with _phase("cholqr_gram"):
-                A_pre, G, s, nonfin = _cholqr_gram(A_pre, keep, precision,
-                                                   cfg.gram_block)
-                _sync(G)
-            with _phase("cholqr_potrf"):
-                L = _cholesky(G)
-                _sync(L)
-            with _phase("cholqr_qform"):
-                Q = _cholqr_qform(A_pre, L, cfg.q_form, precision)
-                _sync(Q)
-            with _phase("cholqr_unprec"):
-                R = matmul(L.T * s, R_sk_safe, precision)
-                fail = torch.isnan(L).any() | nonfin
-                _sync(R)
+            Q, R, fail = _cholqr_steps(A_pre, keep, R_sk_safe, cfg.q_form,
+                                       precision, cfg.gram_block, timer)
         else:
             Q, R, fail = _cholqr_phase(A_pre, keep, R_sk_safe, cfg.q_form,
                                        precision, cfg.gram_block)
     del A_pre
     if cfg.orthogonalization:
-        with _phase("orth"):
+        with timer.phase("orth"):
             Q, fail = _orth_phase(Q, keep, state, fail, precision, noise)
             state = state.advance()
-            _sync(Q)
     if timing:
         return Q, R, J, rank, fail, state, timer.report()
     return Q, R, J, rank, fail, state

@@ -32,7 +32,6 @@ pivot order, taus and retired mask are built out of place, so
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import enum
 import math
@@ -52,7 +51,7 @@ from ..ops.util import matmul, product_form
 from ..ops.wy import (a_minus_vz_masked_mixed, masked_vt_a_mixed,
                       trailing_form)
 from ..rng import RNGState
-from ..utils.timing import PhaseTimer, device_sync
+from ..utils.timing import UNTIMED, PhaseTimer, span
 
 
 class PanelQR(enum.Enum):
@@ -197,46 +196,35 @@ class _State:
 
 
 def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
-                timer: PhaseTimer | None = None):
+                timer: PhaseTimer = UNTIMED):
     """One HQRRP block with its trailing update applied at once (the
-    ``update_defer = 1`` path, the timed path and the row-sharded mode);
-    ``timer`` accumulates the reference's nested per-phase slots
-    (rl_hqrrp.hh:1150-1160).
+    ``update_defer = 1`` path, the timed path and the row-sharded mode),
+    in the reference's slots (rl_hqrrp.hh:1150-1160), each a span and,
+    under ``timing=True``, a ``timer`` phase.
 
     With ``st.mesh``: K5 runs on the replicated Y and rank 0's pivots are
     broadcast; the panel as ``_panel`` says; VᵀV (``wy_T``), Wk = Vᵀ·A
     and G·V are psummed (in a trailing mode K1's form runs on the rank's
     rows first); the update of A and of G's columns are row-local; the b
     rows of A and columns of G the Y downdate reads are gathered."""
-    def _phase(name):
-        return timer.phase(name) if timer is not None else (
-            contextlib.nullcontext())
-
-    def _sync(t):
-        if timer is not None:
-            device_sync(t)
-
     p, mesh = st.precision, st.mesh
 
     def psum(t):
         return t if mesh is None else mesh.psum(t)
 
-    live = 1.0 - st.retired
-    with _phase("qrcp"):
+    with timer.phase("qrcp"):
+        live = 1.0 - st.retired
         chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
                                            use_pallas=cfg.pallas_qrcp)
         if mesh is not None:
             chosen = mesh.broadcast(chosen)
-        _sync(chosen)
-    with _phase("qr"):
+    with timer.phase("qr"):
         panel = st.A.index_select(1, chosen)
         W, V, taus, sigma, failp = _panel(panel, c, cfg, p, mesh)
         chosen = chosen.index_select(0, sigma)
-        _sync(W)
-    with _phase("wy_t"):
+    with timer.phase("wy_t"):
         T, Vz = wy_T(V, taus, p, mesh)
-        _sync(T)
-    with _phase("updating_A"):
+    with timer.phase("updating_A"):
         live2 = live.index_fill(0, chosen, 0.0)
         tp = cfg.trailing_precision
         if trailing_form(tp, st.A) == "highest":
@@ -246,12 +234,10 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
         else:
             Wk = psum(masked_vt_a_mixed(Vz, st.A, live2, tp))
             a_minus_vz_masked_mixed(st.A, Vz, matmul(T.T, Wk, p), live2, tp)
-        _sync(st.A)
-    with _phase("updating_sketch_g"):
+    with timer.phase("updating_sketch_g"):
         GV = psum(matmul(st.G, Vz, p))
         st.G = st.G - matmul(matmul(GV, T, p), Vz.T, p)
-        _sync(st.G)
-    with _phase("updating_sketch_y"):
+    with timer.phase("updating_sketch_y"):
         if mesh is None:
             B, R12 = st.G[:, c:c + bsz], st.A[c:c + bsz, :]
         else:
@@ -259,8 +245,7 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
             R12 = mesh.rows_of(st.A, c, c + bsz)
         R12 = R12 * live2[None, :]
         st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
-        _sync(st.Y)
-    with _phase("downdating"):
+    with timer.phase("downdating"):
         st.commit(W, chosen, taus, failp)
 
 
@@ -271,78 +256,93 @@ def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
     while the trailing update of A and the update of G are appended to the
     group aggregates ``agg = (Vg, Ug, Hg)`` (the JAX package's
     telescoping identities: A_j = A − Σ V_i U_i, G_j = G − Σ H_i V_iᵀ).
-    Returns the new aggregates."""
+    Returns the new aggregates. The spans are ``_block_step``'s slots:
+    ``updating_A`` forms the block's U (its trailing product with A),
+    ``updating_sketch_g`` its H, ``downdating`` the commit and the
+    aggregates."""
     Vg, Ug, Hg = agg
     A, G, p = st.A, st.G, st.precision
-    live = 1.0 - st.retired
 
-    chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
-                                       use_pallas=cfg.pallas_qrcp)
-    panel = A.index_select(1, chosen)
-    if j > 0:
-        panel = panel - matmul(Vg, Ug.index_select(1, chosen), p)
-    W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
-    chosen = chosen.index_select(0, sigma)
-
-    T, Vz = wy_T(V, taus, p)
-    live2 = live.index_fill(0, chosen, 0.0)
-    if trailing_form(cfg.trailing_precision, A) == "highest":
-        Wk = matmul(Vz.T, A * live2[None, :], p)
-    else:
-        Wk = masked_vt_a_mixed(Vz, A, live2, cfg.trailing_precision)
-    if j > 0:
-        Wk = Wk - matmul(matmul(Vz.T, Vg, p), Ug * live2[None, :], p)
-    U = matmul(T.T, Wk, p)
-
-    GV = matmul(G, Vz, p)
-    if j > 0:
-        GV = GV - matmul(Hg, matmul(Vg.T, Vz, p), p)
-    H = matmul(GV, T, p)
-    B = G[:, c:c + bsz]
-    Vz_rows = Vz[c:c + bsz]
-    R12 = A[c:c + bsz, :]
-    if j > 0:
-        Vg_rows = Vg[c:c + bsz]
-        B = B - matmul(Hg, Vg_rows.T, p)
-        R12 = R12 - matmul(Vg_rows, Ug, p)
-    B = B - matmul(H, Vz_rows.T, p)
-    R12 = (R12 - matmul(Vz_rows, U, p)) * live2[None, :]
-    st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
-
-    st.commit(W, chosen, taus, failp)
-    if j == 0:
-        return Vz, U, H
-    return (torch.cat([Vg, Vz], 1), torch.cat([Ug, U], 0),
-            torch.cat([Hg, H], 1))
+    with span("qrcp"):
+        live = 1.0 - st.retired
+        chosen = qrcp_select_pivots_routed(st.Y, bsz, live, p,
+                                           use_pallas=cfg.pallas_qrcp)
+    with span("qr"):
+        panel = A.index_select(1, chosen)
+        if j > 0:
+            panel = panel - matmul(Vg, Ug.index_select(1, chosen), p)
+        W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
+        chosen = chosen.index_select(0, sigma)
+    with span("wy_t"):
+        T, Vz = wy_T(V, taus, p)
+    with span("updating_A"):
+        live2 = live.index_fill(0, chosen, 0.0)
+        if trailing_form(cfg.trailing_precision, A) == "highest":
+            Wk = matmul(Vz.T, A * live2[None, :], p)
+        else:
+            Wk = masked_vt_a_mixed(Vz, A, live2, cfg.trailing_precision)
+        if j > 0:
+            Wk = Wk - matmul(matmul(Vz.T, Vg, p), Ug * live2[None, :], p)
+        U = matmul(T.T, Wk, p)
+    with span("updating_sketch_g"):
+        GV = matmul(G, Vz, p)
+        if j > 0:
+            GV = GV - matmul(Hg, matmul(Vg.T, Vz, p), p)
+        H = matmul(GV, T, p)
+    with span("updating_sketch_y"):
+        B = G[:, c:c + bsz]
+        Vz_rows = Vz[c:c + bsz]
+        R12 = A[c:c + bsz, :]
+        if j > 0:
+            Vg_rows = Vg[c:c + bsz]
+            B = B - matmul(Hg, Vg_rows.T, p)
+            R12 = R12 - matmul(Vg_rows, Ug, p)
+        B = B - matmul(H, Vz_rows.T, p)
+        R12 = (R12 - matmul(Vz_rows, U, p)) * live2[None, :]
+        st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
+    with span("downdating"):
+        st.commit(W, chosen, taus, failp)
+        if j == 0:
+            return Vz, U, H
+        return (torch.cat([Vg, Vz], 1), torch.cat([Ug, U], 0),
+                torch.cat([Hg, H], 1))
 
 
 def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
-            cfg: HQRRPConfig) -> None:
+            cfg: HQRRPConfig, timer: PhaseTimer = UNTIMED) -> None:
     """``nblocks`` blocks of ``bsz`` columns from rank position ``c0``, in
     groups of ``update_defer`` blocks with ONE k = g·b trailing update
-    each."""
-    g = max(1, min(int(cfg.update_defer), nblocks))
+    each (one block a group under ``timing=True``), each block a
+    ``block`` span; a group's update of A is an ``updating_A`` span and
+    of G an ``updating_sketch_g`` span beside its blocks."""
+    g = 1 if timer is not UNTIMED else max(1, min(int(cfg.update_defer),
+                                                 nblocks))
     if g == 1:
         for ib in range(nblocks):
-            _block_step(st, c0 + ib * bsz, bsz, cfg)
+            with span("block"):
+                _block_step(st, c0 + ib * bsz, bsz, cfg, timer)
         return
     for i0 in range(0, nblocks, g):
         agg = (None, None, None)
         for j in range(min(g, nblocks - i0)):
-            agg = _subblock_deferred(st, c0 + (i0 + j) * bsz, bsz, j, agg,
-                                     cfg)
+            with span("block"):
+                agg = _subblock_deferred(st, c0 + (i0 + j) * bsz, bsz, j,
+                                         agg, cfg)
         Vg, Ug, Hg = agg
-        # retired columns hold stale values every read masks out; their
-        # final packed values live in Fstk
-        live_end = 1.0 - st.retired
-        if trailing_form(cfg.trailing_precision, st.A) != "highest":
-            a_minus_vz_masked_mixed(st.A, Vg, Ug * live_end[None, :],
-                                    live_end, cfg.trailing_precision)
-        elif product_form(st.precision, st.A) == "highest":
-            st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
-        else:
-            st.A.sub_(matmul(Vg, Ug * live_end[None, :], st.precision))
-        st.G = st.G - matmul(Hg, Vg.T, st.precision)
+        with span("updating_A"):
+            # retired columns hold stale values every read masks out;
+            # their final packed values live in Fstk
+            live_end = 1.0 - st.retired
+            if trailing_form(cfg.trailing_precision, st.A) != "highest":
+                a_minus_vz_masked_mixed(st.A, Vg, Ug * live_end[None, :],
+                                        live_end, cfg.trailing_precision)
+            elif product_form(st.precision, st.A) == "highest":
+                st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
+            else:
+                st.A.sub_(matmul(Vg, Ug * live_end[None, :],
+                                 st.precision))
+        with span("updating_sketch_g"):
+            st.G = st.G - matmul(Hg, Vg.T, st.precision)
 
 
 def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
@@ -352,7 +352,14 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
     mesh[, phases])`` with ``A_packed`` the pivoted matrix in LAPACK GEQP3
     layout (R in the upper triangle, reflector tails below; this rank's
     rows under a mesh), R its K leading rows (replicated) and ``mesh`` that
-    of the row-sharded mode (None for none or one rank)."""
+    of the row-sharded mode (None for none or one rank). The call is the
+    span ``hqrrp``, with ``sketch``, ``blocks`` (each block's slots) and
+    ``epilogue`` inside."""
+    with span("hqrrp", A.device):
+        return _hqrrp_body(A, cfg, state, precision, timing, sketch)
+
+
+def _hqrrp_body(A, cfg, state, precision, timing, sketch):
     require_fp32_matmul()
     mesh = _check_cfg(cfg, precision, A.device)
     precision = resolve_precision(precision)
@@ -365,10 +372,7 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
         cfg = dataclasses.replace(cfg, update_defer=1)
     from ..parallel.mesh import shard_rows
     m, mesh = shard_rows(A, mesh, "hqrrp")
-    timer = PhaseTimer() if timing else None
-
-    def _phase(name):
-        return timer.phase(name) if timing else contextlib.nullcontext()
+    timer = PhaseTimer() if timing else UNTIMED
 
     m_loc, n = A.shape
     dt, dev = A.dtype, A.device
@@ -378,7 +382,7 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
     nb_full, r = divmod(K, b)
     r0, r1 = (0, m) if mesh is None else mesh.rows(m_loc)
 
-    with _phase("sketch"):
+    with timer.phase("sketch"):
         # uniform sketch on [-1, 1), as the reference (ScalarDist::Uniform);
         # under a mesh each rank keeps G's columns of its rows, drawn whole
         gen, state = state.spawn(dev)
@@ -393,33 +397,24 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
         Y = matmul(G, A, precision)
         if mesh is not None:
             Y = mesh.psum(Y)
-        if timing:
-            device_sync(Y)
 
     # the driver's own copy of A, updated in place
     st = _State(A.clone(memory_format=torch.contiguous_format), Y, G,
                 precision, mesh)
-    with _phase("blocks"):
-        if timing:
-            if cfg.update_defer > 1:
-                warnings.warn(
-                    "hqrrp(timing=True) forces eager trailing updates; "
-                    f"cfg.update_defer={cfg.update_defer} is ignored in "
-                    "the phase breakdown (time deferred configs with "
-                    "timing=False whole-run aggregates instead)",
-                    stacklevel=3)
-            for ib in range(nb_full):
-                _block_step(st, ib * b, b, cfg, timer)
-            if r:
-                _block_step(st, nb_full * b, r, cfg, timer)
-            device_sync(st.A)
-        else:
-            if nb_full:
-                _blocks(st, 0, nb_full, b, cfg)
-            if r:
-                _blocks(st, nb_full * b, 1, r, cfg)
+    with timer.phase("blocks"):
+        if timing and cfg.update_defer > 1:
+            warnings.warn(
+                "hqrrp(timing=True) forces eager trailing updates; "
+                f"cfg.update_defer={cfg.update_defer} is ignored in "
+                "the phase breakdown (time deferred configs with "
+                "timing=False whole-run aggregates instead)",
+                stacklevel=4)
+        if nb_full:
+            _blocks(st, 0, nb_full, b, cfg, timer)
+        if r:
+            _blocks(st, nb_full * b, 1, r, cfg, timer)
 
-    with _phase("epilogue"):
+    with timer.phase("epilogue"):
         # pivots to the front in selection order; the rest keep their
         # relative order (only reachable when n > K)
         cols = torch.arange(n, device=dev)
@@ -431,8 +426,6 @@ def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,
                             st.A.index_select(1, perm[K:])], 1)
         R = torch.triu(A_perm[:K, :] if mesh is None
                        else mesh.rows_of(A_perm, 0, K))
-        if timing:
-            device_sync(A_perm)
 
     diag = torch.diagonal(R[:, :K])
     tol = diag[0].abs() * math.sqrt(torch.finfo(dt).eps)
