@@ -10,7 +10,9 @@ Per block of ``b`` columns:
   2. Panel factorization of A[:, chosen] at row offset c: pivoted
      Householder QRCP (K6), unpivoted Householder, or CholQR with the
      ``orhr_col`` Householder reconstruction (K3 inside it).
-  3. Compact-WY trailing update A ← QᵀA on the live columns (two GEMMs).
+  3. Compact-WY trailing update A ← QᵀA on the live columns (two GEMMs)
+     that reads and writes only rows ≥ c, where the block's reflectors
+     are nonzero; the live-column mask goes on the b×n product, not on A.
   4. Exact sketch downdate: G ← G·Q_blk, then Y ← Y − G[:, c:c+b]·R₁₂.
 
 As in the JAX package, chosen columns stay in place behind a ``retired``
@@ -23,8 +25,12 @@ without a host round trip. The trailing GEMMs are ``torch.matmul`` /
 ``addmm`` (the JAX package computes them outside any Pallas kernel), and
 update the driver's own copy of A in place. A ``trailing_precision``
 other than "highest" sends the two the JAX package computes at that
-precision — W = Vᵀ·(A ⊙ live) and the trailing update A − V·(U ⊙ live)
-— through K1's and K2's forms on the card (``ops.wy.trailing_form``).
+precision — W = Vᵀ·(A ⊙ live) and the trailing update A − V·(U ⊙ live),
+on the same rows — through K1's and K2's forms on the card
+(``ops.wy.trailing_form``), which take the row view A[c:] as it is.
+Under tracing (``utils.timing``) the counters ``hqrrp.rows.<product>``
+give the rows each product with the reflectors reads against A's, and
+``hqrrp.masked_copies`` the masks laid on an operand the size of A (none).
 The driver's ``precision`` sets every other product (``ops.util.matmul``);
 K5, K6 and K3 ignore it, as the Pallas kernels do. The packed columns,
 pivot order, taus and retired mask are built out of place, so
@@ -51,7 +57,7 @@ from ..ops.util import matmul, product_form
 from ..ops.wy import (a_minus_vz_masked_mixed, masked_vt_a_mixed,
                       trailing_form)
 from ..rng import RNGState
-from ..utils.timing import UNTIMED, PhaseTimer, span
+from ..utils.timing import UNTIMED, PhaseTimer, count, span
 
 
 class PanelQR(enum.Enum):
@@ -195,18 +201,54 @@ class _State:
         self.fail = self.fail | fail
 
 
+def _first_row(st: _State, c: int) -> int:
+    """A's first local row at or below global row ``c``: the first row a
+    block's reflectors at row ``c`` reach (they are zero above it), and
+    so the first every product with them reads or writes."""
+    if st.mesh is None:
+        return c
+    return st.mesh.local_rows(st.A.shape[0], c, c)[0]
+
+
+def _reads(st: _State, product: str, lo: int) -> None:
+    """Count the rows ``product`` reads from local row ``lo`` against A's
+    (the counter ``hqrrp.rows.<product>``)."""
+    m = st.A.shape[0]
+    count("hqrrp.rows." + product, m - lo, m)
+
+
+def _rows_to_update(st: _State, lo: int):
+    """A[lo:], to update in place. Where autograd records A (a CPU call:
+    a CUDA call refuses autograd), a product has saved a view of A for
+    the backward pass, so A is copied first."""
+    if st.A.requires_grad:
+        st.A = st.A.clone()
+    return st.A[lo:]
+
+
+def _live_cols(st: _State, X, live):
+    """X ⊙ live over the columns. Every mask here goes on a thin factor;
+    one the size of A counts as a masked copy (the counter
+    ``hqrrp.masked_copies``)."""
+    if X.numel() >= st.A.numel():
+        count("hqrrp.masked_copies")
+    return X * live[None, :]
+
+
 def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
                 timer: PhaseTimer = UNTIMED):
     """One HQRRP block with its trailing update applied at once (the
     ``update_defer = 1`` path, the timed path and the row-sharded mode),
     in the reference's slots (rl_hqrrp.hh:1150-1160), each a span and,
-    under ``timing=True``, a ``timer`` phase.
+    under ``timing=True``, a ``timer`` phase. Every product with the
+    block's reflectors reads the rows from ``c`` down only.
 
     With ``st.mesh``: K5 runs on the replicated Y and rank 0's pivots are
     broadcast; the panel as ``_panel`` says; VᵀV (``wy_T``), Wk = Vᵀ·A
-    and G·V are psummed (in a trailing mode K1's form runs on the rank's
-    rows first); the update of A and of G's columns are row-local; the b
-    rows of A and columns of G the Y downdate reads are gathered."""
+    and G·V are psummed over each rank's rows from ``c`` down (in a
+    trailing mode K1's form runs on them first); the update of A and of
+    G's columns are row-local; the b rows of A and columns of G the Y
+    downdate reads are gathered."""
     p, mesh = st.precision, st.mesh
 
     def psum(t):
@@ -222,29 +264,42 @@ def _block_step(st: _State, c: int, bsz: int, cfg: HQRRPConfig,
         panel = st.A.index_select(1, chosen)
         W, V, taus, sigma, failp = _panel(panel, c, cfg, p, mesh)
         chosen = chosen.index_select(0, sigma)
+    lo = _first_row(st, c)
     with timer.phase("wy_t"):
-        T, Vz = wy_T(V, taus, p, mesh)
+        T, Vz = wy_T(V[lo:], taus, p, mesh)
+        _reads(st, "wy_t", lo)
     with timer.phase("updating_A"):
         live2 = live.index_fill(0, chosen, 0.0)
         tp = cfg.trailing_precision
         if trailing_form(tp, st.A) == "highest":
-            Wk = psum(matmul(Vz.T, st.A * live2[None, :], p))
-            Upd = matmul(Vz, matmul(T.T, Wk, p), p)
-            st.A.addcmul_(Upd, live2[None, :], value=-1.0)
+            # Wk's retired columns are 0, and so are U's
+            Wk = _live_cols(st, psum(matmul(Vz.T, st.A[lo:], p)), live2)
+            U = matmul(T.T, Wk, p)
+            A_lo = _rows_to_update(st, lo)
+            if product_form(p, st.A) == "highest":
+                A_lo.addmm_(Vz, U, alpha=-1.0)
+            else:
+                A_lo.sub_(matmul(Vz, U, p))
         else:
-            Wk = psum(masked_vt_a_mixed(Vz, st.A, live2, tp))
-            a_minus_vz_masked_mixed(st.A, Vz, matmul(T.T, Wk, p), live2, tp)
+            Wk = psum(masked_vt_a_mixed(Vz, st.A[lo:], live2, tp))
+            a_minus_vz_masked_mixed(_rows_to_update(st, lo), Vz,
+                                    matmul(T.T, Wk, p), live2, tp)
+        _reads(st, "vt_a", lo)
+        _reads(st, "a_update", lo)
     with timer.phase("updating_sketch_g"):
-        GV = psum(matmul(st.G, Vz, p))
-        st.G = st.G - matmul(matmul(GV, T, p), Vz.T, p)
+        GV = psum(matmul(st.G[:, lo:], Vz, p))
+        st.G = torch.cat([st.G[:, :lo], st.G[:, lo:]
+                          - matmul(matmul(GV, T, p), Vz.T, p)], 1)
+        _reads(st, "g_v", lo)
+        _reads(st, "g_update", lo)
     with timer.phase("updating_sketch_y"):
         if mesh is None:
             B, R12 = st.G[:, c:c + bsz], st.A[c:c + bsz, :]
         else:
             B = mesh.rows_of(st.G.T, c, c + bsz).T
             R12 = mesh.rows_of(st.A, c, c + bsz)
-        R12 = R12 * live2[None, :]
-        st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
+        R12 = _live_cols(st, R12, live2)
+        st.Y = st.Y - _live_cols(st, matmul(B, R12, p), live2)
     with timer.phase("downdating"):
         st.commit(W, chosen, taus, failp)
 
@@ -256,12 +311,16 @@ def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
     while the trailing update of A and the update of G are appended to the
     group aggregates ``agg = (Vg, Ug, Hg)`` (the JAX package's
     telescoping identities: A_j = A − Σ V_i U_i, G_j = G − Σ H_i V_iᵀ).
-    Returns the new aggregates. The spans are ``_block_step``'s slots:
-    ``updating_A`` forms the block's U (its trailing product with A),
-    ``updating_sketch_g`` its H, ``downdating`` the commit and the
-    aggregates."""
+    Vg holds the rows from the group's first row c₀ = c − j·b down (the
+    group's reflectors are zero above it), and so does the block's VᵀV;
+    the block's other products read the rows from c down. Returns the new aggregates. The spans are
+    ``_block_step``'s slots: ``updating_A`` forms the block's U (its
+    trailing product with A), ``updating_sketch_g`` its H, ``downdating``
+    the commit and the aggregates."""
     Vg, Ug, Hg = agg
     A, G, p = st.A, st.G, st.precision
+    c0 = c - j * bsz
+    r = c - c0                       # the block's first row in Vg
 
     with span("qrcp"):
         live = 1.0 - st.retired
@@ -270,41 +329,47 @@ def _subblock_deferred(st: _State, c: int, bsz: int, j: int, agg,
     with span("qr"):
         panel = A.index_select(1, chosen)
         if j > 0:
-            panel = panel - matmul(Vg, Ug.index_select(1, chosen), p)
+            panel[c0:] -= matmul(Vg, Ug.index_select(1, chosen), p)
         W, V, taus, sigma, failp = _panel(panel, c, cfg, p)
         chosen = chosen.index_select(0, sigma)
     with span("wy_t"):
-        T, Vz = wy_T(V, taus, p)
+        # from the group's first row: Vz's rows in Vg's layout, zero above c
+        T, Vz_g = wy_T(V[c0:], taus, p)
+        Vz = Vz_g[r:]
+        _reads(st, "wy_t", c0)
     with span("updating_A"):
         live2 = live.index_fill(0, chosen, 0.0)
         if trailing_form(cfg.trailing_precision, A) == "highest":
-            Wk = matmul(Vz.T, A * live2[None, :], p)
+            Wk = _live_cols(st, matmul(Vz.T, A[c:], p), live2)
         else:
-            Wk = masked_vt_a_mixed(Vz, A, live2, cfg.trailing_precision)
+            Wk = masked_vt_a_mixed(Vz, A[c:], live2, cfg.trailing_precision)
+        _reads(st, "vt_a", c)
         if j > 0:
-            Wk = Wk - matmul(matmul(Vz.T, Vg, p), Ug * live2[None, :], p)
+            Wk = Wk - matmul(matmul(Vz.T, Vg[r:], p),
+                             _live_cols(st, Ug, live2), p)
         U = matmul(T.T, Wk, p)
     with span("updating_sketch_g"):
-        GV = matmul(G, Vz, p)
+        GV = matmul(G[:, c:], Vz, p)
+        _reads(st, "g_v", c)
         if j > 0:
-            GV = GV - matmul(Hg, matmul(Vg.T, Vz, p), p)
+            GV = GV - matmul(Hg, matmul(Vg[r:].T, Vz, p), p)
         H = matmul(GV, T, p)
     with span("updating_sketch_y"):
         B = G[:, c:c + bsz]
-        Vz_rows = Vz[c:c + bsz]
+        Vz_rows = Vz[:bsz]
         R12 = A[c:c + bsz, :]
         if j > 0:
-            Vg_rows = Vg[c:c + bsz]
+            Vg_rows = Vg[r:r + bsz]
             B = B - matmul(Hg, Vg_rows.T, p)
             R12 = R12 - matmul(Vg_rows, Ug, p)
         B = B - matmul(H, Vz_rows.T, p)
-        R12 = (R12 - matmul(Vz_rows, U, p)) * live2[None, :]
-        st.Y = st.Y - matmul(B, R12, p) * live2[None, :]
+        R12 = _live_cols(st, R12 - matmul(Vz_rows, U, p), live2)
+        st.Y = st.Y - _live_cols(st, matmul(B, R12, p), live2)
     with span("downdating"):
         st.commit(W, chosen, taus, failp)
         if j == 0:
-            return Vz, U, H
-        return (torch.cat([Vg, Vz], 1), torch.cat([Ug, U], 0),
+            return Vz_g, U, H
+        return (torch.cat([Vg, Vz_g], 1), torch.cat([Ug, U], 0),
                 torch.cat([Hg, H], 1))
 
 
@@ -314,7 +379,8 @@ def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
     groups of ``update_defer`` blocks with ONE k = g·b trailing update
     each (one block a group under ``timing=True``), each block a
     ``block`` span; a group's update of A is an ``updating_A`` span and
-    of G an ``updating_sketch_g`` span beside its blocks."""
+    of G an ``updating_sketch_g`` span beside its blocks, both on the
+    rows and columns from the group's first row down."""
     g = 1 if timer is not UNTIMED else max(1, min(int(cfg.update_defer),
                                                  nblocks))
     if g == 1:
@@ -323,26 +389,30 @@ def _blocks(st: _State, c0: int, nblocks: int, bsz: int,
                 _block_step(st, c0 + ib * bsz, bsz, cfg, timer)
         return
     for i0 in range(0, nblocks, g):
+        cg = c0 + i0 * bsz
         agg = (None, None, None)
         for j in range(min(g, nblocks - i0)):
             with span("block"):
-                agg = _subblock_deferred(st, c0 + (i0 + j) * bsz, bsz, j,
-                                         agg, cfg)
+                agg = _subblock_deferred(st, cg + j * bsz, bsz, j, agg, cfg)
         Vg, Ug, Hg = agg
         with span("updating_A"):
             # retired columns hold stale values every read masks out;
             # their final packed values live in Fstk
             live_end = 1.0 - st.retired
+            A_lo = _rows_to_update(st, cg)
+            Z = _live_cols(st, Ug, live_end)
             if trailing_form(cfg.trailing_precision, st.A) != "highest":
-                a_minus_vz_masked_mixed(st.A, Vg, Ug * live_end[None, :],
-                                        live_end, cfg.trailing_precision)
+                a_minus_vz_masked_mixed(A_lo, Vg, Z, live_end,
+                                        cfg.trailing_precision)
             elif product_form(st.precision, st.A) == "highest":
-                st.A.addmm_(Vg, Ug * live_end[None, :], alpha=-1.0)
+                A_lo.addmm_(Vg, Z, alpha=-1.0)
             else:
-                st.A.sub_(matmul(Vg, Ug * live_end[None, :],
-                                 st.precision))
+                A_lo.sub_(matmul(Vg, Z, st.precision))
+            _reads(st, "a_update", cg)
         with span("updating_sketch_g"):
-            st.G = st.G - matmul(Hg, Vg.T, st.precision)
+            st.G = torch.cat([st.G[:, :cg], st.G[:, cg:]
+                              - matmul(Hg, Vg.T, st.precision)], 1)
+            _reads(st, "g_update", cg)
 
 
 def _hqrrp_core(A: torch.Tensor, cfg: HQRRPConfig, state: RNGState,

@@ -21,6 +21,11 @@ since the switch last turned on; it resolves the events there, after
 the caller's own synchronize. The recorder is the process's and follows
 one thread's calls.
 
+**Counters.** ``count(name, n, of)`` adds ``n`` to a counter, and ``of``
+to the whole it is a part of, while a recording span is open; with the
+switch off it does nothing. ``counters()`` returns them, cleared with the
+spans when the switch turns on.
+
 **Set-up spans** (``setup_span``, ``setup_spans()``) are host times
 recorded once a process whatever the switch: the package's import
 (``setup.import``), the kernels' build and load (``setup.kernels``,
@@ -65,6 +70,7 @@ class _Recorder:
         self.open = None         # the innermost open recording span
         self.closed = []         # recording spans closed since the switch
                                  # last turned on
+        self.counts = {}         # counters added to since then
         self.first_call = True   # no root span opened yet
         self.setup = []          # closed set-up spans
         self.setup_open = None   # the innermost open set-up span
@@ -183,6 +189,7 @@ def span(name: str, device=None):
         for s in r.closed:
             r.release(s)
         r.closed = []
+        r.counts = {}
     r.was_on = on
     if on:
         cuda = (torch.cuda.is_initialized() if device is None
@@ -249,6 +256,26 @@ def spans() -> list[dict]:
                 s.device_ms = s.ev0.elapsed_time(s.ev1)
                 r.release(s)
     return _as_dicts(r.closed, device=True)
+
+
+def count(name: str, n: int = 1, of: int = 0) -> None:
+    """Add ``n`` to the counter ``name`` and ``of`` to its whole (what
+    ``n`` is a part of; 0 for a plain count) while a recording span is
+    open; nothing otherwise."""
+    r = _REC
+    if r.open is not None:
+        c = r.counts.get(name)
+        if c is None:
+            r.counts[name] = [n, of]
+        else:
+            c[0] += n
+            c[1] += of
+
+
+def counters() -> dict[str, list[int]]:
+    """The counters added to since the switch last turned on, each
+    ``name: [count, whole]``."""
+    return {k: list(v) for k, v in _REC.counts.items()}
 
 
 class _SetupSpan:

@@ -1497,6 +1497,38 @@ def test_wy_forms_keep_the_non_finite_pattern(cuda, form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", twy.FORMS)
+@pytest.mark.parametrize("m,w,c", [(8448, 512, 128), (8448, 512, 8064),
+                                   (1000, 1030, 129)],
+                         ids=["c128", "c8064", "c129-padded"])
+def test_wy_forms_on_a_row_view(cuda, form, m, w, c):
+    """K1 and K2 in each form on the row view A[c:] of a contiguous A
+    (HQRRP's trailing products from a block's first row c) give bit for
+    bit their results on A[c:].clone(), k 512 (a group of 4 blocks of
+    128), and leave A[:c] bit for bit as it was; at c·w·4 not a multiple
+    of 16 the view goes through the zero-padded copy and back."""
+    V, A, Z, mask = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                     for x in _wy_operands(m, w, 512, m + c))
+    V = V[c:].clone()
+    tp = _MODE_OF_FORM[form]
+    above = A[:c].clone()
+    view = A[c:]
+    assert view.is_contiguous()
+    assert (view.data_ptr() % 16 == 0) == (c * w % 4 == 0)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    W = twy.masked_vt_a_mixed(V, view, mask, tp)
+    assert torch.equal(bits(W), bits(twy.masked_vt_a_mixed(
+        V, view.clone(), mask, tp)))
+    ref = twy.a_minus_vz_masked_mixed(view.clone(), V, Z, mask, tp)
+    twy.a_minus_vz_masked_mixed(view, V, Z, mask, tp)
+    assert torch.equal(bits(A[c:]), bits(ref))
+    assert torch.equal(bits(A[:c]), bits(above))
+
+
+@pytest.mark.cuda
 def test_wy_forms_refuse_f64_and_cpu_tensors(cuda):
     V, A, Z, mask = (torch.tensor(x, device=cuda)
                      for x in _wy_operands(64, 64, 8, 2))

@@ -9,7 +9,12 @@ and XLA's CPU dot, which moves R by a few ulps but Q's column k by about
 eps·|r₁₁|/|r_kk|: at cond 1e6 (the JAX grid's matrix) that is 1.7e-10
 on the 500×200 case with R still within 5e-16, so the parity grid uses
 cond 1e4. Past a numerical rank only the first ``rank`` pivots are
-compared, as for BQRRP."""
+compared, as for BQRRP. Each grid case also holds the driver's own A: a
+group of blocks from row c leaves its rows above c bit for bit as they
+were, and the counters (``utils.timing.count``) give the rows its
+products read."""
+import contextlib
+import importlib
 import inspect
 import math
 import warnings
@@ -37,6 +42,9 @@ from randlapack_tpu_torch.interop import (lapack_format_from_numpy,
 from randlapack_tpu_torch.ops import householder as thh
 from randlapack_tpu_torch.ops import lu as tlu
 from randlapack_tpu_torch.ops import qrcp as tqrcp
+from randlapack_tpu_torch.utils import timing
+
+t_hqrrp = importlib.import_module("randlapack_tpu_torch.drivers.hqrrp")
 
 
 def _gen(m, n, kind, seed, **kw):
@@ -72,29 +80,112 @@ def _both(A, st, kw, fn=("hqrrp", "hqrrp"), timing=False):
     return oj, ot
 
 
-GRID = [(shape, b, panel, defer)
+@contextlib.contextmanager
+def _watched(monkeypatch):
+    """Trace the port's calls in the scope (``timing.tracing``, so the
+    driver's counters count) and keep the driver's A as each group of
+    blocks starts (c, A) and as each run of blocks ends (None, A)."""
+    seen = []
+
+    def at_start(fn, first):
+        def run(st, c, *args, **kw):
+            if first(args):
+                seen.append((c, st.A.clone()))
+            return fn(st, c, *args, **kw)
+        return run
+
+    def ends(fn):
+        def run(st, *args, **kw):
+            fn(st, *args, **kw)
+            seen.append((None, st.A.clone()))
+        return run
+
+    monkeypatch.setattr(t_hqrrp, "_block_step",
+                        at_start(t_hqrrp._block_step, lambda a: True))
+    monkeypatch.setattr(t_hqrrp, "_subblock_deferred",
+                        at_start(t_hqrrp._subblock_deferred,
+                                 lambda a: a[1] == 0))
+    monkeypatch.setattr(t_hqrrp, "_blocks", ends(t_hqrrp._blocks))
+    with timing.span("off"):
+        pass                     # the next root clears the counters
+    with timing.tracing():
+        yield seen
+
+
+def _hold_rows(seen, counters, shape, b, defer):
+    """Each group of blocks (one block where the updates are eager) at
+    row c leaves A's rows above c bitwise as they were; the counters give
+    Vᵀ·A's rows as Σ(m − c) over the blocks against nb·m, the update's as
+    Σ(m − c₀) over the groups, and no masked copy of A's size."""
+    m, n = shape
+    K = min(m, n)
+    b = min(b, K)
+    nb, r = divmod(K, b)
+    g = max(1, min(defer, nb))
+    tail = [nb * b] if r else []
+    blocks = [i * b for i in range(nb)] + tail
+    groups = [i * b for i in range(0, nb, g)] + tail
+    last = seen[-1][1].view(torch.int64)
+    starts = [c for c, _ in seen if c is not None]
+    assert starts == groups
+    for c, A in seen:
+        if c is not None:
+            assert torch.equal(A.view(torch.int64)[:c], last[:c]), c
+    assert counters["hqrrp.rows.vt_a"] == [sum(m - c for c in blocks),
+                                           len(blocks) * m]
+    assert counters["hqrrp.rows.a_update"] == [sum(m - c for c in groups),
+                                               len(groups) * m]
+    assert "hqrrp.masked_copies" not in counters
+
+
+GRID = [(shape, b, panel, defer, "highest")
         for shape, b in [((500, 200), 50), ((300, 300), 64),
                          ((150, 260), 32)]
-        for panel in PanelQR for defer in (1, 4)]
+        for panel in PanelQR for defer in (1, 4)] + [
+    # groups of 3 (a last group of 1 at 500×200), m not a multiple of b
+    # (150 = 4·32 + 22; 333 = 6·48 + 45, K 250 = 5·48 + 10)
+    ((500, 200), 50, PanelQR.qrcp, 3, "highest"),
+    ((150, 260), 32, PanelQR.qrcp, 3, "highest"),
+    ((333, 250), 48, PanelQR.cholqr, 3, "highest"),
+    # the trailing products as three bf16 products (K1/K2's form)
+    ((500, 200), 50, PanelQR.qrcp, 4, "bf16_3x_emul"),
+    ((333, 250), 48, PanelQR.geqrf, 1, "bf16_3x_emul"),
+    ((150, 260), 32, PanelQR.qrcp, 3, "bf16_3x_emul")]
 
 
-@pytest.mark.parametrize("shape,b,panel,defer", GRID,
-                         ids=[f"{s[0]}x{s[1]}-b{b}-{p.value}-defer{g}"
-                              for s, b, p, g in GRID])
-def test_hqrrp_parity_grid(shape, b, panel, defer):
+@pytest.mark.parametrize(
+    "shape,b,panel,defer,trailing", GRID,
+    ids=[f"{s[0]}x{s[1]}-b{b}-{p.value}-defer{g}"
+         + ("" if t == "highest" else f"-{t}") for s, b, p, g, t in GRID])
+def test_hqrrp_parity_grid(shape, b, panel, defer, trailing, monkeypatch):
     A, st = _gen(*shape, MatType.polynomial, 5, cond_num=1e4)
-    kw = dict(block_size=b, panel_qr=panel, update_defer=defer)
-    (Qj, Rj, Jj, rj, fj, _), (Qt, Rt, Jt, rk, fk, st_t) = _both(A, st, kw)
-    np.testing.assert_array_equal(Jt.numpy(), np.asarray(Jj))
-    assert _rel(Rt, Rj) < 1e-10 and _rel(Qt, Qj) < 1e-10
+    kw = dict(block_size=b, panel_qr=panel, update_defer=defer,
+              trailing_precision=trailing)
+    with _watched(monkeypatch) as seen:
+        oj, ot = _both(A, st, kw)
+    counters = timing.counters()
+    (Qj, Rj, Jj, rj, fj, _), (Qt, Rt, Jt, rk, fk, st_t) = oj, ot
+    K = min(shape)
+    if trailing == "highest":
+        np.testing.assert_array_equal(Jt.numpy(), np.asarray(Jj))
+        assert _rel(Rt, Rj) < 1e-10 and _rel(Qt, Qj) < 1e-10
+    else:
+        # the gates of tests/test_torch_trailing_modes.py's ``_hold``: the
+        # products' fp32 sums in two orders move late pivots, and Q's
+        # column k by about their error times |r₁₁|/|r_kk|
+        r = K // 2
+        np.testing.assert_array_equal(Jt.numpy()[:r], np.asarray(Jj)[:r])
+        assert _rel(Rt[:r][:, np.argsort(Jt.numpy())],
+                    np.asarray(Rj)[:r][:, np.argsort(np.asarray(Jj))]) \
+            < 1e-5
     assert bool(fk) == bool(fj) is False and int(rk) == int(rj)
     assert st_t.counter == 1
-    K = min(shape)
     res = torch.linalg.norm(Qt @ Rt - torch.tensor(A)[:, Jt]) \
         / np.linalg.norm(A)
-    assert float(res) < 1e-13
+    assert float(res) < (1e-13 if trailing == "highest" else 3e-5)
     assert float(torch.linalg.norm(Qt.T @ Qt - torch.eye(
         K, dtype=Qt.dtype))) < 1e-12
+    _hold_rows(seen, counters, shape, b, defer)
 
 
 CASES = [

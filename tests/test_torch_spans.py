@@ -108,6 +108,25 @@ def test_buffer_clears_when_the_switch_turns_on(fresh):
     assert [s["name"] for s in timing.spans()] == ["three"]
 
 
+def test_counters_count_only_while_recording(fresh):
+    timing.count("x", 5, 9)                 # no span open
+    with timing.span("off"):
+        timing.count("x", 5, 9)             # the switch off
+    with timing.tracing():
+        with timing.span("one"):
+            timing.count("x", 2, 4)
+            timing.count("x", 1, 4)
+            timing.count("y")
+    assert timing.counters() == {"x": [3, 8], "y": [1, 0]}
+    with timing.span("off"):
+        timing.count("x")
+    assert timing.counters() == {"x": [3, 8], "y": [1, 0]}
+    with timing.tracing():
+        with timing.span("two"):
+            pass
+    assert timing.counters() == {}
+
+
 def test_off_call_records_nothing_reads_no_clock_makes_no_event(
         monkeypatch, fresh):
     A, B = _square(), _tall()
@@ -407,6 +426,25 @@ def _span_trace():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_span_trace_shows_the_rows_hqrrp_reads(fresh):
+    """``tools/span_trace.py`` on the CPU, the square cell cut to 256² at
+    b 32 (8 blocks, 2 groups of 4): each product with a block's
+    reflectors reads A's rows from the block's first row down, the
+    group's updates and each block's VᵀV from the group's; no mask lies
+    on an operand the size of A."""
+    st = _span_trace()
+    rec = st.traced("square16384.hqrrp", 2**31 + 11, 2, (256, 256),
+                    {"block_size": 32}, "cpu")
+    c = st.checks(rec)
+    blocks = sum(256 - 32 * i for i in range(8)) / (8 * 256)
+    groups = (256 + 128) / (2 * 256)
+    assert c["rows_share"] == {"a_update": groups, "g_update": groups,
+                               "g_v": blocks, "vt_a": blocks,
+                               "wy_t": (4 * 256 + 4 * 128) / (8 * 256)}
+    assert c["masked_copies"] == 0
+    assert st.checks({**rec, "counters": None})["rows_share"] is None
 
 
 @pytest.mark.cuda

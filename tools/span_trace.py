@@ -19,10 +19,15 @@ the cell, read from the record, and ``checks``:
   and ``blocks_share`` HQRRP's block slots' over their blocks';
 - ``self_ms``: device ms a call outside any child, by span name;
 - ``launches_by_span``: the host's launch and copy calls a call, by the
-  innermost span open at each.
+  innermost span open at each;
+- ``rows_share``: HQRRP's products with a block's reflectors (``vt_a``
+  Vᵀ·A, ``a_update`` A −= V·U, ``g_v`` G·V, ``g_update`` G −= H·Vᵀ,
+  ``wy_t`` VᵀV), each the rows it read over A's rows, summed over the
+  calls (the counters ``hqrrp.rows.<product>``); ``masked_copies`` the
+  masks a call laid on an operand the size of A (``hqrrp.masked_copies``).
 
-``--out`` writes the record with ``spans`` and ``setup_spans`` (the
-fixture the span readers are tested on).
+``--out`` writes the record with ``spans``, ``setup_spans`` and
+``counters`` (the fixture the span readers are tested on).
 """
 import argparse
 import gzip
@@ -79,6 +84,7 @@ def traced(cell: str, seed: int, calls=None, shape=None, settings=None,
                        ent.schedule(cfg["shape"], settings), {})
     rec["spans"] = timing.spans()
     rec["setup_spans"] = timing.setup_spans()
+    rec["counters"] = timing.counters()
     return rec
 
 
@@ -126,6 +132,8 @@ def checks(rec: dict) -> dict:
     def dev(items):
         return sum(s["device_ms"] or 0.0 for s in items)
 
+    cnt = rec.get("counters")
+    rows = "hqrrp.rows."
     self_ms: dict = {}
     for s in sp:
         if s["self_device_ms"] is not None:
@@ -147,6 +155,11 @@ def checks(rec: dict) -> dict:
         self_ms=dict(sorted(self_ms.items(), key=lambda kv: -kv[1])),
         spans_a_call=len(sp) / n,
         launches_a_call=len(rec["device"]) / n,
+        rows_share=None if cnt is None else {
+            k[len(rows):]: v[0] / v[1] for k, v in sorted(cnt.items())
+            if k.startswith(rows) and v[1]},
+        masked_copies=None if cnt is None else cnt.get(
+            "hqrrp.masked_copies", [0, 0])[0] / n,
         unknown_parent=sum(1 for s in sp if s["parent"] is not None
                            and s["parent"] not in by_id))
 
