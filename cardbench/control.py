@@ -6,12 +6,13 @@
 For each seed, the cell's entry runs on the cell's own input at its own
 size: with ``--program`` as the cell states it, with ``--control`` with
 one of the cell's ``controls`` (the program's own lower precision: TF32
-products where the cell states fp32), or with ``--fault`` with one of
-``faults.FAULTS`` planted in the program. The second of two calls (the
-first warms up) is held by the same reference and numbers as a run and
-printed beside the cell's limits. Each control and each fault has to
-fail at least one of them on every seed; the program's readings set the
-lower end of each limit. The benchmark's own runs never run this.
+products where the cell states fp32), or with ``--fault`` with a fault
+planted in the program (``faults.find``: ``faults.FAULTS``, or the
+entry's own). The second of two calls (the first warms up) is held by
+the same reference and numbers as a run and printed beside the cell's
+limits. Each control and each fault has to fail at least one of them
+on every seed; the program's readings set the lower end of each limit.
+The benchmark's own runs never run this.
 """
 import argparse
 import contextlib
@@ -54,20 +55,20 @@ def readings(name: str, seed: int, control: str | None = None,
                 **(wl["controls"][control] if control else {})}
     with patched() as setattr_:
         if fault:
-            faults.FAULTS[fault](setattr_, name)
+            faults.find(name, fault)(setattr_, name)
         ent = harness.entry(wl["entry"])
         prep = ent.prepare(settings)
-        A = inputs.make(cfg, seed, device)
+        inp = inputs.make(cfg, seed, device)
         state = RNGState(inputs.derive(seed, 3))
         for _ in range(2):
             out = None   # the first call's factors freed before the second
             t0 = time.perf_counter()
-            out, state = ent.call(A, state, prep)
+            out, state = ent.call(inp, state, prep)
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-    nums = ent.check(A, out, settings)
-    del out, A
+    nums = ent.check(inp, out, settings)
+    del out, inp
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     fails = [k for k, lim in wl["limits"].items()

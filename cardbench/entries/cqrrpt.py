@@ -15,6 +15,9 @@ from .. import reference, yardstick
 _CONFIG_KEYS = ("d_factor", "vec_nnz", "sketch", "qrcp", "bqrrp_block",
                 "gram_block", "trsm_mode", "q_form")
 HQRRP_OVERSAMPLE = 10
+NUMBERS = ("residual", "orthogonality", "permutation", "below_diagonal",
+           "fail", "pivot_gap", "rank_deficit")
+LIMITED = ("residual", "permutation", "fail")
 
 
 def prepare(settings: dict):

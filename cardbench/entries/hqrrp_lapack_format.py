@@ -6,6 +6,10 @@ from __future__ import annotations
 
 from .. import reference, yardstick
 
+NUMBERS = ("residual", "orthogonality", "permutation", "below_diagonal",
+           "fail", "pivot_gap", "panel_order")
+LIMITED = ("residual", "permutation", "fail")
+
 
 def prepare(settings: dict):
     from randlapack_tpu_torch.drivers import HQRRPConfig

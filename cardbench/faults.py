@@ -2,6 +2,10 @@
 each read ``correct`` false (``tests/test_cardbench_run.py``), and
 ``control.py --fault`` reads them on the card at a cell's own size.
 
+``FAULTS`` holds those of the pivoted QRs; an entry brings the others in
+its own ``FAULTS`` under names not in this one, and ``find`` looks in
+both. ``answer_altered`` and ``answer_nan`` find R in a QR's output.
+
 Each fault is ``fault(setattr, cell)``: it replaces a function of the
 program, or the cell's entry, through ``setattr(owner, name, value)``
 (pytest's ``monkeypatch.setattr``, or ``control.patched``'s, which puts
@@ -150,3 +154,11 @@ def gram_half(setattr, cell):
 FAULTS = {f.__name__: f for f in (
     answer_altered, answer_nan, k2_unchanged, k2_half, panel_unchanged,
     panel_half, k5_first_live, k6_unpivoted, cholqr_unchanged, gram_half)}
+
+
+def find(cell: str, name: str):
+    """The fault ``name`` for ``cell``: from ``FAULTS``, or else from the
+    ``FAULTS`` of the cell's entry."""
+    if name in FAULTS:
+        return FAULTS[name]
+    return getattr(_entry(cell), "FAULTS", {})[name]

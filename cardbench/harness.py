@@ -5,8 +5,11 @@ Everything a cell is sits in files found by name: ``workloads/<cell>.json``
 (its configuration, entry, the entry's settings, its controls' settings,
 the calls it checks and traces, its limits, its ``why``),
 ``configs/<config>.json`` (the input's source, shape, type and generator),
-``entries/<entry>.py`` (how to call the program and judge its output) and
-``metrics/<metric>.py`` (a per-layer reader). ``BENCHMARK.json`` says which
+``makers/<kind>.py`` (a generator of its own, where ``inputs.MAKERS`` has
+none), ``entries/<entry>.py`` (how to call the program and judge its
+output; ``entries/__init__.py``) and ``metrics/<metric>.py`` (a per-layer
+reader). The harness takes the input as whatever object the maker
+returns, and hands it to the entry alone. ``BENCHMARK.json`` says which
 metrics a cell reports.
 
 The loop is closed with one caller: each call ends in
@@ -18,7 +21,6 @@ completed; ``call_p95_ms`` the 95th percentile of the calls' own times.
 from __future__ import annotations
 
 import importlib
-import importlib.util
 import json
 import math
 import statistics
@@ -55,12 +57,7 @@ def entry(name: str):
 def reader(metric: str):
     """The per-layer metric's ``read`` function, from
     ``metrics/<metric>.py``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "cardbench_metric_" + metric.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return inputs.module_at(HERE / "metrics" / f"{metric}.py").read
 
 
 def benchmark() -> dict:
@@ -111,11 +108,11 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t0: float,
     # window holds outputs at once (the sampled ones and the current), each
     # held, so the allocator's cache has the window's memory before it
     prep = ent.prepare(settings)
-    A = inputs.make(cfg, seed, device)
+    inp = inputs.make(cfg, seed, device)
     state = RNGState(inputs.derive(seed, 3))
     warm = []
     for _ in range(wl["sample"]["count"] + 1):
-        out, state = ent.call(A, state, prep)
+        out, state = ent.call(inp, state, prep)
         warm.append(out)
     _sync(device)
     del warm, out
@@ -137,7 +134,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t0: float,
             prof = profile(activities=[act])
             prof.start()
         c0 = time.perf_counter()
-        out, state = ent.call(A, state, prep)
+        out, state = ent.call(inp, state, prep)
         _sync(device)
         c1 = time.perf_counter()
         if prof is not None and calls == trace_at + n_trace - 1:
@@ -159,7 +156,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t0: float,
     phases = {}
     if traced and hasattr(ent, "phases"):
         for _ in range(wl["phase_calls"]):
-            times_i, state = ent.phases(A, state, prep)
+            times_i, state = ent.phases(inp, state, prep)
             for k, v in times_i.items():
                 phases.setdefault(k, []).append(v)
     peak = (torch.cuda.max_memory_allocated()
@@ -208,7 +205,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t0: float,
         torch.cuda.empty_cache()
     worst: dict = {}
     for out in kept:
-        for k, v in ent.check(A, out, settings).items():
+        for k, v in ent.check(inp, out, settings).items():
             if math.isnan(v) or not v <= worst.get(k, -math.inf):
                 worst[k] = v
     del kept

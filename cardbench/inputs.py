@@ -10,10 +10,18 @@ min(m, n), G₁ and G₂ iid Gaussian, one fp32 product with TF32 off.
 seed: every seed gives the same work (a pivoted QR's data-dependent
 rescues follow the matrix, not the column order) in another order, and
 the same seed the same input.
+
+A configuration whose generator is not in ``MAKERS`` brings its own
+maker, ``makers/<kind>.py``: ``make(config, seed, device)`` returns the
+cell's input, whatever object its entry takes (a matrix, a tuple of a
+point set and its labels, a sparse matrix), and its docstring says how
+the run's seed reorders that input.
 """
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,13 +59,32 @@ def fast_decay(m: int, n: int, decay: float, seed: int, device,
 
 
 MAKERS = {"fast_decay": fast_decay}
+MAKER_DIR = Path(__file__).resolve().parent / "makers"
 
 
-def make(config: dict, seed: int, device) -> torch.Tensor:
+def module_at(path: Path):
+    """The module of the Python file ``path``, loaded by its path (a name
+    such as ``driver.qrcp_ms`` is no module name)."""
+    spec = importlib.util.spec_from_file_location(
+        f"cardbench_{path.parent.name}_{path.stem.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def maker(kind: str):
+    """The ``make`` function of ``MAKER_DIR/<kind>.py``."""
+    return module_at(MAKER_DIR / f"{kind}.py").make
+
+
+def make(config: dict, seed: int, device):
     """The input of ``config`` (a configuration file's contents) for
-    ``seed``: the generator's matrix of ``matrix_seed``, its columns in
-    the seed's order (module docstring)."""
+    ``seed``: for a generator of ``MAKERS``, its matrix of
+    ``matrix_seed`` with its columns in the seed's order; otherwise what
+    the generator's own maker returns (module docstring)."""
     gen = config["generator"]
+    if gen["kind"] not in MAKERS:
+        return maker(gen["kind"])(config, seed, device)
     m, n = config["shape"]
     dtype = {"float32": torch.float32, "float64": torch.float64}[
         config["dtype"]]

@@ -1,18 +1,19 @@
-"""The controls and the pivot faults of each cell, on the card at the
+"""The controls and the card faults of each cell, on the card at the
 cell's own size: the program in its own lower precision (TF32 products
-where the cell states fp32), and the program with its pivot selection
-broken, each have to fail at least one of the cell's limits, and the
-program as the cell states it has to pass them all, on the same seed."""
+where the cell states fp32), and the program with the mechanism its
+limits judge broken (the pivot selection, for the pivoted QRs: each
+cell's ``card_faults``, ``cells/<cell>.json``), each have to fail at least
+one of the cell's limits, and the program as the cell states it has to
+pass them all, on the same seed."""
 import pytest
 
+import cut
 from cardbench import control, harness
 
 CELLS = [c["name"] for c in harness.benchmark()["workloads"]]
 CONTROLS = [(c, k) for c in CELLS for k in harness.workload(c)["controls"]]
-PIVOT_FAULTS = ([(c, f) for c in CELLS if "hqrrp" in c
-                 for f in ("k5_first_live",)]
-                + [(c, "k6_unpivoted") for c in CELLS
-                   if c.startswith("square")])
+CUTS = cut.cuts()
+PIVOT_FAULTS = [(c, f) for c in CELLS for f in CUTS[c]["card_faults"]]
 SEED = 2**31 + 4099
 
 

@@ -1,12 +1,14 @@
 """Every configuration, workload and metric file loads by the name
-BENCHMARK.json gives it, and BENCHMARK.json keeps to its format's
-limits."""
+BENCHMARK.json gives it, each cell holds its entry's numbers to limits
+and has its cut to a CPU's size, and BENCHMARK.json keeps to its
+format's limits."""
 import json
 import re
 
 import pytest
 
-from cardbench import harness
+import cut
+from cardbench import faults, harness
 
 BENCH = harness.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -45,7 +47,12 @@ def test_workload_loads(cell):
     for fn in ("prepare", "call", "check", "schedule"):
         assert callable(getattr(ent, fn))
     assert 1 <= len(cell["why"]) <= 200
-    assert set(wl["limits"]) >= {"residual", "permutation", "fail"}
+    assert set(ent.LIMITED) <= set(wl["limits"]) <= set(ent.NUMBERS)
+    c = cut.cuts()[cell["name"]]
+    assert set(c) == {"shape", "settings", "limits", "faults",
+                      "card_faults", "why"}
+    for name in c["faults"] + c["card_faults"]:
+        assert callable(faults.find(cell["name"], name))
 
 
 def test_cells_unique_and_reported():

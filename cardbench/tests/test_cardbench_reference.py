@@ -1,7 +1,9 @@
 """The plain reference at a small size on the CPU: it forms the program's
 Q from the reflectors as the program does, passes a sound factorization,
 refuses wrong ones, and reads the pivots' distance from greedy column
-pivoting."""
+pivoting; and the inputs it is handed repeat from the seed."""
+import hashlib
+
 import numpy as np
 import pytest
 import scipy.linalg
@@ -101,3 +103,23 @@ def test_inputs_repeat_from_the_seed():
     a = inputs.fast_decay(64, 48, 6.0, big, "cpu")
     assert torch.equal(a, inputs.fast_decay(64, 48, 6.0, big, "cpu"))
     assert not torch.equal(a, inputs.fast_decay(64, 48, 6.0, big + 1, "cpu"))
+
+
+# inputs.make's matrix of each configuration at its CPU shape (the cells'
+# cut, cells/*.json) for seed 2**31 + 977: the SHA-256 of its bytes, read
+# before makers could be files; the fast_decay path has to give the same
+# bits (the same draws in the same order, the same column order)
+PINNED = {"square16384_f32": ([384, 384], "98e0223d51089ce2ea79bae48d5dca77"
+                              "249d69b3daa0ca7aa81bb67f421ba6fa"),
+          "tall131072x2048_f32": ([4096, 128], "b337bb23bc1b17de8bb544fb0ce"
+                                  "f0d39f0bb49573b42f356493e6a7090216c59")}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_inputs_match_the_pinned_bits(name):
+    shape, digest = PINNED[name]
+    A = inputs.make({**harness.config(name), "shape": shape}, 2**31 + 977,
+                    "cpu")
+    assert A.dtype == torch.float32 and list(A.shape) == shape
+    assert hashlib.sha256(A.contiguous().numpy().tobytes()).hexdigest() == \
+        digest
