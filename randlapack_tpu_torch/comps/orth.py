@@ -9,6 +9,8 @@ permutation is built on the host from LAPACK's swap sequence (one host
 read a call), so no m×m permutation matrix is ever formed; under
 ``torch.func.vmap`` it comes from ``torch.lu_unpack`` on the device, and
 the Householder fallback runs beside the CholQR and is selected there.
+Each host read (the swaps, the fallback's flag) adds one to the counter
+``revd2.host_reads`` (``utils.timing.count``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ..ops.cholqr import (_pow2, cholqr, cholqr2, cholqr_auto,
                           shifted_cholqr3)
 from ..ops.qr import lu_factor, qr_econ
 from ..ops.util import is_batched
+from ..utils.timing import count
 
 
 class Stab(enum.Enum):
@@ -65,6 +68,7 @@ def _orth_or_hqr(Y: torch.Tensor, method: Stab, precision) -> torch.Tensor:
         return Q
     if is_batched(fail):
         return torch.where(fail, orth(Y, Stab.hqr, precision)[0], Q)
+    count("revd2.host_reads")
     if bool(fail):
         Q, _ = orth(Y, Stab.hqr, precision)
     return Q
@@ -74,6 +78,7 @@ def _swaps_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
     """LAPACK's 1-based row swaps (row i ↔ piv[i]) as the permutation
     ``perm`` with (P·A)[i] = A[perm[i]], on piv's device."""
     perm = list(range(m))
+    count("revd2.host_reads")
     for i, p in enumerate((piv.cpu() - 1).tolist()):
         perm[i], perm[p] = perm[p], perm[i]
     return torch.tensor(perm, dtype=torch.int64, device=piv.device)

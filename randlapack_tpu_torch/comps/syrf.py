@@ -1,12 +1,14 @@
 """Symmetric range finder — SYRF = SYPS, then orth(A·Ω) (counterpart of
 ``randlapack_tpu/comps/syrf.py``; reference: RandLAPACK/comps/rl_syrf.hh:
-SYRF::call :72/:85)."""
+SYRF::call :72/:85). The orthogonalization, with its fallback, is the span
+``syrf_orth``."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..config import STABLE_PRECISION
 from ..rng import RNGState
+from ..utils.timing import span
 from .orth import Stab, _orth_or_hqr
 from .syps import SYPSConfig, _apply_sym, syps
 
@@ -23,5 +25,6 @@ def syrf(A, k: int, cfg: SYRFConfig, state: RNGState,
     symmetric operator; a CholQR failure falls back to Householder QR.
     ``omega`` goes to ``syps``. Returns ``(Q, next_state)``."""
     omega, state = syps(A, k, cfg.syps, state, precision, omega)
-    return (_orth_or_hqr(_apply_sym(A, omega, precision), cfg.orth,
-                         precision), state)
+    Y = _apply_sym(A, omega, precision)
+    with span("syrf_orth"):
+        return _orth_or_hqr(Y, cfg.orth, precision), state

@@ -16,6 +16,16 @@ The Gaussian draws can be injected: ``omega`` (SYPS's n×k start) and
 ``draw(shape, k)`` callable in ``revd2`` that makes both for each
 doubling round, Ω first. An injected draw advances ``state`` as a drawn
 one does.
+
+Spans (``utils.timing``): the root ``revd2`` a fixed-rank call; under it
+SYPS's ``syps`` (a ``stabilize`` a pass), SYRF's ``syrf_orth``,
+``nystrom_factor`` (the shift, QᵀY, its Cholesky factor, the triangular
+solve, the SVD and λ) and ``error_est``; every product with A is an
+``apply_a`` span wherever it falls. Counters: ``revd2.applies``,
+``revd2.apply_columns`` (the entries n·s of every product, against n·k
+once a call: 5 + 10/k at the default configuration) and
+``revd2.host_reads`` (4 a call: a swap sequence a SYPS pass and the
+CholQR flag).
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from ..ops.cholqr import _cholesky
 from ..ops.svd import svd_econ
 from ..ops.util import matmul
 from ..rng import RNGState
+from ..utils.timing import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,25 +81,29 @@ def revd2_fixed_rank(A, k: int, cfg: REVD2Config, state: RNGState,
     the JAX package."""
     require_fp32_matmul()
     precision = resolve_precision(precision)
-    Q, state = syrf(A, k, cfg.syrf, state, precision, omega)
-    Y = _apply_sym(A, Q, precision)
-    n = Q.shape[0]
-    nu = math.sqrt(n) * torch.finfo(Y.dtype).eps * torch.linalg.norm(Y)
-    Y = Y + nu * Q
-    # symmetrizes, all-NaN on breakdown
-    C = _cholesky(matmul(Q.T, Y, precision))
-    fail = torch.isnan(C).any()
-    # B = Y·C⁻ᵀ: solve B·Cᵀ = Y (Cᵀ upper)
-    B = torch.linalg.solve_triangular(C.T, Y, upper=True, left=False)
-    # the SVD of a broken-down B (NaN) is NaN without asking the library,
-    # which may refuse non-finite input; no host read
-    V, S, _ = svd_econ(torch.where(fail, torch.zeros_like(B), B),
-                       cfg.svd_method, precision)
-    nan = torch.full((), float("nan"), dtype=Y.dtype, device=Y.device)
-    V = torch.where(fail, nan, V)
-    lam = torch.where(fail, nan, torch.clamp(S * S - nu, min=0.0))
-    err, state = _power_error_est(A, V, lam, cfg.error_est_passes, state,
-                                  precision, v0)
+    with span("revd2", A.device):
+        n = _sym_dim(A)
+        count("revd2.apply_columns", 0, n * k)
+        Q, state = syrf(A, k, cfg.syrf, state, precision, omega)
+        Y = _apply_sym(A, Q, precision)
+        with span("nystrom_factor"):
+            nu = math.sqrt(n) * torch.finfo(Y.dtype).eps * torch.linalg.norm(Y)
+            Y = Y + nu * Q
+            # symmetrizes, all-NaN on breakdown
+            C = _cholesky(matmul(Q.T, Y, precision))
+            fail = torch.isnan(C).any()
+            # B = Y·C⁻ᵀ: solve B·Cᵀ = Y (Cᵀ upper)
+            B = torch.linalg.solve_triangular(C.T, Y, upper=True, left=False)
+            # the SVD of a broken-down B (NaN) is NaN without asking the
+            # library, which may refuse non-finite input; no host read
+            V, S, _ = svd_econ(torch.where(fail, torch.zeros_like(B), B),
+                               cfg.svd_method, precision)
+            nan = torch.full((), float("nan"), dtype=Y.dtype, device=Y.device)
+            V = torch.where(fail, nan, V)
+            lam = torch.where(fail, nan, torch.clamp(S * S - nu, min=0.0))
+        with span("error_est"):
+            err, state = _power_error_est(A, V, lam, cfg.error_est_passes,
+                                          state, precision, v0)
     return V, lam, err, nu, fail, state
 
 

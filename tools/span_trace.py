@@ -24,7 +24,13 @@ the cell, read from the record, and ``checks``:
   Vᵀ·A, ``a_update`` A −= V·U, ``g_v`` G·V, ``g_update`` G −= H·Vᵀ,
   ``wy_t`` VᵀV), each the rows it read over A's rows, summed over the
   calls (the counters ``hqrrp.rows.<product>``); ``masked_copies`` the
-  masks a call laid on an operand the size of A (``hqrrp.masked_copies``).
+  masks a call laid on an operand the size of A (``hqrrp.masked_copies``);
+- ``revd2``, where the calls are REVD2's: device ms a call by phase
+  (``syps``, its ``stabilize`` spans, ``syrf_orth``, ``nystrom_factor``,
+  ``error_est`` and every ``apply_a``), ``apply_a_share`` (the products'
+  device ms over the root's), and the counters a call: ``applies``
+  (``revd2.applies``), ``apply_columns`` (``revd2.apply_columns``, the
+  products' entries over n·k) and ``host_reads`` (``revd2.host_reads``).
 
 ``--out`` writes the record with ``spans``, ``setup_spans`` and
 ``counters`` (the fixture the span readers are tested on).
@@ -160,8 +166,34 @@ def checks(rec: dict) -> dict:
             if k.startswith(rows) and v[1]},
         masked_copies=None if cnt is None else cnt.get(
             "hqrrp.masked_copies", [0, 0])[0] / n,
+        revd2=revd2_checks(sp, cnt, n),
         unknown_parent=sum(1 for s in sp if s["parent"] is not None
                            and s["parent"] not in by_id))
+
+
+REVD2_PHASES = ("syps", "stabilize", "syrf_orth", "nystrom_factor",
+                 "error_est", "apply_a")
+
+
+def revd2_checks(sp: list, cnt, calls: int):
+    """REVD2's phases and counters a call (module docstring), or None
+    where no traced call is REVD2's."""
+    roots = [s for s in sp if s["parent"] is None and s["name"] == "revd2"]
+    if not roots:
+        return None
+    ms = {p: sum(s["device_ms"] or 0.0 for s in sp if s["name"] == p)
+          / calls for p in REVD2_PHASES}
+    root_ms = sum(s["device_ms"] or 0.0 for s in roots) / calls
+    cnt = cnt or {}
+
+    def per_call(name):
+        return cnt[name][0] / calls if name in cnt else None
+    cols = cnt.get("revd2.apply_columns")
+    return dict(device_ms=ms, root_ms=root_ms,
+                apply_a_share=ms["apply_a"] / max(root_ms, 1e-12),
+                applies=per_call("revd2.applies"),
+                apply_columns=cols[0] / cols[1] if cols and cols[1] else None,
+                host_reads=per_call("revd2.host_reads"))
 
 
 def main(argv=None) -> int:
