@@ -160,7 +160,7 @@ NO_LAUNCHES = dict.fromkeys(
     ("masked_vt_a", "a_minus_vz_masked", "masked_vt_a_simt",
      "a_minus_vz_masked_simt", "getrfnp", "qrcp_select_pivots",
      "qrcp_panel", "kernel_matmat", "gaussian_sketch",
-     "kernel_matmat_simt", "gaussian_sketch_simt",
+     "kernel_matmat_simt", "gaussian_sketch_simt", "kernel_matmat_wide",
      "qrcp_select_pivots_coop", "qrcp_panel_coop", "getrfnp_flat",
      *(f"{k}_{f}" for f in MODES.values()
        for k in ("masked_vt_a", "a_minus_vz_masked")), *YARDSTICKS,
@@ -173,9 +173,9 @@ HQRRP_LAUNCHES = {**NO_LAUNCHES, "qrcp_select_pivots": 64, "qrcp_panel": 64}
 KRILL_N, KRILL_K = 65536, 1024
 # REVD2 over KRILL's full-size kernel operator at KRILL's rank: SYPS's three
 # passes, SYRF's product and Y at s = k, then ten power-estimate passes at
-# s = 1, each a K4 launch
+# s = 1, each a K4 launch (those at s = k of its wide body)
 REVD2_K = 1024
-REVD2_LAUNCHES = {**NO_LAUNCHES, "kernel_matmat": 15}
+REVD2_LAUNCHES = {**NO_LAUNCHES, "kernel_matmat": 15, "kernel_matmat_wide": 5}
 # BASELINE config 1 (bench.py:336-357): RSVD of a 4096² fast-decay matrix
 # (decay 80: the optimal rank-256 tail ~1e-2), rank 256, QB block 64; and
 # the same at 8192² (BASELINE.md's target shape)
@@ -2279,7 +2279,8 @@ def phase_nystrom(dev, card: str) -> None:
           f"{max(rel):.3e} (lambda_1 {float(w[0]):.4e})", flush=True)
     gate(max(rel) <= 1e-3, f"nystrom: top-8 lambda relative errors {rel}")
     gate(counts["kernel_matmat"] > 0 and counts == {
-        **NO_LAUNCHES, "kernel_matmat": counts["kernel_matmat"]},
+        **NO_LAUNCHES, "kernel_matmat": counts["kernel_matmat"],
+        "kernel_matmat_wide": counts["kernel_matmat_wide"]},
         f"nystrom: launches {counts}")
 
 

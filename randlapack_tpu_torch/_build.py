@@ -94,10 +94,11 @@ _SIGNATURES = {
     # (P, W, taus, sigma, part, m, b, row0, pivot, force_global, stream)
     "rl_qrcp_panel_coop": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # f32, tensor cores: (X, V, scratch, out, d, n, s, 1/(2 sigma^2), splits,
-    #                      stream)
+    #                      chunk, stream)
     # f64, SIMT: (X, V, norms, part, out, d, n, s, 1/(2 sigma^2), splits,
     #             stream)
-    "rl_kernel_matmat": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
+    "rl_kernel_matmat": {"_f32": [_P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
+                                  _P],
                          "_f64": _KMM_SIMT},
     "rl_kernel_matmat_simt": {"_f32": _KMM_SIMT},
     # f32, tensor cores: (A, out, part, d, m, n, key0, key1, scale, splits,

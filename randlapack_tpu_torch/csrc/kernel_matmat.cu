@@ -54,7 +54,56 @@
 //   No atomics: two launches on the same operands give the same bits.
 //
 // Any n and s are taken: s in chunks of SC = 1, 4 or 16 columns (grid.y),
-// each of which recomputes its entries. f64, and f32 with d > 32, take the
+// each of which recomputes its entries.
+//
+// At wide s (s >= kWideMinS: REVD2, SYPS/SYRF and the Nystrom
+// preconditioner at s = k, in the hundreds to thousands) 2s of an entry's
+// 2s + 2d + 6 operations are the product with V, a matrix product, and the
+// body above would form K s/16 times over on the FMA units. There the fp32
+// design takes another body (kernel_matmat_wide_kernel), which forms each
+// entry once for every 128 columns of V and multiplies on the tensor cores:
+//
+// - A block owns 128 rows i x 128 columns of V: a producer warpgroup (one
+//   thread: three bulk copies a stage, the ring's full and empty mbarriers,
+//   as in wy_ring.cu) and two consumer warpgroups of 64 rows, 16 a warp.
+// - j in stages of BK = 32 points, a ring of 5 or 6 in shared memory: the
+//   points' x' halves and n' (pack_kernel's layout, padded as above) and
+//   V's rows for them, split once a call by a pre-pass (v_tiles_kernel)
+//   into TF32 hi and lo, each 128 columns x 32 points in tc.cuh's K-major
+//   core matrices (b_descriptor).
+// - A warp forms its 16 rows x 32 points of entries in registers as the
+//   body above does (four mma.m16n8k8 of the halves, norms, min.NaN, one
+//   ex2), splits each entry into TF32 hi and lo, and hands them to
+//   wgmma.m64n128k8 as its register operand without a round trip: the mma
+//   C fragment holds points (2t, 2t + 1) of each 8, the wgmma A fragment
+//   reduction indices (t, t + 4), and since j is a reduction index the
+//   pre-pass lays V's rows of each 8 points in the order (0, 2, 4, 6, 1,
+//   3, 5, 7), so that the two agree.
+// - Three products a k-step of 8 points, small ones first: lo.V_hi,
+//   hi.V_lo, hi.V_hi (lo.lo dropped, at 2^-22 of each term). The tensor
+//   cores add by truncation, so every `chunk` stages the accumulator is
+//   added with FADD into a second fp32 set and restarted (scale-d 0), the
+//   rule of wy_ring.cu: 64 + 64 registers a thread. Each consumer waits for
+//   its own products before it forms the next stage's entries.
+// - Where the time goes (H100, d 8, n 65536, s 1024, copies of this body
+//   with a part left out): the products and the ring alone 63-65 ms, the
+//   entries alone 54-59 ms, both 104-107 ms. One warpgroup's entries
+//   hardly overlap the other's products, and these did not help, so none
+//   is used: the cross term on FFMA in place of mma.sync (106.6 ms); with
+//   it, the two warpgroups' products issued in strict turns (named
+//   barriers, 107 ms); the fold every 4 stages (104.5 ms).
+// - Traffic: a block streams 32 KB of V halves a stage from L2 (n x 1 KB a
+//   launch, 64 MiB at n 65536). The grid runs the row blocks fastest, so
+//   the ~132 blocks resident at once walk the same column chunk of V at
+//   about the same pace and read it from L2, not from device memory. At
+//   the tensor cores' TF32 rate a block asks ~22 bytes a clock of L2; the
+//   products with the ring alone run within a fifth of that rate, so
+//   clusters sharing a stage by multicast were not tried.
+// - The sum over j is split over grid.z by the rule of the other bodies
+//   (ops/kernels.py's kernel_matmat_splits at this tile) only where the
+//   blocks are too few; parts are added in index order.
+//
+// f64, and f32 with d > 32, take the
 // SIMT kernel below (kernel_matmat_kernel): each block owns 64 rows i and
 // walks over tiles of 128 columns j; each of its 256 threads holds a 4x8
 // micro-tile of the cross products (FFMA/DFMA over d, staged 16 deep
@@ -274,18 +323,20 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
 
 // The prologue, a thread a point j < n_pad: x' = scale * x split into TF32
 // halves in fragment order, n' = -|x'|^2 / 2, and V in column chunks.
-//   xs  [n_pad][ks][4][4]   {hi[8q+t], hi[8q+t+4], lo[8q+t], lo[8q+t+4]}
+//   xs  [n_pad][ks][4][4]   {hi[8q+t], hi[8q+t+4], lo[8q+t], lo[8q+t+4]},
+//                           `stride` floats a point (the wide body: the
+//                           padded shared-memory stride, pad not written)
 //   nrm [n_pad]
-//   vp  [chunks][n_pad][sc]
+//   vp  [chunks][n_pad][sc] (none at s = 0)
 __global__ void pack_kernel(const float* __restrict__ X,
                             const float* __restrict__ V,
                             float* __restrict__ xs, float* __restrict__ nrm,
                             float* __restrict__ vp, int d, int n, int n_pad,
-                            int s, int ks, int sc, float scale) {
+                            int s, int ks, int stride, int sc, float scale) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_pad) return;
   float acc = 0.f;
-  uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)j * packed_floats(ks));
+  uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)j * stride);
   for (int q = 0; q < ks; ++q)
     for (int t = 0; t < 4; ++t) {
       uint32_t h[2], l[2];
@@ -506,6 +557,241 @@ int launch_tc_chunks(const float* xs, const float* nrm, const float* vp,
 }
 
 // ---------------------------------------------------------------------
+// fp32 at wide s: the product with V as three TF32 wgmma of split halves
+// ---------------------------------------------------------------------
+
+constexpr int kWideMinS = 17;        // s from which the wide body runs
+constexpr int kWideBI = 128;         // rows i per block: 2 warpgroups x 64
+constexpr int kWideBN = 128;         // columns of V per block (wgmma's N)
+constexpr int kWideTile = kWideBN * BK;   // floats of one V half a stage
+
+// floats of one ring stage: V's hi and lo tiles, BK packed points, their n'
+template <int KS>
+__host__ __device__ constexpr int wide_stage_floats() {
+  return 2 * kWideTile + BK * smem_point_floats(KS) + BK;
+}
+template <int KS>
+__host__ __device__ constexpr int wide_stages() {
+  return (232448 - 1024) / (wide_stage_floats<KS>() * 4) < 6
+             ? (232448 - 1024) / (wide_stage_floats<KS>() * 4)
+             : 6;
+}
+template <int KS>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return wide_stages<KS>() * (wide_stage_floats<KS>() * 4 + 16);
+}
+
+// The pre-pass of the wide body, a thread a column of a 128-column chunk
+// (blockIdx.y) and a stage of BK points (blockIdx.x): V's TF32 halves as
+// wgmma's B operand, K-major in core matrices of 8 columns x 4 points,
+//   vt [chunk][stage][hi, lo][kWideBN / 8][BK / 4][8][4],
+// the points of each 8 in the order (0, 2, 4, 6, 1, 3, 5, 7); zeros past n
+// and s
+__global__ void __launch_bounds__(kWideBN)
+v_tiles_kernel(const float* __restrict__ V, float* __restrict__ vt, int n,
+               int s, int stages) {
+  const int c = threadIdx.x;
+  const int col = blockIdx.y * kWideBN + c;
+  float* hi = vt + ((size_t)blockIdx.y * stages + blockIdx.x) * 2 * kWideTile +
+              (c / 8) * (BK / 4) * kCoreFloats + (c % 8) * 4;
+#pragma unroll
+  for (int kg = 0; kg < BK / 4; ++kg) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int kr = 0; kr < 4; ++kr) {
+      const int k = 4 * kg + kr, k8 = k & 7;
+      const int j = blockIdx.x * BK + (k & ~7) + (k8 < 4 ? 2 * k8 : 2 * k8 - 7);
+      const float v = (j < n && col < s) ? V[(size_t)j * s + col] : 0.f;
+      split_tf32(v, h[kr], l[kr]);
+    }
+    *reinterpret_cast<uint4*>(hi + kg * kCoreFloats) =
+        make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(hi + kWideTile + kg * kCoreFloats) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// dst[z][i][c] = sum over the stages of split z of K_ij V[j][c], for the
+// block's 128 rows i and 128 columns c
+template <int KS>
+__global__ void __launch_bounds__(384, 1)
+kernel_matmat_wide_kernel(const float* __restrict__ xs,
+                          const float* __restrict__ nrm,
+                          const float* __restrict__ vt, float* __restrict__ dst,
+                          int n, int n_pad, int s, int per, int chunk) {
+  constexpr int PF = smem_point_floats(KS);
+  constexpr int kStage = wide_stage_floats<KS>();
+  constexpr int kStages = wide_stages<KS>();
+  static_assert(kStage % 32 == 0, "stages keep 128-byte alignment");
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int stages = n_pad / BK;
+  const int st_begin = blockIdx.z * per;
+  const int st_end = min(stages, st_begin + per);
+  if (tid == 0) {
+    // full: the producer's arrival with its bytes; empty: each consumer warp
+    for (int b = 0; b < kStages; ++b) {
+      mbar_init(full + b, 1);
+      mbar_init(empty + b, 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: thread 0 keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 0) return;
+    const float* vchunk = vt + (size_t)blockIdx.y * stages * 2 * kWideTile;
+    int slot = 0;
+    uint32_t parity = 1;                    // the stages start empty
+    for (int st = st_begin; st < st_end; ++st) {
+      mbar_wait(empty + slot, parity);
+      float* dstp = smem + slot * kStage;
+      mbar_arrive_expect(full + slot, kStage * 4);
+      bulk_load(dstp, vchunk + (size_t)st * 2 * kWideTile,
+                2 * kWideTile * 4, full + slot);
+      bulk_load(dstp + 2 * kWideTile, xs + (size_t)st * BK * PF, BK * PF * 4,
+                full + slot);
+      bulk_load(dstp + 2 * kWideTile + BK * PF, nrm + (size_t)st * BK,
+                BK * 4, full + slot);
+      if (++slot == kStages) {
+        slot = 0;
+        parity ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroups 1 and 2, 64 rows i each, 16 a warp
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = (tid >> 7) - 1;
+  const int r0 = blockIdx.x * kWideBI + wg * 64 + ((tid >> 5) & 3) * 16;
+
+  // this warp's rows r0 + g and r0 + g + 8, as the body above holds them
+  uint32_t ah[KS][4], al[KS][4];
+  float ni[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + 8 * h + g;
+    const bool ok = i < n_pad;         // the last block may reach past n_pad
+    ni[h] = ok ? nrm[i] : 0.f;
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+      const uint4 v = ok ? reinterpret_cast<const uint4*>(
+                               xs + (size_t)i * PF)[q * 4 + t]
+                         : make_uint4(0u, 0u, 0u, 0u);
+      ah[q][h] = v.x;
+      ah[q][2 + h] = v.y;
+      al[q][h] = v.z;
+      al[q][2 + h] = v.w;
+    }
+  }
+
+  // a thread's share of its warpgroup's 64 x 128 sums: for the 8-column
+  // group c, [4c] (g, 2t), [4c+1] (g, 2t+1), [4c+2] (g+8, 2t), [4c+3]
+  // (g+8, 2t+1)
+  float acc[4 * (kWideBN / 8)];       // sums of whole chunks, added by FADD
+  float part[4 * (kWideBN / 8)];      // the running chunk, by the wgmma
+#pragma unroll
+  for (int e = 0; e < 4 * (kWideBN / 8); ++e) acc[e] = part[e] = 0.f;
+  int slot = 0, since = 0;
+  uint32_t parity = 0;
+  for (int st = st_begin; st < st_end; ++st) {
+    mbar_wait(full + slot, parity);
+    const float* sv = smem + slot * kStage;
+    const float* sx = sv + 2 * kWideTile;
+    const float* sn = sx + BK * PF;
+    // the entries of points 8 nt + (2t, 2t + 1) as wgmma's A fragments of
+    // k-step nt: [h + 2e] row g + 8h, point 2t + e (reduction index t + 4e)
+    uint32_t eh[BK / 8][4], el[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      uint4 b[KS];
+#pragma unroll
+      for (int q = 0; q < KS; ++q)
+        b[q] = *reinterpret_cast<const uint4*>(sx + (nt * 8 + g) * PF +
+                                               (q * 4 + t) * 4);
+      const float2 nj = *reinterpret_cast<const float2*>(sn + nt * 8 + 2 * t);
+      float c4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < KS; ++q) {
+        mma_tf32(c4, al[q][0], al[q][1], al[q][2], al[q][3], b[q].z, b[q].w);
+        mma_tf32(c4, al[q][0], al[q][1], al[q][2], al[q][3], b[q].x, b[q].y);
+        mma_tf32(c4, ah[q][0], ah[q][1], ah[q][2], ah[q][3], b[q].z, b[q].w);
+        mma_tf32(c4, ah[q][0], ah[q][1], ah[q][2], ah[q][3], b[q].x, b[q].y);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = c4[2 * h + e] + (ni[h] + (e ? nj.y : nj.x));
+          split_tf32(ex2_approx(min0_nan(ex)), eh[nt][h + 2 * e],
+                     el[nt][h + 2 * e]);
+        }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      // 8 points are two core matrices; a chunk's first product starts the
+      // accumulator from zero
+      const uint64_t dh = b_descriptor(sv + 2 * q * kCoreFloats);
+      const uint64_t dl = b_descriptor(sv + kWideTile + 2 * q * kCoreFloats);
+      wgmma_tf32(part, el[q], dh, q > 0 || since > 0);
+      wgmma_tf32(part, eh[q], dl, 1);
+      wgmma_tf32(part, eh[q], dh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(part);
+    release_frag(eh, el);
+    if (lane == 0) mbar_arrive(empty + slot);
+    if (++slot == kStages) {
+      slot = 0;
+      parity ^= 1;
+    }
+    if (++since == chunk || st == st_end - 1) {
+      since = 0;
+#pragma unroll
+      for (int e = 0; e < 4 * (kWideBN / 8); ++e) acc[e] += part[e];
+    }
+  }
+
+  float* out_z = dst + (size_t)blockIdx.z * n * s;
+  const int c0 = blockIdx.y * kWideBN;
+#pragma unroll
+  for (int c = 0; c < kWideBN / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1);
+      const int col = c0 + 8 * c + 2 * t + (e & 1);
+      if (i < n && col < s) out_z[(size_t)i * s + col] = acc[4 * c + e];
+    }
+}
+
+template <int KS>
+int launch_wide(const float* xs, const float* nrm, const float* vt,
+                float* dst, int n, int n_pad, int s, int splits, int chunk,
+                cudaStream_t stream) {
+  constexpr int bytes = wide_smem_bytes<KS>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel_matmat_wide_kernel<KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int stages = n_pad / BK;
+  const int per = (stages + splits - 1) / splits;
+  const dim3 grid((n + kWideBI - 1) / kWideBI, (s + kWideBN - 1) / kWideBN,
+                  splits);
+  kernel_matmat_wide_kernel<KS><<<grid, 384, bytes, stream>>>(
+      xs, nrm, vt, dst, n, n_pad, s, per, chunk > 0 ? chunk : INT32_MAX);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
 
@@ -565,34 +851,53 @@ int launch_kernel_matmat(const void* X, const void* V, void* norms,
 extern "C" {
 
 // fp32 on the tensor cores, d <= 32 (else cudaErrorInvalidValue). `scratch`
-// is one 16-byte aligned piece of n_pad (16 ks + 1 + ceil(s/sc) sc) floats,
-// and splits * n * s more when splits > 1, with n_pad = n rounded up to
-// 128, ks = 1, 2 or 4 for d <= 8, 16, 32 and sc = 1, 4 or 16 for s = 1,
-// s <= 4 or more: the packed points xs, their norms nrm, V in chunks vp
-// (each a multiple of 128 floats long) and the parts of a split sum.
+// is one 16-byte aligned piece of n_pad (pf + 1) + ceil(s/sc) n_pad w
+// floats, and splits * n * s more when splits > 1, with n_pad = n rounded up
+// to 128, ks = 1, 2 or 4 for d <= 8, 16, 32; below kWideMinS sc = 1, 4 or 16
+// for s = 1, s <= 4 or more, pf = 16 ks and w = sc; from kWideMinS (the
+// wide body) sc = kWideBN, pf = smem_point_floats(ks) and w = 2 sc: the
+// packed points xs, their norms nrm, V in chunks vp (the wide body: its
+// TF32 tiles) and the parts of a split sum. `chunk`: the wide body's stages
+// between folds of its accumulator (0: never).
 int rl_kernel_matmat_f32(const void* X, const void* V, void* scratch,
                          void* out, int d, int n, int s, double inv2s2,
-                         int splits, void* stream_) {
+                         int splits, int chunk, void* stream_) {
   // k-steps of 8 coordinates, rounded up to 1, 2 or 4 (zero rows)
   const int ks = d <= 8 ? 1 : d <= 16 ? 2 : 4;
   if (d > 8 * kMaxKSteps || !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   const int n_pad = (n + kTcTJ - 1) / kTcTJ * kTcTJ;
-  const int sc = s == 1 ? 1 : s <= 4 ? 4 : 16;
+  const bool wide = s >= kWideMinS;
+  const int sc = wide ? kWideBN : s == 1 ? 1 : s <= 4 ? 4 : 16;
+  const int pf = wide ? smem_point_floats(ks) : packed_floats(ks);
   float* xs = (float*)scratch;
-  float* nrm = xs + (size_t)n_pad * packed_floats(ks);
+  float* nrm = xs + (size_t)n_pad * pf;
   float* vp = nrm + n_pad;
-  float* part = vp + (size_t)((s + sc - 1) / sc) * n_pad * sc;
+  float* part =
+      vp + (size_t)((s + sc - 1) / sc) * n_pad * (wide ? 2 * sc : sc);
   // 2^(x'_i.x'_j - |x'_i|^2/2 - |x'_j|^2/2) = exp(-|x_i - x_j|^2 / (2 sigma^2))
   const float scale = (float)sqrt(2.0 * inv2s2 * 1.4426950408889634);
   pack_kernel<<<(n_pad + 127) / 128, 128, 0, stream>>>(
-      (const float*)X, (const float*)V, xs, nrm, vp, d, n, n_pad, s, ks, sc,
-      scale);
+      (const float*)X, (const float*)V, xs, nrm, vp, d, n, n_pad,
+      wide ? 0 : s, ks, pf, sc, scale);
   int err = (int)cudaGetLastError();
   if (err) return err;
+  if (wide) {
+    v_tiles_kernel<<<dim3(n_pad / BK, (s + sc - 1) / sc), kWideBN, 0,
+                     stream>>>((const float*)V, vp, n, s, n_pad / BK);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
   float* dst = splits > 1 ? part : (float*)out;
-  if (ks == 1)
+  if (wide)
+    err = ks == 1   ? launch_wide<1>(xs, nrm, vp, dst, n, n_pad, s, splits,
+                                     chunk, stream)
+          : ks == 2 ? launch_wide<2>(xs, nrm, vp, dst, n, n_pad, s, splits,
+                                     chunk, stream)
+                    : launch_wide<4>(xs, nrm, vp, dst, n, n_pad, s, splits,
+                                     chunk, stream);
+  else if (ks == 1)
     err = launch_tc_chunks<1>(xs, nrm, vp, dst, n, n_pad, s, splits, stream);
   else if (ks == 2)
     err = launch_tc_chunks<2>(xs, nrm, vp, dst, n, n_pad, s, splits, stream);

@@ -1,17 +1,18 @@
 // What the tensor-core kernels of this directory share (wy.cu: K1/K2,
-// wy_ring.cu: their ring forms, gaussian_sketch.cu: K7): the fp32 -> TF32
-// hi/lo split, cp.async and fence wrappers, the mbarrier and bulk-copy
-// wrappers of the producer/consumer rings, wgmma.mma_async.m64n128k8 (tf32
-// in, fp32 accumulate) with the guard that keeps its register operand live
-// until the wait, and its shared-memory descriptor for a K-major operand in
-// unswizzled core matrices, the fp32 -> bf16 packing and hi/lo split, the
-// pass that adds the parts of a split reduction in index order, and the
-// cluster helpers (mapped addresses, remote arrivals, bulk copies between
-// blocks, the cluster barrier). Every kernel that includes this walks its
-// reduction in stages of BK = 32 and keeps a K-major operand of a stage as
-// 128 x BK TF32 values in core matrices of 8 rows x 16 bytes of k (128
-// contiguous bytes each, kCoreK bytes to the next one along k, kCoreN
-// along the rows).
+// wy_ring.cu: their ring forms, gaussian_sketch.cu: K7, kernel_matmat.cu:
+// K4's wide body): the fp32 -> TF32 hi/lo split, cp.async and fence
+// wrappers, the mbarrier and bulk-copy wrappers of the producer/consumer
+// rings, wgmma.mma_async.m64n128k8 (tf32 in, fp32 accumulate) with the
+// guard that keeps its register operand live until the wait and the fence
+// that keeps the accumulator's reads after it, and its shared-memory
+// descriptor for a K-major operand in unswizzled core matrices, the fp32
+// -> bf16 packing and hi/lo split, the pass that adds the parts of a split
+// reduction in index order, and the cluster helpers (mapped addresses,
+// remote arrivals, bulk copies between blocks, the cluster barrier). Every
+// kernel that includes this walks its reduction in stages of BK = 32 and
+// keeps a K-major operand of a stage as 128 x BK TF32 values in core
+// matrices of 8 rows x 16 bytes of k (128 contiguous bytes each, kCoreK
+// bytes to the next one along k, kCoreN along the rows).
 
 #pragma once
 
@@ -252,6 +253,12 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
+}
+
+// after wgmma_wait_all: the accumulator's later reads stay after the wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(d[e]) :: "memory");
 }
 
 // Called right after wgmma_wait_all on a stage's TF32 A fragments: the

@@ -369,12 +369,6 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(keep));
 }
 
-// after wgmma_wait_all: the accumulator's later reads stay after the wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(d[e]) :: "memory");
-}
-
 // One 32-deep stage `st` of the bf16 forms on the tensor cores: d (this
 // warpgroup's 64 x 128) += P Q^T over the stage, Q the stage's first block
 // of tile sets (Z^T's, or V^T's), P this warpgroup's 64 rows of the second

@@ -21,9 +21,12 @@ the other.
 In f32 both kernels run on the tensor cores. K4's cross term x_i·x_j is
 TF32 ``mma`` products of the split halves of the scaled points, and an
 entry costs one ``ex2`` (``kernel_matmat_split_reference`` is that
-arithmetic in plain PyTorch); K7's product is three TF32 ``wgmma``
-products per fp32 product with S generated by producer warps and shared
-among the blocks of a cluster (``gaussian_sketch_split_reference``). f64,
+arithmetic in plain PyTorch); from ``_WIDE_MIN_S`` columns of V on, its
+product with V is three TF32 ``wgmma`` products of the split halves of the
+entries and of V (``kernel_matmat_wide_reference``); K7's product is three
+TF32 ``wgmma`` products per fp32 product with S generated by producer warps
+and shared among the blocks of a cluster
+(``gaussian_sketch_split_reference``). f64,
 f32 points of more than 32 coordinates (K4) and f32 operands that
 ``wy.takes_tensor_cores`` refuses (K7) take the SIMT kernels of the same
 files, which also stay reachable as ``kernel_matmat_simt`` and
@@ -37,15 +40,17 @@ import math
 import torch
 
 from ..errors import require
+from ..utils.timing import count
 from .wy import (CHUNK, _KERNEL_DTYPES, _device_route, _split_tf32,
                  _three_products, takes_tensor_cores)
 
 # kernel launches since the last reset. The first two count the launches of
 # K4 and K7 by their wrappers, whatever body ran; the ``_simt`` ones count
 # every launch of the f32 SIMT bodies, by their own wrappers or as K4/K7's
-# guarded path
+# guarded path; ``kernel_matmat_wide`` the launches of K4's wide body
 LAUNCHES = {"kernel_matmat": 0, "gaussian_sketch": 0,
-            "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0}
+            "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0,
+            "kernel_matmat_wide": 0}
 
 # kernel_matmat's tiling (csrc/kernel_matmat.cu): tiles of 128 columns j, V
 # in chunks of 1, 4 or 16 columns; 256 rows i a block on the tensor cores
@@ -58,6 +63,11 @@ _SIMT_TI = 64
 # 1.99 in 2048)
 _MIN_BLOCKS = 1024
 _MAX_TC_D = 32
+# the wide body (kernel_matmat_wide_kernel): 128 rows i by 128 columns of V
+# a block, j in stages of 32 points; it runs from _WIDE_MIN_S columns of V
+# on, the body above below that (the kernel's own kWideMinS)
+_WIDE_TI, _WIDE_SC, _WIDE_BK = 128, 128, 32
+_WIDE_MIN_S = 17
 _LOG2E = 1.4426950408889634
 # gaussian_sketch's tiling (csrc/gaussian_sketch.cu): 128x128 tiles of out,
 # the 4 blocks of a cluster on neighbouring column tiles
@@ -101,15 +111,33 @@ def _column_chunk(s: int) -> int:
 
 
 def kernel_matmat_splits(n: int, s: int, rows: int = _TI,
-                         min_blocks: int = _MIN_BLOCKS) -> int:
+                         min_blocks: int = _MIN_BLOCKS,
+                         columns: int | None = None) -> int:
     """Into how many parts the kernel's sum over j is split (each part a
     block of its own, the parts added in index order afterwards) so that
-    a small n still fills the card: blocks of ``rows`` rows i, at least
-    ``min_blocks`` of them where the j tiles allow (defaults: the
-    tensor-core kernel's). Depends on the shapes alone."""
-    sc = _column_chunk(s)
+    a small n still fills the card: blocks of ``rows`` rows i by
+    ``columns`` columns of V (default: the chunk of 1, 4 or 16 the SIMT
+    and the narrow tensor-core bodies take), at least ``min_blocks`` of
+    them where the j tiles allow (defaults: the narrow tensor-core
+    body's). Depends on the shapes alone."""
+    sc = columns or _column_chunk(s)
     blocks = -(-n // rows) * -(-s // sc)
     return max(1, min(-(-n // _TJ), min_blocks // blocks))
+
+
+def kernel_matmat_plan(d: int, n: int, s: int,
+                       dtype=torch.float32) -> tuple[str, int]:
+    """Which body of K4 runs at these shapes, and into how many parts it
+    splits its sum over j: ``"wide"`` (f32, d ≤ 32, s ≥ ``_WIDE_MIN_S``:
+    the product with V on ``wgmma``), ``"narrow"`` (f32, d ≤ 32, fewer
+    columns: the product with V on the FMA units) or ``"simt"`` (f64,
+    and f32 with d > 32). Depends on the shapes and the type alone."""
+    if dtype == torch.float32 and d <= _MAX_TC_D:
+        if s >= _WIDE_MIN_S:
+            return "wide", kernel_matmat_splits(n, s, _WIDE_TI,
+                                                columns=_WIDE_SC)
+        return "narrow", kernel_matmat_splits(n, s)
+    return "simt", kernel_matmat_splits(n, s, _SIMT_TI)
 
 
 def kernel_matmat_work(d: int, n: int, s: int, esize: int = 4) -> dict:
@@ -149,6 +177,52 @@ def kernel_matmat_split_reference(X, V, bandwidth, block=None):
             + hi.T @ hi[:, j]
         e = cross + (nrm[:, None] + nrm[None, j])
         out = out + torch.exp2(torch.clamp(e, max=0.0)) @ V[j, :]
+    return out
+
+
+def kernel_matmat_wide_reference(X, V, bandwidth, splits: int = 1,
+                                 chunk: int = CHUNK):
+    """K4's wide body (s ≥ ``_WIDE_MIN_S``) as the card computes it, in
+    plain PyTorch: the entries K_ij as ``kernel_matmat_split_reference``
+    forms them, taken in stages of 32 points j; each entry and each row of
+    V split into TF32 halves (``wy._split_tf32``), a stage's product the
+    three products of the halves, small ones first (lo·V_hi + hi·V_lo +
+    hi·V_hi; lo·lo dropped; the halves' products are exact in fp32, so
+    ``@`` is the tensor cores' arithmetic up to summation); the products
+    of ``chunk`` stages summed (on the card by the tensor cores, 0: all of
+    a part's) and then added in fp32 to the running sum; the stages of
+    the sum over j (n rounded up to 128) in ``splits`` parts, added in
+    index order."""
+    require(X.dtype == torch.float32, "the TF32 split takes float32")
+    n = X.shape[1]
+    bw = float(bandwidth)
+    hi, lo = _split_tf32(X * float(math.sqrt(2.0 * _LOG2E / (2.0 * bw * bw))))
+    Xs = hi + lo
+    nrm = -0.5 * torch.sum(Xs * Xs, dim=0)
+    Vh, Vl = _split_tf32(V)
+    stages = -(-n // _TJ) * _TJ // _WIDE_BK
+    per = -(-stages // splits)
+    out = None
+    for z in range(splits):
+        acc = torch.zeros_like(V)
+        run, since = None, 0
+        for st in range(z * per, min(stages, (z + 1) * per)):
+            j = slice(st * _WIDE_BK, min(n, (st + 1) * _WIDE_BK))
+            if j.start < n:
+                cross = ((lo.T @ lo[:, j] + lo.T @ hi[:, j])
+                         + hi.T @ lo[:, j]) + hi.T @ hi[:, j]
+                e = cross + (nrm[:, None] + nrm[None, j])
+                Eh, El = _split_tf32(torch.exp2(torch.clamp(e, max=0.0)))
+                p = (El @ Vh[j] + Eh @ Vl[j]) + Eh @ Vh[j]
+                run = p if since == 0 else run + p
+            since += 1          # a stage past n adds zeros on the card
+            if since == chunk:
+                if run is not None:
+                    acc = acc + run
+                run, since = None, 0
+        if run is not None:
+            acc = acc + run
+        out = acc if out is None else out + acc
     return out
 
 
@@ -195,28 +269,42 @@ def kernel_matmat(X, V, bandwidth):
     and s; ``bandwidth`` a Python number or a tensor of one element.
 
     f32 with d ≤ 32 runs the cross term on the tensor cores (see
-    ``kernel_matmat_split_reference``); f64, and f32 with more
-    coordinates, run on the SIMT kernel."""
+    ``kernel_matmat_split_reference``), and from ``_WIDE_MIN_S`` columns
+    on the product with V too (``kernel_matmat_wide_reference``; the body
+    by ``kernel_matmat_plan``, counted in ``LAUNCHES["kernel_matmat_wide"]``
+    and, while a span records, in the counter ``k4.wide_columns``: the
+    columns it took of all the f32 tensor-core launches'); f64, and f32
+    with more coordinates, run on the SIMT kernel."""
     from .. import _build
     d, n, s = _check_kernel_matmat(X, V)
     if not (n and s):
         return torch.empty((n, s), dtype=X.dtype, device=X.device)
-    if X.dtype == torch.float32 and d <= _MAX_TC_D:
+    body, splits = kernel_matmat_plan(d, n, s, X.dtype)
+    if body != "simt":
+        wide = body == "wide"
         out = torch.empty((n, s), dtype=X.dtype, device=X.device)
-        splits = kernel_matmat_splits(n, s)
         n_pad = -(-n // _TJ) * _TJ
-        sc = _column_chunk(s)
         ks = 1 if d <= 8 else 2 if d <= 16 else 4      # k-steps of 8
         # one piece of scratch: the scaled points' TF32 halves in fragment
-        # order (16 ks floats a point), their norms, V in column chunks,
-        # then the parts of a split sum over j
+        # order (16 ks floats a point; the wide body pads them to its
+        # shared-memory stride), their norms, V in column chunks (the wide
+        # body: its TF32 hi and lo tiles), then the parts of a split sum
+        # over j
+        if wide:
+            pf = 16 if ks == 1 else 16 * ks + 16
+            vfloats = -(-s // _WIDE_SC) * 2 * _WIDE_SC
+        else:
+            pf = 16 * ks
+            vfloats = -(-s // _column_chunk(s)) * _column_chunk(s)
         scratch = torch.empty(
-            n_pad * (16 * ks + 1 + -(-s // sc) * sc)
-            + (splits * n * s if splits > 1 else 0),
+            n_pad * (pf + 1 + vfloats) + (splits * n * s if splits > 1
+                                          else 0),
             dtype=X.dtype, device=X.device)
         bw = float(bandwidth)
         _build.call("rl_kernel_matmat", out, X, V, scratch, out, d, n, s,
-                    1.0 / (2.0 * bw * bw), splits)
+                    1.0 / (2.0 * bw * bw), splits, CHUNK)
+        LAUNCHES["kernel_matmat_wide"] += wide
+        count("k4.wide_columns", s if wide else 0, s)
     elif X.dtype == torch.float32:
         out = _launch_kernel_matmat_simt("rl_kernel_matmat_simt", X, V,
                                          bandwidth, d, n, s)

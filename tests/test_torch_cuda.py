@@ -12,7 +12,8 @@ stay within 1e-4 of the largest entry; f64 within 1e-12. The f32 K1/K2
 kernels (three TF32 products per fp32 product on the tensor cores) are
 also held to fp32 accuracy against the f64 product: a relative Frobenius
 error of at most 4x that of ``torch.mm``/``torch.addmm`` in fp32 on the
-same operands. The f32 K4 (TF32 ``mma`` cross term, ``ex2``) and K7
+same operands. The f32 K4 (TF32 ``mma`` cross term, ``ex2``; at wide s
+the product with V as three TF32 ``wgmma`` products) and K7
 (three TF32 ``wgmma`` products, S made by producer warps) are held the
 same way: K7 to 4x ``torch.mm``'s error on the stored S, K4 to 4x its SIMT
 kernel's. The QRCP kernels (K5, K6; the step kernels and the earlier
@@ -683,10 +684,15 @@ def test_kernel_matmat_tensor_cores_hold_fp32_accuracy(cuda, d, n, s):
                      device=cuda)
     bw = 1.36 * np.sqrt(d)
     n0 = dict(tk.LAUNCHES)
+    wide = int(s >= tk._WIDE_MIN_S)
     out = tk.kernel_matmat(X, V, bw)
-    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1}
+    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1,
+                           "kernel_matmat_wide":
+                           n0["kernel_matmat_wide"] + wide}
     simt = tk.kernel_matmat_simt(X, V, bw)
     assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1,
+                           "kernel_matmat_wide":
+                           n0["kernel_matmat_wide"] + wide,
                            "kernel_matmat_simt":
                            n0["kernel_matmat_simt"] + 1}
     ref = tk.kernel_matmat_reference(X.double(), V.double(), bw, block=4096)
@@ -873,7 +879,8 @@ def test_krill_and_the_sketch_run_on_the_tensor_core_bodies(cuda):
         rt.RNGState(0))
     assert iters < 100 and float(hist[iters, 0] / hist[0, 0]) <= 1e-5
     assert tk.LAUNCHES == {"kernel_matmat": iters + 1, "gaussian_sketch": 0,
-                           "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0}
+                           "kernel_matmat_simt": 0, "gaussian_sketch_simt": 0,
+                           "kernel_matmat_wide": 0}
     from randlapack_tpu_torch import ops
     ops.gaussian_sketch(X.T.contiguous(), 16, 1)
     assert tk.LAUNCHES["gaussian_sketch"] == 1
@@ -1065,6 +1072,93 @@ def test_kernel_matmat_wide_s_holds_fp32_accuracy(cuda, s):
     assert torch.equal(out, tk.kernel_matmat(X, V, bw))
 
 
+def _narrow_by_slices(X, V, bw):
+    """K·V by the narrow tensor-core body alone: V in slices of fewer
+    than _WIDE_MIN_S columns, one launch each."""
+    w = min(16, tk._WIDE_MIN_S - 1)
+    n0 = tk.LAUNCHES["kernel_matmat_wide"]
+    out = torch.cat([tk.kernel_matmat(X, V[:, c:c + w].contiguous(), bw)
+                     for c in range(0, V.shape[1], w)], dim=1)
+    assert tk.LAUNCHES["kernel_matmat_wide"] == n0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,s", [
+    (1, 1000, 17), (8, 4097, 100), (9, 1000, 1000), (32, 4097, 128),
+    (8, 1000, 128), (9, 4097, 17), (32, 1000, 100), (1, 4097, 1000),
+    (8, 8192, 1024),                  # two parts of the sum over j
+    (8, 65536, 1024)])                # REVD2's
+def test_kernel_matmat_wide_body_matches_the_plain_versions(cuda, d, n, s):
+    """The wide body (three TF32 wgmma products of the split entries
+    and V) at s ≥ _WIDE_MIN_S, where it runs, against the f64 plain
+    version at most 4x the SIMT kernel's error (as the narrow body is
+    held); against its own arithmetic in plain PyTorch
+    (``kernel_matmat_wide_reference``, with the launch's splits) and
+    against the narrow body on slices of V no further than that plus
+    their own distance from f64; two launches bit-equal; counted."""
+    rng = np.random.default_rng(d + n + s)
+    X = torch.tensor(rng.standard_normal((d, n)), dtype=torch.float32,
+                     device=cuda)
+    V = torch.tensor(rng.standard_normal((n, s)), dtype=torch.float32,
+                     device=cuda)
+    bw = 1.36 * np.sqrt(d)
+    body, splits = tk.kernel_matmat_plan(d, n, s)
+    n0 = dict(tk.LAUNCHES)
+    out = tk.kernel_matmat(X, V, bw)
+    wide = int(body == "wide")
+    assert tk.LAUNCHES == {**n0, "kernel_matmat": n0["kernel_matmat"] + 1,
+                           "kernel_matmat_wide":
+                           n0["kernel_matmat_wide"] + wide}
+    assert torch.equal(out, tk.kernel_matmat(X, V, bw))
+    ref = tk.kernel_matmat_reference(X.double(), V.double(), bw, block=4096)
+    gate = _f64_gate(_relf(tk.kernel_matmat_simt(X, V, bw), ref))
+    assert _relf(out, ref) <= gate
+    if wide:
+        emul = tk.kernel_matmat_wide_reference(X, V, bw, splits=splits)
+        assert _relf(out, emul.double()) <= gate + _relf(emul, ref)
+        narrow = _narrow_by_slices(X, V, bw)
+        assert _relf(out, narrow.double()) <= gate + _relf(narrow, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_matmat_wide_body_keeps_a_nan(cuda):
+    """A NaN coordinate in X: its point's entries are NaN, so is every
+    output, as in the plain version (the clamp keeps the NaN)."""
+    rng = np.random.default_rng(5)
+    X = torch.tensor(rng.standard_normal((8, 1000)), dtype=torch.float32,
+                     device=cuda)
+    V = torch.tensor(rng.standard_normal((1000, 100)), dtype=torch.float32,
+                     device=cuda)
+    X[3, 17] = float("nan")
+    out = tk.kernel_matmat(X, V, 2.0)
+    assert tk.kernel_matmat_plan(8, 1000, 100)[0] == "wide"
+    assert torch.equal(torch.isnan(out),
+                       torch.isnan(tk.kernel_matmat_reference(X, V, 2.0)))
+    assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.cuda
+def test_kernel_matmat_takes_the_wide_body_from_the_threshold(cuda):
+    """Below _WIDE_MIN_S columns the narrow body runs (the wide count
+    stays), from it the wide one; both hold the plain version."""
+    rng = np.random.default_rng(7)
+    X = torch.tensor(rng.standard_normal((8, 4096)), dtype=torch.float32,
+                     device=cuda)
+    bw = 1.36 * np.sqrt(8)
+    for s in (1, 4, tk._WIDE_MIN_S - 1, tk._WIDE_MIN_S):
+        V = torch.tensor(rng.standard_normal((4096, s)), dtype=torch.float32,
+                         device=cuda)
+        n0 = dict(tk.LAUNCHES)
+        out = tk.kernel_matmat(X, V, bw)
+        assert tk.LAUNCHES["kernel_matmat_wide"] \
+            == n0["kernel_matmat_wide"] + int(s >= tk._WIDE_MIN_S)
+        assert tk.LAUNCHES["kernel_matmat"] == n0["kernel_matmat"] + 1
+        ref = tk.kernel_matmat_reference(X.double(), V.double(), bw)
+        gate = _f64_gate(_relf(tk.kernel_matmat_simt(X, V, bw), ref))
+        assert _relf(out, ref) <= gate
+
+
 def _reset_kernels():
     _reset_all()
     for name in tk.LAUNCHES:
@@ -1156,8 +1250,8 @@ def test_revd2_card_matches_the_cpu_f64(cuda):
 @pytest.mark.cuda
 def test_revd2_f32_reaches_the_tensor_core_kernel(cuda):
     """An f32 CUDA operator: every product of REVD2 is K4's tensor-core
-    body (15 launches, none of the SIMT one), V orthonormal, λ ≥ 0 and
-    descending, ``fail`` False."""
+    body (15 launches, none of the SIMT one; the 5 at s = k 128 the wide
+    body), V orthonormal, λ ≥ 0 and descending, ``fail`` False."""
     from randlapack_tpu_torch.drivers import REVD2Config, revd2_fixed_rank
     op = _kernel_op(4096, torch.float32, cuda)
     _reset_kernels()
@@ -1165,7 +1259,7 @@ def test_revd2_f32_reaches_the_tensor_core_kernel(cuda):
                                                rt.RNGState(2))
     torch.cuda.synchronize()
     assert _launches() == {**{name: 0 for name in _launches()},
-                           "kernel_matmat": 15}
+                           "kernel_matmat": 15, "kernel_matmat_wide": 5}
     assert not bool(fail) and bool(torch.isfinite(err))
     orth = torch.linalg.norm(V.T.double() @ V.double()
                              - torch.eye(128, dtype=torch.float64,

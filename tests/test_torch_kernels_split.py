@@ -113,6 +113,71 @@ def test_kernel_matmat_split_reference_blocks_and_zero_rows():
         tk.kernel_matmat_split_reference(X.double(), V.double(), 2.0)
 
 
+# -- kernel_matmat_wide_reference (K4's wide body) ---------------------------
+
+# d 1, 8, 9 and 32 (one, one, two and four k-steps of the cross term), n
+# ragged against the 32-point stages and the 128-point padding, s below,
+# at and above the 128 columns of a block
+_WIDE_CASES = [(1, 1000, 17), (8, 4097, 100), (9, 1000, 1000),
+               (32, 4097, 128), (8, 1000, 128), (9, 4097, 17),
+               (32, 1000, 100), (1, 4097, 1000)]
+
+
+@pytest.mark.parametrize("d,n,s", _WIDE_CASES)
+def test_kernel_matmat_wide_reference_holds_fp32_accuracy(d, n, s):
+    """The entries' split products with V's halves, restarted every
+    stage, against the plain version in f64: within 4x the plain f32
+    version's error, as the narrow body's arithmetic is held."""
+    X, V = _xv(d, n, s, d + n + s)
+    bw = 0.9 * math.sqrt(d)
+    ref = tk.kernel_matmat_reference(X.double(), V.double(), bw)
+    plain = _relf(tk.kernel_matmat_reference(X, V, bw), ref)
+    assert _relf(tk.kernel_matmat_wide_reference(X, V, bw), ref) \
+        <= _gate(plain)
+
+
+@pytest.mark.parametrize("d,n,s", _WIDE_CASES[:4])
+def test_kernel_matmat_wide_reference_against_the_jax_reference(d, n, s):
+    """Against the JAX package's ``kernel_matmat_reference`` on the same
+    numpy inputs: the JAX kernel test's tolerance (rtol 2e-5, atol 1e-5),
+    the absolute part taken of the largest entry, as sums of thousands of
+    terms reach tens."""
+    X, V = _xv(d, n, s, d + n)
+    bw = 1.36 * math.sqrt(d)
+    ref = np.asarray(jk.kernel_matmat_reference(jnp.asarray(X.numpy()),
+                                                jnp.asarray(V.numpy()), bw))
+    out = tk.kernel_matmat_wide_reference(X, V, bw)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5,
+                               atol=1e-5 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("splits,chunk", [(1, 0), (1, 4), (3, 1), (8, 2)])
+def test_kernel_matmat_wide_reference_splits_and_chunks(splits, chunk):
+    """Splitting the stages into parts added in index order, or folding
+    the running sum every ``chunk`` stages (0: once a part), moves the
+    result by fp32 summation order only."""
+    X, V = _xv(9, 1000, 100, 5)
+    one = tk.kernel_matmat_wide_reference(X, V, 2.0)
+    other = tk.kernel_matmat_wide_reference(X, V, 2.0, splits=splits,
+                                            chunk=chunk)
+    scale = float(one.abs().max())
+    assert float((other - one).abs().max()) <= 1e-5 * scale
+    assert torch.equal(other, tk.kernel_matmat_wide_reference(
+        X, V, 2.0, splits=splits, chunk=chunk))
+
+
+def test_kernel_matmat_wide_reference_keeps_a_nan():
+    """A NaN coordinate makes its point's entries NaN, in every row (its
+    column of K) and in its own row: every output is NaN, as in the plain
+    version; the clamp does not turn the NaN into an entry of 1."""
+    X, V = _xv(8, 300, 40, 2)
+    X[3, 17] = float("nan")
+    out = tk.kernel_matmat_wide_reference(X, V, 2.0)
+    assert torch.equal(torch.isnan(out),
+                       torch.isnan(tk.kernel_matmat_reference(X, V, 2.0)))
+    assert bool(torch.isnan(out).all())
+
+
 # -- gaussian_sketch_split_reference (K7's arithmetic) -----------------------
 
 @pytest.mark.parametrize("m,n,d", [(2048, 256, 64), (1000, 300, 13),
@@ -195,6 +260,78 @@ def test_kernel_matmat_splits_follow_the_tiling(n, s, rows, min_blocks,
     assert tk.kernel_matmat_splits(n, s, rows, min_blocks) <= -(-n // 128)
 
 
+@pytest.mark.parametrize("d,n,s,dtype,body,splits", [
+    (8, 65536, 1024, torch.float32, "wide", 1),    # REVD2's: 512 x 8 blocks
+    (8, 8192, 1024, torch.float32, "wide", 2),     # 512 blocks: two parts
+    (32, 65536, 128, torch.float32, "wide", 2),
+    (8, 1000, 100, torch.float32, "wide", 8),      # one block a part
+    (8, 65536, 1, torch.float32, "narrow", 4),     # KRILL's
+    (8, 8192, 4, torch.float32, "narrow", 32),
+    (8, 65536, 16, torch.float32, "narrow", 4),
+    (33, 65536, 1024, torch.float32, "simt", 1),
+    (8, 65536, 1024, torch.float64, "simt", 1),
+    (8, 8192, 1, torch.float64, "simt", 8)])
+def test_kernel_matmat_plan_routes_by_shape(d, n, s, dtype, body, splits):
+    """K4's body and its split of the sum over j depend on d, n, s and
+    the type alone: the wide body takes f32 with d ≤ 32 from _WIDE_MIN_S
+    columns of V on, in blocks of 128 rows by 128 columns."""
+    assert tk.kernel_matmat_plan(d, n, s, dtype) == (body, splits)
+
+
+def test_kernel_matmat_plan_threshold():
+    """The last narrow width and the first wide one."""
+    t = tk._WIDE_MIN_S
+    assert tk.kernel_matmat_plan(8, 65536, t - 1)[0] == "narrow"
+    assert tk.kernel_matmat_plan(8, 65536, t)[0] == "wide"
+    assert tk.kernel_matmat_plan(32, 4097, t)[0] == "wide"
+    assert tk.kernel_matmat_plan(33, 4097, t)[0] == "simt"
+
+
+@pytest.mark.parametrize("d,n,s", [(8, 1000, 100), (9, 4097, 1000),
+                                   (8, 1000, 16), (32, 300, 4)])
+def test_k4_wrapper_routes_sizes_and_counts(d, n, s, monkeypatch):
+    """K4's f32 wrapper on CPU tensors as far as the launch (the device
+    check passed, ``_build.call`` recorded): one launch of
+    ``rl_kernel_matmat`` with the plan's splits and ``wy.CHUNK``, scratch
+    for the body the plan names (the wide body: points padded to the
+    shared-memory stride, V's TF32 hi and lo tiles of 128 columns), the
+    wide body counted in ``LAUNCHES`` and, in a recording span, its
+    columns in ``k4.wide_columns`` against all the launch's."""
+    from randlapack_tpu_torch import _build
+    from randlapack_tpu_torch.utils import timing
+    calls = []
+    monkeypatch.setattr(tk, "_check_kernel_matmat",
+                        lambda X, V: (*X.shape, V.shape[1]))
+    monkeypatch.setattr(_build, "call", lambda name, out, *a: calls.append(
+        (name, *a)))
+    monkeypatch.setattr(tk, "LAUNCHES", dict.fromkeys(tk.LAUNCHES, 0))
+    X, V = _xv(d, n, s, 3)
+    with timing.span("off"):
+        pass
+    with timing.tracing():
+        with timing.span("k4"):
+            tk.kernel_matmat(X, V, 2.0)
+        counted = timing.counters()
+    body, splits = tk.kernel_matmat_plan(d, n, s)
+    wide = body == "wide"
+    assert [c[0] for c in calls] == ["rl_kernel_matmat"]
+    assert calls[0][-2:] == (splits, twy.CHUNK)
+    ks = -(-d // 8) if d > 8 else 1
+    ks = 4 if ks > 2 else ks
+    n_pad = -(-n // 128) * 128
+    if wide:
+        floats = n_pad * ((16 if ks == 1 else 16 * ks + 16) + 1
+                          + -(-s // 128) * 256)
+    else:
+        sc = 1 if s == 1 else 4 if s <= 4 else 16
+        floats = n_pad * (16 * ks + 1 + -(-s // sc) * sc)
+    floats += splits * n * s if splits > 1 else 0
+    assert calls[0][3].numel() == floats
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0),
+                           "kernel_matmat": 1, "kernel_matmat_wide": int(wide)}
+    assert counted["k4.wide_columns"] == [s if wide else 0, s]
+
+
 def _source_constant(source, name):
     text = (Path(tk.__file__).parents[1] / "csrc" / source).read_text()
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
@@ -210,7 +347,11 @@ def _source_constant(source, name):
     ("kernel_matmat.cu", "kTcTJ", tk._TJ),
     ("kernel_matmat.cu", "kTI", tk._SIMT_TI),
     ("kernel_matmat.cu", "kTJ", tk._TJ),
-    ("kernel_matmat.cu", "kMaxKSteps", tk._MAX_TC_D // 8)])
+    ("kernel_matmat.cu", "kMaxKSteps", tk._MAX_TC_D // 8),
+    ("kernel_matmat.cu", "kWideBI", tk._WIDE_TI),
+    ("kernel_matmat.cu", "kWideBN", tk._WIDE_SC),
+    ("kernel_matmat.cu", "kWideMinS", tk._WIDE_MIN_S),
+    ("tc.cuh", "BK", tk._WIDE_BK)])
 def test_wrapper_tiling_constants_are_the_kernel_sources(source, name, value):
     """The wrappers size scratch, splits and routes from the kernels'
     tiling; the two copies of each constant must agree."""
@@ -287,4 +428,5 @@ def test_simt_wrappers_refuse_cpu_tensors_and_count_nothing():
         tk.gaussian_sketch_simt(X, 3, 1)
     assert tk.LAUNCHES == before
     assert set(before) == {"kernel_matmat", "gaussian_sketch",
-                           "kernel_matmat_simt", "gaussian_sketch_simt"}
+                           "kernel_matmat_simt", "gaussian_sketch_simt",
+                           "kernel_matmat_wide"}

@@ -301,3 +301,20 @@ def test_span_trace_reads_revd2_phases_and_counters():
     assert c["apply_columns"] == pytest.approx(5 + 10 / 16)
     assert set(c["device_ms"]) == set(st.REVD2_PHASES)
     assert st.revd2_checks([_span(1, "hqrrp", None, 1.0)], {}, 1) is None
+
+
+def test_span_trace_reports_the_wide_columns_share():
+    """``k4_wide_columns``: the counter ``k4.wide_columns`` a call and
+    its share (the cell's traced call: 5 products at s 1024 of 15, the
+    others at s 1); None where the counter is missing, as in a program
+    without the wide body."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "span_trace", ROOT / "tools" / "span_trace.py")
+    st = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(st)
+    roots = [_span(1, "revd2", None, 900.0), _span(2, "revd2", None, 900.0)]
+    c = st.revd2_checks(roots, {"k4.wide_columns": [10240, 10260]}, 2)
+    assert c["k4_wide_columns"] == {"columns": 5120, "of": 5130,
+                                    "share": pytest.approx(5120 / 5130)}
+    assert st.revd2_checks(roots, {}, 2)["k4_wide_columns"] is None

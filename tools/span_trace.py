@@ -30,7 +30,10 @@ the cell, read from the record, and ``checks``:
   ``error_est`` and every ``apply_a``), ``apply_a_share`` (the products'
   device ms over the root's), and the counters a call: ``applies``
   (``revd2.applies``), ``apply_columns`` (``revd2.apply_columns``, the
-  products' entries over n·k) and ``host_reads`` (``revd2.host_reads``).
+  products' entries over n·k), ``host_reads`` (``revd2.host_reads``)
+  and ``k4_wide_columns`` (``k4.wide_columns``: the columns K4's wide
+  body took a call, and that share of all its f32 tensor-core launches'
+  columns).
 
 ``--out`` writes the record with ``spans``, ``setup_spans`` and
 ``counters`` (the fixture the span readers are tested on).
@@ -189,11 +192,15 @@ def revd2_checks(sp: list, cnt, calls: int):
     def per_call(name):
         return cnt[name][0] / calls if name in cnt else None
     cols = cnt.get("revd2.apply_columns")
+    wide = cnt.get("k4.wide_columns")
     return dict(device_ms=ms, root_ms=root_ms,
                 apply_a_share=ms["apply_a"] / max(root_ms, 1e-12),
                 applies=per_call("revd2.applies"),
                 apply_columns=cols[0] / cols[1] if cols and cols[1] else None,
-                host_reads=per_call("revd2.host_reads"))
+                host_reads=per_call("revd2.host_reads"),
+                k4_wide_columns=None if wide is None else dict(
+                    columns=wide[0] / calls, of=wide[1] / calls,
+                    share=wide[0] / wide[1] if wide[1] else None))
 
 
 def main(argv=None) -> int:
